@@ -1,0 +1,383 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of SWAPPER on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py [--profile]
+
+Phases, each of which fails the run (non-zero exit, no result line):
+
+1. card   — the device name and ``nvidia-smi``'s name and power limit;
+            exits non-zero when there is no CUDA device;
+2. build  — every CUDA kernel of ``src/repro_torch`` built from the
+            checkout with ``nvcc`` (time and ``-Xptxas -v`` report);
+3. kernel — each kernel against its plain PyTorch version on the card,
+            bit for bit, at small shapes (every REGISTRY multiplier whose
+            product table fits, three swap configs, ``tile_hist`` on and
+            off, ragged M/N, padded K) and at the main path's shapes, with
+            CUDA-event times beside the bound and ``torch._int_mm`` on the
+            K-stacked limbs as the library yardstick;
+4. ref    — a reduced qwen2 served on the card agrees with the same model
+            served on the CPU through the plain versions;
+5. serve  — qwen2-72b at its published widths, depth cut to 2 layers,
+            random weights from a seed, SWAPPER ``backend="kernel"``: B=4
+            prompts of 32 tokens, 8 greedy tokens, twice; the tokens must be
+            deterministic and the kernel's launch count must be exactly
+            2 layers x 4 projections x 8 forwards = 64.  With ``--profile``
+            one more serve runs under ``torch.profiler`` and the device time
+            by kernel and the device's busy share are printed.
+
+The second-to-last line is the ``kernels`` JSON summary, the last line
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
+INT32_LANES_PER_SM = 64          # int32 CUDA-core lanes per SM per clock
+TABLE_BYTES = 65536 * 2
+
+
+def fail(msg: str):
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def smi(query: str) -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def small_checks(dev):
+    import torch
+
+    from repro_torch.core.multipliers import REGISTRY
+    from repro_torch.core.swapper import SwapConfig
+    from repro_torch.kernels.ax_matmul import (ax_matmul_cuda, ax_matmul_plain,
+                                               product_table)
+    from repro_torch.quant.ax import _pad_to_multiple
+
+    g = torch.Generator().manual_seed(7)
+    # (M, K logical, N, (bm, bn, bk), grid order): ragged M/N edges, K
+    # zero-padded to a multiple of bk, both grid orders, decode-sized M
+    cases = [(37, 50, 45, (16, 32, 32), "mn"),
+             (64, 128, 96, (32, 64, 64), "nm"),
+             (4, 256, 200, (4, 128, 128), "mn")]
+    n_ok, skipped = 0, []
+    for name, mult in REGISTRY.items():
+        dtype = torch.int8 if mult.signed else torch.uint8
+        try:
+            product_table(mult, dtype, dev)
+        except ValueError:
+            skipped.append(name)
+            continue
+        lo, hi = (-128, 128) if mult.signed else (0, 256)
+        for M, K, N, (bm, bn, bk), order in cases:
+            a = torch.randint(lo, hi, (M, K), generator=g).to(dtype)
+            b = torch.randint(lo, hi, (K, N), generator=g).to(dtype)
+            a = _pad_to_multiple(a, bk, 1).contiguous().to(dev)
+            b = _pad_to_multiple(b, bk, 0).contiguous().to(dev)
+            for swap in (None, SwapConfig("A", 3, 1), SwapConfig("B", 6, 0)):
+                for hist in (False, True):
+                    got = ax_matmul_cuda(a, b, mult, swap, bm=bm, bn=bn, bk=bk,
+                                         grid_order=order, tile_hist=hist)
+                    want = ax_matmul_plain(a, b, mult, swap, bm=bm, bn=bn,
+                                           tile_hist=hist)
+                    torch.cuda.synchronize()
+                    pairs = zip(got, want) if hist else [(got, want)]
+                    for x, y in pairs:
+                        if not torch.equal(x, y):
+                            fail(f"ax_matmul != plain: {name} {(M, K, N)} "
+                                 f"blocks {(bm, bn, bk)} {order} swap {swap} "
+                                 f"hist {hist}: max |diff| "
+                                 f"{(x.long() - y.long()).abs().max().item()}")
+                    n_ok += 1
+    print(f"kernel ax_matmul == plain (torch.equal) on {n_ok} small cases "
+          f"({len(REGISTRY) - len(skipped)} multipliers; table does not fit, "
+          f"skipped: {', '.join(skipped) or 'none'})", flush=True)
+
+
+def main_shape_checks(dev, card: str, clock_mhz: float):
+    import torch
+
+    from repro_torch.core.multipliers import get
+    from repro_torch.core.swapper import SwapConfig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ax_matmul_ref
+    from repro_torch.quant.ax import separable_transforms
+
+    mult = get("mul8s_trunc0_4")
+    swap = SwapConfig("A", 3, 0)
+    f, gfn = separable_transforms(mult.name)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    int32_rate = sms * INT32_LANES_PER_SM * clock_mhz * 1e6
+    gen = torch.Generator(device=dev).manual_seed(11)
+    d, ff = 8192, 29568
+    shapes = [("decode mlp in/gate", 4, d, ff), ("decode mlp out", 4, ff, d),
+              ("decode attn_out", 4, d, d), ("prefill mlp in/gate", 128, d, ff),
+              ("prefill mlp out", 128, ff, d), ("prefill attn_out", 128, d, d)]
+    rows = []
+    for label, M, K, N in shapes:
+        a = torch.randint(-127, 128, (M, K), generator=gen, device=dev, dtype=torch.int8)
+        b = torch.randint(-127, 128, (K, N), generator=gen, device=dev, dtype=torch.int8)
+        out = ops.ax_matmul(a, b, mult, swap)
+        cols = N if M <= 4 else 256             # bound the plain version's time
+        bs = b[:, :cols].contiguous()
+        want = ax_matmul_ref(a, bs, mult, swap)
+        torch.cuda.synchronize()
+        err = (out[:, :cols].long() - want.long()).abs().max().item()
+        if err != 0:
+            fail(f"ax_matmul != plain at {label} {(M, K, N)}: max |diff| {err}")
+        ms = cuda_ms(lambda: ops.ax_matmul(a, b, mult, swap), iters=5 if M > 4 else 20)
+        plain_ms = cuda_ms(lambda: ax_matmul_ref(a, bs, mult, swap), iters=1, warmup=0)
+
+        # library yardstick: the same function for this separable family as
+        # one int8 GEMM over the K-stacked limbs (M padded to 32 rows)
+        ai, bi = a.to(torch.int32), b.to(torch.int32)
+        s = (((ai >> swap.bit) & 1) == swap.value).to(torch.int32)
+        x = torch.cat([s * gfn(ai), (1 - s) * f(ai)], dim=1).to(torch.int8)
+        y = torch.cat([f(bi), gfn(bi)], dim=0).to(torch.int8).contiguous()
+        mp = max(32, -(-M // 8) * 8)
+        xp = torch.zeros((mp, 2 * K), dtype=torch.int8, device=dev)
+        xp[:M] = x
+        lib_equal = bool(torch.equal(torch._int_mm(xp, y)[:M], out))
+        library_ms = cuda_ms(lambda: torch._int_mm(xp, y), iters=20)
+        del ai, bi, s, x, y, xp
+
+        nbytes = M * K + K * N + 4 * M * N + TABLE_BYTES
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = M * K * N / int32_rate * 1e3
+        row = dict(shape=label, M=M, K=K, N=N, ms=ms, plain_ms=plain_ms,
+                   plain_cols=cols, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   library_ms=library_ms, library_equal=lib_equal, max_abs_err=err)
+        rows.append(row)
+        print(f"ax_matmul {label} (M={M}, K={K}, N={N}): {ms:.4f} ms; bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}); plain "
+              f"{plain_ms:.2f} ms on {cols} cols; torch._int_mm limbs "
+              f"{library_ms:.4f} ms (equal: {lib_equal}); max |diff| {err}; "
+              f"[{card}]", flush=True)
+        del a, b, bs, out, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 4: reduced model, card against CPU
+# ---------------------------------------------------------------------------
+
+def reference_check(dev):
+    import torch
+
+    from repro_torch.configs import qwen2_72b, reduced
+    from repro_torch.configs.base import AxPolicy
+    from repro_torch.models import init_params, prefill
+    from repro_torch.serve import ServeConfig, generate
+
+    # f32 compute isolates the kernel from bf16 rounding; int8 rounding
+    # flips from last-bit f32 differences move a logit by ~1e-2 at most
+    tol = 5e-2
+    cfg = dataclasses.replace(reduced(qwen2_72b), n_layers=2, compute_dtype="float32",
+                              ax=AxPolicy(backend="kernel"))
+    p_cpu = init_params(cfg, seed=3, device="cpu")
+    p_gpu = _to_device(p_cpu, dev)
+    toks = torch.randint(0, cfg.vocab, (2, 8), generator=torch.Generator().manual_seed(4))
+    with torch.inference_mode():
+        lc, _ = prefill(p_cpu, {"tokens": toks}, cfg, max_cache_len=16)
+        lg, _ = prefill(p_gpu, {"tokens": toks.to(dev)}, cfg, max_cache_len=16)
+    err = (lc - lg.cpu()).abs().max().item()
+    if not err <= tol:
+        fail(f"reduced qwen2 prefill logits, card vs CPU: max |diff| {err} > {tol}")
+    tc = generate(p_cpu, {"tokens": toks}, cfg, ServeConfig(max_new_tokens=6))
+    tg = generate(p_gpu, {"tokens": toks}, cfg, ServeConfig(max_new_tokens=6)).cpu()
+    print(f"reduced qwen2 (2 layers, f32) card vs CPU: prefill logits max |diff| "
+          f"{err:.3g} (tol {tol}); greedy tokens equal: {bool(torch.equal(tc, tg))}",
+          flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the full-width serve
+# ---------------------------------------------------------------------------
+
+def serve(dev, card: str, profile: bool = False):
+    import torch
+
+    from repro_torch.configs import qwen2_72b
+    from repro_torch.configs.base import AxPolicy
+    from repro_torch.kernels.ax_matmul import LAUNCHES, reset_launches
+    from repro_torch.models import init_params, prefill
+    from repro_torch.serve import ServeConfig, generate
+
+    B, S, T, L = 4, 32, 8, 2
+    cfg = dataclasses.replace(qwen2_72b, n_layers=L, ax=AxPolicy(backend="kernel"))
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"qwen2-72b x{L} layers: {sum(t.numel() for t in _leaves(params)) / 1e9:.3f} G "
+          f"params (f32) initialised on the card in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    prompts = torch.randint(0, cfg.vocab, (B, S), generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        logits, _ = prefill(params, {"tokens": prompts.to(dev)}, cfg,
+                            max_cache_len=S + T + 1)
+    if tuple(logits.shape) != (B, S, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        fail(f"prefill logits: shape {tuple(logits.shape)}, finite "
+             f"{bool(torch.isfinite(logits).all())}")
+    del logits
+
+    expect = L * 4 * T
+    runs = []
+    for _ in range(2):
+        stats = {}
+        reset_launches()
+        toks = generate(params, {"tokens": prompts}, cfg, ServeConfig(max_new_tokens=T),
+                        stats=stats)
+        launches = LAUNCHES["ax_matmul"]
+        if launches != expect:
+            fail(f"ax_matmul launched {launches} times in one serve, expected {expect}")
+        runs.append((toks.cpu(), stats, launches))
+    (t1, _, _), (t2, stats, launches) = runs
+    if not torch.equal(t1, t2):
+        fail(f"greedy tokens differ between two runs:\n{t1}\n{t2}")
+    if tuple(t1.shape) != (B, T) or int(t1.min()) < 0 or int(t1.max()) >= cfg.vocab:
+        fail(f"tokens out of range or misshapen: {tuple(t1.shape)}")
+    wall = stats["prefill_s"] + stats["decode_s"]
+    print(f"serve qwen2-72b (2 layers, kernel backend) B={B} S={S} new={T}: tokens "
+          f"deterministic over 2 runs; ax_matmul launches {launches} (= {L}x4x{T}); "
+          f"prefill {stats['prefill_s'] * 1e3:.1f} ms; decode "
+          f"{stats['decode_s'] * 1e3 / (T - 1):.1f} ms/step; {B * T / wall:.2f} tokens/s "
+          f"[{card}]", flush=True)
+    print(f"tokens: {t1.tolist()}", flush=True)
+    if profile:
+        profile_serve(params, prompts, cfg, ServeConfig(max_new_tokens=T), card)
+    return launches
+
+
+def profile_serve(params, prompts, cfg, scfg, card: str):
+    """One more serve under torch.profiler: device time by kernel and the
+    device's busy share of the wall (``--profile``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import generate
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        generate(params, {"tokens": prompts}, cfg, scfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # kernel rows only: operator rows repeat their kernels' device time
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or \
+        getattr(e, "self_cuda_time_total", 0)
+    busy = sum(dev_us(e) for e in kernels) / 1e6
+    if busy <= 0:
+        print("profile: the trace holds no device kernels", flush=True)
+        return
+    print(f"profile: one serve, wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
+          f"({100 * busy / wall:.1f}% of the wall) [{card}]", flush=True)
+    for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
+        print(f"  {dev_us(e) / 1e3:10.2f} ms {100 * dev_us(e) / 1e6 / busy:5.1f}%  "
+              f"{e.count:5d} calls  {e.key[:90]}", flush=True)
+
+
+def _to_device(t, dev):
+    if isinstance(t, dict):
+        return {k: _to_device(v, dev) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_to_device(v, dev) for v in t]
+    return t.to(dev)
+
+
+def _leaves(t):
+    if isinstance(t, dict):
+        for v in t.values():
+            yield from _leaves(v)
+    elif isinstance(t, list):
+        for v in t:
+            yield from _leaves(v)
+    else:
+        yield t
+
+
+def main(argv):
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        fail(f"{ROOT} is not a checkout of the repository (no src/repro_torch)")
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+    card = smi("name,power.limit")
+    clock = float(smi("clocks.max.sm").split()[0])
+    print(f"device: {kind}; count {torch.cuda.device_count()}; torch {torch.__version__} "
+          f"cuda {torch.version.cuda}", flush=True)
+    print(card, flush=True)
+
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    print(f"build: {time.perf_counter() - t0:.1f} s for {len(built)} source(s) "
+          f"into {_build.build_dir()}", flush=True)
+    for name, b in built.items():
+        print(f"--- {name}: nvcc {b.seconds:.1f} s, -Xptxas -v:\n{b.report.strip()}", flush=True)
+    print(f"ax_matmul dynamic shared memory per block: {TABLE_BYTES} (product table) "
+          f"+ bm*bk + bk*bn bytes = {TABLE_BYTES + 2 * 128 * 128} at 128/128/128", flush=True)
+
+    small_checks(dev)
+    rows = main_shape_checks(dev, card, clock)
+    reference_check(dev)
+    launches = serve(dev, card, profile="--profile" in argv)
+    top = rows[0]
+    summary = {"kernels": [{
+        "name": "ax_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ax_matmul.cu",
+        "replaces": "src/repro/kernels/ax_matmul.py:168",
+        "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+        "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+        "shape": f"{top['shape']} M={top['M']} K={top['K']} N={top['N']}",
+        "shapes": rows, "card": card}]}
+    print(card, flush=True)
+    print(json.dumps(summary), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -1,0 +1,48 @@
+"""Architecture configs (--arch <id>) + shapes.  Only the dense qwen2-72b
+is ported so far; the other families arrive with their model code."""
+import dataclasses
+
+from .base import SHAPES, AxPolicy, ModelConfig, ShapeConfig
+from .qwen2_72b import CONFIG as qwen2_72b
+
+ARCHS = {c.name: c for c in (qwen2_72b,)}
+
+
+def get_config(name: str) -> ModelConfig:
+    return ARCHS[name]
+
+
+def reduced(cfg: ModelConfig) -> ModelConfig:
+    """A small same-family config for CPU tests (the same cut as the JAX
+    package's ``repro.configs.reduced``)."""
+    kw = dict(
+        n_layers=min(cfg.n_layers, 4),
+        d_model=128,
+        d_ff=256 if cfg.d_ff else 0,
+        vocab=512,
+        head_dim=32,
+    )
+    if cfg.n_heads:
+        kw["n_heads"] = 4
+        kw["n_kv_heads"] = min(max(1, cfg.n_kv_heads * 4 // max(cfg.n_heads, 1)), 4) or 1
+    if cfg.n_experts:
+        kw["n_experts"] = 8
+        kw["top_k"] = min(cfg.top_k, 2)
+        kw["moe_d_ff"] = 64
+        kw["n_shared_experts"] = min(cfg.n_shared_experts, 1)
+        kw["moe_capacity"] = 16.0
+    if cfg.local_window:
+        kw["local_window"] = 64
+    if cfg.d_rnn:
+        kw["d_rnn"] = 128
+    if cfg.n_enc_layers:
+        kw["n_enc_layers"] = 2
+    if cfg.family == "ssm":
+        kw["ssm_state"] = 32
+        kw["ssm_head_dim"] = 32
+        kw["ssm_chunk"] = 32
+    return dataclasses.replace(cfg, name=cfg.name + "-smoke", **kw)
+
+
+__all__ = ["ARCHS", "SHAPES", "AxPolicy", "ModelConfig", "ShapeConfig",
+           "get_config", "reduced", "qwen2_72b"]

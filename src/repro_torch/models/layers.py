@@ -1,0 +1,257 @@
+"""Shared model layers (``repro.models.layers``): projections (exact or
+SWAPPER-approximate), RMSNorm, RoPE, GQA attention (chunked flash-style for
+prefill, cached for decode) and the SwiGLU MLP.
+
+Parameters are plain nested dicts of tensors in the JAX package's layout:
+a projection weight is ``(in, out)`` and ``y = x @ w``.  Every op keeps the
+JAX package's dtype sequence (where bf16 is rounded, where f32 is used), so
+the two packages agree to within bf16 rounding.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import AxPolicy, ModelConfig
+from repro_torch.quant.ax import ax_dense
+
+__all__ = ["ninit", "dense", "rmsnorm", "make_rope", "apply_rope",
+           "chunked_attention", "decode_attention", "attn_init", "attn_apply",
+           "mlp_init", "mlp_apply"]
+
+
+def ninit(shape, dtype, generator: torch.Generator, device, scale=None):
+    """Seeded normal init scaled by ``1/sqrt(fan_in)`` (or ``scale``)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+    t = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+    return t.mul_(scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# projections — exact or SWAPPER-approximate per policy
+# ---------------------------------------------------------------------------
+
+def dense(x, p, ax: Optional[AxPolicy] = None, target: str = ""):
+    """y = x @ w (+ b), through the SWAPPER approximate path when the policy
+    covers this projection target.  The weight is cast to the activation
+    dtype first, as in the JAX package, so it is quantized from bf16."""
+    w = p["w"].to(x.dtype)
+    if ax is not None and target in ax.targets:
+        y = ax_dense(x, w, ax)
+    else:
+        y = x @ w
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def rmsnorm(x, p, eps):
+    xf = x.to(torch.float32)
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * (1.0 + p["scale"].to(torch.float32))).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+def make_rope(head_dim: int, theta: float, device="cpu"):
+    """Inverse frequencies, computed in float64 numpy and cast to f32."""
+    inv = 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+    return torch.as_tensor(inv.astype(np.float32), device=device)  # (hd/2,)
+
+
+def apply_rope(x, pos, inv_freq):
+    """x (B,S,H,hd); pos (B,S) integer positions."""
+    half = x.shape[-1] // 2
+    ang = pos[..., None].to(torch.float32) * inv_freq            # (B,S,half)
+    sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
+    cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# attention — chunked (flash-style online softmax) + decode path
+# ---------------------------------------------------------------------------
+
+def _mask_bias(qi, kj, *, causal, window):
+    """(..., q, k) additive f32 mask bias from global positions qi, kj."""
+    d = qi[..., :, None] - kj[..., None, :]
+    m = torch.ones(d.shape, dtype=torch.bool, device=d.device)
+    if causal:
+        m = m & (d >= 0)
+    if window:
+        m = m & (d < window)
+    zero = torch.zeros((), dtype=torch.float32, device=d.device)
+    return torch.where(m, zero, torch.full_like(zero, -1e30))
+
+
+def _pad_seq(x, n, fill=0):
+    pad = n - x.shape[1]
+    if pad == 0:
+        return x
+    shape = list(x.shape)
+    shape[1] = pad
+    return torch.cat([x, torch.full(shape, fill, dtype=x.dtype, device=x.device)], 1)
+
+
+def chunked_attention(q, k, v, q_pos, k_pos, *, causal=True, window=0,
+                      q_chunk=512, kv_chunk=1024):
+    """Flash-style attention with O(chunk^2) memory.
+
+    q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd) with H = KV * G; positions are
+    global indices.  Padded queries and keys sit outside every causal window.
+    """
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    q_chunk = min(q_chunk, Sq)
+    kv_chunk = min(kv_chunk, Sk)
+    nq = -(-Sq // q_chunk)
+    nk = -(-Sk // kv_chunk)
+    qg = _pad_seq(q.reshape(B, Sq, KV, G, hd), nq * q_chunk)
+    qp = _pad_seq(q_pos.to(torch.int64), nq * q_chunk, fill=-(2 ** 30))
+    kk = _pad_seq(k, nk * kv_chunk)
+    vv = _pad_seq(v, nk * kv_chunk)
+    kp = _pad_seq(k_pos.to(torch.int64), nk * kv_chunk, fill=2 ** 30)
+
+    outs = []
+    for i in range(nq):
+        qs = slice(i * q_chunk, (i + 1) * q_chunk)
+        qb, qpb = qg[:, qs], qp[:, qs]
+        m = torch.full((B, KV, G, q_chunk), -1e30, dtype=torch.float32, device=q.device)
+        l = torch.zeros((B, KV, G, q_chunk), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, KV, G, q_chunk, hd), dtype=torch.float32, device=q.device)
+        for j in range(nk):
+            ks = slice(j * kv_chunk, (j + 1) * kv_chunk)
+            kb, vb, kpb = kk[:, ks], vv[:, ks], kp[:, ks]
+            s = torch.einsum("bqkgh,bckh->bkgqc", qb, kb).to(torch.float32) * scale
+            s = s + _mask_bias(qpb[:, None, None, :], kpb[:, None, None, :],
+                               causal=causal, window=window)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bkgqc,bckh->bkgqh", p.to(vb.dtype), vb).to(torch.float32)
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        out = acc / torch.clamp(l[..., None], min=1e-30)
+        outs.append(out.permute(0, 3, 1, 2, 4))              # (B, qc, KV, G, hd)
+    out = torch.cat(outs, dim=1)[:, :Sq]
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, q_pos, kv_len):
+    """Single-token attention over a cache.
+
+    q: (B, 1, H, hd); caches: (B, S, KV, hd); kv_len: valid prefix length.
+    """
+    B, _, H, hd = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, KV, G, hd)
+    s = torch.einsum("bkgh,bckh->bkgc", qg, k_cache).to(torch.float32) * scale
+    idx = torch.arange(S, device=q.device)[None, :]
+    valid = (idx < kv_len[:, None]) & (idx <= q_pos[:, None])
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bkgc,bckh->bkgh", p, v_cache)
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention block
+# ---------------------------------------------------------------------------
+
+def attn_init(cfg: ModelConfig, dtype, generator, device):
+    hd = cfg.head_dim_
+    H = cfg.n_heads * hd
+    KVH = cfg.n_kv_heads * hd
+    p = {
+        "q": {"w": ninit((cfg.d_model, H), dtype, generator, device)},
+        "k": {"w": ninit((cfg.d_model, KVH), dtype, generator, device)},
+        "v": {"w": ninit((cfg.d_model, KVH), dtype, generator, device)},
+        "o": {"w": ninit((H, cfg.d_model), dtype, generator, device)},
+    }
+    if cfg.qkv_bias:
+        for nm, width in (("q", H), ("k", KVH), ("v", KVH)):
+            p[nm]["b"] = torch.zeros((width,), dtype=dtype, device=device)
+    return p
+
+
+def attn_apply(p, x, cfg: ModelConfig, *, pos, inv_freq, mode="train",
+               cache=None, cache_index=None, max_cache_len=0,
+               q_chunk=512, kv_chunk=1024):
+    """GQA attention block with full (non-windowed) causal attention.
+
+    mode='train'   — chunked attention, no cache, returns (y, None)
+    mode='prefill' — the same, plus a decode cache padded to ``max_cache_len``
+    mode='decode'  — S == 1 against ``cache``: this step's K/V are written
+                     in place at ``cache_index`` (an int) and the cache dict
+                     is returned.
+    """
+    B, S, _ = x.shape
+    hd = cfg.head_dim_
+    ax = cfg.ax
+    q = dense(x, p["q"], ax, "attn_qkv").reshape(B, S, cfg.n_heads, hd)
+    k = dense(x, p["k"], ax, "attn_qkv").reshape(B, S, cfg.n_kv_heads, hd)
+    v = dense(x, p["v"], ax, "attn_qkv").reshape(B, S, cfg.n_kv_heads, hd)
+    q = apply_rope(q, pos, inv_freq)
+    k = apply_rope(k, pos, inv_freq)
+
+    cdtype = getattr(torch, cfg.compute_dtype)
+    new_cache = None
+    if mode == "decode":
+        ci = int(cache_index)
+        cache["k"][:, ci] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, ci] = v[:, 0].to(cache["v"].dtype)
+        ring = cache["k"].shape[1]
+        valid = min(ci + 1, ring)
+        out = decode_attention(
+            q, cache["k"], cache["v"], q_pos=pos[:, 0],
+            kv_len=torch.full((B,), valid, dtype=torch.int64, device=x.device))
+        new_cache = cache
+    else:
+        out = chunked_attention(q, k, v, pos, pos, causal=True,
+                                q_chunk=q_chunk, kv_chunk=kv_chunk)
+        if mode == "prefill":
+            pad = max_cache_len - S
+            shp = (B, pad, cfg.n_kv_heads, hd)
+            new_cache = {
+                nm: torch.cat([t.to(cdtype), torch.zeros(shp, dtype=cdtype,
+                                                           device=x.device)], 1)
+                for nm, t in (("k", k), ("v", v))
+            }
+    out = out.reshape(B, S, cfg.n_heads * hd)
+    return dense(out, p["o"], ax, "attn_out"), new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def mlp_init(d_model, d_ff, act, dtype, generator, device, bias=False):
+    p = {"in": {"w": ninit((d_model, d_ff), dtype, generator, device)},
+         "out": {"w": ninit((d_ff, d_model), dtype, generator, device)}}
+    if act == "silu":  # swiglu
+        p["gate"] = {"w": ninit((d_model, d_ff), dtype, generator, device)}
+    if bias:
+        p["in"]["b"] = torch.zeros((d_ff,), dtype=dtype, device=device)
+        p["out"]["b"] = torch.zeros((d_model,), dtype=dtype, device=device)
+    return p
+
+
+def mlp_apply(p, x, act, ax: Optional[AxPolicy] = None):
+    h = dense(x, p["in"], ax, "mlp")
+    if act == "silu":
+        h = torch.nn.functional.silu(dense(x, p["gate"], ax, "mlp")) * h
+    else:
+        h = torch.nn.functional.gelu(h, approximate="tanh")
+    return dense(h, p["out"], ax, "mlp")

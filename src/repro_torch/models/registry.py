@@ -1,0 +1,29 @@
+"""Model entry points (``repro.models.registry``): init / prefill / decode."""
+from __future__ import annotations
+
+from repro_torch.configs.base import ModelConfig
+
+from . import transformer
+
+__all__ = ["init_params", "init_cache", "prefill", "decode_step"]
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", dtype=None):
+    return transformer.init_params(cfg, seed=seed, device=device, dtype=dtype)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
+    return transformer.init_cache(cfg, batch, max_len, device=device)
+
+
+def prefill(params, batch, cfg: ModelConfig, *, max_cache_len: int):
+    """Logits for the prompt and a decode cache of ``max_cache_len``."""
+    return transformer.forward(params, batch, cfg, mode="prefill",
+                               max_cache_len=max_cache_len)
+
+
+def decode_step(params, cache, tokens, cache_index, cfg: ModelConfig):
+    """One serving step: tokens (B, 1) at position ``cache_index``; the
+    cache is updated in place and returned."""
+    return transformer.forward(params, {"tokens": tokens}, cfg, mode="decode",
+                               cache=cache, cache_index=cache_index)
