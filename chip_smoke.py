@@ -9,21 +9,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
             exits non-zero when there is no CUDA device;
 2. build  — every CUDA kernel of ``src/repro_torch`` built from the
             checkout with ``nvcc`` (time and ``-Xptxas -v`` report);
-3. kernel — each kernel against its plain PyTorch version on the card,
-            bit for bit, at small shapes (every REGISTRY multiplier whose
-            product table fits, three swap configs, ``tile_hist`` on and
-            off, ragged M/N, padded K) and at the main path's shapes, with
-            CUDA-event times beside the bound and ``torch._int_mm`` on the
-            K-stacked limbs as the library yardstick;
+3. kernel — each kernel (``ax_matmul``, ``ax_matmul_grid``) against its
+            plain PyTorch version on the card, bit for bit, at small shapes
+            (every REGISTRY multiplier whose product table fits; three swap
+            configs, or a seeded grid mixing NoSwap, A-side and B-side
+            triples; ``tile_hist`` on and off; ragged M/N; padded K; both
+            grid orders) and at the main path's shapes, with CUDA-event
+            times beside the bound and ``torch._int_mm`` on the K-stacked
+            limbs as the library yardstick; both kernels timed in turns at
+            equal blocks; one grid launch runs under
+            ``torch.cuda.set_sync_debug_mode("error")``;
 4. ref    — a reduced qwen2 served on the card agrees with the same model
-            served on the CPU through the plain versions;
+            served on the CPU through the plain versions, static and
+            adaptive (tokens and re-tunes);
 5. serve  — qwen2-72b at its published widths, depth cut to 2 layers,
             random weights from a seed, SWAPPER ``backend="kernel"``: B=4
             prompts of 32 tokens, 8 greedy tokens, twice; the tokens must be
             deterministic and the kernel's launch count must be exactly
-            2 layers x 4 projections x 8 forwards = 64.  With ``--profile``
-            one more serve runs under ``torch.profiler`` and the device time
-            by kernel and the device's busy share are printed.
+            2 layers x 4 projections x 8 forwards = 64;
+6. adapt  — the same model served with an ``AdaptiveController``: with a
+            threshold that never fires the tokens equal the static serve's
+            (8 ``ax_matmul`` launches in prefill, 56 ``ax_matmul_grid`` in
+            decode); with weight drift injected at step 3 in tile mode, 12
+            tokens, twice with fresh controllers: at least one re-tune,
+            the same tokens, 8 + 88 launches each.  No nvcc runs after
+            phase 2.  With ``--profile`` one static, one no-drift and one
+            drift serve run under ``torch.profiler`` and the device time by
+            kernel and the device's busy share are printed.
 
 The second-to-last line is the ``kernels`` JSON summary, the last line
 ``{"ok": true, "device": {...}}``.
@@ -81,7 +93,8 @@ def small_checks(dev):
 
     from repro_torch.core.multipliers import REGISTRY
     from repro_torch.core.swapper import SwapConfig
-    from repro_torch.kernels.ax_matmul import (ax_matmul_cuda, ax_matmul_plain,
+    from repro_torch.kernels.ax_matmul import (ax_matmul_cuda, ax_matmul_grid_cuda,
+                                               ax_matmul_grid_plain, ax_matmul_plain,
                                                product_table)
     from repro_torch.quant.ax import _pad_to_multiple
 
@@ -91,7 +104,7 @@ def small_checks(dev):
     cases = [(37, 50, 45, (16, 32, 32), "mn"),
              (64, 128, 96, (32, 64, 64), "nm"),
              (4, 256, 200, (4, 128, 128), "mn")]
-    n_ok, skipped = 0, []
+    n_ok, n_grid, skipped = 0, 0, []
     for name, mult in REGISTRY.items():
         dtype = torch.int8 if mult.signed else torch.uint8
         try:
@@ -120,59 +133,108 @@ def small_checks(dev):
                                  f"hist {hist}: max |diff| "
                                  f"{(x.long() - y.long()).abs().max().item()}")
                     n_ok += 1
-    print(f"kernel ax_matmul == plain (torch.equal) on {n_ok} small cases "
-          f"({len(REGISTRY) - len(skipped)} multipliers; table does not fit, "
-          f"skipped: {', '.join(skipped) or 'none'})", flush=True)
+            grid = mixed_grid(-(-M // bm), -(-b.shape[1] // bn), g, mult.bits).to(dev)
+            for hist in (False, True):
+                got = ax_matmul_grid_cuda(a, b, mult, grid, bm=bm, bn=bn, bk=bk,
+                                          grid_order=order, tile_hist=hist)
+                want = ax_matmul_grid_plain(a, b, mult, grid, bm=bm, bn=bn, tile_hist=hist)
+                torch.cuda.synchronize()
+                for x, y in (zip(got, want) if hist else [(got, want)]):
+                    if not torch.equal(x, y):
+                        fail(f"ax_matmul_grid != plain: {name} {(M, K, N)} blocks "
+                             f"{(bm, bn, bk)} {order} hist {hist}: max |diff| "
+                             f"{(x.long() - y.long()).abs().max().item()}")
+                n_grid += 1
+    fits = len(REGISTRY) - len(skipped)
+    print(f"kernel ax_matmul == plain (torch.equal) on {n_ok} small cases, "
+          f"ax_matmul_grid == plain on {n_grid} ({fits} multipliers; table does not "
+          f"fit, skipped: {', '.join(skipped) or 'none'})", flush=True)
 
 
-def main_shape_checks(dev, card: str, clock_mhz: float):
+def mixed_grid(gm: int, gn: int, gen, bits: int = 8):
+    """A (gm, gn, 3) int32 grid mixing NoSwap, A-side and B-side triples."""
+    import torch
+
+    op = torch.randint(0, 2, (gm, gn), generator=gen)
+    bit = torch.randint(0, bits, (gm, gn), generator=gen)
+    val = torch.randint(0, 3, (gm, gn), generator=gen)          # 2 = NoSwap
+    return torch.stack([op, bit, val], dim=-1).to(torch.int32).contiguous()
+
+
+MAIN_SHAPES = [("decode mlp in/gate", 4, 8192, 29568), ("decode mlp out", 4, 29568, 8192),
+               ("decode attn_out", 4, 8192, 8192), ("prefill mlp in/gate", 128, 8192, 29568),
+               ("prefill mlp out", 128, 29568, 8192), ("prefill attn_out", 128, 8192, 8192)]
+
+
+def main_shape_checks(dev, card: str, clock_mhz: float, grid_kernel: bool):
+    """One kernel at the main path's shapes: held against its plain version,
+    timed beside its bound, its plain version and ``torch._int_mm`` on the
+    K-stacked limbs (the library yardstick; the port never calls it).
+
+    ``ax_matmul``: default 128/128/128 blocks, swap A[3]==0.  ``ax_matmul_grid``:
+    the blocks of tile mode with 2 row tiles (bm = M/2: 2 at decode, 64 at
+    prefill) and a 2-row-tile A-side grid (A[3]==0, A[5]==1)."""
     import torch
 
     from repro_torch.core.multipliers import get
     from repro_torch.core.swapper import SwapConfig
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import ax_matmul_ref
+    from repro_torch.kernels.ref import ax_matmul_grid_blocks_ref, ax_matmul_ref
+    from repro_torch.kernels.schedule import KernelSchedule
     from repro_torch.quant.ax import separable_transforms
 
     mult = get("mul8s_trunc0_4")
-    swap = SwapConfig("A", 3, 0)
     f, gfn = separable_transforms(mult.name)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     int32_rate = sms * INT32_LANES_PER_SM * clock_mhz * 1e6
     gen = torch.Generator(device=dev).manual_seed(11)
-    d, ff = 8192, 29568
-    shapes = [("decode mlp in/gate", 4, d, ff), ("decode mlp out", 4, ff, d),
-              ("decode attn_out", 4, d, d), ("prefill mlp in/gate", 128, d, ff),
-              ("prefill mlp out", 128, ff, d), ("prefill attn_out", 128, d, d)]
+    name = "ax_matmul_grid" if grid_kernel else "ax_matmul"
     rows = []
-    for label, M, K, N in shapes:
+    for label, M, K, N in MAIN_SHAPES:
         a = torch.randint(-127, 128, (M, K), generator=gen, device=dev, dtype=torch.int8)
         b = torch.randint(-127, 128, (K, N), generator=gen, device=dev, dtype=torch.int8)
-        out = ops.ax_matmul(a, b, mult, swap)
         cols = N if M <= 4 else 256             # bound the plain version's time
         bs = b[:, :cols].contiguous()
-        want = ax_matmul_ref(a, bs, mult, swap)
+        if grid_kernel:
+            bm, bn = M // 2, 128
+            triples = torch.tensor([[1, 3, 0], [1, 5, 1]], dtype=torch.int32, device=dev)
+            grid = triples[:, None, :].expand(2, -(-N // bn), 3).contiguous()
+            sched = KernelSchedule(bm, bn, 128)
+            run = lambda: ops.ax_matmul_grid(a, b, mult, grid, schedule=sched)
+            gs = grid[:, :-(-cols // bn)].contiguous()
+            plain = lambda: ax_matmul_grid_blocks_ref(a, bs, mult, gs, bm, bn)
+            row_trip = triples.repeat_interleave(bm, dim=0)            # (M, 3)
+            grid_bytes = grid.numel() * 4
+        else:
+            swap = SwapConfig("A", 3, 0)
+            run = lambda: ops.ax_matmul(a, b, mult, swap)
+            plain = lambda: ax_matmul_ref(a, bs, mult, swap)
+            row_trip = torch.tensor([[1, 3, 0]], dtype=torch.int32, device=dev).expand(M, 3)
+            grid_bytes = 0
+        out = run()
+        want = plain()
         torch.cuda.synchronize()
         err = (out[:, :cols].long() - want.long()).abs().max().item()
         if err != 0:
-            fail(f"ax_matmul != plain at {label} {(M, K, N)}: max |diff| {err}")
-        ms = cuda_ms(lambda: ops.ax_matmul(a, b, mult, swap), iters=5 if M > 4 else 20)
-        plain_ms = cuda_ms(lambda: ax_matmul_ref(a, bs, mult, swap), iters=1, warmup=0)
+            fail(f"{name} != plain at {label} {(M, K, N)}: max |diff| {err}")
+        ms = cuda_ms(run, iters=5 if M > 4 else 20)
+        plain_ms = cuda_ms(plain, iters=1, warmup=0)
 
-        # library yardstick: the same function for this separable family as
-        # one int8 GEMM over the K-stacked limbs (M padded to 32 rows)
+        # library yardstick: the same function for this separable family and
+        # an A-side decision per row, as one int8 GEMM over the K-stacked
+        # limbs (M padded to 32 rows)
         ai, bi = a.to(torch.int32), b.to(torch.int32)
-        s = (((ai >> swap.bit) & 1) == swap.value).to(torch.int32)
-        x = torch.cat([s * gfn(ai), (1 - s) * f(ai)], dim=1).to(torch.int8)
+        s_ = (((ai >> row_trip[:, 1:2]) & 1) == row_trip[:, 2:3]).to(torch.int32)
+        x = torch.cat([s_ * gfn(ai), (1 - s_) * f(ai)], dim=1).to(torch.int8)
         y = torch.cat([f(bi), gfn(bi)], dim=0).to(torch.int8).contiguous()
         mp = max(32, -(-M // 8) * 8)
         xp = torch.zeros((mp, 2 * K), dtype=torch.int8, device=dev)
         xp[:M] = x
         lib_equal = bool(torch.equal(torch._int_mm(xp, y)[:M], out))
         library_ms = cuda_ms(lambda: torch._int_mm(xp, y), iters=20)
-        del ai, bi, s, x, y, xp
+        del ai, bi, s_, x, y, xp
 
-        nbytes = M * K + K * N + 4 * M * N + TABLE_BYTES
+        nbytes = M * K + K * N + 4 * M * N + TABLE_BYTES + grid_bytes
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = M * K * N / int32_rate * 1e3
         row = dict(shape=label, M=M, K=K, N=N, ms=ms, plain_ms=plain_ms,
@@ -180,7 +242,7 @@ def main_shape_checks(dev, card: str, clock_mhz: float):
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    library_ms=library_ms, library_equal=lib_equal, max_abs_err=err)
         rows.append(row)
-        print(f"ax_matmul {label} (M={M}, K={K}, N={N}): {ms:.4f} ms; bound "
+        print(f"{name} {label} (M={M}, K={K}, N={N}): {ms:.4f} ms; bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}); plain "
               f"{plain_ms:.2f} ms on {cols} cols; torch._int_mm limbs "
               f"{library_ms:.4f} ms (equal: {lib_equal}); max |diff| {err}; "
@@ -188,6 +250,65 @@ def main_shape_checks(dev, card: str, clock_mhz: float):
         del a, b, bs, out, want
     torch.cuda.empty_cache()
     return rows
+
+
+def equal_blocks_timing(dev, card: str):
+    """``ax_matmul`` and ``ax_matmul_grid`` (a uniform grid of the same
+    triple) at the same default blocks on the decode shapes, timed in turns
+    (static, grid, grid, static): the grid's per-block triple load is the
+    only difference."""
+    import torch
+
+    from repro_torch.core.multipliers import get
+    from repro_torch.core.swapper import SwapConfig, cfg_to_triple
+    from repro_torch.kernels import ops
+
+    mult, swap = get("mul8s_trunc0_4"), SwapConfig("A", 3, 0)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for label, M, K, N in MAIN_SHAPES[:3]:
+        a = torch.randint(-127, 128, (M, K), generator=gen, device=dev, dtype=torch.int8)
+        b = torch.randint(-127, 128, (K, N), generator=gen, device=dev, dtype=torch.int8)
+        grid = torch.tensor(cfg_to_triple(swap), dtype=torch.int32, device=dev)
+        grid = grid.expand(1, -(-N // 128), 3).contiguous()
+        static = lambda: ops.ax_matmul(a, b, mult, swap)
+        gridded = lambda: ops.ax_matmul_grid(a, b, mult, grid)
+        if not torch.equal(static(), gridded()):
+            fail(f"uniform-grid ax_matmul_grid != ax_matmul at {label}")
+        t = [cuda_ms(fn, iters=20) for fn in (static, gridded, gridded, static)]
+        print(f"equal blocks ({M}/128/128) {label}: ax_matmul {t[0]:.4f} / {t[3]:.4f} ms, "
+              f"ax_matmul_grid {t[1]:.4f} / {t[2]:.4f} ms (grid/static "
+              f"{(t[1] + t[2]) / (t[0] + t[3]):.3f}) [{card}]", flush=True)
+        del a, b
+
+
+def sync_free_grid_launch(dev):
+    """A grid launch, and a launch after a new grid value, with the CUDA
+    sync debug mode set to raise on any host synchronise."""
+    import torch
+
+    from repro_torch.core.multipliers import get
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.schedule import KernelSchedule
+
+    g = torch.Generator().manual_seed(5)
+    a = torch.randint(-127, 128, (4, 8192), generator=g, dtype=torch.int8).to(dev)
+    b = torch.randint(-127, 128, (8192, 1024), generator=g, dtype=torch.int8).to(dev)
+    grid, other = (mixed_grid(2, 8, g).to(dev) for _ in range(2))
+    mult, sched = get("mul8s_trunc0_4"), KernelSchedule(2, 128, 128)
+    ops.ax_matmul_grid(a, b, mult, grid, schedule=sched)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ops.ax_matmul_grid(a, b, mult, grid, schedule=sched, tile_hist=True)
+        grid.copy_(other)
+        ops.ax_matmul_grid(a, b, mult, grid, schedule=sched)
+    except RuntimeError as e:
+        fail(f"the grid launch path synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print("ax_matmul_grid: launches with a new grid value ran under "
+          "set_sync_debug_mode('error') (no host synchronise)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -199,7 +320,9 @@ def reference_check(dev):
 
     from repro_torch.configs import qwen2_72b, reduced
     from repro_torch.configs.base import AxPolicy
+    from repro_torch.launch.serve import drift_hook
     from repro_torch.models import init_params, prefill
+    from repro_torch.runtime import AdaptiveConfig, AdaptiveController, SwapPolicy
     from repro_torch.serve import ServeConfig, generate
 
     # f32 compute isolates the kernel from bf16 rounding; int8 rounding
@@ -221,13 +344,34 @@ def reference_check(dev):
     print(f"reduced qwen2 (2 layers, f32) card vs CPU: prefill logits max |diff| "
           f"{err:.3g} (tol {tol}); greedy tokens equal: {bool(torch.equal(tc, tg))}",
           flush=True)
+    # adaptive, tile mode, with drift: the re-tunes are exact integer
+    # decisions, so card and CPU must make the same ones
+    runs = []
+    for params, d in ((p_cpu, "cpu"), (p_gpu, dev)):
+        ctrl = AdaptiveController(SwapPolicy.from_ax_policy(cfg.ax), cfg.ax.targets,
+                                  AdaptiveConfig(min_observe_steps=2, cooldown_steps=2,
+                                                 drift_threshold=0.02, tile_rows=2), device=d)
+        out = generate(params, {"tokens": toks}, cfg, ServeConfig(max_new_tokens=12),
+                       adaptive=ctrl, param_hook=drift_hook(3, 0.05)).cpu()
+        runs.append((out, [e.describe() for e in ctrl.retunes + ctrl.tile_retunes]))
+    (tc, ec), (tg, eg) = runs
+    if not ec or ec != eg:
+        fail(f"reduced qwen2 adaptive re-tunes, card vs CPU:\n{eg}\n{ec}")
+    print(f"reduced qwen2 adaptive (tile mode, drift) card vs CPU: {len(ec)} re-tunes "
+          f"equal; greedy tokens equal: {bool(torch.equal(tc, tg))}", flush=True)
 
 
 # ---------------------------------------------------------------------------
 # phase 5: the full-width serve
 # ---------------------------------------------------------------------------
 
+B, S, T, L = 4, 32, 8, 2          # the serve: prompts, prompt length, tokens, layers
+T_DRIFT, DRIFT_AT, DRIFT_SCALE = 12, 3, 0.05
+
+
 def serve(dev, card: str, profile: bool = False):
+    """Phase 5: the static serve.  Returns (cfg, params, prompts, tokens,
+    launches, stats)."""
     import torch
 
     from repro_torch.configs import qwen2_72b
@@ -236,7 +380,6 @@ def serve(dev, card: str, profile: bool = False):
     from repro_torch.models import init_params, prefill
     from repro_torch.serve import ServeConfig, generate
 
-    B, S, T, L = 4, 32, 8, 2
     cfg = dataclasses.replace(qwen2_72b, n_layers=L, ax=AxPolicy(backend="kernel"))
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device=dev)
@@ -260,38 +403,117 @@ def serve(dev, card: str, profile: bool = False):
         reset_launches()
         toks = generate(params, {"tokens": prompts}, cfg, ServeConfig(max_new_tokens=T),
                         stats=stats)
-        launches = LAUNCHES["ax_matmul"]
-        if launches != expect:
-            fail(f"ax_matmul launched {launches} times in one serve, expected {expect}")
-        runs.append((toks.cpu(), stats, launches))
-    (t1, _, _), (t2, stats, launches) = runs
+        launches = dict(LAUNCHES)
+        if launches != {"ax_matmul": expect, "ax_matmul_grid": 0}:
+            fail(f"launches in one static serve: {launches}, expected {expect} ax_matmul")
+        runs.append((toks.cpu(), stats))
+    (t1, _), (t2, stats) = runs
     if not torch.equal(t1, t2):
         fail(f"greedy tokens differ between two runs:\n{t1}\n{t2}")
     if tuple(t1.shape) != (B, T) or int(t1.min()) < 0 or int(t1.max()) >= cfg.vocab:
         fail(f"tokens out of range or misshapen: {tuple(t1.shape)}")
-    wall = stats["prefill_s"] + stats["decode_s"]
     print(f"serve qwen2-72b (2 layers, kernel backend) B={B} S={S} new={T}: tokens "
-          f"deterministic over 2 runs; ax_matmul launches {launches} (= {L}x4x{T}); "
-          f"prefill {stats['prefill_s'] * 1e3:.1f} ms; decode "
-          f"{stats['decode_s'] * 1e3 / (T - 1):.1f} ms/step; {B * T / wall:.2f} tokens/s "
-          f"[{card}]", flush=True)
+          f"deterministic over 2 runs; ax_matmul launches {expect} (= {L}x4x{T}); "
+          f"{_speed(stats, T)} [{card}]", flush=True)
     print(f"tokens: {t1.tolist()}", flush=True)
     if profile:
-        profile_serve(params, prompts, cfg, ServeConfig(max_new_tokens=T), card)
-    return launches
+        profile_serve(lambda: generate(params, {"tokens": prompts}, cfg,
+                                       ServeConfig(max_new_tokens=T)), "static serve", card)
+    return cfg, params, prompts, t1, expect, stats
 
 
-def profile_serve(params, prompts, cfg, scfg, card: str):
+def _speed(stats, steps: int) -> str:
+    wall = stats["prefill_s"] + stats["decode_s"]
+    return (f"prefill {stats['prefill_s'] * 1e3:.1f} ms; decode "
+            f"{stats['decode_s'] * 1e3 / (steps - 1):.1f} ms/step; "
+            f"{B * steps / wall:.2f} tokens/s")
+
+
+def adaptive_serve(cfg, params, prompts, static_tokens, static_stats, card: str,
+                   profile: bool = False):
+    """Phase 6: adaptive serving of the same model.  Returns the drift
+    serve's ax_matmul_grid launches."""
+    import torch
+
+    from repro_torch.kernels.ax_matmul import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import drift_hook
+    from repro_torch.runtime import AdaptiveConfig, AdaptiveController, SwapPolicy
+    from repro_torch.serve import ServeConfig, generate
+
+    def controller(**kw):
+        return AdaptiveController(SwapPolicy.from_ax_policy(cfg.ax), cfg.ax.targets,
+                                  AdaptiveConfig(**kw), device=params["embed"]["w"].device)
+
+    # a threshold that never fires: the dynamic path must give the static bits
+    ctrl = controller(drift_threshold=1e9)
+    ctrl.warmup()
+    stats = {}
+    reset_launches()
+    toks = generate(params, {"tokens": prompts}, cfg, ServeConfig(max_new_tokens=T),
+                    adaptive=ctrl, stats=stats).cpu()
+    launches = dict(LAUNCHES)
+    want = {"ax_matmul": L * 4, "ax_matmul_grid": L * 4 * (T - 1)}
+    if launches != want:
+        fail(f"launches in the no-drift adaptive serve: {launches}, expected {want}")
+    if not torch.equal(toks, static_tokens) or ctrl.retunes or ctrl.step != T - 1:
+        fail(f"no-drift adaptive serve: tokens equal {torch.equal(toks, static_tokens)}, "
+             f"re-tunes {len(ctrl.retunes)}, observed steps {ctrl.step}")
+    print(f"adaptive serve, no drift (scalar mode): tokens equal the static serve's; "
+          f"launches {launches}; {_speed(stats, T)} (static: {_speed(static_stats, T)}) "
+          f"[{card}]", flush=True)
+    if profile:
+        profile_serve(lambda: generate(
+            params, {"tokens": prompts}, cfg, ServeConfig(max_new_tokens=T),
+            adaptive=controller(drift_threshold=1e9)), "no-drift adaptive serve", card)
+
+    runs = []
+    for _ in range(2):
+        ctrl = controller(min_observe_steps=2, cooldown_steps=4, tile_rows=2)
+        ctrl.warmup()
+        stats = {}
+        reset_launches()
+        toks = generate(params, {"tokens": prompts}, cfg, ServeConfig(max_new_tokens=T_DRIFT),
+                        adaptive=ctrl, param_hook=drift_hook(DRIFT_AT, DRIFT_SCALE),
+                        stats=stats).cpu()
+        launches = dict(LAUNCHES)
+        want = {"ax_matmul": L * 4, "ax_matmul_grid": L * 4 * (T_DRIFT - 1)}
+        if launches != want:
+            fail(f"launches in the drift serve: {launches}, expected {want}")
+        if not (ctrl.retunes or ctrl.tile_retunes):
+            fail(f"the drift serve made no re-tune: {ctrl.telemetry.describe()}")
+        if tuple(toks.shape) != (B, T_DRIFT) or int(toks.min()) < 0 \
+                or int(toks.max()) >= cfg.vocab:
+            fail(f"drift serve tokens out of range or misshapen: {tuple(toks.shape)}")
+        runs.append((toks, ctrl, stats))
+    (t1, c1, _), (t2, c2, stats) = runs
+    events = [[e.describe() for e in c.retunes + c.tile_retunes] for c in (c1, c2)]
+    if not torch.equal(t1, t2) or events[0] != events[1]:
+        fail(f"the drift serve is not deterministic:\n{t1}\n{t2}\n{events}")
+    print(f"adaptive serve, drift x{DRIFT_SCALE} at step {DRIFT_AT} (tile_rows=2) B={B} "
+          f"S={S} new={T_DRIFT}: tokens and re-tunes deterministic over 2 runs; launches "
+          f"{launches}; {_speed(stats, T_DRIFT)} [{card}]", flush=True)
+    for line in c2.log:
+        print(f"  [adaptive] {line}", flush=True)
+    print(f"  [adaptive] {c2.policy.describe()}", flush=True)
+    print(f"  [adaptive] {c2.telemetry.describe()}", flush=True)
+    print(f"tokens: {t1.tolist()}", flush=True)
+    if profile:
+        profile_serve(lambda: generate(
+            params, {"tokens": prompts}, cfg, ServeConfig(max_new_tokens=T_DRIFT),
+            adaptive=controller(min_observe_steps=2, cooldown_steps=4, tile_rows=2),
+            param_hook=drift_hook(DRIFT_AT, DRIFT_SCALE)), "drift serve", card)
+    return launches["ax_matmul_grid"]
+
+
+def profile_serve(run, label: str, card: str):
     """One more serve under torch.profiler: device time by kernel and the
     device's busy share of the wall (``--profile``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.serve import generate
-
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        generate(params, {"tokens": prompts}, cfg, scfg)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # kernel rows only: operator rows repeat their kernels' device time
@@ -303,9 +525,9 @@ def profile_serve(params, prompts, cfg, scfg, card: str):
     if busy <= 0:
         print("profile: the trace holds no device kernels", flush=True)
         return
-    print(f"profile: one serve, wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
+    print(f"profile: one {label}, wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
           f"({100 * busy / wall:.1f}% of the wall) [{card}]", flush=True)
-    for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
+    for e in sorted(kernels, key=dev_us, reverse=True)[:14]:
         print(f"  {dev_us(e) / 1e3:10.2f} ms {100 * dev_us(e) / 1e6 / busy:5.1f}%  "
               f"{e.count:5d} calls  {e.key[:90]}", flush=True)
 
@@ -358,20 +580,38 @@ def main(argv):
     print(f"ax_matmul dynamic shared memory per block: {TABLE_BYTES} (product table) "
           f"+ bm*bk + bk*bn bytes = {TABLE_BYTES + 2 * 128 * 128} at 128/128/128", flush=True)
 
+    nvcc_runs = _build.NVCC_RUNS["count"]
+
     small_checks(dev)
-    rows = main_shape_checks(dev, card, clock)
+    rows = main_shape_checks(dev, card, clock, grid_kernel=False)
+    grid_rows = main_shape_checks(dev, card, clock, grid_kernel=True)
+    equal_blocks_timing(dev, card)
+    sync_free_grid_launch(dev)
     reference_check(dev)
-    launches = serve(dev, card, profile="--profile" in argv)
-    top = rows[0]
-    summary = {"kernels": [{
-        "name": "ax_matmul", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/ax_matmul.cu",
-        "replaces": "src/repro/kernels/ax_matmul.py:168",
-        "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
-        "bound_by": top["bound_by"], "library_ms": top["library_ms"],
-        "shape": f"{top['shape']} M={top['M']} K={top['K']} N={top['N']}",
-        "shapes": rows, "card": card}]}
+    profile = "--profile" in argv
+    cfg, params, prompts, tokens, launches, stats = serve(dev, card, profile)
+    grid_launches = adaptive_serve(cfg, params, prompts, tokens, stats, card, profile)
+    if _build.NVCC_RUNS["count"] != nvcc_runs or len(_build._LOADED) != len(built):
+        fail(f"kernels were rebuilt after the build phase: nvcc runs "
+             f"{_build.NVCC_RUNS['count'] - nvcc_runs}, libraries {len(_build._LOADED)}")
+    print(f"no nvcc run and no new library after the build phase "
+          f"({len(_build._LOADED)} library loaded)", flush=True)
+
+    def entry(name, replaces, launches, rows):
+        top = rows[0]
+        return {"name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/ax_matmul.cu",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+                "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+                "shape": f"{top['shape']} M={top['M']} K={top['K']} N={top['N']}",
+                "shapes": rows, "card": card}
+
+    summary = {"kernels": [
+        entry("ax_matmul", "src/repro/kernels/ax_matmul.py:168", launches, rows),
+        entry("ax_matmul_grid", "src/repro/kernels/ax_matmul.py:253", grid_launches,
+              grid_rows)]}
     print(card, flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

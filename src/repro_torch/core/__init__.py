@@ -1,6 +1,6 @@
 """SWAPPER core on integer tensors: multipliers, the swapper, metrics,
 tiling (counterpart of ``repro.core``)."""
-from .metrics import abs_err
+from .metrics import ErrorStats, abs_err
 from .multipliers import (
     REGISTRY,
     AxMult,

@@ -20,7 +20,7 @@ import time
 from pathlib import Path
 from typing import Dict, NamedTuple
 
-__all__ = ["SOURCES", "Built", "build_all", "load", "build_dir"]
+__all__ = ["SOURCES", "Built", "build_all", "load", "build_dir", "NVCC_RUNS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"ax_matmul": CSRC / "ax_matmul.cu"}
@@ -36,6 +36,7 @@ class Built(NamedTuple):
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+NVCC_RUNS = {"count": 0}   # nvcc processes started in this process
 
 
 def build_dir() -> Path:
@@ -78,6 +79,7 @@ def build_all(names=None) -> Dict[str, Built]:
                 continue
             tmp = lib.with_name(lib.name + f".tmp{os.getpid()}")
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+            NVCC_RUNS["count"] += 1
             running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                               stderr=subprocess.STDOUT, text=True),
                              tmp, lib, rep, time.perf_counter())

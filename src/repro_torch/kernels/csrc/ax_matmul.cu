@@ -1,15 +1,23 @@
 // Approximate 8-bit matmul with the SWAPPER swap fused ahead of every
-// product, for Hopper (sm_90a).  Replaces the Pallas TPU kernel
-// src/repro/kernels/ax_matmul.py::ax_matmul_pallas.
+// product, for Hopper (sm_90a).  Replaces two Pallas TPU kernels of
+// src/repro/kernels/ax_matmul.py: ax_matmul_pallas (one static swap) and
+// ax_matmul_grid_pallas (a swap triple per output tile, read at run time).
 //
-//   C[m, n] = sum_k T[swap(A[m, k], B[k, n])]        (int32, wraps mod 2^32)
+//   C[m, n] = sum_k T[swap_t(A[m, k], B[k, n])]      (int32, wraps mod 2^32)
 //
 // The multiplier is its 256 x 256 product table T over the operand type's
 // values, built on the host from the multiplier's closed form and stored
 // as 16-bit entries (int16 for signed products, uint16 for unsigned): one
-// kernel covers every family and every LUT circuit.  The swap decision is
-// an (op_is_a, bit, value) triple passed at launch (value 2 never matches,
-// i.e. NoSwap), so a new swap config never rebuilds anything.
+// kernel covers every family and every LUT circuit.  The swap decision t is
+// an (op_is_a, bit, value) triple (value 2 never matches, i.e. NoSwap):
+// passed at launch by ax_matmul_launch, or, with the GRID template flag
+// (ax_matmul_grid_launch), read by each block from a (gm, gn, 3) int32
+// device grid at its own tile (ti, tj).  The grid stays on the device, so a
+// new policy is a new tensor value: nothing is rebuilt and the host never
+// reads it.  The swap mask is ((src >> bit) & 1) == value on the
+// sign-extended operand, with bit clamped to 31 as an unsigned amount (an
+// arithmetic shift by 32 or more fills with the sign, as XLA's does); the
+// adaptive policy only produces bits below the multiplier's width.
 //
 // Design (simple first): one thread block per (bm, bn) output tile, the K
 // reduction as a loop inside the block (Pallas revisited a K grid axis
@@ -25,7 +33,9 @@
 // What bounds it on an H100: the int8 weight bytes (K * N) and the M*K*N
 // approximate products, which are CUDA-core integer work (a shared-memory
 // gather per product), not tensor-core work.  At decode M the bytes set the
-// bound; this first kernel is far from it, limited by the table gathers.
+// bound, at prefill M the products; this first kernel is far from both,
+// limited by the table gathers.  The grid variant shares the K loop, the
+// staging and the histogram, and adds one 12-byte triple load per block.
 // Later levers: closed forms in a few integer operations in place of the
 // gather (trunc as two masks and a multiply, __clz for Mitchell and DRUM),
 // wider loads, and for separable families the int8 tensor-core GEMM.
@@ -59,14 +69,14 @@ __device__ __forceinline__ void count_bits(int v, int* cnt) {
   cnt[kOperandBits] += v < 0;
 }
 
-template <int J, bool HIST>
+template <int J, bool HIST, bool GRID>
 __global__ void __launch_bounds__(kThreads)
 ax_matmul_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
                  const int16_t* __restrict__ table, int32_t* __restrict__ out,
-                 int32_t* __restrict__ hist, int M, int N, int K, int bm,
-                 int bn, int bk, int operand_signed, int table_signed,
-                 int op_is_a, int bit, int value, int hist_width,
-                 int nm_order) {
+                 int32_t* __restrict__ hist, const int32_t* __restrict__ cfg,
+                 int M, int N, int K, int bm, int bn, int bk,
+                 int operand_signed, int table_signed, int op_is_a, int bit,
+                 int value, int hist_width, int nm_order) {
   extern __shared__ __align__(16) unsigned char smem[];
   int16_t* tbl = reinterpret_cast<int16_t*>(smem);
   uint8_t* as = smem + kTableBytes;  // (bm, bk)
@@ -80,6 +90,14 @@ ax_matmul_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
   const int tid = threadIdx.x;
   const int col = tid % kCols;
   const int rg = tid / kCols;
+  const int gn_tiles = (N + bn - 1) / bn;
+  if (GRID) {
+    const int32_t* t = cfg + (static_cast<size_t>(ti) * gn_tiles + tj) * 3;
+    op_is_a = t[0];
+    bit = t[1];
+    value = t[2];
+  }
+  bit = static_cast<unsigned>(bit) > 31u ? 31 : bit;
 
   {
     const uint4* src = reinterpret_cast<const uint4*>(table);
@@ -154,7 +172,6 @@ ax_matmul_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
       if (cnt_b[s]) atomicAdd(&hist_s[1][s], cnt_b[s]);
     }
     __syncthreads();
-    const int gn_tiles = (N + bn - 1) / bn;
     int32_t* h = hist + (static_cast<size_t>(ti) * gn_tiles + tj) * 2 * hist_width;
     for (int i = tid; i < 2 * hist_width; i += kThreads) {
       const int row = i / hist_width;
@@ -167,36 +184,38 @@ ax_matmul_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
   }
 }
 
-template <int J, bool HIST>
+template <int J, bool HIST, bool GRID>
 cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream,
                    const uint8_t* a, const uint8_t* b, const int16_t* table,
-                   int32_t* out, int32_t* hist, int M, int N, int K, int bm,
-                   int bn, int bk, int operand_signed, int table_signed,
-                   int op_is_a, int bit, int value, int hist_width,
-                   int nm_order) {
-  auto kern = ax_matmul_kernel<J, HIST>;
+                   int32_t* out, int32_t* hist, const int32_t* cfg, int M,
+                   int N, int K, int bm, int bn, int bk, int operand_signed,
+                   int table_signed, int op_is_a, int bit, int value,
+                   int hist_width, int nm_order) {
+  auto kern = ax_matmul_kernel<J, HIST, GRID>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kern<<<grid, kThreads, smem, stream>>>(a, b, table, out, hist, M, N, K, bm,
-                                         bn, bk, operand_signed, table_signed,
-                                         op_is_a, bit, value, hist_width,
-                                         nm_order);
+  kern<<<grid, kThreads, smem, stream>>>(a, b, table, out, hist, cfg, M, N, K,
+                                         bm, bn, bk, operand_signed,
+                                         table_signed, op_is_a, bit, value,
+                                         hist_width, nm_order);
   return cudaGetLastError();
 }
 
-template <bool HIST>
+template <bool HIST, bool GRID>
 cudaError_t dispatch_rows(int bm, dim3 grid, size_t smem, cudaStream_t stream,
                           const uint8_t* a, const uint8_t* b,
                           const int16_t* table, int32_t* out, int32_t* hist,
-                          int M, int N, int K, int bn, int bk,
-                          int operand_signed, int table_signed, int op_is_a,
-                          int bit, int value, int hist_width, int nm_order) {
+                          const int32_t* cfg, int M, int N, int K, int bn,
+                          int bk, int operand_signed, int table_signed,
+                          int op_is_a, int bit, int value, int hist_width,
+                          int nm_order) {
   const int rows = (bm + kRowGroups - 1) / kRowGroups;  // rows per thread
-#define AX_LAUNCH(JJ)                                                       \
-  return launch<JJ, HIST>(grid, smem, stream, a, b, table, out, hist, M, N, \
-                          K, bm, bn, bk, operand_signed, table_signed,      \
-                          op_is_a, bit, value, hist_width, nm_order)
+#define AX_LAUNCH(JJ)                                                        \
+  return launch<JJ, HIST, GRID>(grid, smem, stream, a, b, table, out, hist,  \
+                                cfg, M, N, K, bm, bn, bk, operand_signed,    \
+                                table_signed, op_is_a, bit, value,           \
+                                hist_width, nm_order)
   if (rows <= 1) AX_LAUNCH(1);
   if (rows <= 2) AX_LAUNCH(2);
   if (rows <= 4) AX_LAUNCH(4);
@@ -207,20 +226,15 @@ cudaError_t dispatch_rows(int bm, dim3 grid, size_t smem, cudaStream_t stream,
 #undef AX_LAUNCH
 }
 
-}  // namespace
-
-// Returns a cudaError_t code (0 on success).  Pointers are device pointers;
-// `table` holds 65536 16-bit entries and is 16-byte aligned; `hist` may be
-// null when hist_width is 0.
-extern "C" int ax_matmul_launch(const void* a, const void* b, const void* table,
-                                void* out, void* hist, int M, int N, int K,
-                                int bm, int bn, int bk, int operand_signed,
-                                int table_signed, int op_is_a, int bit,
-                                int value, int hist_width, int nm_order,
-                                void* stream) {
+template <bool GRID>
+int launch_any(const void* a, const void* b, const void* table, void* out,
+               void* hist, const void* cfg, int M, int N, int K, int bm, int bn,
+               int bk, int operand_signed, int table_signed, int op_is_a,
+               int bit, int value, int hist_width, int nm_order, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || bm <= 0 || bn <= 0 || bk <= 0 ||
       bm > kMaxBlock || bn > kMaxBlock || bk > kMaxBlock || K % bk != 0 ||
-      bit < 0 || bit > 31 || hist_width < 0 || hist_width > kMaxHist ||
+      (!GRID && (bit < 0 || bit > 31)) || (GRID && cfg == nullptr) ||
+      hist_width < 0 || hist_width > kMaxHist ||
       (hist_width > 0 && (hist == nullptr || hist_width <= kOperandBits)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int gm = (M + bm - 1) / bm;
@@ -235,13 +249,48 @@ extern "C" int ax_matmul_launch(const void* a, const void* b, const void* table,
   const int16_t* pt = static_cast<const int16_t*>(table);
   int32_t* po = static_cast<int32_t*>(out);
   int32_t* ph = static_cast<int32_t*>(hist);
+  const int32_t* pc = static_cast<const int32_t*>(cfg);
   cudaError_t err =
       hist_width > 0
-          ? dispatch_rows<true>(bm, grid, smem, s, pa, pb, pt, po, ph, M, N, K,
-                                bn, bk, operand_signed, table_signed, op_is_a,
-                                bit, value, hist_width, nm_order)
-          : dispatch_rows<false>(bm, grid, smem, s, pa, pb, pt, po, ph, M, N,
-                                 K, bn, bk, operand_signed, table_signed,
-                                 op_is_a, bit, value, hist_width, nm_order);
+          ? dispatch_rows<true, GRID>(bm, grid, smem, s, pa, pb, pt, po, ph,
+                                      pc, M, N, K, bn, bk, operand_signed,
+                                      table_signed, op_is_a, bit, value,
+                                      hist_width, nm_order)
+          : dispatch_rows<false, GRID>(bm, grid, smem, s, pa, pb, pt, po, ph,
+                                       pc, M, N, K, bn, bk, operand_signed,
+                                       table_signed, op_is_a, bit, value,
+                                       hist_width, nm_order);
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// Both entry points return a cudaError_t code (0 on success).  Pointers are
+// device pointers; `table` holds 65536 16-bit entries and is 16-byte
+// aligned; `hist` may be null when hist_width is 0.
+
+// One (op_is_a, bit, value) swap triple for every output tile.
+extern "C" int ax_matmul_launch(const void* a, const void* b, const void* table,
+                                void* out, void* hist, int M, int N, int K,
+                                int bm, int bn, int bk, int operand_signed,
+                                int table_signed, int op_is_a, int bit,
+                                int value, int hist_width, int nm_order,
+                                void* stream) {
+  return launch_any<false>(a, b, table, out, hist, nullptr, M, N, K, bm, bn,
+                           bk, operand_signed, table_signed, op_is_a, bit,
+                           value, hist_width, nm_order, stream);
+}
+
+// `cfg` is a contiguous (ceil(M/bm), ceil(N/bn), 3) int32 device grid of
+// swap triples; output tile (ti, tj) applies cfg[ti][tj].
+extern "C" int ax_matmul_grid_launch(const void* a, const void* b,
+                                     const void* table, const void* cfg,
+                                     void* out, void* hist, int M, int N,
+                                     int K, int bm, int bn, int bk,
+                                     int operand_signed, int table_signed,
+                                     int hist_width, int nm_order,
+                                     void* stream) {
+  return launch_any<true>(a, b, table, out, hist, cfg, M, N, K, bm, bn, bk,
+                          operand_signed, table_signed, 0, 0, 2, hist_width,
+                          nm_order, stream);
 }

@@ -11,9 +11,10 @@ import torch
 
 from repro_torch.core.lanes import s32
 from repro_torch.core.multipliers import AxMult
-from repro_torch.core.swapper import SwapConfig, apply_swapper
+from repro_torch.core.swapper import SwapConfig, apply_swapper, apply_swapper_dyn
 
-__all__ = ["ax_matmul_ref", "tile_hist_ref", "tile_hist_blocks"]
+__all__ = ["ax_matmul_ref", "ax_matmul_grid_ref", "ax_matmul_grid_blocks_ref",
+           "ax_matmul_tiles_ref", "tile_hist_ref", "tile_hist_blocks"]
 
 # products materialised per K chunk: bounds the (M, chunk, N) int64 temps
 _CHUNK_ELEMS = 1 << 25
@@ -32,6 +33,46 @@ def ax_matmul_ref(a, b, mult: AxMult, swap: Optional[SwapConfig] = None):
         prod = apply_swapper(mult, A[:, k0:k0 + kc, None], B[None, k0:k0 + kc, :], swap)
         acc = s32(acc + s32(prod).sum(dim=1))
     return acc.to(torch.int32)
+
+
+def ax_matmul_tiles_ref(a, b, mult: AxMult, cfg_grid, row_tile, col_tile):
+    """Dynamic-config reference with the triple chosen per output element:
+    element (m, n) applies ``cfg_grid[row_tile[m], col_tile[n]]`` (index
+    tensors of length M and N).  The triples are spread to every element
+    and the products materialised in K chunks, as in
+    :func:`ax_matmul_ref`.  int32 (M, N)."""
+    M, K = a.shape
+    N = b.shape[1]
+    g = cfg_grid.to(device=a.device, dtype=torch.int64)
+    trip = g[row_tile.to(a.device)][:, col_tile.to(a.device)]      # (M, N, 3)
+    op, bit, val = (trip[:, None, :, j] for j in range(3))       # (M, 1, N)
+    A = a.to(torch.int64)
+    B = b.to(torch.int64)
+    kc = max(1, min(K, _CHUNK_ELEMS // max(1, M * N)))
+    acc = torch.zeros((M, N), dtype=torch.int64, device=a.device)
+    for k0 in range(0, K, kc):
+        prod = apply_swapper_dyn(mult, A[:, k0:k0 + kc, None], B[None, k0:k0 + kc, :],
+                                 op, bit, val)
+        acc = s32(acc + s32(prod).sum(dim=1))
+    return acc.to(torch.int32)
+
+
+def ax_matmul_grid_blocks_ref(a, b, mult: AxMult, cfg_grid, bm: int, bn: int):
+    """The grid kernel's function over (bm, bn) output tiles: tile (ti, tj)
+    applies ``cfg_grid[ti, tj]``; a ragged last tile reads the last entry."""
+    rows = torch.arange(a.shape[0], device=a.device) // bm
+    cols = torch.arange(b.shape[1], device=a.device) // bn
+    return ax_matmul_tiles_ref(a, b, mult, cfg_grid, rows, cols)
+
+
+def ax_matmul_grid_ref(a, b, mult: AxMult, cfg_grid):
+    """``repro.kernels.ref.ax_matmul_grid_ref``: tile (ti, tj) of a (gm, gn)
+    grid of equal output tiles uses the triple ``cfg_grid[ti, tj]``."""
+    M, N = a.shape[0], b.shape[1]
+    gm, gn = cfg_grid.shape[0], cfg_grid.shape[1]
+    if M % gm or N % gn:
+        raise ValueError(f"a {gm}x{gn} config grid does not divide {M}x{N}")
+    return ax_matmul_grid_blocks_ref(a, b, mult, cfg_grid, M // gm, N // gn)
 
 
 def _counts(blk: torch.Tensor, bits: int) -> torch.Tensor:

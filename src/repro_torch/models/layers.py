@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import AxPolicy, ModelConfig
-from repro_torch.quant.ax import ax_dense
+from repro_torch.quant.ax import ax_dense, ax_dense_dyn
+from repro_torch.runtime.scope import active_scope
 
 __all__ = ["ninit", "dense", "rmsnorm", "make_rope", "apply_rope",
            "chunked_attention", "decode_attention", "attn_init", "attn_apply",
@@ -36,11 +37,19 @@ def ninit(shape, dtype, generator: torch.Generator, device, scale=None):
 
 def dense(x, p, ax: Optional[AxPolicy] = None, target: str = ""):
     """y = x @ w (+ b), through the SWAPPER approximate path when the policy
-    covers this projection target.  The weight is cast to the activation
-    dtype first, as in the JAX package, so it is quantized from bf16."""
+    covers this projection target.  Under an open adaptive-runtime scope
+    that holds a triple for the target, the swap decision is that int32
+    tensor (``ax_dense_dyn``) instead of the policy's static config.  The
+    weight is cast to the activation dtype first, as in the JAX package, so
+    it is quantized from bf16."""
     w = p["w"].to(x.dtype)
     if ax is not None and target in ax.targets:
-        y = ax_dense(x, w, ax)
+        scope = active_scope()
+        dyn = scope.triple_for(target) if scope is not None else None
+        if dyn is not None:
+            y = ax_dense_dyn(x, w, ax, dyn, scope=scope, target=target)
+        else:
+            y = ax_dense(x, w, ax)
     else:
         y = x @ w
     if "b" in p:

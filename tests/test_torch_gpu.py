@@ -20,10 +20,12 @@ import repro_torch.kernels  # noqa: F401  (loads the submodules below)
 from repro_torch.configs import qwen2_72b, reduced
 from repro_torch.configs.base import AxPolicy
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import ax_matmul_ref, tile_hist_blocks
+from repro_torch.kernels.ref import ax_matmul_grid_blocks_ref, ax_matmul_ref, tile_hist_blocks
 from repro_torch.kernels.schedule import KernelSchedule
+from repro_torch.launch.serve import drift_hook
 from repro_torch.models import init_params, prefill
 from repro_torch.quant.ax import ax_dense
+from repro_torch.runtime import AdaptiveConfig, AdaptiveController, SwapPolicy
 from repro_torch.serve import ServeConfig, generate
 
 AXM = sys.modules["repro_torch.kernels.ax_matmul"]
@@ -121,3 +123,116 @@ def test_reduced_model_on_the_card_matches_the_cpu(cuda):
     before = AXM.LAUNCHES["ax_matmul"]
     generate(p_gpu, {"tokens": toks}, cfg, ServeConfig(max_new_tokens=3))
     assert AXM.LAUNCHES["ax_matmul"] - before == cfg.n_layers * 4 * 3
+
+
+def _mixed_grid(gm, gn, seed, bits=8):
+    """A (gm, gn, 3) int32 grid mixing NoSwap, A-side and B-side triples."""
+    g = torch.Generator().manual_seed(seed)
+    op = torch.randint(0, 2, (gm, gn), generator=g)
+    bit = torch.randint(0, bits, (gm, gn), generator=g)
+    val = torch.randint(0, 3, (gm, gn), generator=g)            # 2 = NoSwap
+    return torch.stack([op, bit, val], dim=-1).to(torch.int32).contiguous()
+
+
+@pytest.mark.parametrize("name", ["mul8s_trunc0_4", "mul8s_bam_v2_h1", "mul8u_mitch13_0",
+                                  "mul8s_drum3_4", "mul16s_exact"])
+@pytest.mark.parametrize("order", ["mn", "nm"])
+def test_grid_kernel_equals_plain(cuda, name, order):
+    m = TC.get(name)
+    a = _ops((37, 96), m.signed, 11, cuda)
+    b = _ops((96, 45), m.signed, 12, cuda)
+    bm, bn = 16, 32
+    grid = _mixed_grid(3, 2, 13).to(cuda)
+    sched = KernelSchedule(bm, bn, 32, order)
+    out, hist = ops.ax_matmul_grid(a, b, m, grid, schedule=sched, tile_hist=True)
+    plain = ops.ax_matmul_grid(a, b, m, grid, schedule=sched)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ax_matmul_grid_blocks_ref(a, b, m, grid, bm, bn))
+    assert torch.equal(plain, out)
+    assert torch.equal(hist, tile_hist_blocks(a, b, m.bits, bm, bn))
+
+
+def test_grid_cuda_call_launches_the_kernel_and_never_the_plain_version(cuda, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("plain version taken for a CUDA tensor")
+
+    for fn in ("ax_matmul_grid_plain", "ax_matmul_grid_blocks_ref", "tile_hist_blocks"):
+        monkeypatch.setattr(AXM, fn, refuse)
+    a = _ops((4, 128), True, 14, cuda)
+    b = _ops((128, 256), True, 15, cuda)
+    before = AXM.LAUNCHES["ax_matmul_grid"]
+    out = ops.ax_matmul_grid(a, b, TC.get("mul8s_trunc0_4"), _mixed_grid(1, 2, 16).to(cuda))
+    torch.cuda.synchronize()
+    assert AXM.LAUNCHES["ax_matmul_grid"] == before + 1
+    assert out.device.type == "cuda" and out.dtype == torch.int32
+
+
+def test_grid_wrapper_raises_on_a_bad_grid(cuda):
+    a = _ops((8, 64), True, 17, cuda)
+    b = _ops((64, 32), True, 18, cuda)
+    m = TC.get("mul8s_trunc0_4")
+    good = _mixed_grid(2, 1, 19).to(cuda)
+    kw = dict(bm=4, bn=32, bk=32)
+    with pytest.raises(ValueError, match="shape"):
+        AXM.ax_matmul_grid_blocks(a, b, m, good[:1].contiguous(), **kw)
+    with pytest.raises(ValueError, match="int32"):
+        AXM.ax_matmul_grid_blocks(a, b, m, good.to(torch.int64), **kw)
+    with pytest.raises(ValueError, match="cfg_grid on"):
+        AXM.ax_matmul_grid_blocks(a, b, m, good.cpu(), **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        AXM.ax_matmul_grid_blocks(a, b, m, good.repeat(1, 1, 2)[..., ::2], **kw)
+
+
+def test_grid_launch_does_not_synchronise(cuda):
+    a = _ops((4, 256), True, 20, cuda)
+    b = _ops((256, 384), True, 21, cuda)
+    m = TC.get("mul8s_trunc0_4")
+    grid = _mixed_grid(2, 3, 22).to(cuda)
+    other = _mixed_grid(2, 3, 23).to(cuda)
+    sched = KernelSchedule(2, 128, 128)
+    ops.ax_matmul_grid(a, b, m, grid, schedule=sched)          # table, library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, hist = ops.ax_matmul_grid(a, b, m, grid, schedule=sched, tile_hist=True)
+        grid.copy_(other)                                      # a new policy value
+        ops.ax_matmul_grid(a, b, m, grid, schedule=sched)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert tuple(hist.shape) == (2, 3, 2, 9)
+
+
+def test_adaptive_generate_on_the_card_equals_the_cpu(cuda):
+    """Reduced qwen2 in f32 with synthetic drift, scalar and tile mode: the
+    same greedy tokens and the same re-tunes on the card as on the CPU."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(reduced(qwen2_72b), n_layers=2, compute_dtype="float32",
+                              ax=AxPolicy(backend="kernel"))
+    p_cpu = init_params(cfg, seed=5, device="cpu")
+    p_gpu = _to(p_cpu, cuda)
+    toks = torch.randint(0, cfg.vocab, (4, 8), generator=torch.Generator().manual_seed(6))
+    for tile_rows in (0, 2):
+        runs = []
+        for params, dev in ((p_cpu, "cpu"), (p_gpu, cuda)):
+            ctrl = AdaptiveController(
+                SwapPolicy.from_ax_policy(cfg.ax), cfg.ax.targets,
+                AdaptiveConfig(min_observe_steps=2, cooldown_steps=2, drift_threshold=0.02,
+                               tile_rows=tile_rows), device=dev)
+            before = AXM.LAUNCHES["ax_matmul_grid"]
+            out = generate(params, {"tokens": toks}, cfg, ServeConfig(max_new_tokens=12),
+                           adaptive=ctrl, param_hook=drift_hook(3, 0.05)).cpu()
+            events = [e.describe() for e in ctrl.retunes + ctrl.tile_retunes]
+            runs.append((out, events, AXM.LAUNCHES["ax_matmul_grid"] - before))
+        (tc, ec, _), (tg, eg, launches) = runs
+        assert ec, "the drift should re-tune"
+        assert torch.equal(tc, tg) and ec == eg
+        assert launches == cfg.n_layers * 4 * 11
+
+
+def _to(t, dev):
+    if isinstance(t, dict):
+        return {k: _to(v, dev) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_to(v, dev) for v in t]
+    return t.to(dev)

@@ -1,5 +1,6 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package ``repro``, and
+neither JAX nor anything of the JAX package ``repro`` (importing every
+module and serving a tiny model, static and adaptive, loads neither), and
 ``chip_smoke.py`` refuses to run without a CUDA device or outside a
 checkout."""
 import ast
@@ -30,9 +31,17 @@ cfg = dataclasses.replace(reduced(qwen2_72b), n_layers=1, ax=AxPolicy(backend="k
 p = init_params(cfg, seed=0, device="cpu")
 toks = generate(p, {{"tokens": torch.zeros((1, 4), dtype=torch.int64)}}, cfg,
                 ServeConfig(max_new_tokens=2))
+from repro_torch.launch.serve import drift_hook
+from repro_torch.runtime import AdaptiveConfig, AdaptiveController, SwapPolicy
+ctrl = AdaptiveController(SwapPolicy.from_ax_policy(cfg.ax), cfg.ax.targets,
+                          AdaptiveConfig(tile_rows=2), device="cpu")
+adaptive = generate(p, {{"tokens": torch.zeros((2, 4), dtype=torch.int64)}}, cfg,
+                    ServeConfig(max_new_tokens=3), adaptive=ctrl,
+                    param_hook=drift_hook(1, 0.05))
 bad = sorted(m for m in sys.modules
              if m.startswith("jax") or m == "repro" or m.startswith("repro."))
-print(json.dumps({{"modules": len(names), "bad": bad, "shape": list(toks.shape)}}))
+print(json.dumps({{"modules": len(names), "bad": bad, "shape": list(toks.shape),
+                  "adaptive": list(adaptive.shape), "observed": ctrl.step}}))
 """
 
 
@@ -49,7 +58,8 @@ def test_importing_and_running_the_port_loads_no_jax_and_no_repro():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == [], res["bad"]
-    assert res["modules"] >= 15 and res["shape"] == [1, 2]
+    assert res["modules"] >= 22 and res["shape"] == [1, 2]
+    assert res["adaptive"] == [2, 3] and res["observed"] == 2
 
 
 def _imported_roots(path: Path):

@@ -248,3 +248,101 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         KernelSchedule(bm=0)
     with pytest.raises(ValueError):
         KernelSchedule(grid_order="km")
+
+
+# ---------------------------------------------------------------------------
+# ax_matmul_grid: a swap triple per output tile
+# ---------------------------------------------------------------------------
+
+def _mixed_grid(gm, gn, seed, bits=8):
+    """(gm, gn, 3) int32 grid mixing NoSwap, A-side and B-side triples."""
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.integers(0, 2, (gm, gn)), rng.integers(0, bits, (gm, gn)),
+                     rng.integers(0, 3, (gm, gn))], axis=-1).astype(np.int32)
+
+
+@pytest.mark.parametrize("mname,lo,hi,dtype", [
+    ("mul8s_trunc0_4", -128, 128, np.int8), ("mul8s_bam_v2_h1", -128, 128, np.int8),
+    ("mul8s_drum3_4", -128, 128, np.int8), ("mul8s_mitch13_0", -128, 128, np.int8),
+    ("mul8u_trunc0_4", 0, 256, np.uint8)])
+@pytest.mark.parametrize("order", ["mn", "nm"])
+def test_ax_matmul_grid_matches_jax(mname, lo, hi, dtype, order):
+    """The grid kernel's plain version equals the JAX grid kernel (interpret
+    mode) and both references, with tile histograms, on a grid that mixes
+    NoSwap, A-side and B-side triples."""
+    from repro.kernels.ref import ax_matmul_grid_ref as j_grid_ref
+    a = _ops((32, 64), lo, hi, 30, dtype)
+    b = _ops((64, 48), lo, hi, 31, dtype)
+    grid = _mixed_grid(4, 3, 32)
+    jo, jh = K.ax_matmul_grid(jnp.asarray(a), jnp.asarray(b), C.get(mname), jnp.asarray(grid),
+                              schedule=K.KernelSchedule(bm=8, bn=16, bk=32, grid_order=order),
+                              tile_hist=True)
+    to, th = TK.ax_matmul_grid(torch.from_numpy(a), torch.from_numpy(b), TC.get(mname),
+                               torch.from_numpy(grid), schedule=KernelSchedule(8, 16, 32, order),
+                               tile_hist=True)
+    assert to.dtype == th.dtype == torch.int32
+    np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
+    np.testing.assert_array_equal(th.numpy(), np.asarray(jh))
+    np.testing.assert_array_equal(
+        to.numpy(), np.asarray(j_grid_ref(jnp.asarray(a), jnp.asarray(b), C.get(mname),
+                                          jnp.asarray(grid))))
+    ref = TK.ax_matmul_grid_ref(torch.from_numpy(a), torch.from_numpy(b), TC.get(mname),
+                                torch.from_numpy(grid))
+    np.testing.assert_array_equal(ref.numpy(), to.numpy())
+    plain = TK.ax_matmul_grid(torch.from_numpy(a), torch.from_numpy(b), TC.get(mname),
+                              torch.from_numpy(grid), schedule=KernelSchedule(8, 16, 32, order))
+    np.testing.assert_array_equal(plain.numpy(), to.numpy())
+
+
+def test_ax_matmul_grid_uniform_equals_static():
+    a = _ops((16, 32), -128, 128, 33, np.int8)
+    b = _ops((32, 24), -128, 128, 34, np.int8)
+    m = TC.get("mul8s_drum3_4")
+    for cfg in (TC.SwapConfig("A", 3, 0), TC.SwapConfig("B", 5, 1), None):
+        grid = torch.tensor(TC.cfg_to_triple(cfg), dtype=torch.int32).expand(2, 3, 3)
+        got = TK.ax_matmul_grid(torch.from_numpy(a), torch.from_numpy(b), m,
+                                grid.contiguous(), schedule=KernelSchedule(8, 8, 32))
+        want = TK.ax_matmul(torch.from_numpy(a), torch.from_numpy(b), m, cfg,
+                            schedule=KernelSchedule(8, 8, 32))
+        assert torch.equal(got, want)
+
+
+def test_ax_matmul_grid_ragged_edges_match_zero_padded_jax():
+    """Ragged M/N tiles read the last grid row/column; results equal the JAX
+    grid kernel on the zero-padded operands, cropped."""
+    M, K_, N, bm, bn, bk = 37, 64, 45, 16, 32, 32
+    a = _ops((M, K_), -128, 128, 35, np.int8)
+    b = _ops((K_, N), -128, 128, 36, np.int8)
+    grid = _mixed_grid(3, 2, 37)
+    ap = np.zeros((48, K_), np.int8)
+    ap[:M] = a
+    bp = np.zeros((K_, 64), np.int8)
+    bp[:, :N] = b
+    jo, jh = K.ax_matmul_grid(jnp.asarray(ap), jnp.asarray(bp), C.get("mul8s_bam_v4_h0"),
+                              jnp.asarray(grid), tile_hist=True,
+                              schedule=K.KernelSchedule(bm=bm, bn=bn, bk=bk))
+    to, th = TK.ax_matmul_grid(torch.from_numpy(a), torch.from_numpy(b),
+                               TC.get("mul8s_bam_v4_h0"), torch.from_numpy(grid),
+                               schedule=KernelSchedule(bm, bn, bk), tile_hist=True)
+    np.testing.assert_array_equal(to.numpy(), np.asarray(jo)[:M, :N])
+    np.testing.assert_array_equal(th.numpy(), np.asarray(jh))
+
+
+def test_ax_matmul_grid_wrapper_rejects_a_bad_grid():
+    from repro_torch.kernels.ax_matmul import ax_matmul_grid_blocks
+    a = torch.zeros((8, 32), dtype=torch.int8)
+    b = torch.zeros((32, 16), dtype=torch.int8)
+    m = TC.get("mul8s_trunc0_4")
+    grid = torch.from_numpy(_mixed_grid(2, 1, 38))
+    kw = dict(bm=4, bn=16, bk=32)
+    assert ax_matmul_grid_blocks(a, b, m, grid, **kw).shape == (8, 16)
+    with pytest.raises(ValueError, match="shape"):
+        ax_matmul_grid_blocks(a, b, m, grid[:1], **kw)
+    with pytest.raises(ValueError, match="int32"):
+        ax_matmul_grid_blocks(a, b, m, grid.to(torch.int64), **kw)
+    with pytest.raises(ValueError, match="cfg_grid on"):
+        ax_matmul_grid_blocks(a, b, m, torch.zeros((2, 1, 3), dtype=torch.int32,
+                                                   device="meta"), **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        ax_matmul_grid_blocks(a, b, m, torch.zeros((2, 1, 6), dtype=torch.int32)[..., ::2],
+                              **kw)

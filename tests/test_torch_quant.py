@@ -119,3 +119,141 @@ def test_ax_dense_ste_gradients_equal_exact():
         scale = float(np.abs(exact.numpy()).max())
         assert np.abs(got.numpy() - exact.numpy()).max() <= 1e-6 * scale
         assert np.abs(got.numpy() - np.asarray(jax_g)).max() <= 1e-6 * scale
+
+
+# ---------------------------------------------------------------------------
+# the dynamic-config path (adaptive runtime)
+# ---------------------------------------------------------------------------
+
+def _int8(shape, seed):
+    return np.random.default_rng(seed).integers(-127, 128, shape).astype(np.int8)
+
+
+def _grid(gm, gn, seed):
+    """(gm, gn, 3) grid mixing NoSwap and A-side triples with one B-side
+    triple (the family ``SwapPolicy.set_tile_grid`` admits)."""
+    rng = np.random.default_rng(seed)
+    g = np.stack([np.ones((gm, gn)), rng.integers(0, 8, (gm, gn)),
+                  rng.integers(0, 3, (gm, gn))], axis=-1).astype(np.int32)
+    g[0, -1] = (0, 5, 1)
+    return g
+
+
+def _jit_dyn(jp):
+    return jax.jit(lambda x, y, d: JQ.ax_matmul_int_dyn(x, y, jp, d))
+
+
+@pytest.mark.parametrize("backend", ["kernel", "emul"])
+def test_ax_matmul_int_dyn_scalar_triples_identical(backend):
+    """A sample of the 4M+1 triples (NoSwap, both operands, both values)."""
+    from repro.runtime.controller import all_triples
+    a = _int8((2, 3, 64), 20)
+    b = _int8((64, 48), 21)
+    jp = JPolicy(backend=backend, mult_name="mul8s_bam_v2_h1")
+    tp = TPolicy(backend=backend, mult_name="mul8s_bam_v2_h1")
+    fn = _jit_dyn(jp)
+    triples = all_triples(8)
+    for t in triples[::4]:
+        j = fn(jnp.asarray(a), jnp.asarray(b), jnp.asarray(t))
+        got = TQ.ax_matmul_int_dyn(torch.from_numpy(a), torch.from_numpy(b), tp,
+                                   torch.from_numpy(t))
+        assert got.dtype == torch.int32 and tuple(got.shape) == j.shape
+        np.testing.assert_array_equal(got.numpy(), np.asarray(j))
+
+
+@pytest.mark.parametrize("backend", ["kernel", "emul"])
+@pytest.mark.parametrize("gm,gn", [(3, 1), (2, 2), (4, 3)])
+def test_ax_matmul_int_dyn_grids_identical(backend, gm, gn):
+    """Row-tile and row-by-column grids over a row count the tiles do not
+    divide (the last tile absorbs the remainder; the kernel's blocks align
+    to the tile spans)."""
+    a = _int8((10, 64), 22)
+    b = _int8((64, 40), 23)
+    grid = _grid(gm, gn, 24)
+    jp = JPolicy(backend=backend, mult_name="mul8s_drum3_4")
+    tp = TPolicy(backend=backend, mult_name="mul8s_drum3_4")
+    j = _jit_dyn(jp)(jnp.asarray(a), jnp.asarray(b), jnp.asarray(grid))
+    got = TQ.ax_matmul_int_dyn(torch.from_numpy(a), torch.from_numpy(b), tp,
+                               torch.from_numpy(grid))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(j))
+
+
+@pytest.mark.parametrize("gm", [2, 3])
+def test_ax_matmul_int_dyn_hist_identical(gm):
+    """The kernel's tile histogram aggregated to logical row tiles: counts,
+    negatives and element counts equal the JAX package's."""
+    a = _int8((2, 5, 64), 25)
+    b = _int8((64, 48), 26)
+    grid = _grid(gm, 1, 27)
+    jp = JPolicy(backend="kernel", mult_name="mul8s_trunc0_4")
+    tp = TPolicy(backend="kernel", mult_name="mul8s_trunc0_4")
+    jo, (jb, jn, jc) = jax.jit(lambda x, y, d: JQ.ax_matmul_int_dyn_hist(x, y, jp, d))(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(grid))
+    to, (tb, tn, tc) = TQ.ax_matmul_int_dyn_hist(torch.from_numpy(a), torch.from_numpy(b),
+                                                 tp, torch.from_numpy(grid))
+    np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
+    for got, want, dt in ((tb, jb, torch.float32), (tn, jn, torch.float32),
+                          (tc, jc, torch.int32)):
+        assert got.dtype == dt
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    with pytest.raises(ValueError, match="grid"):
+        TQ.ax_matmul_int_dyn_hist(torch.from_numpy(a), torch.from_numpy(b), tp,
+                                  torch.tensor([1, 3, 0]))
+
+
+def test_dyn_mxu_backend_is_not_ported_yet():
+    a = torch.zeros((2, 8), dtype=torch.int8)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        TQ.ax_matmul_int_dyn(a, a.T.contiguous(), TPolicy(backend="mxu"), (1, 3, 0))
+
+
+@pytest.mark.parametrize("backend", ["kernel", "emul"])
+@pytest.mark.parametrize("dyn", [np.asarray([1, 3, 0], np.int32), np.asarray([0, 6, 1], np.int32),
+                                 _grid(2, 1, 28)])
+def test_ax_dense_dyn_bit_identical(backend, dyn):
+    x = _x((2, 6, 96), 29)
+    w = _x((96, 80), 30, scale=0.1)
+    jp = JPolicy(backend=backend, mult_name="mul8s_trunc0_4")
+    tp = TPolicy(backend=backend, mult_name="mul8s_trunc0_4")
+    for jd, td in DTYPES:
+        yj = jax.jit(lambda a, b, d: JQ.ax_dense_dyn(a, b, jp, d))(
+            jnp.asarray(x).astype(jd), jnp.asarray(w).astype(jd), jnp.asarray(dyn))
+        yt = TQ.ax_dense_dyn(torch.from_numpy(x).to(td), torch.from_numpy(w).to(td), tp,
+                             torch.from_numpy(dyn))
+        assert yt.dtype == td
+        np.testing.assert_array_equal(yt.to(torch.float32).numpy(),
+                                      np.asarray(yj.astype(jnp.float32)))
+
+
+def test_ax_dense_dyn_equals_static_for_the_same_config():
+    x = torch.from_numpy(_x((3, 4, 64), 31))
+    w = torch.from_numpy(_x((64, 48), 32, scale=0.1))
+    pol = TPolicy(backend="kernel", swap_operand="B", swap_bit=2, swap_value=1)
+    assert torch.equal(TQ.ax_dense_dyn(x, w, pol, torch.tensor([0, 2, 1])),
+                       TQ.ax_dense(x, w, pol))
+
+
+@pytest.mark.parametrize("kernel_hist", [False, True])
+def test_ax_dense_dyn_ste_gradients_equal_exact(kernel_hist):
+    """Straight-through gradients, with and without the kernel-histogram
+    core (whose statistic takes no gradient), within 1e-6 of the largest
+    magnitude of the exact matmul's (f32 sums in another order)."""
+    from repro_torch.runtime import ax_scope
+    x = _x((3, 5, 64), 33)
+    w = _x((64, 48), 34, scale=0.1)
+    gy = _x((3, 5, 48), 35)
+    tp = TPolicy(backend="kernel")
+    dyn = torch.from_numpy(_grid(2, 1, 36))
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    with ax_scope({"mlp": dyn}, collect=True, tile_rows=2, kernel_hist=kernel_hist) as sc:
+        y = TQ.ax_dense_dyn(xt, wt, tp, dyn, scope=sc, target="mlp")
+    y.backward(torch.from_numpy(gy))
+    rec = sc.collected()["mlp@tiles"]
+    assert int(rec["tile_n"].sum()) == (15 * 64 if kernel_hist else 2 * 512)
+    xe = torch.from_numpy(x).requires_grad_()
+    we = torch.from_numpy(w).requires_grad_()
+    (xe @ we).backward(torch.from_numpy(gy))
+    for got, exact in ((xt.grad, xe.grad), (wt.grad, we.grad)):
+        scale = float(np.abs(exact.numpy()).max())
+        assert np.abs(got.numpy() - exact.numpy()).max() <= 1e-6 * scale
