@@ -18,7 +18,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
             times beside the bound and ``torch._int_mm`` on the K-stacked
             limbs as the library yardstick; both kernels timed in turns at
             equal blocks; one grid launch runs under
-            ``torch.cuda.set_sync_debug_mode("error")``;
+            ``torch.cuda.set_sync_debug_mode("error")``.  ``tuning_sweep``
+            against its plain version on the card: all 90 REGISTRY
+            multipliers at N = 256 (8-bit exhaustive, 12- and 16-bit
+            sampled at 8 bits), a LUT multiplier and a ragged N; integer
+            stats ``torch.equal``, float32 sums within 1e-6 relative; then
+            exhaustive 16-bit sweeps (N = 65536, 2^32 pairs) of Table I's
+            16-bit rows, held to the plain version on 1024 seeded rows,
+            with CUDA-event times beside the bound (operations counted from
+            each family's definition: per pair what depends on both
+            operands, per value what depends on one; integer ops over the
+            int32 lanes, float ops over the float32 lanes) and the plain
+            version's time; every check goes through the ``tuning_sweep``
+            wrapper;
 4. ref    — a reduced qwen2 served on the card agrees with the same model
             served on the CPU through the plain versions, static and
             adaptive (tokens and re-tunes);
@@ -35,7 +47,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
             the same tokens, 8 + 88 launches each.  No nvcc runs after
             phase 2.  With ``--profile`` one static, one no-drift and one
             drift serve run under ``torch.profiler`` and the device time by
-            kernel and the device's busy share are printed.
+            kernel and the device's busy share are printed (and, in phases
+            7 and 8, one 16-bit Table I row and one app run).
+7. tune   — Table I (``benchmarks/component_table.py``'s multipliers) on
+            the card through ``component_sweep`` and the sweep kernel: 8,
+            12 and 16 bits exhaustive (the JAX table samples 16 bits at
+            2^10); one launch per sweep; the 8-bit rows and a 16-bit row at
+            ``sample_bits=10`` equal the same sweeps on the CPU (integer
+            fields and ``best("mae")``); each of the 25 sweeps, launched
+            again, equals the plain version (every row up to N = 4096, 1024
+            seeded rows at N = 65536);
+8. apps   — Tables II/III (``benchmarks/app_table.py``'s default set: 3
+            mul16s multipliers x 7 apps, MD_LO): comp-best from kernel
+            sweeps at ``sample_bits=9`` (3 launches a run, each sweep held
+            to the plain version), ``tune_app`` on the train seed,
+            ``evaluate`` on the test seed; twice, finite and identical; and
+            ``sobel`` at a small n on the card equals it on the CPU.
 
 The second-to-last line is the ``kernels`` JSON summary, the last line
 ``{"ok": true, "device": {...}}``.
@@ -52,6 +79,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 INT32_LANES_PER_SM = 64          # int32 CUDA-core lanes per SM per clock
+FP32_LANES_PER_SM = 128          # float32 CUDA-core lanes per SM per clock
 TABLE_BYTES = 65536 * 2
 
 
@@ -311,6 +339,306 @@ def sync_free_grid_launch(dev):
           "set_sync_debug_mode('error') (no host synchronise)", flush=True)
 
 
+# The float32 sq/rel sums of the sweep: the same rounded float32 terms,
+# summed in float64 and rounded once by the kernel and the plain version,
+# which differ only in the order of the float64 additions.
+SWEEP_RTOL = 1e-6
+# Table I rows (benchmarks/component_table.py:11-19) and the Tables II/III
+# default set (benchmarks/app_table.py:12-16)
+MULTS_8 = ["mul8u_trunc0_4", "mul8u_trunc2_4", "mul8u_perf0_1", "mul8u_bam_v2_h1",
+           "mul8u_mitch13_0", "mul8u_drum3_4", "mul8u_drum2_6", "mul8s_trunc0_4",
+           "mul8s_bam_v2_h1", "mul8s_drum3_4", "mul8u_trunc2_2", "mul8u_drum4_4"]
+MULTS_12 = ["mul12u_trunc0_6", "mul12u_bam_v3_h1", "mul12u_drum4_6", "mul12s_trunc1_7",
+            "mul12s_mitch10_13"]
+MULTS_16 = ["mul16u_trunc0_8", "mul16u_drum2_14", "mul16s_trunc0_8", "mul16s_bam_v4_h1",
+            "mul16s_drum5_8", "mul16s_mitch10_13", "mul16s_trunc4_4"]
+APP_MULTS = ["mul16s_drum5_8", "mul16s_bam_v4_h1", "mul16s_mitch10_13"]
+APP_N = {"ssim": 64, "are": 256, "miss_rate": 256}
+TEST_SEED, TRAIN_SEED = 1234, 42
+
+
+def sweep_compare(got, want, label: str, rows=None):
+    """Fail unless the integer stats are equal and the float32 sums within
+    SWEEP_RTOL; returns (the largest |got - want| of the integer stats, the
+    largest relative difference of the sums)."""
+    from repro_torch.kernels.tuning_sweep import STAT_NAMES, SURF_NAMES
+
+    int_err, rel_err = 0, 0.0
+    for surf in SURF_NAMES:
+        for st in STAT_NAMES:
+            x = got[surf][st] if rows is None else got[surf][st][rows]
+            y = want[surf][st]
+            if x.dtype != y.dtype or x.shape != y.shape:
+                fail(f"tuning_sweep != plain: {label} {surf}.{st} is {x.dtype} "
+                     f"{tuple(x.shape)}, plain {y.dtype} {tuple(y.shape)}")
+            if st in ("sq", "rel"):
+                rel = (x.double() - y.double()).abs() / y.double().abs().clamp(min=1e-30)
+                rel_err = max(rel_err, rel.max().item())
+            else:
+                int_err = max(int_err, (x.long() - y.long()).abs().max().item())
+    if int_err != 0 or not rel_err <= SWEEP_RTOL:
+        fail(f"tuning_sweep != plain: {label}: integer stats max |diff| {int_err}, "
+             f"sums relative diff {rel_err} (tol {SWEEP_RTOL})")
+    return int_err, rel_err
+
+
+def hold_sweeps(dev, specs, label: str):
+    """The sweeps of a phase's main path, launched again through the
+    ``tuning_sweep`` wrapper on the same operand sets and held to the plain
+    version: every row up to N = 4096, 1024 seeded rows above.  Returns
+    (the largest integer |diff|, the largest relative difference of the
+    sums, the number of sweeps)."""
+    import torch
+
+    from repro_torch.core.tuning import operand_values
+    from repro_torch.kernels.tuning_sweep import tuning_sweep, tuning_sweep_plain
+
+    g = torch.Generator().manual_seed(14)
+    int_err, rel_err = 0, 0.0
+    for m, sample_bits in specs:
+        vals = torch.from_numpy(operand_values(m.bits, m.signed, sample_bits)).to(dev)
+        n = vals.numel()
+        rows = None if n <= 4096 else torch.randperm(n, generator=g)[:1024].to(dev)
+        got = tuning_sweep(m, vals)
+        want = tuning_sweep_plain(m, vals, rows=rows)
+        i, r = sweep_compare(got, want, f"{label}: {m.name} N={n}", rows)
+        int_err, rel_err = max(int_err, i), max(rel_err, r)
+    return int_err, rel_err, len(specs)
+
+
+def sweep_small_checks(dev):
+    """``tuning_sweep`` == plain on every REGISTRY multiplier at N = 256, a
+    LUT multiplier and a ragged N; a multiplier without a kernel descriptor
+    raises on the card."""
+    import torch
+
+    from repro_torch.core.multipliers import REGISTRY, get, lut_mult, make_lut
+    from repro_torch.core.swapper import oracle_mult
+    from repro_torch.core.tuning import operand_values
+    from repro_torch.kernels.tuning_sweep import tuning_sweep, tuning_sweep_plain
+
+    base = get("mul8s_drum3_4")
+    cases = [(name, m, operand_values(m.bits, m.signed, None if m.bits == 8 else 8))
+             for name, m in REGISTRY.items()]
+    cases.append(("lut(mul8s_drum3_4)", lut_mult("lut_mul8s_drum3_4", make_lut(base), True),
+                  operand_values(8, True)))
+    cases.append(("mul12u_drum4_6 ragged N=300", get("mul12u_drum4_6"),
+                  operand_values(12, False, 9, 5)[:300].copy()))
+    int_err, worst = 0, 0.0
+    for label, m, vals in cases:
+        v = torch.from_numpy(vals).to(dev)
+        got = tuning_sweep(m, v)
+        want = tuning_sweep_plain(m, v)
+        torch.cuda.synchronize()
+        i, r = sweep_compare(got, want, label)
+        int_err, worst = max(int_err, i), max(worst, r)
+    try:
+        tuning_sweep(oracle_mult(base), v)
+        fail("tuning_sweep took a multiplier without a kernel descriptor on the card")
+    except ValueError:
+        pass
+    print(f"kernel tuning_sweep == plain on {len(cases)} cases ({len(REGISTRY)} REGISTRY "
+          f"multipliers at N=256, a LUT, a ragged N=300): integer stats max |diff| "
+          f"{int_err}, sq/rel max relative diff {worst:.3g} (tol {SWEEP_RTOL}); a "
+          f"multiplier without a descriptor raises", flush=True)
+    return int_err, worst
+
+
+def sweep_full_size(dev, card: str, clock_mhz: float):
+    """Exhaustive 16-bit sweeps of Table I's 16-bit rows: the kernel's time
+    beside its bound and the plain version's time on 1024 seeded rows,
+    which the kernel's rows must equal.  The bound is the larger of the
+    integer operations over the int32 lanes and the float ones over the
+    float32 lanes (:func:`pair_ops`: N^2 pairs, and N values for the work
+    on one operand), and the bytes."""
+    import torch
+
+    from repro_torch.core.multipliers import get
+    from repro_torch.core.tuning import operand_values
+    from repro_torch.kernels.tuning_sweep import pair_ops, tuning_sweep, tuning_sweep_plain
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    int32_rate = sms * INT32_LANES_PER_SM * clock_mhz * 1e6
+    fp32_rate = sms * FP32_LANES_PER_SM * clock_mhz * 1e6
+    g = torch.Generator().manual_seed(13)
+    rows_out = []
+    for name in MULTS_16:
+        m = get(name)
+        vals = torch.from_numpy(operand_values(16, m.signed)).to(dev)
+        n = vals.numel()
+        out = {}
+        ms = cuda_ms(lambda: out.update(s=tuning_sweep(m, vals)), iters=1)
+        rows = torch.randperm(n, generator=g)[:1024].to(dev)
+        plain = {}
+        plain_ms = cuda_ms(lambda: plain.update(s=tuning_sweep_plain(m, vals, rows=rows)),
+                           iters=1)
+        err, rel = sweep_compare(out["s"], plain["s"], f"{name} N={n} (1024 rows)", rows)
+        ints, floats, operand = pair_ops(m)
+        t_int = (n * n * ints + n * operand) / int32_rate * 1e3
+        t_float = n * n * floats / fp32_rate * 1e3
+        t_ops = max(t_int, t_float)
+        t_bytes = (4 * n + 72 * n) / HBM_BYTES_PER_S * 1e3
+        row = dict(mult=name, N=n, ms=ms, plain_ms=plain_ms, plain_rows=1024,
+                   bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes
+                   else "bytes", bound_int_ms=t_int, bound_float_ms=t_float,
+                   pair_int_ops=ints, pair_float_ops=floats, operand_int_ops=operand,
+                   max_abs_err=err, max_rel_err_f32=rel)
+        rows_out.append(row)
+        print(f"tuning_sweep {name} exhaustive N={n} ({n * n} pairs): {ms:.2f} ms; bound "
+              f"{row['bound_ms']:.2f} ms ({row['bound_by']}: {ints} integer ops per pair + "
+              f"{operand} per value over int32 lanes, {t_int:.2f} ms; {floats} float ops per "
+              f"pair over float32 lanes, {t_float:.2f} ms); kernel/bound "
+              f"{ms / row['bound_ms']:.2f}; plain {plain_ms:.2f} ms on 1024 rows (integer "
+              f"stats max |diff| {err}, sums within {rel:.3g}); library: none [{card}]",
+              flush=True)
+    return rows_out
+
+
+def _same_result(card_res, cpu_res, label: str):
+    """Integer fields of NoSwap, oracle and every config, and best("mae")."""
+    pairs = [(card_res.noswap, cpu_res.noswap), (card_res.oracle, cpu_res.oracle)]
+    pairs += [(s, cpu_res.per_config[c]) for c, s in card_res.per_config.items()]
+    for x, y in pairs:
+        if (x.n, x.sum_abs, x.max_abs, x.count_neq) != (y.n, y.sum_abs, y.max_abs, y.count_neq):
+            fail(f"component_sweep card != CPU for {label}")
+    if card_res.best("mae") != cpu_res.best("mae"):
+        fail(f"best('mae') card {card_res.best('mae')} != CPU {cpu_res.best('mae')}: {label}")
+
+
+def tune_table(dev, card: str, profile: bool = False):
+    """Phase 7: Table I through the kernel.  Returns (rows, launches)."""
+    from repro_torch.core.multipliers import get
+    from repro_torch.core.tuning import component_sweep
+    from repro_torch.kernels.tuning_sweep import LAUNCHES, reset_launches
+
+    reset_launches()
+    rows, on_card = [], {}
+    t_all = time.perf_counter()
+    for name in MULTS_8 + MULTS_12 + MULTS_16:
+        m = get(name)
+        t0 = time.perf_counter()
+        res = component_sweep(m, device=dev)
+        dt = time.perf_counter() - t0
+        on_card[name] = res
+        rows.append(dict(mult=name, bits=m.bits, commutative=m.commutative,
+                         original=res.noswap.mae, swapper_reduction=res.reduction("mae"),
+                         theoretical_reduction=res.theoretical_reduction("mae"),
+                         best_cfg=res.best("mae").short(), exhaustive=True, seconds=dt))
+    extra = get("mul16s_drum5_8")
+    sampled = component_sweep(extra, sample_bits=10, device=dev)
+    total = time.perf_counter() - t_all
+    launches = LAUNCHES["tuning_sweep"]
+    if launches != len(rows) + 1:
+        fail(f"tuning_sweep launches in Table I: {launches}, expected {len(rows) + 1}")
+    print(f"Table I (MAE) on the card, every row exhaustive (16 bits: N = 65536, 2^32 pairs; "
+          f"the JAX table samples 2^10): {len(rows) + 1} sweeps, {launches} tuning_sweep "
+          f"launches, {total:.2f} s [{card}]", flush=True)
+    print(f"  {'multiplier':20s} {'orig MAE':>14s} {'SWAPPER':>9s} {'Theor.':>9s}  "
+          f"{'best':10s} {'s':>7s}", flush=True)
+    for r in rows:
+        print(f"  {r['mult']:20s} {r['original']:14.4f} {100 * r['swapper_reduction']:8.2f}% "
+              f"{100 * r['theoretical_reduction']:8.2f}%  {r['best_cfg']:10s} "
+              f"{r['seconds']:7.3f}", flush=True)
+    for name in MULTS_8:
+        _same_result(on_card[name], component_sweep(get(name), device="cpu"), name)
+    _same_result(sampled, component_sweep(extra, sample_bits=10, device="cpu"),
+                 "mul16s_drum5_8 sample_bits=10")
+    print(f"Table I card == CPU (integer fields of NoSwap, oracle and all 4M configs; "
+          f"best MAE config) on the {len(MULTS_8)} 8-bit rows and mul16s_drum5_8 at "
+          f"sample_bits=10", flush=True)
+    err = hold_sweeps(dev, [(get(name), None) for name in MULTS_8 + MULTS_12 + MULTS_16]
+                      + [(extra, 10)], "Table I")
+    print(f"Table I sweeps == plain: {err[2]} sweeps through tuning_sweep (N = 256 and "
+          f"4096 every row, N = 65536 on 1024 seeded rows, N = 1024 every row): integer "
+          f"stats max |diff| {err[0]}, sums max relative diff {err[1]:.3g}", flush=True)
+    if profile:
+        profile_serve(lambda: component_sweep(extra, device=dev),
+                      "Table I row (mul16s_drum5_8, exhaustive)", card)
+    return rows, launches, err
+
+
+def app_rows(dev):
+    """One run of the Tables II/III default set on ``dev``."""
+    from repro_torch import apps as A
+    from repro_torch.core.multipliers import get
+    from repro_torch.core.tuning import component_sweep
+
+    comp_best = {m: component_sweep(get(m), sample_bits=9, device=dev).best("mae")
+                 for m in APP_MULTS}
+    rows = []
+    for app_name in sorted(A.ALL_APPS):
+        app = A.ALL_APPS[app_name]
+        n = APP_N[app.metric_name]
+        v_fp, _ = A.evaluate(app, "fp", n=n, seed=TEST_SEED, device=dev)
+        v_fxp, _ = A.evaluate(app, "fxp", n=n, seed=TEST_SEED, device=dev)
+        for mname in APP_MULTS:
+            mult = get(mname)
+            ev = lambda mode: A.evaluate(app, mode, mult=mult, n=n, seed=TEST_SEED,  # noqa: E731
+                                         device=dev)[0]
+            cfg_app, _, _ = A.tune_app(app, mult, n=n, seed=TRAIN_SEED, device=dev)
+            rows.append(dict(app=app_name, metric=app.metric_name, mult=mname, original=v_fp,
+                             fxp=v_fxp, noswap=ev(None), swapper_comp=ev(comp_best[mname]),
+                             swapper_app=ev(cfg_app), theoretical=ev("oracle"),
+                             comp_cfg=comp_best[mname].short(),
+                             app_cfg=cfg_app.short() if cfg_app else "NoSwap"))
+    return rows
+
+
+def app_table(dev, card: str, profile: bool = False):
+    """Phase 8: Tables II/III on the card, twice, and sobel card vs CPU."""
+    import math
+
+    import torch
+
+    from repro_torch import apps as A
+    from repro_torch.core.multipliers import get
+    from repro_torch.kernels.tuning_sweep import LAUNCHES, reset_launches
+
+    runs, secs = [], []
+    for _ in range(2):
+        reset_launches()
+        t0 = time.perf_counter()
+        runs.append(app_rows(dev))
+        secs.append(time.perf_counter() - t0)
+        if LAUNCHES["tuning_sweep"] != len(APP_MULTS):
+            fail(f"tuning_sweep launches in one app table run: {LAUNCHES['tuning_sweep']}, "
+                 f"expected {len(APP_MULTS)}")
+    keys = ("original", "fxp", "noswap", "swapper_comp", "swapper_app", "theoretical")
+    for r in runs[0]:
+        if not all(math.isfinite(r[k]) for k in keys):
+            fail(f"app row not finite: {r}")
+    if runs[0] != runs[1]:
+        fail("the app table differs between two runs on the card")
+    print(f"Tables II/III (MD_LO, n {APP_N}) on the card: {len(runs[0])} rows, finite and "
+          f"identical over two runs; {len(APP_MULTS)} tuning_sweep launches each; "
+          f"{secs[0]:.1f} s / {secs[1]:.1f} s [{card}]", flush=True)
+    err = hold_sweeps(dev, [(get(m), 9) for m in APP_MULTS], "apps comp-best")
+    print(f"apps comp-best sweeps == plain: {err[2]} sweeps at N = 512, every row: integer "
+          f"stats max |diff| {err[0]}, sums max relative diff {err[1]:.3g}", flush=True)
+    print(f"  {'app':12s} {'mult':18s} {'orig':>8s} {'FxP':>8s} {'NoSwap':>8s} {'Comp.':>8s} "
+          f"{'App.':>8s} {'Theor.':>8s}  comp-cfg / app-cfg", flush=True)
+    for r in runs[0]:
+        print(f"  {r['app']:12s} {r['mult']:18s} {r['original']:8.4f} {r['fxp']:8.4f} "
+              f"{r['noswap']:8.4f} {r['swapper_comp']:8.4f} {r['swapper_app']:8.4f} "
+              f"{r['theoretical']:8.4f}  {r['comp_cfg']} / {r['app_cfg']} ({r['metric']})",
+              flush=True)
+    # sobel on the card and on the CPU: the same Q16.16 outputs; the SSIM
+    # means are float32 reductions in another order
+    app, mult = A.ALL_APPS["sobel"], get(APP_MULTS[0])
+    vg, og = A.evaluate(app, None, mult=mult, n=48, seed=TEST_SEED, device=dev)
+    vc, oc = A.evaluate(app, None, mult=mult, n=48, seed=TEST_SEED, device="cpu")
+    if not torch.equal(og.cpu(), oc) or not abs(vg - vc) <= 1e-6 * abs(vc):
+        fail(f"sobel card vs CPU: outputs equal {torch.equal(og.cpu(), oc)}, SSIM {vg} vs {vc}")
+    print(f"sobel (n=48, {APP_MULTS[0]}, NoSwap) card == CPU: outputs torch.equal, SSIM "
+          f"{vg:.9f} vs {vc:.9f} (tol 1e-6 relative)", flush=True)
+    if profile:
+        app = A.ALL_APPS["blackscholes"]
+        profile_serve(lambda: A.evaluate(app, None, mult=mult, n=APP_N[app.metric_name],
+                                         seed=TEST_SEED, device=dev),
+                      f"app run (blackscholes, {mult.name}, NoSwap)", card)
+    return runs[0], secs, err
+
+
 # ---------------------------------------------------------------------------
 # phase 4: reduced model, card against CPU
 # ---------------------------------------------------------------------------
@@ -506,8 +834,8 @@ def adaptive_serve(cfg, params, prompts, static_tokens, static_stats, card: str,
 
 
 def profile_serve(run, label: str, card: str):
-    """One more serve under torch.profiler: device time by kernel and the
-    device's busy share of the wall (``--profile``)."""
+    """One more serve (or tuning run) under torch.profiler: device time by
+    kernel and the device's busy share of the wall (``--profile``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -582,20 +910,42 @@ def main(argv):
 
     nvcc_runs = _build.NVCC_RUNS["count"]
 
+    phase_t = time.perf_counter()
+
+    def phase_done(name):
+        nonlocal phase_t
+        now = time.perf_counter()
+        print(f"[phase {name}: {now - phase_t:.1f} s]", flush=True)
+        phase_t = now
+
     small_checks(dev)
     rows = main_shape_checks(dev, card, clock, grid_kernel=False)
     grid_rows = main_shape_checks(dev, card, clock, grid_kernel=True)
     equal_blocks_timing(dev, card)
     sync_free_grid_launch(dev)
+    sweep_errs = [sweep_small_checks(dev)]
+    sweep_rows = sweep_full_size(dev, card, clock)
+    phase_done("kernel")
     reference_check(dev)
+    phase_done("ref")
     profile = "--profile" in argv
     cfg, params, prompts, tokens, launches, stats = serve(dev, card, profile)
     grid_launches = adaptive_serve(cfg, params, prompts, tokens, stats, card, profile)
+    del params
+    torch.cuda.empty_cache()
+    phase_done("serve and adapt")
+    tune_rows, sweep_launches, err = tune_table(dev, card, profile)
+    sweep_errs.append(err[:2])
+    phase_done("tune")
+    _, _, err = app_table(dev, card, profile)
+    sweep_errs.append(err[:2])
+    phase_done("apps")
+    sweep_errs += [(r["max_abs_err"], r["max_rel_err_f32"]) for r in sweep_rows]
     if _build.NVCC_RUNS["count"] != nvcc_runs or len(_build._LOADED) != len(built):
         fail(f"kernels were rebuilt after the build phase: nvcc runs "
              f"{_build.NVCC_RUNS['count'] - nvcc_runs}, libraries {len(_build._LOADED)}")
     print(f"no nvcc run and no new library after the build phase "
-          f"({len(_build._LOADED)} library loaded)", flush=True)
+          f"({len(_build._LOADED)} libraries loaded)", flush=True)
 
     def entry(name, replaces, launches, rows):
         top = rows[0]
@@ -608,10 +958,22 @@ def main(argv):
                 "shape": f"{top['shape']} M={top['M']} K={top['K']} N={top['N']}",
                 "shapes": rows, "card": card}
 
+    top = sweep_rows[0]
+    sweep = {"name": "tuning_sweep", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/tuning_sweep.cu",
+             "replaces": "src/repro/kernels/tuning_sweep.py:90", "launches": sweep_launches,
+             "max_abs_err": max(e[0] for e in sweep_errs),
+             "max_rel_err_f32": max(e[1] for e in sweep_errs),
+             "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+             "bound_by": top["bound_by"], "library_ms": None,
+             "library_note": "no single PyTorch call computes these row statistics",
+             "shape": f"{top['mult']} exhaustive N={top['N']}; plain on 1024 rows",
+             "shapes": sweep_rows, "table_i": tune_rows, "card": card}
     summary = {"kernels": [
         entry("ax_matmul", "src/repro/kernels/ax_matmul.py:168", launches, rows),
         entry("ax_matmul_grid", "src/repro/kernels/ax_matmul.py:253", grid_launches,
-              grid_rows)]}
+              grid_rows),
+        sweep]}
     print(card, flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -31,27 +31,23 @@ def _as_shift(s, like: torch.Tensor) -> torch.Tensor:
 
 
 def shl(x: torch.Tensor, s) -> torch.Tensor:
-    """uint32 ``x << s`` (0 where ``s >= 32``)."""
+    """uint32 ``x << s`` (0 where ``s >= 32``) of a lane ``x`` in
+    [0, 2^32): a shift clamped to 32 leaves no low bit set."""
     if isinstance(s, int):
         return (x << s) & M32 if s < 32 else torch.zeros_like(x)
-    s = _as_shift(s, x)
-    out = (x << s.clamp(0, 31)) & M32
-    return torch.where(s >= 32, torch.zeros_like(out), out)
+    return (x << _as_shift(s, x).clamp(0, 32)) & M32
 
 
 def shr(x: torch.Tensor, s) -> torch.Tensor:
-    """uint32 logical ``x >> s`` (0 where ``s >= 32``)."""
+    """uint32 logical ``x >> s`` (0 where ``s >= 32``) of a lane ``x`` in
+    [0, 2^32)."""
     if isinstance(s, int):
         return x >> s if s < 32 else torch.zeros_like(x)
-    s = _as_shift(s, x)
-    out = x >> s.clamp(0, 31)
-    return torch.where(s >= 32, torch.zeros_like(out), out)
+    return x >> _as_shift(s, x).clamp(0, 32)
 
 
 def msb(x: torch.Tensor) -> torch.Tensor:
     """``31 - clz(x)`` for uint32 lanes ``x >= 1``: the index of the leading
-    one (exact; ``jax.lax.clz`` has no torch op)."""
-    k = torch.zeros_like(x)
-    for j in range(1, 32):
-        k += (x >= (1 << j)).to(torch.int64)
-    return k
+    one, as int64 (``jax.lax.clz`` has no torch op).  Exact: a value below
+    2^32 is exact in float64, whose binary exponent ``frexp`` returns."""
+    return torch.frexp(x.to(torch.float64))[1].to(torch.int64) - 1

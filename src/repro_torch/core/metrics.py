@@ -1,8 +1,8 @@
-"""Error metrics of the paper (``repro.core.metrics``): the exact absolute
-error of an approximate product, and :class:`ErrorStats`, the exact
-streaming accumulator the adaptive runtime's telemetry folds its limb sums
-into.  The array metrics (``mae``, ``wce`` ...) come with component
-tuning."""
+"""Error metrics of the paper, Eqs. 1-5 (``repro.core.metrics``): the exact
+absolute error of an approximate product, the array metrics ``mae``,
+``wce``, ``are``, ``mse`` and ``ep`` (float64, as the JAX package's numpy
+forms), and :class:`ErrorStats`, the exact streaming accumulator that the
+component tuner and the adaptive runtime's telemetry fold limb sums into."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,7 +11,7 @@ import torch
 
 from .lanes import M32, s32, u32
 
-__all__ = ["abs_err", "ErrorStats"]
+__all__ = ["abs_err", "mae", "wce", "are", "mse", "ep", "METRICS", "ErrorStats"]
 
 
 def abs_err(approx: torch.Tensor, precise: torch.Tensor, signed: bool) -> torch.Tensor:
@@ -20,6 +20,38 @@ def abs_err(approx: torch.Tensor, precise: torch.Tensor, signed: bool) -> torch.
     pu = u32(precise)
     big = (s32(approx) >= s32(precise)) if signed else (au >= pu)
     return torch.where(big, (au - pu) & M32, (pu - au) & M32)
+
+
+def _err_f64(approx, precise, signed):
+    return abs_err(approx, precise, signed).to(torch.float64)
+
+
+def mae(approx, precise, signed: bool) -> float:
+    return float(_err_f64(approx, precise, signed).mean())
+
+
+def wce(approx, precise, signed: bool) -> float:
+    return float(_err_f64(approx, precise, signed).max())
+
+
+def are(approx, precise, signed: bool) -> float:
+    """Average relative error; a zero reference counts with denominator 1
+    (the AxBench qos convention)."""
+    e = _err_f64(approx, precise, signed)
+    p = torch.as_tensor(precise).to(torch.float64).abs()
+    return float((e / p.clamp(min=1.0)).mean())
+
+
+def mse(approx, precise, signed: bool) -> float:
+    e = _err_f64(approx, precise, signed)
+    return float((e * e).mean())
+
+
+def ep(approx, precise, signed: bool) -> float:
+    return float((_err_f64(approx, precise, signed) != 0).to(torch.float64).mean())
+
+
+METRICS = {"mae": mae, "wce": wce, "are": are, "mse": mse, "ep": ep}
 
 
 @dataclasses.dataclass

@@ -10,12 +10,23 @@ value counts).  ``fn(a, b)`` returns an int64 tensor holding the product's
 lane value — the int32 value for signed members, ``[0, 2^32)`` for unsigned
 ones (see :mod:`repro_torch.core.lanes`).  Signed members use the same
 sign-magnitude envelope around the unsigned core.
+
+Every closed-form member and every LUT multiplier also carries a *kernel
+descriptor* ``desc = (family, bits, signed, params)``: a hashable statement
+of the circuit that a CUDA kernel evaluates in device code (the sweep
+kernel, ``kernels/csrc/tuning_sweep.cu``), where Pallas traced ``fn``.  The
+families and their params: ``exact`` ``()``; ``trunc`` ``(ka, kb)``;
+``perforate`` ``(rowmask,)``; ``broken_array`` ``(v, h)``; ``mitchell``
+``(ta, tb)``; ``drum`` ``(ka, kb)``; ``lut`` ``(table_bytes,)``, the
+65536 int32 lanes in little-endian order.  A multiplier built from another
+one's ``fn`` (``oracle_mult``, ``swapped_mult``) has ``desc=None``.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from .lanes import M32, msb, s32, shl, shr, u32
@@ -33,19 +44,22 @@ __all__ = [
     "lut_mult",
     "REGISTRY",
     "get",
+    "is_commutative",
 ]
 
 
 @dataclasses.dataclass(frozen=True)
 class AxMult:
     """An M-bit approximate multiplier; ``fn(a, b)`` maps M-bit operands to
-    the (approximate) 2M-bit product lane (see the module docstring)."""
+    the (approximate) 2M-bit product lane; ``desc`` is its kernel
+    descriptor or None (see the module docstring)."""
 
     name: str
     bits: int
     signed: bool
     fn: Callable = dataclasses.field(hash=False, compare=False)
     commutative: Optional[bool] = None
+    desc: Optional[tuple] = dataclasses.field(default=None, compare=False)
 
     def __call__(self, a, b):
         return self.fn(a, b)
@@ -66,11 +80,8 @@ def _signed_envelope(core_u):
 
     def fn(a, b):
         a32, b32 = s32(a), s32(b)
-        na, nb = a32 < 0, b32 < 0
-        ma = u32(torch.where(na, -a32, a32))
-        mb = u32(torch.where(nb, -b32, b32))
-        p = s32(core_u(ma, mb))
-        return s32(torch.where(na ^ nb, -p, p))
+        p = s32(core_u(a32.abs(), b32.abs()))     # |INT_MIN| = 2^31 in int64
+        return s32(torch.where((a32 < 0) ^ (b32 < 0), -p, p))
 
     return fn
 
@@ -96,7 +107,8 @@ def exact(bits: int, signed: bool = False) -> AxMult:
         fn = lambda a, b: s32(s32(a) * s32(b))
     else:
         fn = lambda a, b: (u32(a) * u32(b)) & M32
-    return AxMult(f"{_tag(bits, signed)}_exact", bits, signed, fn, True)
+    return AxMult(f"{_tag(bits, signed)}_exact", bits, signed, fn, True,
+                  ("exact", bits, signed, ()))
 
 
 def trunc(bits: int, ka: int, kb: int, signed: bool = False) -> AxMult:
@@ -108,7 +120,7 @@ def trunc(bits: int, ka: int, kb: int, signed: bool = False) -> AxMult:
         return ((au & mka) * (bu & mkb)) & M32
 
     return AxMult(f"{_tag(bits, signed)}_trunc{ka}_{kb}", bits, signed,
-                  _wrap(core, signed), ka == kb)
+                  _wrap(core, signed), ka == kb, ("trunc", bits, signed, (ka, kb)))
 
 
 def perforate(bits: int, rows: tuple, signed: bool = False) -> AxMult:
@@ -122,23 +134,27 @@ def perforate(bits: int, rows: tuple, signed: bool = False) -> AxMult:
         return (au * (bu & inv)) & M32
 
     nm = f"{_tag(bits, signed)}_perf" + "_".join(str(r) for r in rows)
-    return AxMult(nm, bits, signed, _wrap(core, signed), len(rows) == 0)
+    return AxMult(nm, bits, signed, _wrap(core, signed), len(rows) == 0,
+                  ("perforate", bits, signed, (rowmask,)))
 
 
 def broken_array(bits: int, v: int, h: int = 0, signed: bool = False) -> AxMult:
     """Broken-array multiplier: ``p = sum_{i >= h} b_i * ((A << i) & ~(2^v - 1))``."""
     cmask = ~_mask(v) & M32
 
+    rows = {}
+
     def core(au, bu):
-        acc = torch.zeros_like(au)
-        for i in range(h, bits):
-            bi = (bu >> i) & 1
-            pp = shl(au, i) & cmask
-            acc = (acc + bi * pp) & M32
-        return acc
+        # every row at once: sum_i b_i ((A << i) & cmask), mod 2^32
+        i = rows.get(au.device)
+        if i is None:
+            i = rows[au.device] = torch.arange(h, bits, device=au.device)
+        bi = (bu[..., None] >> i) & 1
+        pp = (au[..., None] << i) & cmask
+        return (bi * pp).sum(dim=-1) & M32
 
     return AxMult(f"{_tag(bits, signed)}_bam_v{v}_h{h}", bits, signed,
-                  _wrap(core, signed), h == 0)
+                  _wrap(core, signed), h == 0, ("broken_array", bits, signed, (v, h)))
 
 
 def mitchell(bits: int, ta: int = 0, tb: int = 0, signed: bool = False) -> AxMult:
@@ -166,7 +182,7 @@ def mitchell(bits: int, ta: int = 0, tb: int = 0, signed: bool = False) -> AxMul
         return torch.where(zero, torch.zeros_like(p), p)
 
     return AxMult(f"{_tag(bits, signed)}_mitch{ta}_{tb}", bits, signed,
-                  _wrap(core, signed), ta == tb)
+                  _wrap(core, signed), ta == tb, ("mitchell", bits, signed, (ta, tb)))
 
 
 def drum(bits: int, ka: int, kb: int, signed: bool = False) -> AxMult:
@@ -186,7 +202,7 @@ def drum(bits: int, ka: int, kb: int, signed: bool = False) -> AxMult:
         return torch.where(zero, torch.zeros_like(p), p)
 
     return AxMult(f"{_tag(bits, signed)}_drum{ka}_{kb}", bits, signed,
-                  _wrap(core, signed), ka == kb)
+                  _wrap(core, signed), ka == kb, ("drum", bits, signed, (ka, kb)))
 
 
 # ---------------------------------------------------------------------------
@@ -222,7 +238,8 @@ def lut_mult(name: str, table, signed: bool) -> AxMult:
         idx = ((s32(a) & 0xFF) << 8) | (s32(b) & 0xFF)
         return t[idx]
 
-    return AxMult(name, 8, signed, fn, None)
+    lanes = s32(tbl).to(torch.int32).numpy().astype("<i4").tobytes()
+    return AxMult(name, 8, signed, fn, None, ("lut", 8, signed, (lanes,)))
 
 
 # ---------------------------------------------------------------------------
@@ -262,3 +279,14 @@ REGISTRY = _build_registry()
 
 def get(name: str) -> AxMult:
     return REGISTRY[name]
+
+
+def is_commutative(mult: AxMult, probe: int = 4096, seed: int = 0, device="cuda") -> bool:
+    """Empirically check commutativity on ``probe`` random operand pairs
+    (``repro.core.multipliers.is_commutative``: the same seeded pairs)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = ((-(1 << (mult.bits - 1)), 1 << (mult.bits - 1)) if mult.signed
+              else (0, 1 << mult.bits))
+    a = torch.from_numpy(rng.integers(lo, hi, probe, dtype=np.int64).astype(np.int32)).to(device)
+    b = torch.from_numpy(rng.integers(lo, hi, probe, dtype=np.int64).astype(np.int32)).to(device)
+    return bool(torch.equal(mult.fn(a, b), mult.fn(b, a)))

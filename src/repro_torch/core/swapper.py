@@ -24,6 +24,7 @@ __all__ = [
     "apply_swapper_dyn",
     "NO_SWAP_TRIPLE",
     "cfg_to_triple",
+    "swapped_mult",
     "oracle_mult",
     "all_configs",
 ]
@@ -87,6 +88,15 @@ def cfg_to_triple(cfg: Optional[SwapConfig]):
     if cfg is None:
         return NO_SWAP_TRIPLE
     return (1 if cfg.operand == "A" else 0, cfg.bit, cfg.value)
+
+
+def swapped_mult(mult: AxMult, cfg: Optional[SwapConfig]) -> AxMult:
+    """A new AxMult whose circuit is ``mult`` behind the SWAPPER front-end
+    (no kernel descriptor: the sweep kernel raises on it)."""
+    if cfg is None:
+        return mult
+    return AxMult(f"{mult.name}+swap({cfg.short()})", mult.bits, mult.signed,
+                  lambda a, b: apply_swapper(mult, a, b, cfg), mult.commutative)
 
 
 def oracle_mult(mult: AxMult) -> AxMult:

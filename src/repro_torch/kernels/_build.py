@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` source exposes a plain C interface and compiles on its
 own into a shared library under ``build/repro_torch/`` at the repository
-root (or ``$REPRO_TORCH_BUILD_DIR``), named by a hash of the source and the
-flags, at first use.  No PyTorch headers are included, so a build takes
+root (or ``$REPRO_TORCH_BUILD_DIR``), named by a hash of the source, the
+local headers it includes (``#include "x.cuh"``, followed recursively) and
+the flags, at first use, so a changed header builds a new library.  No PyTorch headers are included, so a build takes
 seconds.  :func:`build_all` starts one ``nvcc`` per source, all at once.
 Nothing here runs at import time.
 """
@@ -13,17 +14,18 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, NamedTuple
+from typing import Dict, List, NamedTuple
 
 __all__ = ["SOURCES", "Built", "build_all", "load", "build_dir", "NVCC_RUNS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"ax_matmul": CSRC / "ax_matmul.cu"}
+SOURCES = {"ax_matmul": CSRC / "ax_matmul.cu", "tuning_sweep": CSRC / "tuning_sweep.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -55,10 +57,32 @@ def _nvcc() -> str:
                        "built with the CUDA toolkit on the machine with the card")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _with_headers(src: Path) -> List[Path]:
+    """``src`` and every local header it includes, recursively, in first
+    inclusion order."""
+    seen: List[Path] = []
+    todo = [src.resolve()]
+    while todo:
+        f = todo.pop(0)
+        if f in seen:
+            continue
+        seen.append(f)
+        for inc in _LOCAL_INCLUDE.findall(f.read_bytes()):
+            h = (f.parent / inc.decode()).resolve()
+            if h.exists():
+                todo.append(h)
+    return seen
+
+
 def _target(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return build_dir() / f"lib{name}-{digest}.so"
+    h = hashlib.sha256()
+    for f in _with_headers(SOURCES[name]):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=None) -> Dict[str, Built]:

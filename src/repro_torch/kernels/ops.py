@@ -1,4 +1,5 @@
-"""Public kernel API (``repro.kernels.ops``): schedule-resolving wrappers.
+"""Public kernel API (``repro.kernels.ops``): schedule-resolving matmul
+wrappers and the kernel-driven component sweep.
 
 The block caps come from a :class:`KernelSchedule` (defaults 128/128/128),
 clamped to the operand dims exactly as the JAX package clamps them, so the
@@ -12,11 +13,15 @@ import torch
 
 from repro_torch.core.multipliers import AxMult
 from repro_torch.core.swapper import SwapConfig
+from repro_torch.core.tuning import (ComponentResult, accs_from_row_stats, operand_values,
+                                     result_from_accs)
 
 from .ax_matmul import ax_matmul_blocks, ax_matmul_grid_blocks
 from .schedule import KernelSchedule
+from .tuning_sweep import tuning_sweep
 
-__all__ = ["ax_matmul", "ax_matmul_dequant", "ax_matmul_grid", "KernelSchedule"]
+__all__ = ["ax_matmul", "ax_matmul_dequant", "ax_matmul_grid", "component_sweep_kernel",
+           "KernelSchedule"]
 
 
 def _blocks(a, b, schedule: Optional[KernelSchedule]):
@@ -54,3 +59,15 @@ def ax_matmul_grid(a, b, mult: AxMult, cfg_grid, *,
     synchronise.  ``tile_hist=True`` returns ``(out, hist)``."""
     return ax_matmul_grid_blocks(a, b, mult, cfg_grid, tile_hist=tile_hist,
                                  **_blocks(a, b, schedule))
+
+
+def component_sweep_kernel(mult: AxMult, sample_bits: Optional[int] = None, seed: int = 0,
+                           device="cuda") -> ComponentResult:
+    """Component-level tuning driven by the sweep kernel, the counterpart of
+    ``repro.kernels.ops.component_sweep_pallas``: one ``tuning_sweep`` over
+    the operand set on ``device`` (the plain version on the CPU), then
+    NoSwap, all 4M configurations and the oracle scored on the host."""
+    vals = operand_values(mult.bits, mult.signed, sample_bits, seed)
+    stats = tuning_sweep(mult, torch.from_numpy(vals).to(device))
+    r0, r1, orc = accs_from_row_stats(vals, stats)
+    return result_from_accs(mult, vals, r0, r1, orc)

@@ -12,9 +12,11 @@ import torch
 from repro_torch.core.lanes import s32
 from repro_torch.core.multipliers import AxMult
 from repro_torch.core.swapper import SwapConfig, apply_swapper, apply_swapper_dyn
+from repro_torch.core.tuning import SURF_NAMES, tile_stats
 
 __all__ = ["ax_matmul_ref", "ax_matmul_grid_ref", "ax_matmul_grid_blocks_ref",
-           "ax_matmul_tiles_ref", "tile_hist_ref", "tile_hist_blocks"]
+           "ax_matmul_tiles_ref", "tile_hist_ref", "tile_hist_blocks",
+           "tuning_sweep_ref"]
 
 # products materialised per K chunk: bounds the (M, chunk, N) int64 temps
 _CHUNK_ELEMS = 1 << 25
@@ -109,3 +111,16 @@ def tile_hist_ref(a, b, bits: int, gm: int, gn: int) -> torch.Tensor:
     if M % gm or N % gn:
         raise ValueError(f"a {gm}x{gn} tile grid does not divide {M}x{N}")
     return tile_hist_blocks(a, b, bits, M // gm, N // gn)
+
+
+def tuning_sweep_ref(mult: AxMult, vals: torch.Tensor, rows=None) -> dict:
+    """The sweep kernel's function (``tile_stats_jnp`` / ``_row_stats_tuple``
+    over the full grid): per-a row statistics of E0, E1 and min(E0, E1)
+    over ``vals x vals``, as ``{surf: {stat: (R,) tensor}}`` for the rows
+    ``vals[rows]`` (all rows by default).  Rows are taken in chunks so
+    that a 16-bit grid (2^32 pairs) runs in bounded memory."""
+    a = vals if rows is None else vals[rows]
+    chunk = max(1, _CHUNK_ELEMS // (4 * max(1, vals.numel())))
+    parts = [tile_stats(mult, a[i:i + chunk], vals) for i in range(0, a.numel(), chunk)]
+    return {surf: {k: torch.cat([p[surf][k] for p in parts]) for k in parts[0][surf]}
+            for surf in SURF_NAMES}

@@ -236,3 +236,75 @@ def _to(t, dev):
     if isinstance(t, list):
         return [_to(v, dev) for v in t]
     return t.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# tuning_sweep
+# ---------------------------------------------------------------------------
+
+TS = sys.modules["repro_torch.kernels.tuning_sweep"]
+
+
+def _sweep_equal(got, want):
+    for surf in TS.SURF_NAMES:
+        for st in TS.STAT_NAMES:
+            if st in ("sq", "rel"):
+                torch.testing.assert_close(got[surf][st], want[surf][st], rtol=1e-6, atol=0)
+            else:
+                assert torch.equal(got[surf][st], want[surf][st]), (surf, st)
+
+
+@pytest.mark.parametrize("name,sample_bits,n", [
+    ("mul8u_trunc0_4", None, None), ("mul8s_bam_v2_h1", None, None), ("mul8u_perf0_1", None, None),
+    ("mul8s_mitch13_0", None, None), ("mul8u_drum2_6", None, None), ("mul8s_exact", None, None),
+    ("mul12s_mitch10_13", 9, 300), ("mul16s_drum5_8", 10, None), ("mul16u_bam_v4_h1", 9, 333)])
+def test_sweep_kernel_equals_plain(cuda, name, sample_bits, n):
+    m = TC.get(name)
+    vals = torch.from_numpy(TC.operand_values(m.bits, m.signed, sample_bits, 2)[:n].copy()).to(cuda)
+    got = TS.tuning_sweep(m, vals)
+    want = TS.tuning_sweep_plain(m, vals)
+    torch.cuda.synchronize()
+    _sweep_equal(got, want)
+
+
+def test_sweep_kernel_lut_equals_plain(cuda):
+    base = TC.get("mul8u_mitch13_0")
+    m = TC.lut_mult("lut", TC.make_lut(base), False)
+    vals = torch.from_numpy(TC.operand_values(8, False)).to(cuda)
+    _sweep_equal(TS.tuning_sweep(m, vals), TS.tuning_sweep_plain(base, vals))
+
+
+def test_sweep_cuda_call_launches_the_kernel_and_never_the_plain_version(cuda, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("plain version taken for a CUDA tensor")
+
+    monkeypatch.setattr(TS, "tuning_sweep_plain", refuse)
+    monkeypatch.setattr(TS, "tuning_sweep_ref", refuse)
+    before = TS.LAUNCHES["tuning_sweep"]
+    res = TC.component_sweep(TC.get("mul8u_trunc0_4"), device=cuda)
+    assert TS.LAUNCHES["tuning_sweep"] == before + 1
+    assert res.reduction("mae") > 0.05
+    with pytest.raises(ValueError, match="no kernel descriptor"):
+        TS.tuning_sweep(TC.oracle_mult(TC.get("mul8u_trunc0_4")),
+                        torch.arange(256, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("name,sample_bits", [("mul8s_drum3_4", None), ("mul16s_bam_v4_h1", 9)])
+def test_component_sweep_on_the_card_equals_the_cpu(cuda, name, sample_bits):
+    m = TC.get(name)
+    g = TC.component_sweep(m, sample_bits=sample_bits, device=cuda)
+    c = TC.component_sweep(m, sample_bits=sample_bits, device="cpu")
+    for x, y in [(g.noswap, c.noswap), (g.oracle, c.oracle)] + \
+            [(g.per_config[k], c.per_config[k]) for k in c.per_config]:
+        assert (x.n, x.sum_abs, x.max_abs, x.count_neq) == (y.n, y.sum_abs, y.max_abs, y.count_neq)
+    assert g.best("mae") == c.best("mae")
+
+
+def test_sobel_on_the_card_equals_the_cpu(cuda):
+    import repro_torch.apps as TA
+
+    app, m = TA.ALL_APPS["sobel"], TC.get("mul16s_drum5_8")
+    vg, og = TA.evaluate(app, TC.SwapConfig("A", 2, 1), mult=m, n=40, device=cuda)
+    vc, oc = TA.evaluate(app, TC.SwapConfig("A", 2, 1), mult=m, n=40, device="cpu")
+    assert torch.equal(og.cpu(), oc)
+    assert vg == pytest.approx(vc, rel=1e-6)

@@ -346,3 +346,43 @@ def test_ax_matmul_grid_wrapper_rejects_a_bad_grid():
     with pytest.raises(ValueError, match="contiguous"):
         ax_matmul_grid_blocks(a, b, m, torch.zeros((2, 1, 6), dtype=torch.int32)[..., ::2],
                               **kw)
+
+
+# ---------------------------------------------------------------------------
+# tuning_sweep (the CUDA kernel's wrapper; on the CPU its plain version)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name,sample_bits", [("mul8u_trunc0_4", None), ("mul8s_mitch10_13", None),
+                                              ("mul12s_drum6_6", 8), ("mul16u_bam_v8_h0", 7)])
+def test_tuning_sweep_wrapper_matches_jax_ref(name, sample_bits):
+    """``tuning_sweep`` on a CPU tensor == ``repro.kernels.ref.tuning_sweep_ref``
+    over the full grid: integer stats exact, float32 sums within 1e-6
+    relative (float64 summation of the same float32 terms)."""
+    import repro.kernels.ref as JR
+    from repro_torch.kernels.tuning_sweep import STAT_NAMES, SURF_NAMES, tuning_sweep
+
+    jm, tm = C.get(name), TC.get(name)
+    vals = C.operand_values(jm.bits, jm.signed, sample_bits, 3)
+    js = JR.tuning_sweep_ref(jm, jnp.asarray(vals), jnp.asarray(vals))
+    ts = tuning_sweep(tm, torch.from_numpy(vals))
+    for surf in SURF_NAMES:
+        for stat in STAT_NAMES:
+            want, got = np.asarray(js[surf][stat]), ts[surf][stat].numpy()
+            if stat in ("sq", "rel"):
+                np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+            else:
+                np.testing.assert_array_equal(got, want.astype(np.int64))
+
+
+def test_tuning_sweep_kernel_module_is_not_shadowed():
+    """``kernels/__init__`` re-exports ``ax_matmul`` (a function shadowing the
+    module) but not the ``tuning_sweep`` function."""
+    import sys
+    import types
+
+    assert isinstance(TK.tuning_sweep, types.ModuleType)
+    assert TK.tuning_sweep is sys.modules["repro_torch.kernels.tuning_sweep"]
+    assert callable(TK.tuning_sweep.tuning_sweep)
+    assert TK.tuning_sweep.LAUNCHES is not TK.LAUNCHES
+    assert set(TK.LAUNCHES) == {"ax_matmul", "ax_matmul_grid"}
+    assert "tuning_sweep" in TK._build.SOURCES
