@@ -11,13 +11,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
             checkout with ``nvcc`` (time and ``-Xptxas -v`` report);
 3. kernel — each kernel (``ax_matmul``, ``ax_matmul_grid``) against its
             plain PyTorch version on the card, bit for bit, at small shapes
-            (every REGISTRY multiplier whose product table fits; three swap
-            configs, or a seeded grid mixing NoSwap, A-side and B-side
-            triples; ``tile_hist`` on and off; ragged M/N; padded K; both
-            grid orders) and at the main path's shapes, with CUDA-event
-            times beside the bound and ``torch._int_mm`` on the K-stacked
-            limbs as the library yardstick; both kernels timed in turns at
-            equal blocks; one grid launch runs under
+            (every REGISTRY multiplier whose product table fits, on the
+            route it takes, and each route-T multiplier again through
+            route C; three swap configs, or a seeded grid mixing NoSwap,
+            A-side and B-side triples; ``tile_hist`` on and off; ragged
+            M/N; padded K; a split K; a full 128-row block; both
+            grid orders) and at the main path's shapes (route T,
+            ``mul8s_trunc0_4``; and route C, ``mul8s_drum3_4``, at the
+            decode shapes), with CUDA-event times beside the bound (route
+            T: bytes or the int8 tensor-core rate over the 2K-deep
+            product; route C: bytes or the gathers over the int32 lanes)
+            and ``torch._int_mm`` on the K-stacked limbs as the library
+            yardstick of route T; the tile-mode grid kernel against the
+            static one at decode; both kernels timed in turns at equal
+            blocks; one grid launch runs under
             ``torch.cuda.set_sync_debug_mode("error")``.  ``tuning_sweep``
             against its plain version on the card: all 90 REGISTRY
             multipliers at N = 256 (8-bit exhaustive, 12- and 16-bit
@@ -70,6 +77,7 @@ The second-to-last line is the ``kernels`` JSON summary, the last line
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -78,6 +86,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
+INT8_TENSOR_OPS_PER_S = 1979e12  # H100 SXM data sheet, dense int8
 INT32_LANES_PER_SM = 64          # int32 CUDA-core lanes per SM per clock
 FP32_LANES_PER_SM = 128          # float32 CUDA-core lanes per SM per clock
 TABLE_BYTES = 65536 * 2
@@ -123,16 +132,19 @@ def small_checks(dev):
     from repro_torch.core.swapper import SwapConfig
     from repro_torch.kernels.ax_matmul import (ax_matmul_cuda, ax_matmul_grid_cuda,
                                                ax_matmul_grid_plain, ax_matmul_plain,
-                                               product_table)
+                                               product_table, route_of)
     from repro_torch.quant.ax import _pad_to_multiple
 
     g = torch.Generator().manual_seed(7)
     # (M, K logical, N, (bm, bn, bk), grid order): ragged M/N edges, K
-    # zero-padded to a multiple of bk, both grid orders, decode-sized M
+    # zero-padded to a multiple of bk, both grid orders, decode-sized M, a
+    # split K, a full 128-row block
     cases = [(37, 50, 45, (16, 32, 32), "mn"),
              (64, 128, 96, (32, 64, 64), "nm"),
-             (4, 256, 200, (4, 128, 128), "mn")]
-    n_ok, n_grid, skipped = 0, 0, []
+             (4, 256, 200, (4, 128, 128), "mn"),
+             (4, 2048, 256, (2, 128, 128), "nm"),
+             (128, 256, 160, (64, 32, 128), "mn")]
+    n_ok, n_grid, skipped, routes = 0, 0, [], {"T": 0, "C": 0}
     for name, mult in REGISTRY.items():
         dtype = torch.int8 if mult.signed else torch.uint8
         try:
@@ -141,42 +153,47 @@ def small_checks(dev):
             skipped.append(name)
             continue
         lo, hi = (-128, 128) if mult.signed else (0, 256)
+        # a route-T multiplier is also held to plain through route C
+        forced = [None] if route_of(mult, dtype) == "C" else [None, "C"]
+        routes[route_of(mult, dtype)] += 1
         for M, K, N, (bm, bn, bk), order in cases:
             a = torch.randint(lo, hi, (M, K), generator=g).to(dtype)
             b = torch.randint(lo, hi, (K, N), generator=g).to(dtype)
             a = _pad_to_multiple(a, bk, 1).contiguous().to(dev)
             b = _pad_to_multiple(b, bk, 0).contiguous().to(dev)
-            for swap in (None, SwapConfig("A", 3, 1), SwapConfig("B", 6, 0)):
-                for hist in (False, True):
-                    got = ax_matmul_cuda(a, b, mult, swap, bm=bm, bn=bn, bk=bk,
-                                         grid_order=order, tile_hist=hist)
-                    want = ax_matmul_plain(a, b, mult, swap, bm=bm, bn=bn,
-                                           tile_hist=hist)
-                    torch.cuda.synchronize()
-                    pairs = zip(got, want) if hist else [(got, want)]
-                    for x, y in pairs:
-                        if not torch.equal(x, y):
-                            fail(f"ax_matmul != plain: {name} {(M, K, N)} "
-                                 f"blocks {(bm, bn, bk)} {order} swap {swap} "
-                                 f"hist {hist}: max |diff| "
-                                 f"{(x.long() - y.long()).abs().max().item()}")
-                    n_ok += 1
+            for swap, hist, route in itertools.product(
+                    (None, SwapConfig("A", 3, 1), SwapConfig("B", 6, 0)), (False, True), forced):
+                got = ax_matmul_cuda(a, b, mult, swap, bm=bm, bn=bn, bk=bk,
+                                     grid_order=order, tile_hist=hist, _route=route)
+                want = ax_matmul_plain(a, b, mult, swap, bm=bm, bn=bn,
+                                       tile_hist=hist)
+                torch.cuda.synchronize()
+                pairs = zip(got, want) if hist else [(got, want)]
+                for x, y in pairs:
+                    if not torch.equal(x, y):
+                        fail(f"ax_matmul != plain: {name} {(M, K, N)} "
+                             f"blocks {(bm, bn, bk)} {order} swap {swap} "
+                             f"hist {hist} route {route or 'chosen'}: max |diff| "
+                             f"{(x.long() - y.long()).abs().max().item()}")
+                n_ok += 1
             grid = mixed_grid(-(-M // bm), -(-b.shape[1] // bn), g, mult.bits).to(dev)
-            for hist in (False, True):
+            for hist, route in itertools.product((False, True), forced):
                 got = ax_matmul_grid_cuda(a, b, mult, grid, bm=bm, bn=bn, bk=bk,
-                                          grid_order=order, tile_hist=hist)
+                                          grid_order=order, tile_hist=hist, _route=route)
                 want = ax_matmul_grid_plain(a, b, mult, grid, bm=bm, bn=bn, tile_hist=hist)
                 torch.cuda.synchronize()
                 for x, y in (zip(got, want) if hist else [(got, want)]):
                     if not torch.equal(x, y):
                         fail(f"ax_matmul_grid != plain: {name} {(M, K, N)} blocks "
-                             f"{(bm, bn, bk)} {order} hist {hist}: max |diff| "
+                             f"{(bm, bn, bk)} {order} hist {hist} route "
+                             f"{route or 'chosen'}: max |diff| "
                              f"{(x.long() - y.long()).abs().max().item()}")
                 n_grid += 1
     fits = len(REGISTRY) - len(skipped)
     print(f"kernel ax_matmul == plain (torch.equal) on {n_ok} small cases, "
-          f"ax_matmul_grid == plain on {n_grid} ({fits} multipliers; table does not "
-          f"fit, skipped: {', '.join(skipped) or 'none'})", flush=True)
+          f"ax_matmul_grid == plain on {n_grid} ({fits} multipliers: route T "
+          f"{routes['T']}, also forced through route C; route C {routes['C']}; table "
+          f"does not fit, skipped: {', '.join(skipped) or 'none'})", flush=True)
 
 
 def mixed_grid(gm: int, gn: int, gen, bits: int = 8):
@@ -194,31 +211,38 @@ MAIN_SHAPES = [("decode mlp in/gate", 4, 8192, 29568), ("decode mlp out", 4, 295
                ("prefill mlp out", 128, 29568, 8192), ("prefill attn_out", 128, 8192, 8192)]
 
 
-def main_shape_checks(dev, card: str, clock_mhz: float, grid_kernel: bool):
+def main_shape_checks(dev, card: str, clock_mhz: float, grid_kernel: bool,
+                      mult_name: str = "mul8s_trunc0_4", shapes=MAIN_SHAPES):
     """One kernel at the main path's shapes: held against its plain version,
-    timed beside its bound, its plain version and ``torch._int_mm`` on the
-    K-stacked limbs (the library yardstick; the port never calls it).
+    timed beside its bound, its plain version and, for a separable
+    multiplier, ``torch._int_mm`` on the K-stacked limbs (the library
+    yardstick; the port never calls it).
 
     ``ax_matmul``: default 128/128/128 blocks, swap A[3]==0.  ``ax_matmul_grid``:
     the blocks of tile mode with 2 row tiles (bm = M/2: 2 at decode, 64 at
-    prefill) and a 2-row-tile A-side grid (A[3]==0, A[5]==1)."""
+    prefill) and a 2-row-tile A-side grid (A[3]==0, A[5]==1).  The bound of
+    route T is the larger of the bytes over the memory rate and the
+    2 * M * 2K * N operations of the stacked product over the int8
+    tensor-core rate; of route C the bytes (the product table included)
+    and the M * K * N gathers over the int32 lanes."""
     import torch
 
-    from repro_torch.core.multipliers import get
+    from repro_torch.core.multipliers import get, separable_transforms
     from repro_torch.core.swapper import SwapConfig
     from repro_torch.kernels import ops
+    from repro_torch.kernels.ax_matmul import route_of
     from repro_torch.kernels.ref import ax_matmul_grid_blocks_ref, ax_matmul_ref
     from repro_torch.kernels.schedule import KernelSchedule
-    from repro_torch.quant.ax import separable_transforms
 
-    mult = get("mul8s_trunc0_4")
-    f, gfn = separable_transforms(mult.name)
+    mult = get(mult_name)
+    route = route_of(mult, torch.int8)
+    fg = separable_transforms(mult.name) if route == "T" else None
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     int32_rate = sms * INT32_LANES_PER_SM * clock_mhz * 1e6
     gen = torch.Generator(device=dev).manual_seed(11)
     name = "ax_matmul_grid" if grid_kernel else "ax_matmul"
     rows = []
-    for label, M, K, N in MAIN_SHAPES:
+    for label, M, K, N in shapes:
         a = torch.randint(-127, 128, (M, K), generator=gen, device=dev, dtype=torch.int8)
         b = torch.randint(-127, 128, (K, N), generator=gen, device=dev, dtype=torch.int8)
         cols = N if M <= 4 else 256             # bound the plain version's time
@@ -228,15 +252,15 @@ def main_shape_checks(dev, card: str, clock_mhz: float, grid_kernel: bool):
             triples = torch.tensor([[1, 3, 0], [1, 5, 1]], dtype=torch.int32, device=dev)
             grid = triples[:, None, :].expand(2, -(-N // bn), 3).contiguous()
             sched = KernelSchedule(bm, bn, 128)
-            run = lambda: ops.ax_matmul_grid(a, b, mult, grid, schedule=sched)
+            run = lambda: ops.ax_matmul_grid(a, b, mult, grid, schedule=sched)  # noqa: E731
             gs = grid[:, :-(-cols // bn)].contiguous()
-            plain = lambda: ax_matmul_grid_blocks_ref(a, bs, mult, gs, bm, bn)
+            plain = lambda: ax_matmul_grid_blocks_ref(a, bs, mult, gs, bm, bn)  # noqa: E731
             row_trip = triples.repeat_interleave(bm, dim=0)            # (M, 3)
             grid_bytes = grid.numel() * 4
         else:
             swap = SwapConfig("A", 3, 0)
-            run = lambda: ops.ax_matmul(a, b, mult, swap)
-            plain = lambda: ax_matmul_ref(a, bs, mult, swap)
+            run = lambda: ops.ax_matmul(a, b, mult, swap)  # noqa: E731
+            plain = lambda: ax_matmul_ref(a, bs, mult, swap)  # noqa: E731
             row_trip = torch.tensor([[1, 3, 0]], dtype=torch.int32, device=dev).expand(M, 3)
             grid_bytes = 0
         out = run()
@@ -244,37 +268,46 @@ def main_shape_checks(dev, card: str, clock_mhz: float, grid_kernel: bool):
         torch.cuda.synchronize()
         err = (out[:, :cols].long() - want.long()).abs().max().item()
         if err != 0:
-            fail(f"{name} != plain at {label} {(M, K, N)}: max |diff| {err}")
-        ms = cuda_ms(run, iters=5 if M > 4 else 20)
+            fail(f"{name} != plain at {label} {(M, K, N)} ({mult_name}, route {route}): "
+                 f"max |diff| {err}")
+        ms = cuda_ms(run, iters=5 if M > 4 and route == "C" else 20)
         plain_ms = cuda_ms(plain, iters=1, warmup=0)
 
-        # library yardstick: the same function for this separable family and
-        # an A-side decision per row, as one int8 GEMM over the K-stacked
-        # limbs (M padded to 32 rows)
-        ai, bi = a.to(torch.int32), b.to(torch.int32)
-        s_ = (((ai >> row_trip[:, 1:2]) & 1) == row_trip[:, 2:3]).to(torch.int32)
-        x = torch.cat([s_ * gfn(ai), (1 - s_) * f(ai)], dim=1).to(torch.int8)
-        y = torch.cat([f(bi), gfn(bi)], dim=0).to(torch.int8).contiguous()
-        mp = max(32, -(-M // 8) * 8)
-        xp = torch.zeros((mp, 2 * K), dtype=torch.int8, device=dev)
-        xp[:M] = x
-        lib_equal = bool(torch.equal(torch._int_mm(xp, y)[:M], out))
-        library_ms = cuda_ms(lambda: torch._int_mm(xp, y), iters=20)
-        del ai, bi, s_, x, y, xp
+        library_ms, lib_equal = None, None
+        if fg is not None:
+            # library yardstick: the same function for this separable family
+            # and an A-side decision per row, as one int8 GEMM over the
+            # K-stacked limbs (M padded to 32 rows)
+            f, gfn = fg
+            ai, bi = a.to(torch.int32), b.to(torch.int32)
+            s_ = (((ai >> row_trip[:, 1:2]) & 1) == row_trip[:, 2:3]).to(torch.int32)
+            x = torch.cat([s_ * gfn(ai), (1 - s_) * f(ai)], dim=1).to(torch.int8)
+            y = torch.cat([f(bi), gfn(bi)], dim=0).to(torch.int8).contiguous()
+            mp = max(32, -(-M // 8) * 8)
+            xp = torch.zeros((mp, 2 * K), dtype=torch.int8, device=dev)
+            xp[:M] = x
+            lib_equal = bool(torch.equal(torch._int_mm(xp, y)[:M], out))
+            library_ms = cuda_ms(lambda: torch._int_mm(xp, y), iters=20)
+            del ai, bi, s_, x, y, xp
 
-        nbytes = M * K + K * N + 4 * M * N + TABLE_BYTES + grid_bytes
+        if route == "T":
+            nbytes = M * K + K * N + 4 * M * N + 256 * 4 + grid_bytes
+            t_ops = 2 * M * 2 * K * N / INT8_TENSOR_OPS_PER_S * 1e3
+        else:
+            nbytes = M * K + K * N + 4 * M * N + TABLE_BYTES + grid_bytes
+            t_ops = M * K * N / int32_rate * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = M * K * N / int32_rate * 1e3
-        row = dict(shape=label, M=M, K=K, N=N, ms=ms, plain_ms=plain_ms,
-                   plain_cols=cols, bound_ms=max(t_bytes, t_ops),
+        row = dict(shape=label, M=M, K=K, N=N, mult=mult_name, route=route, ms=ms,
+                   plain_ms=plain_ms, plain_cols=cols, bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    library_ms=library_ms, library_equal=lib_equal, max_abs_err=err)
         rows.append(row)
-        print(f"{name} {label} (M={M}, K={K}, N={N}): {ms:.4f} ms; bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']}); plain "
-              f"{plain_ms:.2f} ms on {cols} cols; torch._int_mm limbs "
-              f"{library_ms:.4f} ms (equal: {lib_equal}); max |diff| {err}; "
-              f"[{card}]", flush=True)
+        lib = "none (inseparable)" if library_ms is None else \
+            f"{library_ms:.4f} ms (equal: {lib_equal})"
+        print(f"{name} route {route} {mult_name} {label} (M={M}, K={K}, N={N}): {ms:.4f} ms; "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); kernel/bound "
+              f"{ms / row['bound_ms']:.2f}; plain {plain_ms:.2f} ms on {cols} cols; "
+              f"torch._int_mm limbs {lib}; max |diff| {err}; [{card}]", flush=True)
         del a, b, bs, out, want
     torch.cuda.empty_cache()
     return rows
@@ -905,8 +938,6 @@ def main(argv):
           f"into {_build.build_dir()}", flush=True)
     for name, b in built.items():
         print(f"--- {name}: nvcc {b.seconds:.1f} s, -Xptxas -v:\n{b.report.strip()}", flush=True)
-    print(f"ax_matmul dynamic shared memory per block: {TABLE_BYTES} (product table) "
-          f"+ bm*bk + bk*bn bytes = {TABLE_BYTES + 2 * 128 * 128} at 128/128/128", flush=True)
 
     nvcc_runs = _build.NVCC_RUNS["count"]
 
@@ -921,6 +952,13 @@ def main(argv):
     small_checks(dev)
     rows = main_shape_checks(dev, card, clock, grid_kernel=False)
     grid_rows = main_shape_checks(dev, card, clock, grid_kernel=True)
+    for r, gr in zip(rows[:3], grid_rows[:3]):
+        print(f"decode {r['shape']}: ax_matmul_grid (tile mode, bm = M/2) / ax_matmul = "
+              f"{gr['ms'] / r['ms']:.3f} [{card}]", flush=True)
+    c_rows = main_shape_checks(dev, card, clock, grid_kernel=False,
+                               mult_name="mul8s_drum3_4", shapes=MAIN_SHAPES[:3])
+    c_grid_rows = main_shape_checks(dev, card, clock, grid_kernel=True,
+                                    mult_name="mul8s_drum3_4", shapes=MAIN_SHAPES[:3])
     equal_blocks_timing(dev, card)
     sync_free_grid_launch(dev)
     sweep_errs = [sweep_small_checks(dev)]
@@ -947,16 +985,16 @@ def main(argv):
     print(f"no nvcc run and no new library after the build phase "
           f"({len(_build._LOADED)} libraries loaded)", flush=True)
 
-    def entry(name, replaces, launches, rows):
+    def entry(name, replaces, launches, rows, c_rows):
         top = rows[0]
-        return {"name": name, "route": "cuda",
+        return {"name": name, "route": "cuda", "kernel_route": top["route"],
                 "source": "src/repro_torch/kernels/csrc/ax_matmul.cu",
                 "replaces": replaces, "launches": launches,
-                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "max_abs_err": max(r["max_abs_err"] for r in rows + c_rows),
                 "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
                 "bound_by": top["bound_by"], "library_ms": top["library_ms"],
                 "shape": f"{top['shape']} M={top['M']} K={top['K']} N={top['N']}",
-                "shapes": rows, "card": card}
+                "shapes": rows, "route_c_shapes": c_rows, "card": card}
 
     top = sweep_rows[0]
     sweep = {"name": "tuning_sweep", "route": "cuda",
@@ -970,9 +1008,9 @@ def main(argv):
              "shape": f"{top['mult']} exhaustive N={top['N']}; plain on 1024 rows",
              "shapes": sweep_rows, "table_i": tune_rows, "card": card}
     summary = {"kernels": [
-        entry("ax_matmul", "src/repro/kernels/ax_matmul.py:168", launches, rows),
+        entry("ax_matmul", "src/repro/kernels/ax_matmul.py:168", launches, rows, c_rows),
         entry("ax_matmul_grid", "src/repro/kernels/ax_matmul.py:253", grid_launches,
-              grid_rows),
+              grid_rows, c_grid_rows),
         sweep]}
     print(card, flush=True)
     print(json.dumps(summary), flush=True)

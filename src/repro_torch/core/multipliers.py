@@ -24,7 +24,8 @@ one's ``fn`` (``oracle_mult``, ``swapped_mult``) has ``desc=None``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+import re
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +46,7 @@ __all__ = [
     "REGISTRY",
     "get",
     "is_commutative",
+    "separable_transforms",
 ]
 
 
@@ -290,3 +292,33 @@ def is_commutative(mult: AxMult, probe: int = 4096, seed: int = 0, device="cuda"
     a = torch.from_numpy(rng.integers(lo, hi, probe, dtype=np.int64).astype(np.int32)).to(device)
     b = torch.from_numpy(rng.integers(lo, hi, probe, dtype=np.int64).astype(np.int32)).to(device)
     return bool(torch.equal(mult.fn(a, b), mult.fn(b, a)))
+
+
+# ---------------------------------------------------------------------------
+# separable closed forms
+# ---------------------------------------------------------------------------
+
+def _sign_mag_mask(mask: int):
+    def f(x):  # sign-magnitude low-bit masking (matches trunc)
+        neg = x < 0
+        mag = torch.where(neg, -x, x) & mask
+        return torch.where(neg, -mag, mag)
+
+    return f
+
+
+def separable_transforms(mult_name: str) -> Optional[Tuple[Callable, Callable]]:
+    """(f, g) with m(a, b) = f(a) * g(b) on int32-valued tensors, or None if
+    the family is inseparable (``repro.quant.ax.separable_transforms``)."""
+    base = mult_name.split("_", 1)[1] if "_" in mult_name else mult_name
+    m = re.fullmatch(r"trunc(\d+)_(\d+)", base)
+    if m:
+        ka, kb = int(m.group(1)), int(m.group(2))
+        return _sign_mag_mask(~((1 << ka) - 1)), _sign_mag_mask(~((1 << kb) - 1))
+    m = re.fullmatch(r"perf(\d+(?:_\d+)*)", base)
+    if m:
+        rowmask = 0
+        for r in m.group(1).split("_"):
+            rowmask |= 1 << int(r)
+        return (lambda x: x), _sign_mag_mask(~rowmask)
+    return None

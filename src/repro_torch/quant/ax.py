@@ -19,7 +19,7 @@ rebuild and no host synchronise.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import AxPolicy
 from repro_torch.core import multipliers as M
+from repro_torch.core.multipliers import separable_transforms
 from repro_torch.core.tiling import (largest_divisor_leq, rowtile_count,
                                      rowtile_index, rowtile_span)
 from repro_torch.kernels.ops import ax_matmul, ax_matmul_grid
@@ -35,34 +36,6 @@ from repro_torch.kernels.schedule import KernelSchedule
 
 __all__ = ["ax_dense", "ax_dense_dyn", "quantize_rows", "separable_transforms",
            "ax_matmul_int", "ax_matmul_int_dyn", "ax_matmul_int_dyn_hist"]
-
-
-# ---------------------------------------------------------------------------
-# separable closed forms
-# ---------------------------------------------------------------------------
-
-def _sign_mag_mask(mask: int):
-    def f(x):  # sign-magnitude low-bit masking (matches multipliers.trunc)
-        neg = x < 0
-        mag = torch.where(neg, -x, x) & mask
-        return torch.where(neg, -mag, mag)
-
-    return f
-
-
-def separable_transforms(mult_name: str) -> Optional[Tuple[Callable, Callable]]:
-    """(f, g) with m(a, b) = f(a) * g(b) on int32-valued tensors, or None if
-    the family is inseparable."""
-    base = mult_name.split("_", 1)[1] if "_" in mult_name else mult_name
-    if base.startswith("trunc"):
-        ka, kb = (int(v) for v in base[len("trunc"):].split("_"))
-        return _sign_mag_mask(~((1 << ka) - 1)), _sign_mag_mask(~((1 << kb) - 1))
-    if base.startswith("perf"):
-        rowmask = 0
-        for r in base[len("perf"):].split("_"):
-            rowmask |= 1 << int(r)
-        return (lambda x: x), _sign_mag_mask(~rowmask)
-    return None
 
 
 # ---------------------------------------------------------------------------

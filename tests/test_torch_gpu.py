@@ -203,6 +203,69 @@ def test_grid_launch_does_not_synchronise(cuda):
     assert tuple(hist.shape) == (2, 3, 2, 9)
 
 
+# (M, K, N, bm, bn, bk): decode rows, a split K with the tile mode's bm,
+# a ragged N that is no multiple of 16 (byte staging), a full route-T block
+ROUTE_CASES = [(1, 256, 200, 1, 128, 128), (4, 4096, 384, 2, 128, 128),
+               (17, 192, 45, 16, 32, 64), (128, 512, 256, 64, 128, 128)]
+ROUTE_MULTS = [("mul8s_trunc0_4", "T"), ("mul8u_perf0_1", "T"), ("mul8s_drum3_4", "C"),
+               ("mul8u_mitch13_0", "C")]
+
+
+@pytest.mark.parametrize("order", ["mn", "nm"])
+@pytest.mark.parametrize("name,route", ROUTE_MULTS)
+@pytest.mark.parametrize("case", ROUTE_CASES, ids=lambda c: "x".join(map(str, c[:3])))
+def test_both_routes_equal_plain(cuda, case, name, route, order):
+    """Each route against the plain version: static NoSwap, A-side and
+    B-side triples, and a mixed grid, with and without ``tile_hist``."""
+    M, K, N, bm, bn, bk = case
+    m = TC.get(name)
+    assert AXM.route_of(m, torch.int8 if m.signed else torch.uint8) == route
+    a = _ops((M, K), m.signed, 31, cuda)
+    b = _ops((K, N), m.signed, 32, cuda)
+    kw = dict(bm=bm, bn=bn, bk=bk, grid_order=order)
+    for i, swap in enumerate([None, TC.SwapConfig("A", 3, 0), TC.SwapConfig("B", 6, 1)]):
+        out = AXM.ax_matmul_blocks(a, b, m, swap, tile_hist=i == 0, **kw)
+        torch.cuda.synchronize()
+        if i == 0:
+            out, hist = out
+            assert torch.equal(hist, tile_hist_blocks(a, b, m.bits, bm, bn))
+        assert torch.equal(out, ax_matmul_ref(a, b, m, swap)), swap
+    grid = _mixed_grid(-(-M // bm), -(-N // bn), 33).to(cuda)
+    for hist in (False, True):
+        got = AXM.ax_matmul_grid_blocks(a, b, m, grid, tile_hist=hist, **kw)
+        torch.cuda.synchronize()
+        if hist:
+            got, h = got
+            assert torch.equal(h, tile_hist_blocks(a, b, m.bits, bm, bn))
+        assert torch.equal(got, ax_matmul_grid_blocks_ref(a, b, m, grid, bm, bn))
+
+
+@pytest.mark.parametrize("name", ["mul8s_trunc0_4", "mul8s_trunc1_5", "mul8u_trunc2_4"])
+@pytest.mark.parametrize("case", ROUTE_CASES, ids=lambda c: "x".join(map(str, c[:3])))
+def test_route_t_equals_route_c(cuda, case, name):
+    """On a separable multiplier the tensor-core route and the table route
+    (forced through the wrappers' private ``_route``) give the same bits."""
+    M, K, N, bm, bn, bk = case
+    m = TC.get(name)
+    a = _ops((M, K), m.signed, 34, cuda)
+    b = _ops((K, N), m.signed, 35, cuda)
+    grid = _mixed_grid(-(-M // bm), -(-N // bn), 36).to(cuda)
+    kw = dict(bm=bm, bn=bn, bk=bk)
+    t = AXM.ax_matmul_blocks(a, b, m, TC.SwapConfig("A", 5, 1), _route="T", **kw)
+    c = AXM.ax_matmul_blocks(a, b, m, TC.SwapConfig("A", 5, 1), _route="C", **kw)
+    tg = AXM.ax_matmul_grid_blocks(a, b, m, grid, _route="T", **kw)
+    cg = AXM.ax_matmul_grid_blocks(a, b, m, grid, _route="C", **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(t, c) and torch.equal(tg, cg)
+
+
+def test_forced_route_t_raises_on_an_inseparable_multiplier(cuda):
+    a = _ops((4, 64), True, 37, cuda)
+    b = _ops((64, 32), True, 38, cuda)
+    with pytest.raises(ValueError, match="route T takes separable"):
+        AXM.ax_matmul_blocks(a, b, TC.get("mul8s_drum3_4"), bm=4, bn=32, bk=64, _route="T")
+
+
 def test_adaptive_generate_on_the_card_equals_the_cpu(cuda):
     """Reduced qwen2 in f32 with synthetic drift, scalar and tile mode: the
     same greedy tokens and the same re-tunes on the card as on the CPU."""
