@@ -22,7 +22,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
             T: bytes or the int8 tensor-core rate over the 2K-deep
             product; route C: bytes or the gathers over the int32 lanes)
             and ``torch._int_mm`` on the K-stacked limbs as the library
-            yardstick of route T; the tile-mode grid kernel against the
+            yardstick of route T (its result must equal the kernel's: a
+            second exactness witness; its speed is reported, not gated);
+            the tile-mode grid kernel against the
             static one at decode; both kernels timed in turns at equal
             blocks; one grid launch runs under
             ``torch.cuda.set_sync_debug_mode("error")``.  ``tuning_sweep``
@@ -31,11 +33,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
             sampled at 8 bits), a LUT multiplier and a ragged N; integer
             stats ``torch.equal``, float32 sums within 1e-6 relative; then
             exhaustive 16-bit sweeps (N = 65536, 2^32 pairs) of Table I's
-            16-bit rows, held to the plain version on 1024 seeded rows,
-            with CUDA-event times beside the bound (operations counted from
-            each family's definition: per pair what depends on both
-            operands, per value what depends on one; integer ops over the
-            int32 lanes, float ops over the float32 lanes) and the plain
+            16-bit rows and one 12-bit row (N = 4096), held to the plain
+            version on 1024 seeded rows (every row at N = 4096), launched
+            twice with identical results, with the compiled instantiation
+            each takes and CUDA-event times beside the bound (operations
+            counted from each family's definition in its least form: per
+            pair what depends on both operands, per value what depends on
+            one; integer ops over the int32 lanes, float ops over the
+            float32 lanes), the earlier design's time and the plain
             version's time; every check goes through the ``tuning_sweep``
             wrapper;
 4. ref    — a reduced qwen2 served on the card agrees with the same model
@@ -63,7 +68,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
             ``sample_bits=10`` equal the same sweeps on the CPU (integer
             fields and ``best("mae")``); each of the 25 sweeps, launched
             again, equals the plain version (every row up to N = 4096, 1024
-            seeded rows at N = 65536);
+            seeded rows at N = 65536), and Table I's seconds are split into
+            the sweeps' kernel time and the rest;
 8. apps   — Tables II/III (``benchmarks/app_table.py``'s default set: 3
             mul16s multipliers x 7 apps, MD_LO): comp-best from kernel
             sweeps at ``sample_bits=9`` (3 launches a run, each sweep held
@@ -287,6 +293,9 @@ def main_shape_checks(dev, card: str, clock_mhz: float, grid_kernel: bool,
             xp = torch.zeros((mp, 2 * K), dtype=torch.int8, device=dev)
             xp[:M] = x
             lib_equal = bool(torch.equal(torch._int_mm(xp, y)[:M], out))
+            if not lib_equal:
+                fail(f"{name} != torch._int_mm on the K-stacked limbs at {label} "
+                     f"{(M, K, N)} ({mult_name})")
             library_ms = cuda_ms(lambda: torch._int_mm(xp, y), iters=20)
             del ai, bi, s_, x, y, xp
 
@@ -420,32 +429,35 @@ def hold_sweeps(dev, specs, label: str):
     ``tuning_sweep`` wrapper on the same operand sets and held to the plain
     version: every row up to N = 4096, 1024 seeded rows above.  Returns
     (the largest integer |diff|, the largest relative difference of the
-    sums, the number of sweeps)."""
+    sums, the number of sweeps, the sweeps' summed time in ms by CUDA events
+    around each wrapper call)."""
     import torch
 
     from repro_torch.core.tuning import operand_values
     from repro_torch.kernels.tuning_sweep import tuning_sweep, tuning_sweep_plain
 
     g = torch.Generator().manual_seed(14)
-    int_err, rel_err = 0, 0.0
+    int_err, rel_err, kernel_ms = 0, 0.0, 0.0
     for m, sample_bits in specs:
         vals = torch.from_numpy(operand_values(m.bits, m.signed, sample_bits)).to(dev)
         n = vals.numel()
         rows = None if n <= 4096 else torch.randperm(n, generator=g)[:1024].to(dev)
-        got = tuning_sweep(m, vals)
+        out = {}
+        kernel_ms += cuda_ms(lambda: out.update(s=tuning_sweep(m, vals)), iters=1, warmup=0)
         want = tuning_sweep_plain(m, vals, rows=rows)
-        i, r = sweep_compare(got, want, f"{label}: {m.name} N={n}", rows)
+        i, r = sweep_compare(out["s"], want, f"{label}: {m.name} N={n}", rows)
         int_err, rel_err = max(int_err, i), max(rel_err, r)
-    return int_err, rel_err, len(specs)
+    return int_err, rel_err, len(specs), kernel_ms
 
 
 def sweep_small_checks(dev):
     """``tuning_sweep`` == plain on every REGISTRY multiplier at N = 256, a
-    LUT multiplier and a ragged N; a multiplier without a kernel descriptor
-    raises on the card."""
+    LUT multiplier, a ragged N and a broken array of 16 masked rows (the
+    largest instantiation); a multiplier without a kernel descriptor raises
+    on the card."""
     import torch
 
-    from repro_torch.core.multipliers import REGISTRY, get, lut_mult, make_lut
+    from repro_torch.core.multipliers import REGISTRY, broken_array, get, lut_mult, make_lut
     from repro_torch.core.swapper import oracle_mult
     from repro_torch.core.tuning import operand_values
     from repro_torch.kernels.tuning_sweep import tuning_sweep, tuning_sweep_plain
@@ -457,6 +469,8 @@ def sweep_small_checks(dev):
                   operand_values(8, True)))
     cases.append(("mul12u_drum4_6 ragged N=300", get("mul12u_drum4_6"),
                   operand_values(12, False, 9, 5)[:300].copy()))
+    cases.append(("bam16u_v16_h0 (16 masked rows)", broken_array(16, 16, 0, False),
+                  operand_values(16, False, 8)))
     int_err, worst = 0, 0.0
     for label, m, vals in cases:
         v = torch.from_numpy(vals).to(dev)
@@ -471,59 +485,79 @@ def sweep_small_checks(dev):
     except ValueError:
         pass
     print(f"kernel tuning_sweep == plain on {len(cases)} cases ({len(REGISTRY)} REGISTRY "
-          f"multipliers at N=256, a LUT, a ragged N=300): integer stats max |diff| "
+          f"multipliers at N=256, a LUT, a ragged N=300, 16 masked rows): integer stats max |diff| "
           f"{int_err}, sq/rel max relative diff {worst:.3g} (tol {SWEEP_RTOL}); a "
           f"multiplier without a descriptor raises", flush=True)
     return int_err, worst
 
 
+# the exhaustive sweeps timed in phase 3: Table I's 16-bit rows and one
+# 12-bit row, beside their times in run E of the earlier design (PERF.md
+# section 6; NVIDIA H100 80GB HBM3, 700.00 W)
+RUN_E_MS = {"mul16u_trunc0_8": 50.00, "mul16u_drum2_14": 61.45, "mul16s_trunc0_8": 57.26,
+            "mul16s_bam_v4_h1": 121.69, "mul16s_drum5_8": 65.14, "mul16s_mitch10_13": 65.97,
+            "mul16s_trunc4_4": 57.62}
+TIMED_SWEEPS = MULTS_16 + ["mul12u_drum4_6"]
+
+
 def sweep_full_size(dev, card: str, clock_mhz: float):
-    """Exhaustive 16-bit sweeps of Table I's 16-bit rows: the kernel's time
-    beside its bound and the plain version's time on 1024 seeded rows,
-    which the kernel's rows must equal.  The bound is the larger of the
-    integer operations over the int32 lanes and the float ones over the
-    float32 lanes (:func:`pair_ops`: N^2 pairs, and N values for the work
-    on one operand), and the bytes."""
+    """Exhaustive sweeps (Table I's 16-bit rows, N = 65536, and
+    ``mul12u_drum4_6``, N = 4096): the kernel's time beside its bound, its
+    earlier time and the plain version's time on 1024 seeded rows (every
+    row at N = 4096), which the kernel's rows must equal; a second launch
+    must give the same bits.  The bound is the larger of the integer
+    operations over the int32 lanes and the float ones over the float32
+    lanes (:func:`pair_ops`: N^2 pairs, and N values for the work on one
+    operand), and the bytes."""
     import torch
 
     from repro_torch.core.multipliers import get
     from repro_torch.core.tuning import operand_values
-    from repro_torch.kernels.tuning_sweep import pair_ops, tuning_sweep, tuning_sweep_plain
+    from repro_torch.kernels.tuning_sweep import (STAT_NAMES, SURF_NAMES, instance, pair_ops,
+                                                  tuning_sweep, tuning_sweep_plain)
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     int32_rate = sms * INT32_LANES_PER_SM * clock_mhz * 1e6
     fp32_rate = sms * FP32_LANES_PER_SM * clock_mhz * 1e6
     g = torch.Generator().manual_seed(13)
     rows_out = []
-    for name in MULTS_16:
+    for name in TIMED_SWEEPS:
         m = get(name)
-        vals = torch.from_numpy(operand_values(16, m.signed)).to(dev)
+        vals = torch.from_numpy(operand_values(m.bits, m.signed)).to(dev)
         n = vals.numel()
         out = {}
         ms = cuda_ms(lambda: out.update(s=tuning_sweep(m, vals)), iters=1)
-        rows = torch.randperm(n, generator=g)[:1024].to(dev)
+        again = tuning_sweep(m, vals)
+        for surf, st in itertools.product(SURF_NAMES, STAT_NAMES):
+            if not torch.equal(out["s"][surf][st], again[surf][st]):
+                fail(f"tuning_sweep {name}: two launches differ in {surf}.{st}")
+        rows = None if n <= 4096 else torch.randperm(n, generator=g)[:1024].to(dev)
+        n_rows = n if rows is None else rows.numel()
         plain = {}
         plain_ms = cuda_ms(lambda: plain.update(s=tuning_sweep_plain(m, vals, rows=rows)),
                            iters=1)
-        err, rel = sweep_compare(out["s"], plain["s"], f"{name} N={n} (1024 rows)", rows)
+        err, rel = sweep_compare(out["s"], plain["s"], f"{name} N={n} ({n_rows} rows)", rows)
         ints, floats, operand = pair_ops(m)
         t_int = (n * n * ints + n * operand) / int32_rate * 1e3
         t_float = n * n * floats / fp32_rate * 1e3
         t_ops = max(t_int, t_float)
         t_bytes = (4 * n + 72 * n) / HBM_BYTES_PER_S * 1e3
-        row = dict(mult=name, N=n, ms=ms, plain_ms=plain_ms, plain_rows=1024,
+        inst = instance(m)
+        row = dict(mult=name, N=n, ms=ms, instance=inst,
+                   plain_ms=plain_ms, plain_rows=n_rows,
                    bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes
                    else "bytes", bound_int_ms=t_int, bound_float_ms=t_float,
                    pair_int_ops=ints, pair_float_ops=floats, operand_int_ops=operand,
                    max_abs_err=err, max_rel_err_f32=rel)
         rows_out.append(row)
-        print(f"tuning_sweep {name} exhaustive N={n} ({n * n} pairs): {ms:.2f} ms; bound "
-              f"{row['bound_ms']:.2f} ms ({row['bound_by']}: {ints} integer ops per pair + "
-              f"{operand} per value over int32 lanes, {t_int:.2f} ms; {floats} float ops per "
-              f"pair over float32 lanes, {t_float:.2f} ms); kernel/bound "
-              f"{ms / row['bound_ms']:.2f}; plain {plain_ms:.2f} ms on 1024 rows (integer "
-              f"stats max |diff| {err}, sums within {rel:.3g}); library: none [{card}]",
-              flush=True)
+        run_e = f"{RUN_E_MS[name]:.2f} ms" if name in RUN_E_MS else "not measured"
+        print(f"tuning_sweep {name} exhaustive N={n} ({n * n} pairs) [{inst}]: {ms:.2f} ms "
+              f"(run E: {run_e}); bound {row['bound_ms']:.2f} ms ({row['bound_by']}: {ints} "
+              f"integer ops per pair + {operand} per value over int32 lanes, {t_int:.2f} ms; "
+              f"{floats} float ops per pair over float32 lanes, {t_float:.2f} ms); "
+              f"kernel/bound {ms / row['bound_ms']:.2f}; plain {plain_ms:.2f} ms on {n_rows} "
+              f"rows (integer stats max |diff| {err}, sums within {rel:.3g}); two launches "
+              f"identical; library: none [{card}]", flush=True)
     return rows_out
 
 
@@ -584,6 +618,9 @@ def tune_table(dev, card: str, profile: bool = False):
     print(f"Table I sweeps == plain: {err[2]} sweeps through tuning_sweep (N = 256 and "
           f"4096 every row, N = 65536 on 1024 seeded rows, N = 1024 every row): integer "
           f"stats max |diff| {err[0]}, sums max relative diff {err[1]:.3g}", flush=True)
+    print(f"Table I {total:.3f} s: the {err[2]} sweep launches again {err[3] / 1e3:.3f} s "
+          f"(CUDA events around each wrapper call), the rest {total - err[3] / 1e3:.3f} s "
+          f"(operand sets, copies, host scoring) [{card}]", flush=True)
     if profile:
         profile_serve(lambda: component_sweep(extra, device=dev),
                       "Table I row (mul16s_drum5_8, exhaustive)", card)
@@ -883,6 +920,11 @@ def profile_serve(run, label: str, card: str):
     dev_us = lambda e: getattr(e, "self_device_time_total", None) or \
         getattr(e, "self_cuda_time_total", 0)
     busy = sum(dev_us(e) for e in kernels) / 1e6
+    sweep_events = [e for e in prof.events() if "tuning_sweep" in e.name]
+    if sweep_events:
+        print(f"profile: {len(sweep_events)} trace events name the sweep kernel, device "
+              f"types {sorted({str(e.device_type) for e in sweep_events})}, "
+              f"{sum(dev_us(e) for e in sweep_events) / 1e3:.2f} ms of device time", flush=True)
     if busy <= 0:
         print("profile: the trace holds no device kernels", flush=True)
         return

@@ -330,6 +330,51 @@ def test_sweep_kernel_equals_plain(cuda, name, sample_bits, n):
     _sweep_equal(got, want)
 
 
+@pytest.mark.parametrize("name", ["mul16s_bam_v4_h1", "mul12u_drum4_6", "mul8s_mitch10_13",
+                                  "mul16u_trunc0_8"])
+@pytest.mark.parametrize("n", [1, 31, 127, 128, 129, 300, 4096])
+def test_sweep_kernel_equals_plain_at_every_split(cuda, name, n):
+    """N around a warp's and a block's width and the 12-bit width: each N
+    takes its own rows per block (``plan``); at N = 4096 the plain version
+    runs on 256 sampled rows."""
+    m = TC.get(name)
+    g = torch.Generator().manual_seed(n)
+    lo, hi = (-(1 << (m.bits - 1)), 1 << (m.bits - 1)) if m.signed else (0, 1 << m.bits)
+    vals = torch.randint(lo, hi, (n,), generator=g, dtype=torch.int32).to(cuda)
+    got = TS.tuning_sweep(m, vals)
+    rows = None if n < 4096 else torch.randperm(n, generator=g)[:256].to(cuda)
+    want = TS.tuning_sweep_plain(m, vals, rows=rows)
+    torch.cuda.synchronize()
+    if rows is not None:
+        got = {surf: {st: v[rows] for st, v in d.items()} for surf, d in got.items()}
+    _sweep_equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["mul16s_mitch10_13", "mul12s_trunc1_7"])
+def test_sweep_kernel_gives_the_same_bits_twice(cuda, name):
+    m = TC.get(name)
+    vals = torch.from_numpy(TC.operand_values(m.bits, m.signed, 12)).to(cuda)
+    first, second = TS.tuning_sweep(m, vals), TS.tuning_sweep(m, vals)
+    torch.cuda.synchronize()
+    for surf in TS.SURF_NAMES:
+        for st in TS.STAT_NAMES:
+            assert torch.equal(first[surf][st], second[surf][st]), (surf, st)
+
+
+@pytest.mark.parametrize("bits,v,h,signed", [(16, 16, 0, False), (16, 12, 1, True),
+                                             (8, 10, 0, False), (12, 2, 5, False)])
+def test_sweep_kernel_broken_arrays_beyond_the_registry(cuda, bits, v, h, signed):
+    """16, 11, 8 and 0 masked rows: BrokenArray<S, R> up to the most a
+    16-bit width gives (48 KiB of staged values at 16 rows)."""
+    m = TC.broken_array(bits, v, h, signed)
+    vals = torch.from_numpy(TC.operand_values(bits, signed, min(bits, 8), 3)).to(cuda)
+    got = TS.tuning_sweep(m, vals)
+    want = TS.tuning_sweep_plain(m, vals)
+    torch.cuda.synchronize()
+    assert TS.instance(m) == f"BrokenArray<{str(signed).lower()}, {max(0, min(v, bits) - h)}>"
+    _sweep_equal(got, want)
+
+
 def test_sweep_kernel_lut_equals_plain(cuda):
     base = TC.get("mul8u_mitch13_0")
     m = TC.lut_mult("lut", TC.make_lut(base), False)

@@ -306,18 +306,23 @@ def test_kernel_args_and_wrapper_checks():
 
 def test_pair_ops_counts_from_the_family():
     """Per pair only what depends on both operands; one operand's work
-    (masks, envelope, msb, segment) is counted once per value."""
+    (masks, envelope, msb, segment) is counted once per value; each family
+    in its least form (a sign folded into a per-value factor where the core
+    is a product mod 2^32, the broken array in closed form)."""
     assert TS.pair_ops(T.get("mul8u_trunc0_4")) == (2 * 1 + 1 + 8 + 1 + 21, 17, 2)
-    assert TS.pair_ops(T.get("mul16s_bam_v4_h1")) == (2 * (15 + 3) + 31, 18, 4 * 15 + 6)
-    assert TS.pair_ops(T.get("mul16s_drum5_8")) == (2 * (5 + 3) + 31, 18, 20 + 6)
+    assert TS.pair_ops(T.get("mul8s_trunc0_4")) == (2 * 1 + 31, 18, 2 + 6)
+    # the broken array: one multiply and 3 masked rows, the rows' sum signed
+    assert TS.pair_ops(T.get("mul16s_bam_v4_h1")) == (2 * (1 + 2 * 3 + 1) + 31, 18, 2 * 3 + 2 + 6)
+    assert TS.pair_ops(T.get("mul8u_bam_v4_h0")) == (2 * (1 + 2 * 4) + 31, 17, 2 * 4 + 2)
+    assert TS.pair_ops(T.get("mul16s_drum5_8")) == (2 * 3 + 31, 18, 20 + 6)
+    assert TS.pair_ops(T.get("mul16s_mitch10_13")) == (2 * (10 + 3) + 31, 18, 16 + 2 + 6)
     assert TS.pair_ops(T.get("mul8s_exact")) == (2 + 31, 18, 0)
     for m in T.REGISTRY.values():
         i, f, o = TS.pair_ops(m)
-        # the per-evaluation total is the family's whole definition
         total = (i - 31) // 2 + o
         assert 31 < i < 80 and f in (17, 18) and 0 <= o <= 100, m.name
         if m.desc[0] == "drum":
-            assert total == 25 + (9 if m.signed else 0), m.name
+            assert total == 23 + (6 if m.signed else 0), m.name
 
 
 def test_build_target_hashes_included_headers(tmp_path, monkeypatch):
@@ -331,7 +336,8 @@ def test_build_target_hashes_included_headers(tmp_path, monkeypatch):
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "build"))
     first = _build._target("tuning_sweep")
     assert first.parent == tmp_path / "build"
-    assert [p.name for p in _build._with_headers(main)] == ["tuning_sweep.cu", "ax_families.cuh"]
+    assert [p.name for p in _build._with_headers(main)] == ["tuning_sweep.cu", "sweep_stats.cuh",
+                                                            "ax_families.cuh"]
     (src / "unrelated.cuh").write_text("// not included\n")
     assert _build._target("tuning_sweep") == first
     hdr = src / "ax_families.cuh"
