@@ -47,20 +47,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
             served on the CPU through the plain versions, static and
             adaptive (tokens and re-tunes);
 5. serve  — qwen2-72b at its published widths, depth cut to 2 layers,
-            random weights from a seed, SWAPPER ``backend="kernel"``: B=4
-            prompts of 32 tokens, 8 greedy tokens, twice; the tokens must be
-            deterministic and the kernel's launch count must be exactly
-            2 layers x 4 projections x 8 forwards = 64;
+            random weights from a seed: the per-forward weight work that
+            the weight cache removes, timed against its bytes; B=4 prompts
+            of 32 tokens, 8 greedy tokens, SWAPPER ``backend="kernel"``
+            eagerly twice (deterministic tokens, exactly 2 layers x 4
+            projections x 8 forwards = 64 ``ax_matmul`` launches), the
+            default ``mxu`` backend (the same tokens and launches), then
+            both with the decode step as a CUDA graph: the eager tokens,
+            64 executed launches, one capture and then none;
 6. adapt  — the same model served with an ``AdaptiveController``: with a
             threshold that never fires the tokens equal the static serve's
             (8 ``ax_matmul`` launches in prefill, 56 ``ax_matmul_grid`` in
-            decode); with weight drift injected at step 3 in tile mode, 12
-            tokens, twice with fresh controllers: at least one re-tune,
-            the same tokens, 8 + 88 launches each.  No nvcc runs after
-            phase 2.  With ``--profile`` one static, one no-drift and one
-            drift serve run under ``torch.profiler`` and the device time by
-            kernel and the device's busy share are printed (and, in phases
-            7 and 8, one 16-bit Table I row and one app run).
+            decode), eagerly and as graphs, in scalar and in tile mode; a
+            policy update re-captures nothing and gives the eager tokens of
+            that policy; with weight drift injected at step 3 in tile mode,
+            12 tokens, twice with fresh controllers: at least one re-tune,
+            the same tokens, 8 + 88 launches each;
+   slot   — per-slot serving: prompts of lengths 32/19/7/26 right-padded
+            to 32, budgets 8/3/8/5, an EOS taken from the run's own tokens:
+            eager == graph, budgets freeze, EOS retires, rotated slots give
+            the same tokens, each prompt alone padded == unpadded, and
+            against each prompt alone equal tokens up to a divergence
+            below a top-2 margin of ``TOL_BATCH``;
+   token  — ``prefill_one`` + ``splice_slot`` + ``token_step`` (a CUDA
+            graph) over 4 slots: the per-request tokens of the wave oracle,
+            mid-flight splices with no re-capture, no host synchronise in a
+            step, inactive slots' cache rows unchanged.  No nvcc runs after
+            phase 2.  With ``--profile`` static, no-drift and drift serves
+            run under ``torch.profiler`` (eager and graph) and the device
+            time by kernel and the device's busy share are printed (and, in
+            phases 7 and 8, one 16-bit Table I row and one app run).
 7. tune   — Table I (``benchmarks/component_table.py``'s multipliers) on
             the card through ``component_sweep`` and the sweep kernel: 8,
             12 and 16 bits exhaustive (the JAX table samples 16 bits at
@@ -82,6 +98,7 @@ The second-to-last line is the ``kernels`` JSON summary, the last line
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -767,9 +784,52 @@ B, S, T, L = 4, 32, 8, 2          # the serve: prompts, prompt length, tokens, l
 T_DRIFT, DRIFT_AT, DRIFT_SCALE = 12, 3, 0.05
 
 
+def weight_work(params, cfg, card: str):
+    """The per-forward weight work that the weight cache removes, timed
+    with CUDA events on the serve's weights: what each forward did before
+    the cache (per ax weight ``w.to(bf16)``, ``.to(f32)``, then
+    ``quantize_rows``: abs, amax, divide, round, clamp, int8 cast; per other
+    weight, the lm_head included, ``w.to(bf16)``), against the bytes those
+    passes must move: 53 bytes per ax weight element (f32->bf16 6, bf16->f32
+    6, abs 8, amax 4, divide 8, round 8, clamp 8, int8 cast 5) and 6 per
+    cast element, at the memory rate.  Then the bytes one cached decode
+    step reads from the weights (int8 codes, bf16 casts) and their time at
+    the memory rate: the floor of a decode step."""
+    import torch
+
+    from repro_torch.quant.ax import quantize_rows
+
+    bf16 = torch.bfloat16
+    ax_ws = [lp[m][n]["w"] for lp in params["layers"]
+             for m, n in (("attn", "o"), ("mlp", "in"), ("mlp", "gate"), ("mlp", "out"))]
+    casts = [lp["attn"][n]["w"] for lp in params["layers"] for n in "qkv"]
+    casts.append(params["lm_head"]["w"])
+
+    def uncached():
+        for w in ax_ws:
+            quantize_rows(w.to(bf16).to(torch.float32), axis=0)
+        for w in casts:
+            w.to(bf16)
+
+    with torch.inference_mode():
+        ms = cuda_ms(uncached, iters=3)
+    n_ax = sum(w.numel() for w in ax_ws)
+    n_cast = sum(w.numel() for w in casts)
+    gb = (53 * n_ax + 6 * n_cast) / 1e9
+    bound = gb * 1e9 / HBM_BYTES_PER_S * 1e3
+    step_gb = (n_ax + 2 * n_cast) / 1e9
+    print(f"weight work per forward without the cache: {ms:.2f} ms (CUDA events); "
+          f"{gb:.2f} GB moved, {bound:.2f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s "
+          f"({gb / ms:.3f} TB/s achieved); a cached decode step reads "
+          f"{step_gb:.3f} GB of weights ({n_ax / 1e9:.3f} G int8 codes, "
+          f"{n_cast / 1e9:.3f} G bf16): {step_gb * 1e9 / HBM_BYTES_PER_S * 1e3:.3f} ms "
+          f"at the memory rate [{card}]", flush=True)
+    return dict(ms=ms, gb=gb, bound_ms=bound, step_gb=step_gb)
+
+
 def serve(dev, card: str, profile: bool = False):
-    """Phase 5: the static serve.  Returns (cfg, params, prompts, tokens,
-    launches, stats)."""
+    """Phase 5: the static serve, ``kernel`` and ``mxu`` backends.  Returns
+    (cfg, params, prompts, tokens, launches, stats)."""
     import torch
 
     from repro_torch.configs import qwen2_72b
@@ -785,22 +845,27 @@ def serve(dev, card: str, profile: bool = False):
     print(f"qwen2-72b x{L} layers: {sum(t.numel() for t in _leaves(params)) / 1e9:.3f} G "
           f"params (f32) initialised on the card in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    weight_work(params, cfg, card)
     prompts = torch.randint(0, cfg.vocab, (B, S), generator=torch.Generator().manual_seed(1))
     with torch.inference_mode():
+        t0 = time.perf_counter()
         logits, _ = prefill(params, {"tokens": prompts.to(dev)}, cfg,
                             max_cache_len=S + T + 1)
+        torch.cuda.synchronize()
+    print(f"first prefill (the weight cache built: each weight cast and quantized "
+          f"once): {(time.perf_counter() - t0) * 1e3:.1f} ms [{card}]", flush=True)
     if tuple(logits.shape) != (B, S, cfg.vocab) or not bool(torch.isfinite(logits).all()):
         fail(f"prefill logits: shape {tuple(logits.shape)}, finite "
              f"{bool(torch.isfinite(logits).all())}")
     del logits
 
     expect = L * 4 * T
+    eager = ServeConfig(max_new_tokens=T, cuda_graphs=False)
     runs = []
     for _ in range(2):
         stats = {}
         reset_launches()
-        toks = generate(params, {"tokens": prompts}, cfg, ServeConfig(max_new_tokens=T),
-                        stats=stats)
+        toks = generate(params, {"tokens": prompts}, cfg, eager, stats=stats)
         launches = dict(LAUNCHES)
         if launches != {"ax_matmul": expect, "ax_matmul_grid": 0}:
             fail(f"launches in one static serve: {launches}, expected {expect} ax_matmul")
@@ -810,14 +875,67 @@ def serve(dev, card: str, profile: bool = False):
         fail(f"greedy tokens differ between two runs:\n{t1}\n{t2}")
     if tuple(t1.shape) != (B, T) or int(t1.min()) < 0 or int(t1.max()) >= cfg.vocab:
         fail(f"tokens out of range or misshapen: {tuple(t1.shape)}")
-    print(f"serve qwen2-72b (2 layers, kernel backend) B={B} S={S} new={T}: tokens "
+    print(f"serve qwen2-72b (2 layers, kernel backend, eager) B={B} S={S} new={T}: tokens "
           f"deterministic over 2 runs; ax_matmul launches {expect} (= {L}x4x{T}); "
           f"{_speed(stats, T)} [{card}]", flush=True)
     print(f"tokens: {t1.tolist()}", flush=True)
     if profile:
+        profile_serve(lambda: generate(params, {"tokens": prompts}, cfg, eager),
+                      "static serve (eager)", card)
+
+    # the default backend: mxu launches route T of the same kernel
+    cfg_m = dataclasses.replace(cfg, ax=AxPolicy(backend="mxu"))
+    stats_m = {}
+    reset_launches()
+    toks_m = generate(params, {"tokens": prompts}, cfg_m, eager, stats=stats_m).cpu()
+    launches_m = dict(LAUNCHES)
+    if launches_m != launches or not torch.equal(toks_m, t1):
+        fail(f"mxu serve: launches {launches_m} (kernel serve {launches}), tokens equal "
+             f"{torch.equal(toks_m, t1)}")
+    print(f"serve, mxu backend (route T, eager): tokens and launches {launches_m} equal "
+          f"the kernel serve's; {_speed(stats_m, T)} [{card}]", flush=True)
+
+    # the decode step as a CUDA graph: the eager tokens, the launches of an
+    # eager serve, one capture, then replays only
+    paths = {"static eager": expect, "mxu eager": launches_m["ax_matmul"]}
+    for label, c in (("kernel", cfg), ("mxu", cfg_m)):
+        for run in range(2):
+            got, stats_g, executed, caps = graph_run(
+                lambda st: generate(params, {"tokens": prompts}, c,
+                                    ServeConfig(max_new_tokens=T), stats=st))
+            want_caps = 1 if run == 0 else 0
+            if stats_g["path"] != "graph" or executed != {"ax_matmul": expect,
+                                                          "ax_matmul_grid": 0} \
+                    or caps != want_caps or not torch.equal(got.cpu(), t1):
+                fail(f"graph serve ({label}, run {run}): path {stats_g['path']}, executed "
+                     f"launches {executed}, captures {caps} (want {want_caps}), tokens "
+                     f"equal {torch.equal(got.cpu(), t1)}")
+        paths[f"{'static' if label == 'kernel' else 'mxu'} graph"] = executed["ax_matmul"]
+        print(f"serve, {label} backend, decode step as a CUDA graph: tokens equal the eager "
+              f"serve's; executed launches {executed} (= {L}x4x{T}); captures: 1, then 0 "
+              f"on the second run; {_speed(stats_g, T)} (eager: "
+              f"{_speed(stats if label == 'kernel' else stats_m, T)}) [{card}]", flush=True)
+    if profile:
         profile_serve(lambda: generate(params, {"tokens": prompts}, cfg,
-                                       ServeConfig(max_new_tokens=T)), "static serve", card)
-    return cfg, params, prompts, t1, expect, stats
+                                       ServeConfig(max_new_tokens=T)),
+                      "static serve (graph)", card)
+    return cfg, params, prompts, t1, paths, stats
+
+
+def graph_run(run):
+    """``run(stats)`` with the graph counters read around it: returns (its
+    result, stats, the kernel launches it executed, the graphs it
+    captured)."""
+    from repro_torch.kernels.ax_matmul import LAUNCHES, reset_launches
+    from repro_torch.serve import graph as G
+
+    stats = {}
+    before = G.counts()
+    reset_launches()
+    out = run(stats)
+    executed = G.executed_launches(before, dict(LAUNCHES))
+    caps = sum(G.CAPTURES.values()) - sum(before[0].values())
+    return out, stats, executed, caps
 
 
 def _speed(stats, steps: int) -> str:
@@ -829,11 +947,12 @@ def _speed(stats, steps: int) -> str:
 
 def adaptive_serve(cfg, params, prompts, static_tokens, static_stats, card: str,
                    profile: bool = False):
-    """Phase 6: adaptive serving of the same model.  Returns the drift
-    serve's ax_matmul_grid launches."""
+    """Phase 6: adaptive serving of the same model.  Returns the
+    ax_matmul_grid launches of each path."""
     import torch
 
     from repro_torch.kernels.ax_matmul import LAUNCHES, reset_launches
+    from repro_torch.core.swapper import SwapConfig
     from repro_torch.launch.serve import drift_hook
     from repro_torch.runtime import AdaptiveConfig, AdaptiveController, SwapPolicy
     from repro_torch.serve import ServeConfig, generate
@@ -847,8 +966,8 @@ def adaptive_serve(cfg, params, prompts, static_tokens, static_stats, card: str,
     ctrl.warmup()
     stats = {}
     reset_launches()
-    toks = generate(params, {"tokens": prompts}, cfg, ServeConfig(max_new_tokens=T),
-                    adaptive=ctrl, stats=stats).cpu()
+    eager = ServeConfig(max_new_tokens=T, cuda_graphs=False)
+    toks = generate(params, {"tokens": prompts}, cfg, eager, adaptive=ctrl, stats=stats).cpu()
     launches = dict(LAUNCHES)
     want = {"ax_matmul": L * 4, "ax_matmul_grid": L * 4 * (T - 1)}
     if launches != want:
@@ -856,13 +975,66 @@ def adaptive_serve(cfg, params, prompts, static_tokens, static_stats, card: str,
     if not torch.equal(toks, static_tokens) or ctrl.retunes or ctrl.step != T - 1:
         fail(f"no-drift adaptive serve: tokens equal {torch.equal(toks, static_tokens)}, "
              f"re-tunes {len(ctrl.retunes)}, observed steps {ctrl.step}")
-    print(f"adaptive serve, no drift (scalar mode): tokens equal the static serve's; "
+    print(f"adaptive serve, no drift (scalar mode, eager): tokens equal the static serve's; "
           f"launches {launches}; {_speed(stats, T)} (static: {_speed(static_stats, T)}) "
+          f"[{card}]", flush=True)
+    grid_paths = {"no-drift eager": launches["ax_matmul_grid"]}
+
+    # the fused adaptive decode as CUDA graphs (an observed step per token):
+    # the static tokens, the eager launches, one capture, then a policy
+    # update that re-captures nothing
+    for run in range(2):
+        ctrl = controller(drift_threshold=1e9)
+        toks, stats_g, executed, caps = graph_run(lambda st: generate(
+            params, {"tokens": prompts}, cfg, ServeConfig(max_new_tokens=T), adaptive=ctrl,
+            stats=st).cpu())
+        if stats_g["path"] != "graph" or executed != want or caps != (1 if run == 0 else 0) \
+                or not torch.equal(toks, static_tokens) or ctrl.step != T - 1:
+            fail(f"no-drift adaptive graph serve (run {run}): path {stats_g['path']}, "
+                 f"executed launches {executed}, captures {caps}, tokens equal "
+                 f"{torch.equal(toks, static_tokens)}, observed steps {ctrl.step}")
+    grid_paths["no-drift graph"] = executed["ax_matmul_grid"]
+    print(f"adaptive serve, no drift, CUDA graphs: tokens equal the static serve's; "
+          f"executed launches {executed}; captures 1, then 0; {_speed(stats_g, T)} [{card}]",
+          flush=True)
+    ctrl.policy.set_config("mlp", SwapConfig("B", 5, 1))
+    ctrl.policy.set_config("attn_out", SwapConfig("A", 6, 1))
+    toks_p, stats_p, executed, caps = graph_run(lambda st: generate(
+        params, {"tokens": prompts}, cfg, ServeConfig(max_new_tokens=T), adaptive=ctrl,
+        stats=st).cpu())
+    ctrl_e = controller(drift_threshold=1e9)
+    ctrl_e.policy.set_config("mlp", SwapConfig("B", 5, 1))
+    ctrl_e.policy.set_config("attn_out", SwapConfig("A", 6, 1))
+    toks_e = generate(params, {"tokens": prompts}, cfg, eager, adaptive=ctrl_e).cpu()
+    if caps != 0 or not torch.equal(toks_p, toks_e):
+        fail(f"graph serve after a policy update: captures {caps}, tokens equal the eager "
+             f"serve's under the same policy {torch.equal(toks_p, toks_e)}")
+    print(f"adaptive serve after set_policy (mlp B[5]==1, attn_out A[6]==1), CUDA graphs: "
+          f"no re-capture; tokens equal the eager serve's under that policy (differ from "
+          f"the default policy's: {not torch.equal(toks_p, static_tokens)}) [{card}]",
+          flush=True)
+    # tile mode (2 row tiles, the default triple in every tile): its own
+    # program, the static tokens
+    for run in range(2):
+        ctrl = controller(drift_threshold=1e9, tile_rows=2)
+        toks_t, stats_t, executed, caps = graph_run(lambda st: generate(
+            params, {"tokens": prompts}, cfg, ServeConfig(max_new_tokens=T), adaptive=ctrl,
+            stats=st).cpu())
+        if caps != (1 if run == 0 else 0) or executed != want \
+                or not torch.equal(toks_t, static_tokens):
+            fail(f"tile-mode adaptive graph serve (run {run}): captures {caps}, executed "
+                 f"launches {executed}, tokens equal {torch.equal(toks_t, static_tokens)}")
+    grid_paths["tile-mode graph"] = executed["ax_matmul_grid"]
+    print(f"adaptive serve, tile mode (tile_rows=2), CUDA graphs: tokens equal the static "
+          f"serve's; executed launches {executed}; captures 1, then 0; {_speed(stats_t, T)} "
           f"[{card}]", flush=True)
     if profile:
         profile_serve(lambda: generate(
+            params, {"tokens": prompts}, cfg, eager,
+            adaptive=controller(drift_threshold=1e9)), "no-drift adaptive serve (eager)", card)
+        profile_serve(lambda: generate(
             params, {"tokens": prompts}, cfg, ServeConfig(max_new_tokens=T),
-            adaptive=controller(drift_threshold=1e9)), "no-drift adaptive serve", card)
+            adaptive=controller(drift_threshold=1e9)), "no-drift adaptive serve (graph)", card)
 
     runs = []
     for _ in range(2):
@@ -900,7 +1072,242 @@ def adaptive_serve(cfg, params, prompts, static_tokens, static_stats, card: str,
             params, {"tokens": prompts}, cfg, ServeConfig(max_new_tokens=T_DRIFT),
             adaptive=controller(min_observe_steps=2, cooldown_steps=4, tile_rows=2),
             param_hook=drift_hook(DRIFT_AT, DRIFT_SCALE)), "drift serve", card)
-    return launches["ax_matmul_grid"]
+    grid_paths["drift (stepwise, eager)"] = launches["ax_matmul_grid"]
+    return grid_paths
+
+
+SLOT_LENS, SLOT_BUDGETS = (32, 19, 7, 26), (8, 3, 8, 5)
+# The same prompt prefilled in a batch of 4 and alone differs by about 3 in
+# the logits (the slot phase prints the spread): the
+# GEMMs round differently at M = 128 and at M <= 32, and int8
+# re-quantization turns such last-bit differences into other codes, layer
+# after layer.  Alone padded and alone unpadded agree exactly, and so do a
+# batch and the same batch with its slots rotated (PERF.md §6).
+TOL_BATCH = 3.5
+
+
+def _margin(params, cfg, seq) -> float:
+    """Top-2 logit margin of the next token after ``seq`` (one prefill)."""
+    import torch
+
+    from repro_torch.models import prefill
+
+    with torch.inference_mode():
+        lg, _ = prefill(params, {"tokens": seq[None]}, cfg, max_cache_len=len(seq) + 1)
+    top2 = torch.topk(lg[0, -1].float(), 2).values
+    return float(top2[0] - top2[1])
+
+
+def slot_serve(cfg, params, card: str):
+    """Phase 6b: per-slot serving at full width.  B = 4 prompts right-padded
+    to S with lengths ``SLOT_LENS`` and budgets ``SLOT_BUDGETS``, and an EOS
+    taken from the eager run's own tokens so that it retires slot 2 early.
+    Checks, exact: eager == graph; budgets freeze and EOS retires; the
+    batch with its slots rotated gives every request the same tokens (slots
+    do not leak into each other); each prompt served alone padded to S
+    gives the tokens of it served alone unpadded (pad-mask prefill).
+    Against each prompt served alone (batch 1): equal tokens up to a
+    divergence, allowed only where the top-2 margin is below
+    ``TOL_BATCH``.  Returns the graph serve's executed ax_matmul launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import prefill
+    from repro_torch.serve import ServeConfig, generate
+
+    dev = params["embed"]["w"].device
+    lens, budgets = np.asarray(SLOT_LENS), np.asarray(SLOT_BUDGETS)
+    g = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(0, cfg.vocab, (int(n),), generator=g) for n in lens]
+    pad = lambda p: torch.cat([p, p[-1:].expand(S - len(p))])  # noqa: E731
+    batch = torch.stack([pad(p) for p in prompts])
+    kw = dict(prompt_lens=lens, slot_new_tokens=budgets, max_cache_len=S + T + 1)
+    eager = ServeConfig(max_new_tokens=T, cuda_graphs=False)
+    base = generate(params, {"tokens": batch}, cfg, eager, **kw).cpu()
+    row = base[2].tolist()
+    j = next((i for i in range(2, T - 1) if row[i] not in row[:i]), None)
+    if j is None:
+        fail(f"per-slot serve: slot 2 repeats one token, no EOS to pick: {row}")
+    eos = row[j]
+    eager = dataclasses.replace(eager, eos_id=eos)
+    stats_e = {}
+    toks_e = generate(params, {"tokens": batch}, cfg, eager, stats=stats_e, **kw).cpu()
+    if not torch.equal(toks_e[2, :j + 1], base[2, :j + 1]) or not bool((toks_e[2, j:] == eos).all()):
+        fail(f"EOS {eos} did not retire slot 2 at index {j}: {toks_e[2].tolist()}")
+    for b in range(B):
+        n = int(budgets[b])
+        if not bool((toks_e[b, n:] == toks_e[b, n - 1]).all()):
+            fail(f"slot {b} did not freeze after its budget {n}: {toks_e[b].tolist()}")
+    for run in range(2):
+        toks_g, stats_g, executed, caps = graph_run(lambda st: generate(
+            params, {"tokens": batch}, cfg, ServeConfig(max_new_tokens=T, eos_id=eos),
+            stats=st, **kw).cpu())
+        if not torch.equal(toks_g, toks_e) or caps != (1 if run == 0 else 0) \
+                or executed != {"ax_matmul": L * 4 * T, "ax_matmul_grid": 0}:
+            fail(f"per-slot graph serve (run {run}): tokens equal eager "
+                 f"{torch.equal(toks_g, toks_e)}, captures {caps}, executed {executed}")
+    rot = [1, 2, 3, 0]
+    toks_r = generate(params, {"tokens": batch[rot]}, cfg, ServeConfig(max_new_tokens=T, eos_id=eos),
+                      prompt_lens=lens[rot], slot_new_tokens=budgets[rot],
+                      max_cache_len=S + T + 1).cpu()
+    if not torch.equal(toks_r, toks_e[rot]):
+        fail(f"rotating the slots changed a request's tokens:\n{toks_r}\n{toks_e[rot]}")
+    # the spread behind TOL_BATCH: each prompt's logits in the batch against
+    # the same prompt prefilled alone
+    with torch.inference_mode():
+        lb, _ = prefill(params, {"tokens": batch.to(dev)}, cfg, max_cache_len=S + T + 1,
+                        prompt_lens=torch.as_tensor(lens, device=dev))
+        spread = max((lb[b, :int(n)].float() - prefill(
+            params, {"tokens": prompts[b][None].to(dev)}, cfg,
+            max_cache_len=S + T + 1)[0][0].float()).abs().max().item()
+            for b, n in enumerate(lens))
+        del lb
+    compared, margins = 0, []
+    for b in range(B):
+        one = dict(slot_new_tokens=[int(budgets[b])], max_cache_len=S + T + 1)
+        solo = generate(params, {"tokens": prompts[b][None]}, cfg, eager,
+                        prompt_lens=[int(lens[b])], **one).cpu()[0]
+        solo_pad = generate(params, {"tokens": pad(prompts[b])[None]}, cfg, eager,
+                            prompt_lens=[int(lens[b])], **one).cpu()[0]
+        if not torch.equal(solo, solo_pad):
+            fail(f"slot {b}: served alone, padded to {S} != unpadded: {solo_pad.tolist()} "
+                 f"vs {solo.tolist()}")
+        for t in range(int(budgets[b])):
+            if int(solo[t]) != int(toks_e[b, t]):
+                m = _margin(params, cfg, torch.cat([prompts[b], solo[:t].long()]).to(dev))
+                margins.append((b, t, round(m, 3)))
+                if m > TOL_BATCH:
+                    fail(f"slot {b} token {t}: in the batch {int(toks_e[b, t])} != alone "
+                         f"{int(solo[t])} with a top-2 margin {m:.3f} > {TOL_BATCH}")
+                break
+            compared += 1
+            if int(solo[t]) == eos:
+                break
+    print(f"per-slot serve qwen2-72b B={B} lens {SLOT_LENS} right-padded to {S}, budgets "
+          f"{SLOT_BUDGETS}, eos_id {eos} (slot 2 retires at index {j}): eager == graph "
+          f"tokens; budgets freeze; rotated slots give the same tokens; each prompt alone "
+          f"padded == unpadded; executed launches {executed}; captures 1, then 0; against "
+          f"each prompt alone (batch 1) {compared} tokens equal before a divergence, "
+          f"divergences (slot, token, margin) {margins or 'none'}, each below "
+          f"{TOL_BATCH} (prefill logits in the batch vs alone: max |diff| {spread:.3f}); "
+          f"eager {_speed(stats_e, T)}; graph {_speed(stats_g, T)} [{card}]",
+          flush=True)
+    print(f"tokens: {toks_e.tolist()}", flush=True)
+    return executed["ax_matmul"]
+
+
+def token_serve(cfg, params, card: str):
+    """Phase 6c: the token-granular API at full width.  A trace of requests
+    served by ``prefill_one`` + ``splice_slot`` + ``token_step`` over 4 slots,
+    in token mode (a freed slot takes the next request at the next step) and
+    in wave mode (new requests only when every slot is free, the oracle):
+    the same tokens per request.  Each drain captures its step once; its
+    splices re-capture nothing, its steps run with no host synchronise
+    (``no_sync`` around each ``token_step``), and a slot that is not active
+    in a step keeps its cache rows byte-identical.  Returns the token
+    drain's executed ax_matmul launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.ax_matmul import LAUNCHES, reset_launches
+    from repro_torch.models import init_cache
+    from repro_torch.serve import graph as G
+    from repro_torch.serve import prefill_one, splice_slot, token_step
+
+    dev = params["embed"]["w"].device
+    rng = np.random.default_rng(3)
+    trace = [(rid, torch.from_numpy(rng.integers(0, cfg.vocab, int(rng.integers(5, S + 1)))),
+              int(rng.integers(1, T + 1))) for rid in range(7)]
+    max_len = S + T + 1
+
+    def drain(token_mode: bool):
+        cache = init_cache(cfg, B, max_len, device=dev)
+        queue = list(trace)
+        state = [None] * B
+        pos, tok = np.zeros(B, np.int64), np.zeros(B, np.int64)
+        done, info = {}, dict(splices=0, steps=0, inert=0, caps_after_warmup=0)
+
+        def fill(mid):
+            if not token_mode and any(st is not None for st in state):
+                return
+            for s in range(B):
+                while state[s] is None and queue:
+                    rid, p, n = queue.pop(0)
+                    padded = torch.cat([p, p[-1:].expand(S - len(p))])
+                    first, fresh = prefill_one(params, padded[None], len(p), cfg,
+                                               max_cache_len=max_len)
+                    splice_slot(cache, fresh, s)
+                    first = int(first[0])
+                    state[s] = dict(rid=rid, left=n - 1, toks=[first])
+                    pos[s], tok[s] = len(p), first
+                    info["splices"] += int(mid)
+                    if state[s]["left"] == 0:
+                        done[rid] = state[s]["toks"]
+                        state[s] = None
+
+        fill(False)
+        caps0 = None
+        t_dec = 0.0
+        while any(st is not None for st in state):
+            active = np.asarray([st is not None for st in state])
+            args = [torch.from_numpy(a).to(dev) for a in (tok, pos, active)]
+            idle = int(np.argmin(active)) if not active.all() else None
+            before = ([c[n][idle].clone() for c in cache for n in ("k", "v")]
+                      if idle is not None else None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            # the first step captures (a capture synchronises); every later
+            # one must not read from the card
+            with (G.no_sync() if caps0 is not None else contextlib.nullcontext()):
+                tok_d, cache = token_step(params, cache, *args, cfg)
+            torch.cuda.synchronize()
+            if caps0 is None:              # the capture step is not timed
+                caps0 = sum(G.CAPTURES.values())
+            else:
+                t_dec += time.perf_counter() - t0
+            if before is not None:
+                after = [c[n][idle] for c in cache for n in ("k", "v")]
+                if not all(torch.equal(x, y) for x, y in zip(before, after)):
+                    fail(f"token_step wrote the cache rows of inactive slot {idle}")
+                info["inert"] += 1
+            tok = tok_d.cpu().numpy().copy()
+            pos += active
+            info["steps"] += 1
+            for s in range(B):
+                st = state[s]
+                if st is None:
+                    continue
+                st["toks"].append(int(tok[s]))
+                st["left"] -= 1
+                if st["left"] == 0:
+                    done[st["rid"]] = st["toks"]
+                    state[s] = None
+            fill(True)
+        info["caps_after_warmup"] = sum(G.CAPTURES.values()) - caps0
+        info["decode_s"] = t_dec
+        return done, info
+
+    before = G.counts()
+    reset_launches()
+    tok_res, tok_info = drain(True)
+    executed = G.executed_launches(before, dict(LAUNCHES))
+    wave_res, wave_info = drain(False)
+    if tok_info["splices"] == 0 or tok_info["inert"] == 0:
+        fail(f"token drain: no mid-flight splice or no inactive slot: {tok_info}")
+    if tok_res != wave_res:
+        fail(f"token-granular tokens != wave oracle:\n{tok_res}\n{wave_res}")
+    if tok_info["caps_after_warmup"] or wave_info["caps_after_warmup"]:
+        fail(f"token_step re-captured after its first step: {tok_info}, {wave_info}")
+    n_tok = sum(len(v) for v in tok_res.values())
+    print(f"token-granular serve ({len(trace)} requests, {B} slots, prefill_one + splice_slot "
+          f"+ token_step as a CUDA graph): per-request tokens equal the wave oracle's; "
+          f"{tok_info['splices']} mid-flight splices, {tok_info['steps']} steps (wave: "
+          f"{wave_info['steps']}); no re-capture after the first step, no host synchronise "
+          f"in a step; inactive slots' cache rows unchanged in {tok_info['inert']} steps; "
+          f"executed launches {executed}; decode "
+          f"{tok_info['decode_s'] * 1e3 / (tok_info['steps'] - 1):.2f} ms/step (host clock "
+          f"around each replayed step, synchronised), {n_tok} tokens [{card}]", flush=True)
+    return executed["ax_matmul"]
 
 
 def profile_serve(run, label: str, card: str):
@@ -1009,11 +1416,22 @@ def main(argv):
     reference_check(dev)
     phase_done("ref")
     profile = "--profile" in argv
-    cfg, params, prompts, tokens, launches, stats = serve(dev, card, profile)
-    grid_launches = adaptive_serve(cfg, params, prompts, tokens, stats, card, profile)
+    cfg, params, prompts, tokens, paths, stats = serve(dev, card, profile)
+    phase_done("serve")
+    grid_paths = adaptive_serve(cfg, params, prompts, tokens, stats, card, profile)
+    phase_done("adapt")
+    paths["per-slot graph"] = slot_serve(cfg, params, card)
+    paths["token-granular graph"] = token_serve(cfg, params, card)
+    phase_done("slot and token")
+    from repro_torch.serve import graph as G
+
+    G.clear_programs()
     del params
     torch.cuda.empty_cache()
-    phase_done("serve and adapt")
+    for name, by_path in (("ax_matmul", paths), ("ax_matmul_grid", grid_paths)):
+        if not all(v > 0 for v in by_path.values()):
+            fail(f"{name} was not launched on every serving path: {by_path}")
+    launches, grid_launches = paths["static eager"], grid_paths["drift (stepwise, eager)"]
     tune_rows, sweep_launches, err = tune_table(dev, card, profile)
     sweep_errs.append(err[:2])
     phase_done("tune")
@@ -1027,11 +1445,11 @@ def main(argv):
     print(f"no nvcc run and no new library after the build phase "
           f"({len(_build._LOADED)} libraries loaded)", flush=True)
 
-    def entry(name, replaces, launches, rows, c_rows):
+    def entry(name, replaces, launches, by_path, rows, c_rows):
         top = rows[0]
         return {"name": name, "route": "cuda", "kernel_route": top["route"],
                 "source": "src/repro_torch/kernels/csrc/ax_matmul.cu",
-                "replaces": replaces, "launches": launches,
+                "replaces": replaces, "launches": launches, "launches_by_path": by_path,
                 "max_abs_err": max(r["max_abs_err"] for r in rows + c_rows),
                 "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
                 "bound_by": top["bound_by"], "library_ms": top["library_ms"],
@@ -1050,9 +1468,10 @@ def main(argv):
              "shape": f"{top['mult']} exhaustive N={top['N']}; plain on 1024 rows",
              "shapes": sweep_rows, "table_i": tune_rows, "card": card}
     summary = {"kernels": [
-        entry("ax_matmul", "src/repro/kernels/ax_matmul.py:168", launches, rows, c_rows),
+        entry("ax_matmul", "src/repro/kernels/ax_matmul.py:168", launches, paths, rows,
+              c_rows),
         entry("ax_matmul_grid", "src/repro/kernels/ax_matmul.py:253", grid_launches,
-              grid_rows, c_grid_rows),
+              grid_paths, grid_rows, c_grid_rows),
         sweep]}
     print(card, flush=True)
     print(json.dumps(summary), flush=True)

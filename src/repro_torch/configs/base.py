@@ -15,7 +15,9 @@ class AxPolicy:
     backend:
       'kernel' — the hand-written CUDA ``ax_matmul`` kernel (any family)
       'emul'   — the plain PyTorch reference (tests)
-      'mxu'    — the separable-family int8 GEMM; not ported yet
+      'mxu'    — the separable families as one K-stacked int8 product:
+                 route T of the CUDA kernel on the card, the limbs and one
+                 integer matmul on the CPU (``quant.ax``)
     """
 
     mult_name: str = "mul8s_trunc0_4"

@@ -1,2 +1,3 @@
 """Launch helpers (``repro.launch``).  Only the serve CLI's synthetic
-drift hook is ported so far; the CLIs are ROADMAP queue 1 item 11."""
+drift hook is ported so far; the CLIs are the serve CLI and training
+items of ROADMAP queue 1."""

@@ -1,5 +1,6 @@
 """The serve CLI's synthetic drift (``repro.launch.serve._drift_hook``).
-The command-line front end itself is ROADMAP queue 1 item 11."""
+The command-line front end itself is the serve CLI item of ROADMAP
+queue 1."""
 from __future__ import annotations
 
 import torch

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import AxPolicy, ModelConfig
-from repro_torch.quant.ax import ax_dense, ax_dense_dyn
+from repro_torch.quant.ax import ax_dense, ax_dense_dyn, weight_cast, weight_codes
 from repro_torch.runtime.scope import active_scope
 
 __all__ = ["ninit", "dense", "rmsnorm", "make_rope", "apply_rope",
@@ -41,17 +41,22 @@ def dense(x, p, ax: Optional[AxPolicy] = None, target: str = ""):
     that holds a triple for the target, the swap decision is that int32
     tensor (``ax_dense_dyn``) instead of the policy's static config.  The
     weight is cast to the activation dtype first, as in the JAX package, so
-    it is quantized from bf16."""
-    w = p["w"].to(x.dtype)
+    it is quantized from bf16.  Without gradients the cast and the int8
+    codes come from the weight cache (``quant.ax.weight_codes``): each
+    weight is quantized once, with the same bits."""
     if ax is not None and target in ax.targets:
+        if torch.is_grad_enabled():
+            w, codes = p["w"].to(x.dtype), None
+        else:
+            w, codes = p["w"], weight_codes(p["w"], x.dtype)
         scope = active_scope()
         dyn = scope.triple_for(target) if scope is not None else None
         if dyn is not None:
-            y = ax_dense_dyn(x, w, ax, dyn, scope=scope, target=target)
+            y = ax_dense_dyn(x, w, ax, dyn, scope=scope, target=target, wcodes=codes)
         else:
-            y = ax_dense(x, w, ax)
+            y = ax_dense(x, w, ax, wcodes=codes)
     else:
-        y = x @ w
+        y = x @ weight_cast(p["w"], x.dtype)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
@@ -68,10 +73,18 @@ def rmsnorm(x, p, eps):
 # rotary embeddings
 # ---------------------------------------------------------------------------
 
+_ROPE = {}
+
+
 def make_rope(head_dim: int, theta: float, device="cpu"):
-    """Inverse frequencies, computed in float64 numpy and cast to f32."""
-    inv = 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
-    return torch.as_tensor(inv.astype(np.float32), device=device)  # (hd/2,)
+    """Inverse frequencies, computed in float64 numpy and cast to f32; made
+    once per device (a copy from host memory cannot be captured in a CUDA
+    graph)."""
+    key = (head_dim, float(theta), torch.device(device))
+    if key not in _ROPE:
+        inv = 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+        _ROPE[key] = torch.as_tensor(inv.astype(np.float32), device=device)  # (hd/2,)
+    return _ROPE[key]
 
 
 def apply_rope(x, pos, inv_freq):
@@ -195,16 +208,33 @@ def attn_init(cfg: ModelConfig, dtype, generator, device):
     return p
 
 
+def _write_rows(buf, rows, slot, new, ok):
+    """``buf[b, slot[b]] = new[b]`` for the rows where ``ok``; the other rows
+    write back their old bytes, so a dropped row leaves ``buf``
+    byte-identical (JAX's ``.at[].set(mode="drop")``) with no host read."""
+    idx = slot.clamp(0, buf.shape[1] - 1)
+    old = buf[rows, idx]
+    buf[rows, idx] = torch.where(ok.view(-1, *([1] * (new.dim() - 1))), new.to(buf.dtype), old)
+
+
 def attn_apply(p, x, cfg: ModelConfig, *, pos, inv_freq, mode="train",
                cache=None, cache_index=None, max_cache_len=0,
-               q_chunk=512, kv_chunk=1024):
+               q_chunk=512, kv_chunk=1024, prompt_lens=None, write_mask=None):
     """GQA attention block with full (non-windowed) causal attention.
 
     mode='train'   — chunked attention, no cache, returns (y, None)
     mode='prefill' — the same, plus a decode cache padded to ``max_cache_len``
     mode='decode'  — S == 1 against ``cache``: this step's K/V are written
-                     in place at ``cache_index`` (an int) and the cache dict
-                     is returned.
+                     in place and the cache dict is returned.
+
+    ``cache_index`` is an int64 (B,) tensor of per-slot positions on the
+    activations' device (``transformer.forward`` makes one from a scalar):
+    each slot writes its own cache row and attends its own prefix.
+    ``write_mask`` — optional (B,) bool gating the per-slot cache write (a
+    False row's cache stays byte-identical, as a retired slot's must).
+    ``prompt_lens`` — optional (B,) real prompt lengths for prefill: key
+    positions past a slot's length are pushed to 2^30, outside every
+    causal window, so right-padded prompts attend only to real tokens.
     """
     B, S, _ = x.shape
     hd = cfg.head_dim_
@@ -218,17 +248,24 @@ def attn_apply(p, x, cfg: ModelConfig, *, pos, inv_freq, mode="train",
     cdtype = getattr(torch, cfg.compute_dtype)
     new_cache = None
     if mode == "decode":
-        ci = int(cache_index)
-        cache["k"][:, ci] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][:, ci] = v[:, 0].to(cache["v"].dtype)
         ring = cache["k"].shape[1]
-        valid = min(ci + 1, ring)
-        out = decode_attention(
-            q, cache["k"], cache["v"], q_pos=pos[:, 0],
-            kv_len=torch.full((B,), valid, dtype=torch.int64, device=x.device))
+        ci = cache_index
+        ok = (ci >= 0) & (ci < ring)              # out of range drops, as in JAX
+        if write_mask is not None:
+            ok = ok & write_mask
+        rows = torch.arange(B, device=x.device)
+        _write_rows(cache["k"], rows, ci, k[:, 0], ok)
+        _write_rows(cache["v"], rows, ci, v[:, 0], ok)
+        out = decode_attention(q, cache["k"], cache["v"], q_pos=pos[:, 0],
+                               kv_len=torch.clamp(ci + 1, max=ring))
         new_cache = cache
     else:
-        out = chunked_attention(q, k, v, pos, pos, causal=True,
+        kpos = pos
+        if prompt_lens is not None:
+            idx = torch.arange(S, device=x.device)[None, :]
+            kpos = torch.where(idx < prompt_lens[:, None].to(idx.dtype), pos,
+                               torch.full_like(pos, 2 ** 30))
+        out = chunked_attention(q, k, v, pos, kpos, causal=True,
                                 q_chunk=q_chunk, kv_chunk=kv_chunk)
         if mode == "prefill":
             pad = max_cache_len - S

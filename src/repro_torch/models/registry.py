@@ -16,14 +16,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     return transformer.init_cache(cfg, batch, max_len, device=device)
 
 
-def prefill(params, batch, cfg: ModelConfig, *, max_cache_len: int):
-    """Logits for the prompt and a decode cache of ``max_cache_len``."""
+def prefill(params, batch, cfg: ModelConfig, *, max_cache_len: int, prompt_lens=None):
+    """Logits for the prompt and a decode cache of ``max_cache_len``.
+    ``prompt_lens`` — optional (B,) real prompt lengths: the pad-mask
+    prefill (right-padded prompts attend only to real tokens)."""
     return transformer.forward(params, batch, cfg, mode="prefill",
-                               max_cache_len=max_cache_len)
+                               max_cache_len=max_cache_len, prompt_lens=prompt_lens)
 
 
-def decode_step(params, cache, tokens, cache_index, cfg: ModelConfig):
-    """One serving step: tokens (B, 1) at position ``cache_index``; the
-    cache is updated in place and returned."""
+def decode_step(params, cache, tokens, cache_index, cfg: ModelConfig, write_mask=None):
+    """One serving step: tokens (B, 1) at ``cache_index``, a scalar (the
+    whole batch) or an int (B,) vector of per-slot positions; ``write_mask``
+    (B,) bool gates each slot's cache write.  The cache is updated in place
+    and returned."""
     return transformer.forward(params, {"tokens": tokens}, cfg, mode="decode",
-                               cache=cache, cache_index=cache_index)
+                               cache=cache, cache_index=cache_index,
+                               write_mask=write_mask)

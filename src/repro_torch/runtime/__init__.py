@@ -13,7 +13,8 @@ re-tune, closing the loop for the paper's *online* error reduction.
                one batched call over buffered live operands
 
 The guarded rollout, the policy store, the fleet and the metrics registry
-of the JAX package are not ported yet (ROADMAP queue 1, items 9 and 12).
+of the JAX package are not ported yet (the policy store and rollout, the
+fleet and observability: ROADMAP queue 1).
 """
 from .controller import (
     AdaptiveConfig,

@@ -13,8 +13,9 @@ nothing.
 Scores are exact: integer error sums divided by the sample size at the end
 (the JAX package takes an f32 mean, which can order a near-tie differently).
 
-Not ported yet: the guarded rollout (``canary``, rollback), the policy
-store and the SLO engine (ROADMAP queue 1, items 9 and 12).
+Not ported yet: the guarded rollout (``canary``, rollback) and the policy
+store (the policy store and rollout, ROADMAP queue 1), and the SLO engine
+(observability, ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -37,8 +38,8 @@ __all__ = ["AdaptiveConfig", "RetuneEvent", "TileRetuneEvent",
            "AdaptiveController", "all_triples", "tile_triples"]
 
 
-def _deferred(what: str, items: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP queue 1, {items}")
+def _deferred(what: str, work: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet: {work} (ROADMAP queue 1)")
 
 
 def all_triples(bits: int) -> np.ndarray:
@@ -94,7 +95,8 @@ class AdaptiveConfig:
     tile_rows: int = 0
     tile_buffer_size: int = 512    # per-(target, tile) operand ring buffer
     # guarded rollout (canary + auto-rollback; its holdout, margin and
-    # rollback knobs come with it): ROADMAP queue 1 items 9 and 12
+    # rollback knobs come with it): the policy store and rollout, ROADMAP
+    # queue 1
     canary: bool = False
     # telemetry admission control (`quarantine=False` disables even the
     # NaN/Inf and bounds checks)
@@ -181,10 +183,11 @@ class AdaptiveController:
                  store=None, device="cuda"):
         self.cfg = cfg or AdaptiveConfig()
         if store is not None:
-            raise _deferred("the policy store (store=)", "item 9 (fleet/store.py)")
+            raise _deferred("the policy store (store=)",
+                            "the policy store and rollout, fleet/store.py")
         if self.cfg.canary:
             raise _deferred("the guarded rollout (canary=True)",
-                            "items 9 and 12 (fleet store, obs/slo)")
+                            "the policy store and rollout, with obs/slo.py")
         self.policy = policy
         self.targets = tuple(targets)
         self.device = torch.device(device)
@@ -247,7 +250,7 @@ class AdaptiveController:
             self.cfg.drift_threshold = threshold
 
     def attach_slo(self, engine) -> None:
-        raise _deferred("the SLO engine (attach_slo)", "item 12 (obs/slo.py)")
+        raise _deferred("the SLO engine (attach_slo)", "observability, obs/slo.py")
 
     def warmup(self) -> None:
         """Run the re-tune scorers once at their shapes, so the first

@@ -7,7 +7,8 @@ no bit's occupancy moved, no single-bit config changed its mask
 population.  Score: mean absolute difference between the current
 exponentially-decayed bit-probability matrix and the reference captured
 when the policy was last tuned.  (The JAX package also exports the score as
-a metrics gauge; the port's observability layer is ROADMAP queue 1 item 12.)
+a metrics gauge; the port's observability layer is still to come, ROADMAP
+queue 1.)
 """
 from __future__ import annotations
 

@@ -1,39 +1,61 @@
-"""Batched serving loop (``repro.serve.engine``, scalar path): prefill once,
-then one decode step per token against the KV cache.
+"""Batched serving loop (``repro.serve.engine``): prefill once, then one
+decode step per token against the KV cache, with per-slot positions.
 
-The JAX package fuses the token loop into one ``lax.scan``; here it is a
-Python loop over ``decode_step`` (a CUDA graph of the step is a later
-lever).  Greedy decoding (``temperature == 0``) is ``argmax`` with the first
-maximum winning, as in JAX.  ``temperature > 0`` samples from a
-``torch.Generator`` seeded with ``ServeConfig.seed`` on the params' device:
-deterministic for a seed, but not JAX's threefry stream.
+**Per-slot decode.**  Every path carries an int64 (B,) position vector and
+per-slot done-flags on the device: ``(i < budget) & (tok != eos)``, the
+budget from ``slot_new_tokens`` and the EOS guard from
+``ServeConfig.eos_id``.  A retired slot's token freezes (the output repeats
+it), its cache write is dropped (the cache row stays byte-identical) and its
+position stops.  ``prompt_lens`` switches prefill to the pad-mask path:
+right-padded prompts attend only to real tokens, the first token is sampled
+at each slot's last real position and decode starts at ``prompt_lens``, so a
+padded prompt generates exactly what it generates unpadded.  Without these
+arguments every slot is live for the whole generation, which gives the
+tokens of the JAX package's scalar path.
+
+**Sampling** (:func:`slot_sample`).  Greedy (``temperature == 0``) is
+``argmax`` with the first maximum winning, as in JAX.  ``temperature > 0`` is
+a counter-based Gumbel-max: the noise of vocabulary entry v for token t of
+a request seeded s is an integer hash of (s, t, v), made with tensor ops.
+A draw depends on the request alone (splice-invariant, as JAX's
+``fold_in(PRNGKey(s), t)`` streams are), the hash gives the same bits on the
+CPU and the card, and a CUDA graph needs no generator state.  It is not
+JAX's threefry stream.  Without ``slot_seeds`` slot b draws from the seed
+``ServeConfig.seed * 1000003 + b``.
+
+**The decode step as a CUDA graph** (``serve/graph.py``).  On the card the
+fused paths (``fused=True`` without a ``param_hook``: the static serve and
+the adaptive serve with its policy frozen per generation) and
+:func:`token_step` replay one captured graph per decode program and per
+observe gate, the counterpart of JAX's one ``lax.scan`` per generation;
+``ServeConfig.cuda_graphs=False`` runs them eagerly.  Stepwise serves (a
+``param_hook``, or ``fused=False``) stay eager, as JAX's stepwise loop is
+one dispatch per step.  On the CPU every path is eager.
 
 With an :class:`~repro_torch.runtime.AdaptiveController` attached, every
 decode step runs inside an adaptive-runtime scope: the SWAPPER configs of
 ``cfg.ax.targets`` are the controller's int32 device tensors, observed
-steps (``ServeConfig.observe_every``) emit telemetry records, and the
-controller folds them in and re-tunes.  Prefill runs the static policy, as
-in JAX.  Two schedules, both the JAX package's:
+steps (``ServeConfig.observe_every``, and only while some slot's budget
+lasts: ``i < max(budget)``, EOS-agnostic as in JAX) emit telemetry records,
+and the controller folds them in and re-tunes.  Prefill runs the static
+policy, as in JAX.  The fused schedule reads the policy once per
+generation and folds the observed steps' records in after the loop; the
+stepwise schedule reads it before every step and observes step i-1's
+records after step i was issued, so the controller's work overlaps step i
+on the card.
 
-* ``fused=True`` (the JAX default, one ``lax.scan`` there): the policy is
-  read once and frozen for the generation; the observed steps' records are
-  copied to the host as the steps finish and folded into the controller in
-  step order after the loop.
-* ``fused=False``, or any ``param_hook``: the policy is read before every
-  step, and step i-1's records are observed after step i was issued (one
-  step stale): their copy to the host starts without waiting, and the
-  host waits only for step i-1, so the controller's work overlaps step i
-  on the card.
-
-Per-slot positions, pad-mask prefill, EOS retirement, per-request seeds, the
-fleet mesh and the token-granular API arrive with later slices.
+The fleet mesh and the continuous batcher are later work (the fleet
+serving item of ROADMAP queue 1); :func:`token_step`, :func:`prefill_one`
+and :func:`splice_slot` are the API it is built on.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -41,7 +63,10 @@ from repro_torch.models import decode_step, prefill
 from repro_torch.runtime.scope import ax_scope
 from repro_torch.runtime.telemetry import finish_host_copy, start_host_copy
 
-__all__ = ["ServeConfig", "generate"]
+from . import graph as G
+
+__all__ = ["ServeConfig", "generate", "slot_sample", "token_step", "prefill_one",
+           "splice_slot"]
 
 
 @dataclasses.dataclass
@@ -49,16 +74,128 @@ class ServeConfig:
     max_new_tokens: int = 32
     temperature: float = 0.0   # 0 => greedy
     seed: int = 0
-    fused: bool = True         # adaptive: one frozen policy per generation
+    fused: bool = True         # one frozen policy per generation (a graph on the card)
     observe_every: int = 1     # adaptive telemetry decimation period (k >= 1)
+    eos_id: Optional[int] = None   # a slot that samples it retires the next step
+    cuda_graphs: bool = True   # card: replay the fused decode step as a CUDA graph
 
 
-def _sample(logits, temperature: float, gen: Optional[torch.Generator]):
-    lg = logits[:, -1].to(torch.float32)
-    if temperature > 0:
-        probs = torch.softmax(lg / temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=gen)[:, 0]
-    return torch.argmax(lg, dim=-1)
+# ---------------------------------------------------------------------------
+# sampling
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """``x * c mod 2^32`` for uint32 values held in int64 (the product is
+    split so that no intermediate leaves int64)."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _fmix32(h):
+    """MurmurHash3's 32-bit finaliser on int64-held uint32 values."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def _gumbel(seeds, nt, vocab: int, device):
+    """(B, vocab) float32 Gumbel noise of token ``nt[b]`` of the request
+    seeded ``seeds[b]``: a hash of (seed, token index, vocabulary index)
+    mapped to a uniform in (0, 1) with 24 bits, then -log(-log(u))."""
+    s = _fmix32((seeds.to(torch.int64) & _M32) ^ 0x9E3779B9)
+    s = _fmix32(s ^ (nt.to(torch.int64) & _M32))
+    v = torch.arange(vocab, dtype=torch.int64, device=device)
+    h = _fmix32(s[:, None] ^ _mul32(v, 0x27D4EB2F)[None, :])
+    u = ((h >> 8).to(torch.float32) + 0.5) * (2.0 ** -24)
+    return -torch.log(-torch.log(u))
+
+
+def slot_sample(last_logits, seeds, nt, temperature: float):
+    """Per-request sampling (``repro.serve.engine.slot_sample``): row b of
+    ``last_logits`` (B, V) draws token index ``nt[b]`` of the request seeded
+    ``seeds[b]`` (module note).  ``temperature <= 0`` is argmax, the first
+    maximum winning, and needs no seeds."""
+    lg = last_logits.to(torch.float32)
+    if temperature <= 0:
+        return torch.argmax(lg, dim=-1)
+    inv_t = float(np.float32(1.0) / np.float32(temperature))
+    return torch.argmax(lg * inv_t + _gumbel(seeds, nt, lg.shape[-1], lg.device), dim=-1)
+
+
+def _default_seeds(seed: int, B: int, device):
+    return torch.arange(B, dtype=torch.int64, device=device) + int(seed) * 1000003
+
+
+# ---------------------------------------------------------------------------
+# one decode step on a state of device tensors
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _State:
+    """The decode state, all on the device: the last tokens, per-slot
+    positions, token counters and budgets, the step index ``i`` (1,), the
+    seeds, the cache and the output rows (B, 1 + steps)."""
+    tok: torch.Tensor
+    pos: torch.Tensor
+    nt: torch.Tensor
+    budget: torch.Tensor
+    i: torch.Tensor
+    seeds: torch.Tensor
+    cache: list
+    out: torch.Tensor
+
+
+def _decode(params, st: _State, cfg, *, temperature, eos_id, dyn=None, gate=False,
+            tile_rows=0):
+    """One decode step: done-flags, the model step with gated cache writes,
+    sampling and freeze; the state advances in place (no host read).
+    Returns the step's stacked telemetry records when an adaptive scope
+    observes it, else None."""
+    active = st.i < st.budget
+    if eos_id is not None:
+        active = active & (st.tok != eos_id)
+    scope = (ax_scope(dyn, collect=True, gate=gate, tile_rows=tile_rows)
+             if dyn is not None else contextlib.nullcontext())
+    with scope as sc:
+        logits, _ = decode_step(params, st.cache, st.tok[:, None], st.pos, cfg,
+                                write_mask=active)
+    nxt = slot_sample(logits[:, -1], st.seeds, st.nt, temperature)
+    tok = torch.where(active, nxt, st.tok)
+    inc = active.to(torch.int64)
+    st.tok.copy_(tok)
+    st.pos.add_(inc)
+    st.nt.add_(inc)
+    st.i.add_(1)
+    st.out.index_copy_(1, st.i, tok[:, None])
+    return sc.collected() if (dyn is not None and gate) else None
+
+
+def _state_like(st: _State) -> _State:
+    """Static buffers shaped like ``st`` (a graph program's own state)."""
+    fields = {f.name: torch.empty_like(getattr(st, f.name))
+              for f in dataclasses.fields(_State) if f.name != "cache"}
+    cache = [{k: torch.empty_like(v) for k, v in c.items()} for c in st.cache]
+    return _State(cache=cache, **fields)
+
+
+def _copy_state(dst: _State, src: _State) -> None:
+    for f in dataclasses.fields(_State):
+        a, b = getattr(dst, f.name), getattr(src, f.name)
+        if f.name == "cache":
+            for ca, cb in zip(a, b):
+                for k in ca:
+                    ca[k].copy_(cb[k])
+        else:
+            a.copy_(b)
+
+
+def _use_graphs(device: torch.device, enabled: bool) -> bool:
+    """CUDA graphs run on the card only (module note)."""
+    return enabled and device.type == "cuda"
 
 
 def _sync(device: torch.device):
@@ -66,8 +203,21 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
+def _dyn_on(adaptive, device):
+    return {k: v.to(device) for k, v in adaptive.dyn_tree().items()}
+
+
+def _dyn_sig(dyn):
+    return tuple((k, tuple(v.shape)) for k, v in sorted(dyn.items())) if dyn else None
+
+
+# ---------------------------------------------------------------------------
+# generate
+# ---------------------------------------------------------------------------
+
 def generate(params, prompt_batch, cfg: ModelConfig, scfg: ServeConfig, *,
              adaptive=None, param_hook: Optional[Callable] = None,
+             prompt_lens=None, slot_new_tokens=None, slot_seeds=None,
              max_cache_len: Optional[int] = None, stats: Optional[dict] = None):
     """prompt_batch: {'tokens': (B, S)}.  Returns (B, max_new_tokens) int32
     on the params' device.
@@ -76,10 +226,16 @@ def generate(params, prompt_batch, cfg: ModelConfig, scfg: ServeConfig, *,
     policy of ``cfg.ax.targets`` during decode (see the module note).
     ``param_hook(step, params) -> params`` — optional per-step parameter
     transform (synthetic drift); forces the stepwise schedule.
+    ``prompt_lens`` — optional (B,) real prompt lengths (pad-mask prefill).
+    ``slot_new_tokens`` — optional (B,) per-slot token budgets, each at most
+    ``max_new_tokens``: a slot past its budget retires in place.
+    ``slot_seeds`` — optional (B,) per-request sampling seeds.
+    ``max_cache_len`` — optional decode-cache length (at least S +
+    max_new_tokens + 1).
     ``stats`` — optional dict that receives ``prefill_s`` (prefill and the
     first token) and ``decode_s`` (the remaining steps, the adaptive
     controller's work included), host-clock walls taken after a device
-    synchronise.
+    synchronise, and ``path`` (``"graph"`` or ``"eager"``).
     """
     device = params["embed"]["w"].device
     tokens = torch.as_tensor(prompt_batch["tokens"], device=device)
@@ -90,87 +246,253 @@ def generate(params, prompt_batch, cfg: ModelConfig, scfg: ServeConfig, *,
                          f"{scfg.max_new_tokens} new tokens + 1")
     if scfg.observe_every < 1:
         raise ValueError(f"observe_every must be >= 1: {scfg.observe_every}")
-    gen = None
-    if scfg.temperature > 0:
-        gen = torch.Generator(device=device).manual_seed(scfg.seed)
+    n_steps = scfg.max_new_tokens - 1
+    budget_host = np.full(B, n_steps, np.int64)
+    if slot_new_tokens is not None:
+        budget_host = np.asarray(slot_new_tokens, np.int64).reshape(B) - 1
+        if budget_host.max() > n_steps or budget_host.min() < 0:
+            raise ValueError(f"slot_new_tokens must lie in 1..{scfg.max_new_tokens}: "
+                             f"{budget_host + 1}")
+    pl = None
+    if prompt_lens is not None:
+        pl = torch.as_tensor(np.asarray(prompt_lens), dtype=torch.int64,
+                             device=device).reshape(B)
+    seeds = (_default_seeds(scfg.seed, B, device) if slot_seeds is None else
+             torch.as_tensor(np.asarray(slot_seeds), dtype=torch.int64, device=device)
+             .reshape(B))
 
     with torch.inference_mode():
         t0 = time.perf_counter()
-        logits, cache = prefill(params, {"tokens": tokens}, cfg, max_cache_len=max_len)
-        tok = _sample(logits, scfg.temperature, gen)
+        logits, cache = prefill(params, {"tokens": tokens}, cfg, max_cache_len=max_len,
+                                prompt_lens=pl)
+        rows = torch.arange(B, device=device)
+        last = logits[:, -1] if pl is None else logits[rows, pl - 1]
+        zeros = torch.zeros(B, dtype=torch.int64, device=device)
+        tok = slot_sample(last, seeds, zeros, scfg.temperature)
         if stats is not None:
             _sync(device)
             stats["prefill_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        out = [tok]
-        steps = range(scfg.max_new_tokens - 1)
-        sample = lambda lg: _sample(lg, scfg.temperature, gen)
-        if adaptive is None and param_hook is None:
-            for i in steps:
-                logits, cache = decode_step(params, cache, tok[:, None], S + i, cfg)
-                tok = sample(logits)
-                out.append(tok)
-        elif adaptive is not None and param_hook is None and scfg.fused:
-            _decode_fused_adaptive(params, cache, tok, S, cfg, scfg, adaptive, sample, out)
-        else:
-            _decode_stepwise(params, cache, tok, S, cfg, scfg, adaptive, param_hook,
-                             sample, out)
+        out = torch.zeros((B, scfg.max_new_tokens), dtype=torch.int64, device=device)
+        out[:, 0] = tok
+        st = _State(tok=tok, pos=(torch.full((B,), S, dtype=torch.int64, device=device)
+                                  if pl is None else pl.clone()),
+                    nt=torch.ones(B, dtype=torch.int64, device=device),
+                    budget=torch.as_tensor(budget_host, device=device),
+                    i=torch.zeros(1, dtype=torch.int64, device=device),
+                    seeds=seeds, cache=cache, out=out)
+        k = scfg.observe_every
+        bmax = int(budget_host.max()) if B else 0
+        gates = [adaptive is not None and i % k == 0 and i < bmax for i in range(n_steps)]
+        graphs = _use_graphs(device, scfg.cuda_graphs)
+        path = "eager"
+        if param_hook is None and scfg.fused and n_steps > 0:
+            dyn = _dyn_on(adaptive, device) if adaptive is not None else None
+            tile_rows = adaptive.tile_rows if adaptive is not None else 0
+            kw = dict(temperature=scfg.temperature, eos_id=scfg.eos_id, tile_rows=tile_rows)
+            if graphs:
+                path = "graph"
+                st = _fused_graph(params, st, cfg, dyn, gates, kw, max_len, adaptive)
+            else:
+                copies = []
+                for gate in gates:
+                    rec = _decode(params, st, cfg, dyn=dyn, gate=gate, **kw)
+                    if rec is not None:
+                        copies.append(start_host_copy(rec))
+                for copy in copies:
+                    adaptive.observe(finish_host_copy(copy))
+        elif n_steps > 0:
+            _decode_stepwise(params, st, cfg, scfg, adaptive, param_hook, gates)
+        result = st.out.to(torch.int32)
         if stats is not None:
             _sync(device)
             stats["decode_s"] = time.perf_counter() - t0
-    return torch.stack(out, dim=1).to(torch.int32)
+            stats["path"] = path
+    return result
 
 
-def _adaptive_step(params, cache, tok, pos: int, cfg, dyn, gate: bool, tile_rows: int):
-    """One decode step inside an adaptive scope: (logits, cache, records)
-    with the step's stacked device records, or None when not observed."""
-    with ax_scope(dyn, collect=True, gate=gate, tile_rows=tile_rows) as sc:
-        logits, cache = decode_step(params, cache, tok[:, None], pos, cfg)
-    return logits, cache, (sc.collected() if gate else None)
+def _fused_graph(params, st: _State, cfg, dyn, gates, kw, max_len, adaptive):
+    """The fused paths on the card: the program's static state takes this
+    generation's values, then each step replays the captured graph of its
+    gate (module note of ``serve/graph.py``).  Returns the program's state,
+    whose ``out`` holds the tokens."""
+    B = st.tok.shape[0]
+    key = ("generate", cfg, B, max_len, st.out.shape[1], kw["temperature"], kw["eos_id"],
+           kw["tile_rows"], _dyn_sig(dyn))
 
+    def build():
+        buf = dict(state=_state_like(st), dyn=({k: torch.empty_like(v) for k, v in dyn.items()}
+                                               if dyn is not None else None))
 
-def _dyn_on(adaptive, device):
-    return {k: v.to(device) for k, v in adaptive.dyn_tree().items()}
+        def step(gate):
+            return _decode(params, buf["state"], cfg, dyn=buf["dyn"], gate=gate, **kw)
 
+        return G.StepProgram(key, [params, buf], step, buf)
 
-def _decode_fused_adaptive(params, cache, tok, S, cfg, scfg, adaptive, sample, out):
-    """The policy frozen for the generation; observed steps' records folded
-    into the controller in step order after the loop (``engine.py:527``)."""
-    device = tok.device
-    dyn = _dyn_on(adaptive, device)
-    k = scfg.observe_every
+    prog = G.program(key, (params,), build)
+    _copy_state(prog.buf["state"], st)
+    if dyn is not None:
+        for name, v in dyn.items():
+            prog.buf["dyn"][name].copy_(v)
     copies = []
-    for i in range(scfg.max_new_tokens - 1):
-        logits, cache, rec = _adaptive_step(params, cache, tok, S + i, cfg, dyn,
-                                            i % k == 0, adaptive.tile_rows)
-        tok = sample(logits)
-        out.append(tok)
-        if rec is not None:
+    for gate in gates:
+        rec = prog.run(gate)
+        if gate:
             copies.append(start_host_copy(rec))
     for copy in copies:
         adaptive.observe(finish_host_copy(copy))
+    return prog.buf["state"]
 
 
-def _decode_stepwise(params, cache, tok, S, cfg, scfg, adaptive, param_hook, sample, out):
-    """One step at a time (``engine.py:558``): the params hook and the
-    per-step policy read come before each step; step i-1's records are
+def _decode_stepwise(params, st: _State, cfg, scfg, adaptive, param_hook, gates):
+    """One eager step at a time (``engine.py:558``): the params hook and
+    the per-step policy read come before each step; step i-1's records are
     observed after step i was issued, while it runs."""
-    k = scfg.observe_every
+    kw = dict(temperature=scfg.temperature, eos_id=scfg.eos_id,
+              tile_rows=adaptive.tile_rows if adaptive is not None else 0)
     pending = None
-    for i in range(scfg.max_new_tokens - 1):
+    for i, gate in enumerate(gates):
         if param_hook is not None:
             params = param_hook(i, params)
-        if adaptive is None:
-            logits, cache = decode_step(params, cache, tok[:, None], S + i, cfg)
-        else:
-            logits, cache, rec = _adaptive_step(params, cache, tok, S + i, cfg,
-                                                _dyn_on(adaptive, tok.device),
-                                                i % k == 0, adaptive.tile_rows)
-            copy = start_host_copy(rec) if rec is not None else None
-            if pending is not None:
-                adaptive.observe(finish_host_copy(pending))
-            pending = copy
-        tok = sample(logits)
-        out.append(tok)
+        dyn = _dyn_on(adaptive, st.tok.device) if adaptive is not None else None
+        rec = _decode(params, st, cfg, dyn=dyn, gate=gate, **kw)
+        copy = start_host_copy(rec) if rec is not None else None
+        if pending is not None:
+            adaptive.observe(finish_host_copy(pending))
+        pending = copy
     if pending is not None:
         adaptive.observe(finish_host_copy(pending))
+
+
+# ---------------------------------------------------------------------------
+# token-granular serving: one decode step, a single-request prefill, a splice
+# ---------------------------------------------------------------------------
+
+def _token_decode(params, buf, cfg, *, temperature, eos_id, tile_rows, gate):
+    """The token step on its buffers: ``active & (tok != eos)`` gates the
+    cache write and the sample; pos and nt stay the caller's."""
+    active = buf["active"]
+    if eos_id is not None:
+        active = active & (buf["tok"] != eos_id)
+    dyn = buf["dyn"]
+    scope = (ax_scope(dyn, collect=True, gate=gate, tile_rows=tile_rows)
+             if dyn is not None else contextlib.nullcontext())
+    with scope as sc:
+        logits, _ = decode_step(params, buf["cache"], buf["tok"][:, None], buf["pos"], cfg,
+                                write_mask=active)
+    nxt = slot_sample(logits[:, -1], buf["seeds"], buf["nt"], temperature)
+    buf["tok_out"].copy_(torch.where(active, nxt, buf["tok"]))
+    return sc.collected() if (dyn is not None and gate) else None
+
+
+def token_step(params, cache, tok, pos, active, cfg: ModelConfig, *,
+               temperature: float = 0.0, adaptive=None, gate: bool = True,
+               eos_id: Optional[int] = None, seeds=None, nt=None,
+               cuda_graphs: bool = True):
+    """One token-granular decode step for the whole slot batch
+    (``repro.serve.engine.token_step``): ``tok`` (B,) the last tokens,
+    ``pos`` (B,) per-slot positions, ``active`` (B,) done-flags (False
+    slots keep their token and skip their cache write).  ``eos_id`` also
+    freezes a slot whose token is EOS.  ``seeds``/``nt`` (together; needed
+    for ``temperature > 0``) select per-request sampling.
+
+    Returns ``(tok', cache)``, the cache updated in place, plus the step's
+    telemetry records when ``adaptive`` is attached (None when ``gate`` is
+    False).  The caller advances ``pos`` and ``nt`` by ``active``.  On the
+    card the step is a CUDA graph per program (module note): the inputs are
+    copied into its buffers, the records are its output buffers (valid
+    until the next step of the same program), and a splice or a policy
+    update changes values only."""
+    device = params["embed"]["w"].device
+    if (seeds is None) != (nt is None):
+        raise ValueError("seeds and nt come together")
+    if temperature > 0 and seeds is None:
+        raise ValueError("token_step samples at temperature > 0 from per-request "
+                         "streams: pass seeds and nt")
+    B = int(tok.shape[0])
+    dyn = _dyn_on(adaptive, device) if adaptive is not None else None
+    tile_rows = adaptive.tile_rows if adaptive is not None else 0
+    zeros = torch.zeros(B, dtype=torch.int64, device=device)
+    inputs = dict(tok=tok, pos=pos, active=active,
+                  seeds=zeros if seeds is None else seeds, nt=zeros if nt is None else nt)
+    dtypes = dict(tok=torch.int64, pos=torch.int64, active=torch.bool, seeds=torch.int64,
+                  nt=torch.int64)
+    kw = dict(temperature=temperature, eos_id=eos_id, tile_rows=tile_rows)
+    with torch.inference_mode():
+        if _use_graphs(device, cuda_graphs):
+            key = ("token_step", cfg, B, cache[0]["k"].shape[1], temperature, eos_id,
+                   tile_rows, _dyn_sig(dyn))
+
+            def build():
+                buf = {n: torch.empty(B, dtype=dtypes[n], device=device) for n in inputs}
+                buf.update(cache=cache, tok_out=torch.empty(B, dtype=torch.int64,
+                                                            device=device),
+                           dyn=({k: torch.empty_like(v) for k, v in dyn.items()}
+                                if dyn is not None else None))
+
+                def step(g):
+                    return _token_decode(params, buf, cfg, gate=g, **kw)
+
+                return G.StepProgram(key, [params, buf], step, buf)
+
+            prog = G.program(key, (params, cache), build)
+            buf = prog.buf
+            for n, v in inputs.items():
+                buf[n].copy_(torch.as_tensor(v, device=device))
+            if dyn is not None:
+                for name, v in dyn.items():
+                    buf["dyn"][name].copy_(v)
+            rec = prog.run(bool(gate) and adaptive is not None)
+            tok_new = buf["tok_out"]
+        else:
+            buf = {n: torch.as_tensor(v, device=device).to(dtypes[n]) for n, v in inputs.items()}
+            buf.update(cache=cache, tok_out=torch.empty(B, dtype=torch.int64, device=device),
+                       dyn=dyn)
+            rec = _token_decode(params, buf, cfg, gate=bool(gate) and adaptive is not None,
+                                **kw)
+            tok_new = buf["tok_out"]
+    tok_new = tok_new.clone()          # a normal tensor the caller may update
+    if adaptive is None:
+        return tok_new, cache
+    return tok_new, cache, rec
+
+
+def prefill_one(params, tokens, length: int, cfg: ModelConfig, *, max_cache_len: int,
+                temperature: float = 0.0, seed: Optional[int] = None):
+    """Prefill ONE right-padded request ``tokens`` (1, bucket) of real
+    length ``length`` (``repro.serve.engine.prefill_one``): the pad-mask
+    forward, the first token sampled at the last real position (index 0 of
+    the request's stream ``seed``; needed for ``temperature > 0``), and a
+    cache padded to ``max_cache_len`` that :func:`splice_slot` writes into
+    any slot.  Returns ``(first_token (1,), cache)``."""
+    device = params["embed"]["w"].device
+    if temperature > 0 and seed is None:
+        raise ValueError("prefill_one samples at temperature > 0 from the request's "
+                         "stream: pass seed")
+    toks = torch.as_tensor(tokens, device=device).reshape(1, -1)
+    lens = torch.full((1,), int(length), dtype=torch.int64, device=device)
+    with torch.inference_mode():
+        logits, cache = prefill(params, {"tokens": toks}, cfg, max_cache_len=max_cache_len,
+                                prompt_lens=lens)
+        zero = torch.zeros(1, dtype=torch.int64, device=device)
+        s = zero if seed is None else torch.full((1,), int(seed), dtype=torch.int64,
+                                                 device=device)
+        first = slot_sample(logits[:, int(length) - 1], s, zero, temperature)
+    return first, cache
+
+
+def splice_slot(cache, fresh, slot):
+    """Write the single-request cache ``fresh`` (batch 1) into row ``slot``
+    of the slot-batched ``cache``, in place (the mid-flight admission
+    splice); ``slot`` is an int or a device tensor, so nothing is read
+    back.  Returns ``cache``: its tensors keep their addresses, so a
+    captured token step stays valid."""
+    with torch.inference_mode():
+        for big, small in zip(cache, fresh):
+            for name, t in big.items():
+                src = small[name].to(t.dtype)
+                if torch.is_tensor(slot):
+                    t.index_copy_(0, slot.reshape(1).to(device=t.device, dtype=torch.int64), src)
+                else:
+                    t[int(slot)].copy_(src[0])
+    return cache

@@ -416,3 +416,144 @@ def test_sobel_on_the_card_equals_the_cpu(cuda):
     vc, oc = TA.evaluate(app, TC.SwapConfig("A", 2, 1), mult=m, n=40, device="cpu")
     assert torch.equal(og.cpu(), oc)
     assert vg == pytest.approx(vc, rel=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the serving path: mxu, per-slot decode, CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _serve_cfg(backend="mxu"):
+    return dataclasses.replace(reduced(qwen2_72b), n_layers=2, compute_dtype="float32",
+                               ax=AxPolicy(backend=backend))
+
+
+@pytest.mark.parametrize("mname", ["mul8s_trunc0_4", "mul8s_perf0_1"])
+def test_mxu_equals_kernel_on_the_card(cuda, mname):
+    import repro_torch.quant.ax as TQ
+
+    a, b = _ops((4, 96), True, 41, cuda), _ops((96, 40), True, 42, cuda)
+    grid = torch.tensor([[[1, 3, 0]], [[0, 5, 1]]], dtype=torch.int32, device=cuda)
+    for swap in [dict(swap_enabled=False), dict(), dict(swap_operand="B", swap_bit=6)]:
+        mx, kn = AxPolicy(mult_name=mname, backend="mxu", **swap), \
+            AxPolicy(mult_name=mname, backend="kernel", **swap)
+        before = AXM.LAUNCHES["ax_matmul"]
+        got = TQ.ax_matmul_int(a, b, mx)
+        assert AXM.LAUNCHES["ax_matmul"] == before + 1          # route T, one launch
+        assert torch.equal(got, TQ.ax_matmul_int(a, b, kn))
+        assert torch.equal(got.cpu(), TQ.ax_matmul_int(a.cpu(), b.cpu(), mx))
+    for dyn in (torch.tensor([0, 2, 1], dtype=torch.int32, device=cuda), grid):
+        got = TQ.ax_matmul_int_dyn(a, b, AxPolicy(mult_name=mname, backend="mxu"), dyn)
+        assert torch.equal(got.cpu(), TQ.ax_matmul_int_dyn(
+            a.cpu(), b.cpu(), AxPolicy(mult_name=mname, backend="mxu"), dyn.cpu()))
+
+
+def test_mxu_refuses_unsigned_on_int8_on_the_card(cuda):
+    import repro_torch.quant.ax as TQ
+
+    a, b = _ops((4, 32), True, 43, cuda), _ops((32, 8), True, 44, cuda)
+    with pytest.raises(ValueError, match="refuses"):
+        TQ.ax_matmul_int(a, b, AxPolicy(mult_name="mul8u_trunc0_4", backend="mxu"))
+
+
+def _graph_counts():
+    from repro_torch.serve import graph as G
+
+    return sum(G.CAPTURES.values()), sum(G.REPLAYS.values())
+
+
+@pytest.mark.parametrize("backend", ["mxu", "kernel"])
+def test_graph_replay_equals_eager_static(cuda, backend):
+    cfg = _serve_cfg(backend)
+    params = init_params(cfg, seed=7, device=cuda)
+    toks = torch.randint(0, cfg.vocab, (3, 8), generator=torch.Generator().manual_seed(8))
+    kw = dict(prompt_lens=[8, 5, 3], slot_new_tokens=[6, 2, 6], max_cache_len=16)
+    eager = generate(params, {"tokens": toks}, cfg,
+                     ServeConfig(max_new_tokens=6, cuda_graphs=False, eos_id=7), **kw)
+    c0, r0 = _graph_counts()
+    stats = {}
+    g1 = generate(params, {"tokens": toks}, cfg, ServeConfig(max_new_tokens=6, eos_id=7),
+                  stats=stats, **kw)
+    c1, r1 = _graph_counts()
+    g2 = generate(params, {"tokens": toks}, cfg, ServeConfig(max_new_tokens=6, eos_id=7), **kw)
+    c2, r2 = _graph_counts()
+    assert stats["path"] == "graph"
+    assert torch.equal(eager, g1) and torch.equal(eager, g2)
+    assert c1 - c0 == 1 and c2 == c1                  # one capture, then replays only
+    assert r1 - r0 == 4 and r2 - r1 == 5
+    cpu = generate(_to(params, "cpu"), {"tokens": toks}, cfg,
+                   ServeConfig(max_new_tokens=6, eos_id=7), **kw)
+    assert torch.equal(eager.cpu(), cpu)
+
+
+def test_graph_fused_adaptive_equals_eager_and_a_policy_update_recaptures_nothing(cuda):
+    cfg = _serve_cfg("kernel")
+    params = init_params(cfg, seed=9, device=cuda)
+    toks = torch.randint(0, cfg.vocab, (4, 8), generator=torch.Generator().manual_seed(10))
+
+    def ctrl(tile_rows):
+        return AdaptiveController(SwapPolicy.from_ax_policy(cfg.ax), cfg.ax.targets,
+                                  AdaptiveConfig(min_observe_steps=10 ** 6,
+                                                 tile_rows=tile_rows), device=cuda)
+
+    for tile_rows in (0, 2):
+        runs = {}
+        for graphs in (False, True):
+            c = ctrl(tile_rows)
+            out = generate(params, {"tokens": toks}, cfg,
+                           ServeConfig(max_new_tokens=6, observe_every=2, cuda_graphs=graphs),
+                           adaptive=c)
+            runs[graphs] = (out, c.telemetry.snapshot())
+        assert torch.equal(runs[False][0], runs[True][0])
+        for t, snap in runs[False][1].items():
+            for f, v in snap.items():
+                w = runs[True][1][t][f]
+                assert (v == w).all() if hasattr(v, "shape") else v == w, (t, f)
+        c = ctrl(tile_rows)
+        c.policy.set_config("mlp", TC.SwapConfig("B", 5, 1))
+        c0, _ = _graph_counts()
+        upd = generate(params, {"tokens": toks}, cfg,
+                       ServeConfig(max_new_tokens=6, observe_every=2), adaptive=c)
+        assert _graph_counts()[0] == c0                 # a new value, not a new graph
+        ce = ctrl(tile_rows)
+        ce.policy.set_config("mlp", TC.SwapConfig("B", 5, 1))
+        want = generate(params, {"tokens": toks}, cfg,
+                        ServeConfig(max_new_tokens=6, observe_every=2, cuda_graphs=False),
+                        adaptive=ce)
+        assert torch.equal(upd, want)
+
+
+def test_graph_token_step_equals_eager_and_a_splice_recaptures_nothing(cuda):
+    from repro_torch.models import init_cache
+    from repro_torch.serve import prefill_one, splice_slot, token_step
+
+    cfg = _serve_cfg("mxu")
+    params = init_params(cfg, seed=11, device=cuda)
+    g = torch.Generator().manual_seed(12)
+    reqs = [torch.randint(0, cfg.vocab, (n,), generator=g) for n in (8, 5, 3, 7)]
+    results = {}
+    for graphs in (False, True):
+        cache = init_cache(cfg, 3, 16, device=cuda)
+        tok = torch.zeros(3, dtype=torch.int64, device=cuda)
+        pos = torch.zeros(3, dtype=torch.int64, device=cuda)
+        for s, p in enumerate(reqs[:3]):
+            first, fresh = prefill_one(params, p[None], len(p), cfg, max_cache_len=16)
+            splice_slot(cache, fresh, s)
+            tok[s], pos[s] = first[0], len(p)
+        active = torch.tensor([True, True, True], device=cuda)
+        seq, caps = [], []
+        for step in range(5):
+            if step == 2:                          # a fresh request into slot 1
+                first, fresh = prefill_one(params, reqs[3][None], len(reqs[3]), cfg,
+                                           max_cache_len=16)
+                splice_slot(cache, fresh, torch.tensor(1, device=cuda))
+                tok[1], pos[1] = first[0], len(reqs[3])
+            if step == 3:
+                active[2] = False
+            tok, cache = token_step(params, cache, tok, pos, active, cfg, cuda_graphs=graphs)
+            pos = pos + active.long()
+            seq.append(tok.cpu())
+            caps.append(_graph_counts()[0])
+        results[graphs] = torch.stack(seq)
+        if graphs:
+            assert caps[1:] == [caps[0]] * 4           # splices re-capture nothing
+    assert torch.equal(results[False], results[True])

@@ -77,9 +77,19 @@ def test_ax_matmul_int_identical(backend, shape):
 
 
 def test_mxu_backend_is_not_ported_yet():
-    a = torch.zeros((2, 8), dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        TQ.ax_matmul_int(a, a.T.contiguous(), TPolicy(backend="mxu"))
+    """The ``mxu`` backend is ported now: the default policy equals JAX's
+    ``mxu`` on its int32 accumulators, and a non-separable multiplier still
+    raises (tests/test_torch_mxu.py covers the rest)."""
+    rng = np.random.default_rng(11)
+    a = rng.integers(-127, 128, (2, 8)).astype(np.int8)
+    b = rng.integers(-127, 128, (8, 6)).astype(np.int8)
+    j = jax.jit(lambda x, y: JQ.ax_matmul_int(x, y, JPolicy(backend="mxu")))(
+        jnp.asarray(a), jnp.asarray(b))
+    t = TQ.ax_matmul_int(torch.from_numpy(a), torch.from_numpy(b), TPolicy(backend="mxu"))
+    np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    with pytest.raises(ValueError, match="not separable"):
+        TQ.ax_matmul_int(torch.from_numpy(a), torch.from_numpy(b),
+                         TPolicy(backend="mxu", mult_name="mul8s_drum3_4"))
 
 
 @pytest.mark.parametrize("backend", ["kernel", "emul"])
@@ -202,9 +212,21 @@ def test_ax_matmul_int_dyn_hist_identical(gm):
 
 
 def test_dyn_mxu_backend_is_not_ported_yet():
-    a = torch.zeros((2, 8), dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        TQ.ax_matmul_int_dyn(a, a.T.contiguous(), TPolicy(backend="mxu"), (1, 3, 0))
+    """The dynamic ``mxu`` path is ported now: a triple equals JAX's, and a
+    grid with column tiles still raises (tests/test_torch_mxu.py covers the
+    rest)."""
+    rng = np.random.default_rng(12)
+    a = rng.integers(-127, 128, (2, 8)).astype(np.int8)
+    b = rng.integers(-127, 128, (8, 6)).astype(np.int8)
+    dyn = np.asarray([1, 3, 0], np.int32)
+    j = jax.jit(lambda x, y, d: JQ.ax_matmul_int_dyn(x, y, JPolicy(backend="mxu"), d))(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(dyn))
+    t = TQ.ax_matmul_int_dyn(torch.from_numpy(a), torch.from_numpy(b),
+                             TPolicy(backend="mxu"), torch.from_numpy(dyn))
+    np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    with pytest.raises(ValueError, match="gn must be 1"):
+        TQ.ax_matmul_int_dyn(torch.from_numpy(a), torch.from_numpy(b), TPolicy(backend="mxu"),
+                             torch.from_numpy(np.tile(dyn, (1, 2, 1))))
 
 
 @pytest.mark.parametrize("backend", ["kernel", "emul"])

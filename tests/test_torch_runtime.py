@@ -322,10 +322,10 @@ def test_controller_refuses_what_is_not_ported():
     pol = TR.SwapPolicy("mul8s_trunc0_4")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         TR.AdaptiveController(pol, ("mlp",), TR.AdaptiveConfig(canary=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="policy store and rollout"):
         TR.AdaptiveController(pol, ("mlp",), store=object(), device="cpu")
     ctrl = TR.AdaptiveController(pol, ("mlp",), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="observability"):
         ctrl.attach_slo(object())
     assert TR.all_triples(8).tolist() == JR.all_triples(8).tolist()
     assert TR.tile_triples(8).tolist() == JR.tile_triples(8).tolist()
