@@ -72,8 +72,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    token  — ``prefill_one`` + ``splice_slot`` + ``token_step`` (a CUDA
             graph) over 4 slots: the per-request tokens of the wave oracle,
             mid-flight splices with no re-capture, no host synchronise in a
-            step, inactive slots' cache rows unchanged.  No nvcc runs after
-            phase 2.  With ``--profile`` static, no-drift and drift serves
+            step, inactive slots' cache rows unchanged;
+   rollout — observability and the guarded rollout over a ``PolicyStore`` in
+            a temporary directory, a ``TraceRecorder`` installed: the drift
+            serve (stepwise, scalar mode, 12 tokens) as the writer, with
+            ``canary=True`` and the default serving SLOs: at least one
+            canaried re-tune, CURRENT the last promotion, the same audit
+            kinds twice, and every audit event equal when its host records
+            are replayed through a CPU controller and store; with
+            ``canary_margin=1.0`` nothing is promoted and the tokens are a
+            never-changing policy's; a ``PolicyReader`` on the card polls
+            after each publish and serves the fused graph path: tokens of
+            each version equal an eager controller serve of
+            ``store.load(N)``, no capture, staleness the versions it lags
+            and 0 after a poll, ``repro_retraces_total`` == the captures by
+            kind; the low-then-high regimes roll back exactly once to
+            last-good and the replica follows with no capture; a fault plan
+            armed but idle changes nothing, a seeded ``poison_nan`` lands in
+            quarantine; Prometheus text holds nonzero series of the serve,
+            controller, store and chaos families, ``trace.json`` the
+            prefill/decode/retune/canary/rollback spans; the step MAE of
+            the card's records per target, decode ms/step with a recorder
+            installed and the re-tune/canary/publish/poll walls are
+            printed, and after phase 8 a ``device_trace`` of one replica
+            serve (a ``torch.profiler`` session slows the host-bound phases
+            that follow it).  No nvcc runs
+            after phase 2.  With ``--profile`` static, no-drift and drift serves
             run under ``torch.profiler`` (eager and graph) and the device
             time by kernel and the device's busy share are printed (and, in
             phases 7 and 8, one 16-bit Table I row and one app run).
@@ -1310,6 +1334,432 @@ def token_serve(cfg, params, card: str):
     return executed["ax_matmul"]
 
 
+# ---------------------------------------------------------------------------
+# phase 6d: observability and the guarded rollout
+# ---------------------------------------------------------------------------
+
+ROLLOUT_SPANS = ("prefill", "decode", "retune", "canary", "rollback")
+# the families the serve, the controller, the store and the chaos harness
+# report into; each must hold a nonzero series after the phase
+ROLLOUT_FAMILIES = (
+    "repro_retraces_total", "repro_prefill_dispatch_seconds", "repro_decode_dispatch_seconds",
+    "repro_decode_tokens_total", "repro_slots_retired_total", "repro_retunes_total",
+    "repro_retune_seconds", "repro_canary_total", "repro_rollbacks_total",
+    "repro_policy_store_published", "repro_policy_publishes_total",
+    "repro_policy_adoptions_total", "repro_policy_poll_total", "repro_store_rollbacks_total",
+    "repro_drift_score", "repro_telemetry_quarantined_total",
+    "repro_chaos_faults_injected_total")
+ROLLOUT_SEED = 7
+
+
+def _audit(ctrl):
+    """A controller's audit events without the wall clock."""
+    return [{k: v for k, v in e.items() if k != "unix_time"} for e in ctrl.audit.read()]
+
+
+def _nonzero_families(text: str):
+    """The metric families of a Prometheus text with a series above 0 (a
+    histogram through its ``_count``)."""
+    out = set()
+    for line in text.splitlines():
+        if line.startswith("#") or not line.strip():
+            continue
+        name, value = line.split("{")[0].split(" ")[0], float(line.rsplit(" ", 1)[1])
+        if name.endswith("_bucket") or name.endswith("_sum"):
+            continue
+        if value > 0:
+            out.add(name[:-len("_count")] if name.endswith("_count") else name)
+    return out
+
+
+def rollout_serve(cfg, params, prompts, card: str):
+    """Phase 6d: a writer serve re-tunes with the canary, publishes to a
+    ``PolicyStore`` and is replayed on the CPU; a canary that rejects
+    everything keeps the store and the tokens; a replica adopts every
+    version on the graph path with no capture; a guard-band regression
+    rolls back; an armed but idle fault plan changes nothing and a seeded
+    poison lands in quarantine; the exports and the trace hold the
+    serve's series and spans.  Returns the ax_matmul and ax_matmul_grid
+    launches of the writer and replica paths, and a function that runs one
+    replica serve under ``obs.device_trace``."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.fleet import PolicyReader, PolicyStore, chaos
+    from repro_torch.kernels.ax_matmul import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import drift_hook
+    from repro_torch.runtime import AdaptiveConfig, AdaptiveController, SwapPolicy
+    from repro_torch.serve import ServeConfig, generate
+    from repro_torch.serve import graph as G
+
+    dev = params["embed"]["w"].device
+    targets = cfg.ax.targets
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_rollout_")
+    root = Path(tmp.name)
+    writer_kw = dict(min_observe_steps=2, cooldown_steps=2, drift_threshold=0.02, canary=True)
+
+    def controller(policy=None, store=None, device=dev, **kw):
+        return AdaptiveController(policy or SwapPolicy.from_ax_policy(cfg.ax), targets,
+                                  AdaptiveConfig(**kw), store=store, device=device)
+
+    def serve(adaptive, **kw):
+        stats = {}
+        toks = generate(params, {"tokens": prompts}, cfg, ServeConfig(max_new_tokens=T, **kw),
+                        adaptive=adaptive, stats=stats).cpu()
+        return toks, stats
+
+    # the QoR SLOs' guard bands: 1.5x each target's ew_mae in a serve
+    # without drift (the reference the policy was tuned on)
+    ref = controller(drift_threshold=1e9)
+    serve(ref, cuda_graphs=False)
+    slo_refs = {t: float(s["ew_mae"]) for t, s in ref.telemetry.snapshot().items()}
+
+    def attach(ctrl):
+        eng = obs.SLOEngine(obs.default_serving_slos(qor_targets=targets), audit=ctrl.audit)
+        for t, mae in slo_refs.items():
+            eng.set_reference(t, mae)
+        ctrl.attach_slo(eng)
+
+    def drive_writer(name, margin=0.0, on_start=None, on_log=None, plan=None, **kw):
+        store = PolicyStore(str(root / name))
+        ctrl = controller(store=store, **dict(writer_kw, canary_margin=margin, **kw))
+        ctrl.warmup()
+        ctrl.resume_from_store()
+        attach(ctrl)
+        records, ew = [], []
+        observe = ctrl.observe
+
+        def recording_observe(recs):
+            records.append({t: {k: np.array(v) for k, v in r.items()} for t, r in recs.items()})
+            lines = observe(recs)
+            ew.append({t: s.get("ew_mae") for t, s in ctrl.telemetry.snapshot().items()})
+            return lines
+
+        ctrl.observe = recording_observe
+        if on_start is not None:
+            on_start(ctrl, store)
+        ctrl._log_fn = on_log
+        stats = {}
+        reset_launches()
+        with (chaos.active(plan) if plan is not None else contextlib.nullcontext()) as harness:
+            toks = generate(params, {"tokens": prompts}, cfg, ServeConfig(max_new_tokens=T_DRIFT),
+                            adaptive=ctrl, param_hook=drift_hook(DRIFT_AT, DRIFT_SCALE),
+                            stats=stats).cpu()
+        return dict(toks=toks, ctrl=ctrl, store=store, records=records, ew=ew, stats=stats,
+                    launches=dict(LAUNCHES), harness=harness)
+
+    # -- the writer, with a replica polling after each publish ----------
+    rec = obs.TraceRecorder()
+    prev_rec = obs.install_recorder(rec)
+    replica, adoptions = None, []
+
+    def replica_serve():
+        before, l0, c0 = G.counts(), dict(LAUNCHES), sum(G.CAPTURES.values())
+        toks, stats = serve(replica)
+        executed = G.executed_launches(before, {k: LAUNCHES[k] - l0[k] for k in LAUNCHES})
+        return toks, executed, sum(G.CAPTURES.values()) - c0, stats
+
+    def start_replica(ctrl, store):
+        nonlocal replica
+        replica = PolicyReader(PolicyStore(store.root), targets, device=dev)
+        toks, executed, caps, _ = replica_serve()
+        adoptions.append(dict(version=replica.version, lag=None, stale=replica.staleness(),
+                              toks=toks, executed=executed, caps=caps, step=0))
+
+    def on_publish(line):
+        if not line.startswith("published policy v"):
+            return
+        w = writer1
+        old = replica.version
+        lag = replica.staleness()
+        if not replica.poll():
+            fail(f"the replica did not adopt after '{line}'")
+        stale = replica.staleness()
+        toks, executed, caps, _ = replica_serve()
+        adoptions.append(dict(version=replica.version, old=old, lag=lag, stale=stale, toks=toks,
+                              executed=executed, caps=caps, step=w.step,
+                              ew_before={t: s.get("ew_mae")
+                                         for t, s in w.telemetry.snapshot().items()}))
+
+    writer1 = None
+
+    def on_start1(ctrl, store):
+        nonlocal writer1
+        writer1 = ctrl
+        start_replica(ctrl, store)
+
+    run1 = drive_writer("writer", on_start=on_start1, on_log=on_publish)
+    w1, store = run1["ctrl"], run1["store"]
+    canaried = [e for e in w1.retunes if e.candidate_version is not None]
+    promoted = [e for e in w1.retunes if e.promoted]
+    published = [int(line.rsplit("v", 1)[1]) for line in w1.log
+                 if line.startswith("published policy v")]
+    if not canaried:
+        fail(f"the writer serve made no canaried re-tune: {[e.describe() for e in w1.retunes]}")
+    if store.current_version() != (published[-1] if published else 1) \
+            or store.versions() != [1] + published or len(published) != len(promoted):
+        fail(f"writer store: CURRENT {store.current_version()}, versions {store.versions()}, "
+             f"published {published}, promotions {len(promoted)}")
+    kinds1 = [e["kind"] for e in _audit(w1)]
+    print(f"rollout writer (drift x{DRIFT_SCALE} at step {DRIFT_AT}, {T_DRIFT} tokens, "
+          f"stepwise, scalar mode, canary on, SLO attached): {len(w1.retunes)} re-tunes, "
+          f"{len(canaried)} canaried, {len(promoted)} promoted; CURRENT v"
+          f"{store.current_version()} = the last promotion; audit kinds {kinds1} [{card}]",
+          flush=True)
+    for line in w1.log:
+        print(f"  [writer] {line}", flush=True)
+
+    # a second run, no replica: the same tokens and audit kinds
+    run2 = drive_writer("writer2")
+    w2 = run2["ctrl"]
+    want = {"ax_matmul": L * 4, "ax_matmul_grid": L * 4 * (T_DRIFT - 1)}
+    if run2["launches"] != want:
+        fail(f"writer serve (run 2): launches {run2['launches']}, expected {want}")
+    if [e["kind"] for e in _audit(w2)] != kinds1 or not torch.equal(run2["toks"], run1["toks"]):
+        fail(f"the writer serve is not deterministic: audit kinds {kinds1} vs "
+             f"{[e['kind'] for e in _audit(w2)]}, tokens equal "
+             f"{torch.equal(run2['toks'], run1['toks'])}")
+    # the card writer's host records replayed through a CPU controller and
+    # a CPU store: every audit event the same
+    cpu_store = PolicyStore(str(root / "replay"))
+    cpu = controller(store=cpu_store, device="cpu", **writer_kw)
+    cpu.resume_from_store()
+    attach(cpu)
+    for r in run2["records"]:
+        cpu.observe(r)
+    if _audit(cpu) != _audit(w2) or cpu_store.versions() != run2["store"].versions():
+        fail(f"CPU replay of the writer's records: audit\n{_audit(cpu)}\nvs the card's\n"
+             f"{_audit(w2)}")
+    print(f"writer run 2 (no replica): tokens and audit kinds equal run 1's; launches "
+          f"{run2['launches']}; {_speed(run2['stats'], T_DRIFT)}; its {len(run2['records'])} "
+          f"host records replayed through a CPU controller and store: all "
+          f"{len(_audit(w2))} audit events equal (kind, target, old, new, scores, "
+          f"versions) [{card}]", flush=True)
+
+    # -- canary rejection: nothing promoted, the never-changing tokens -----
+    run_r = drive_writer("reject", margin=1.0)
+    wr = run_r["ctrl"]
+    never = controller(drift_threshold=1e9)
+    toks_never = generate(params, {"tokens": prompts}, cfg, ServeConfig(max_new_tokens=T_DRIFT),
+                          adaptive=never, param_hook=drift_hook(DRIFT_AT, DRIFT_SCALE)).cpu()
+    kinds_r = [e["kind"] for e in _audit(wr)]
+    store_r = run_r["store"]
+    # a re-tune that re-elects the incumbent is not canaried and republishes
+    # it (the JAX package's rule), so CURRENT can move without a change
+    v1 = store_r.load(1).dyn_tree(targets, device="cpu")
+    same = all(all(torch.equal(v1[t], store_r.load(v).dyn_tree(targets, device="cpu")[t])
+                   for t in targets) for v in store_r.versions())
+    reelected = sum(e.promoted for e in wr.retunes)
+    if not same or "canary_rejected" not in kinds_r \
+            or any(e.promoted for e in wr.retunes if e.candidate_version is not None) \
+            or (reelected == 0 and store_r.current_version() != 1) \
+            or not torch.equal(run_r["toks"], toks_never):
+        fail(f"canary_margin=1.0: CURRENT {store_r.current_version()} (re-elected "
+             f"incumbents {reelected}), every version resolves like v1 {same}, audit "
+             f"{kinds_r}, tokens equal the never-changing policy's "
+             f"{torch.equal(run_r['toks'], toks_never)}")
+    print(f"canary rejection (canary_margin=1.0): no candidate promoted; CURRENT v"
+          f"{store_r.current_version()} ({reelected} re-tunes re-elected the incumbent and "
+          f"republished it), every stored version resolves like v1; audit {kinds_r}; tokens "
+          f"equal a serve whose policy never changed [{card}]", flush=True)
+
+    # -- the replica: one program, every version a value ------------------
+    for a in adoptions:
+        pol = store.load(a["version"])
+        want_toks, _ = serve(controller(pol, drift_threshold=1e9), cuda_graphs=False)
+        if not torch.equal(a["toks"], want_toks) or a["stale"] != 0 or a["caps"] != 0 \
+                or (a["lag"] is not None and a["lag"] != a["version"] - a["old"]):
+            fail(f"replica under v{a['version']}: tokens equal a controller serve of "
+                 f"store.load({a['version']}) {torch.equal(a['toks'], want_toks)}, "
+                 f"staleness after the poll {a['stale']}, lag {a['lag']} (versions "
+                 f"{a.get('old')} -> {a['version']}), new captures {a['caps']}")
+    retr = {k: obs.retrace_total(k) for k in ("fused", "fused_adaptive", "token_step")}
+    caps_by_kind = G.captures_by_kind()
+    if any(retr[k] != caps_by_kind.get(k, 0) for k in retr) or \
+            obs.retrace_total("prefill") != 0:
+        fail(f"repro_retraces_total {retr} != graph captures by kind {caps_by_kind}")
+    rep_exec = adoptions[-1]["executed"]
+    if rep_exec != {"ax_matmul": L * 4, "ax_matmul_grid": L * 4 * (T - 1)}:
+        fail(f"replica serve executed launches {rep_exec}")
+    print(f"replica (PolicyReader on {dev}, fused graph path, {T} tokens): adopted "
+          f"{[a['version'] for a in adoptions]} after each publish (lag before the poll "
+          f"{[a['lag'] for a in adoptions]}, 0 after it); tokens under each version equal an "
+          f"eager controller serve of store.load(N); 0 captures in {len(adoptions)} serves; "
+          f"repro_retraces_total {retr} == graph captures by kind; executed launches "
+          f"{rep_exec} [{card}]", flush=True)
+
+    # -- rollback: the low-then-high regimes, scored on the card ----------
+    n_writer = len(adoptions)
+    c0 = store.current_version()
+    rb = controller(store=PolicyStore(store.root), decay=0.4, drift_threshold=10.0,
+                    min_observe_steps=1, cooldown_steps=0, buffer_size=1024, canary=True,
+                    rollback_guard=0.5, rollback_min_steps=2, rollback_window=32)
+    rb.warmup()
+    rb.resume_from_store()
+    writer1 = rb
+    rb._log_fn = on_publish
+    rng = np.random.default_rng(6)
+    # JAX's regimes are uint8 0..63, then the top half 128..255 of both
+    # operands; the int8 counterpart of the top half is 64..127
+    for _ in range(4):
+        rb.observe_operands("mlp", rng.integers(0, 64, 2048), rng.integers(0, 64, 2048))
+    ev = rb.retune("mlp")
+    if not ev.promoted or ev.candidate_version is None:
+        fail(f"rollback set-up: the low-regime re-tune was not a canaried promotion: "
+             f"{ev.describe()}")
+    for _ in range(12):
+        rb.observe_operands("mlp", rng.integers(64, 128, 2048), rng.integers(64, 128, 2048))
+        if rb.rollbacks:
+            break
+    caps0 = sum(G.CAPTURES.values())
+    lag = replica.staleness()
+    polled = replica.poll()
+    toks_rb, exec_rb, caps_rb, _ = replica_serve()
+    want_rb, _ = serve(controller(store.load(c0), drift_threshold=1e9), cuda_graphs=False)
+    before_rb = [a for a in adoptions if a["version"] == c0]
+    if len(rb.rollbacks) != 1 or store.current_version() != c0 \
+            or rb.policy.to_json() != store.load(c0).to_json() or not polled \
+            or replica.version != c0 or caps_rb or sum(G.CAPTURES.values()) != caps0 \
+            or not torch.equal(toks_rb, want_rb) \
+            or not all(torch.equal(toks_rb, a["toks"]) for a in before_rb):
+        fail(f"rollback: {len(rb.rollbacks)} rollbacks, CURRENT {store.current_version()} "
+             f"(last good v{c0}), policy == store.load(last good) "
+             f"{rb.policy.to_json() == store.load(c0).to_json()}, replica adopted "
+             f"{polled} v{replica.version} with {caps_rb} captures, tokens equal those "
+             f"under last good {torch.equal(toks_rb, want_rb)}")
+    info = rb.rollbacks[0]
+    print(f"rollback (the low-then-high regimes on mlp, scored on {dev}): v"
+          f"{ev.candidate_version} promoted, ew_mae {info['observed']:.2f} > band "
+          f"{info['baseline'] * 1.5:.2f} at step {info['step']} -> CURRENT re-pointed to v{c0}, "
+          f"the policy byte-identical to store.load({c0}); the replica (lag {lag}) adopted v{c0} "
+          f"on its next poll with 0 captures, tokens equal those under v{c0} [{card}]",
+          flush=True)
+    obs.install_recorder(prev_rec)
+
+    # -- armed but idle; one seeded poison --------------------------------
+    idle = chaos.FaultPlan([chaos.FaultSpec(s, k, at=10 ** 6)
+                            for s, ks in chaos.SITES.items() for k in ks])
+    run_i = drive_writer("idle", plan=idle)
+    if not torch.equal(run_i["toks"], run2["toks"]) or run_i["harness"].fired \
+            or [e["kind"] for e in _audit(run_i["ctrl"])] != kinds1:
+        fail(f"armed but idle fault plan: tokens equal {torch.equal(run_i['toks'], run2['toks'])}"
+             f", fired {run_i['harness'].fired}, audit {_audit(run_i['ctrl'])}")
+    at = int(np.random.default_rng(ROLLOUT_SEED).integers(0, DRIFT_AT))
+    run_p = drive_writer("poison", plan=chaos.FaultPlan(
+        [chaos.FaultSpec("controller.observe", "poison_nan", at=at)], seed=ROLLOUT_SEED))
+    wp = run_p["ctrl"]
+    quar = [e for e in _audit(wp) if e["kind"] == "quarantine"]
+    if run_p["harness"].fired_count("poison_nan") != 1 or {e["step"] for e in quar} != {at} \
+            or sorted(e["target"] for e in quar) != sorted(targets) \
+            or any(e.step == at + 1 for e in wp.retunes) \
+            or not all(np.isfinite(s["bit_probs"]).all()
+                       for s in wp.telemetry.snapshot().values()):
+        fail(f"seeded poison at observe visit {at}: fired "
+             f"{run_p['harness'].fired_count('poison_nan')}, quarantine {quar}, re-tunes "
+             f"{[e.describe() for e in wp.retunes]}")
+    print(f"fault plans: armed but idle ({len(idle.faults)} specs that never come): tokens "
+          f"and audit kinds equal the unarmed run's; a seeded poison_nan at observe visit "
+          f"{at}: both targets quarantined, no re-tune from it; "
+          f"visits {run_p['harness'].visits} [{card}]", flush=True)
+
+    # -- quality of result: the card's records, per target ----------------
+    for i, r in enumerate(run2["records"]):
+        scalars, _ = obs.step_error_summary(r)
+        print(f"  [qor] step {i}: " + ", ".join(f"{t} step MAE {v:.3f}"
+                                                 for t, v in sorted(scalars.items())),
+              flush=True)
+    ew = run1["ew"]
+    for a in adoptions[1:n_writer]:
+        after = ew[min(a["step"] + 2, len(ew) - 1)]
+        print(f"  [qor] adoption of v{a['version']} at step {a['step']}: ew_mae "
+              + ", ".join(f"{t} {a['ew_before'].get(t, float('nan')):.3f} -> "
+                          f"{after.get(t, float('nan')):.3f}" for t in targets)
+              + f" (2 steps later) [{card}]", flush=True)
+
+    # -- exports and traces ------------------------------------------------
+    text = obs.prometheus_text()
+    missing = set(ROLLOUT_FAMILIES) - _nonzero_families(text)
+    if missing:
+        fail(f"prometheus_text() lacks nonzero series for {sorted(missing)}")
+    trace_path = rec.save(str(root / "trace.json"))
+    with open(trace_path) as f:
+        spans = {e["name"] for e in json.load(f)["traceEvents"] if e["ph"] == "X"}
+    if not set(ROLLOUT_SPANS) <= spans:
+        fail(f"trace.json lacks spans {sorted(set(ROLLOUT_SPANS) - spans)}")
+    (root / "metrics.prom").write_text(text)
+    snap = obs.write_snapshot(str(root / "metrics.jsonl"))
+    print(f"exports: prometheus_text {len(text.splitlines())} lines, nonzero series in all "
+          f"{len(ROLLOUT_FAMILIES)} families; trace.json {len(rec.events())} events, spans "
+          f"{sorted(spans)}; snapshot of {len(snap['metrics'])} metrics [{card}]", flush=True)
+
+    def device_trace_serve():
+        """One replica graph serve under ``obs.device_trace``.  The script
+        runs it last: a ``torch.profiler`` session slows the host-bound
+        phases that follow it."""
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as d:
+            with obs.device_trace(d) as dpath:
+                replica_serve()
+            with open(dpath) as f:
+                events = json.load(f)["traceEvents"]
+        kern = [e for e in events if e.get("cat") == "kernel"]
+        route = [e for e in kern if "route_t_kernel" in e.get("name", "")]
+        glaunch = [e for e in events if "cudaGraphLaunch" in e.get("name", "")]
+        print(f"device_trace of one replica graph serve: {len(kern)} kernel events, "
+              f"{len(route)} of them route_t_kernel (the 8 launches of the eager prefill and "
+              f"the {L * 4 * (T - 1)} ax_matmul_grid launches replayed from the graph), "
+              f"{len(glaunch)} cudaGraphLaunch [{card}]", flush=True)
+
+    # -- overhead and walls -------------------------------------------------
+    rows = []
+    for on in (False, True, True, False):
+        prev = obs.install_recorder(obs.TraceRecorder() if on else None)
+        _, stats = serve(None)
+        obs.install_recorder(prev)
+        rows.append((on, stats["decode_s"] * 1e3 / (T - 1), stats["path"]))
+    off = [ms for on, ms, _ in rows if not on]
+    onr = [ms for on, ms, _ in rows if on]
+    spans_ms = {}
+    for e in rec.events():
+        if e["ph"] == "X":
+            spans_ms.setdefault(e["name"], []).append(e["dur"] / 1e3)
+    wall_store = PolicyStore(str(root / "walls"))
+    pol = SwapPolicy.from_ax_policy(cfg.ax)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        wall_store.publish(pol)
+    publish_ms = (time.perf_counter() - t0) * 1e3 / 20
+    reader = PolicyReader(wall_store, targets, device=dev)
+    t0 = time.perf_counter()
+    for _ in range(200):
+        reader.poll()
+    fast_ms = (time.perf_counter() - t0) * 1e3 / 200
+    full = []
+    for _ in range(10):
+        wall_store.publish(pol)
+        t0 = time.perf_counter()
+        reader.poll()
+        full.append((time.perf_counter() - t0) * 1e3)
+    mean = lambda v: sum(v) / len(v) if v else float("nan")
+    print(f"overhead: static graph decode {', '.join(f'{ms:.3f}' for _, ms, _ in rows)} "
+          f"ms/step (recorder off, on, on, off; paths {[p for _, _, p in rows]}): "
+          f"{mean(onr):.3f} with a recorder installed vs {mean(off):.3f} without "
+          f"[{card}]", flush=True)
+    print(f"walls (host clock): retune {mean(spans_ms.get('retune', [])):.2f} ms "
+          f"({len(spans_ms.get('retune', []))} spans), canary "
+          f"{mean(spans_ms.get('canary', [])):.2f} ms ({len(spans_ms.get('canary', []))}), "
+          f"rollback {mean(spans_ms.get('rollback', [])):.2f} ms; publish with fsync "
+          f"{publish_ms:.3f} ms; poll {fast_ms * 1e3:.1f} us on the heartbeat path, "
+          f"{mean(full):.3f} ms adopting a new version [{card}]", flush=True)
+    tmp.cleanup()
+    return ({"writer prefill": run2["launches"]["ax_matmul"],
+             "replica prefill": rep_exec["ax_matmul"]},
+            {"writer (stepwise, eager)": run2["launches"]["ax_matmul_grid"],
+             "replica graph": rep_exec["ax_matmul_grid"]}, device_trace_serve)
+
+
 def profile_serve(run, label: str, card: str):
     """One more serve (or tuning run) under torch.profiler: device time by
     kernel and the device's busy share of the wall (``--profile``)."""
@@ -1423,11 +1873,10 @@ def main(argv):
     paths["per-slot graph"] = slot_serve(cfg, params, card)
     paths["token-granular graph"] = token_serve(cfg, params, card)
     phase_done("slot and token")
-    from repro_torch.serve import graph as G
-
-    G.clear_programs()
-    del params
-    torch.cuda.empty_cache()
+    a_paths, g_paths, device_trace_serve = rollout_serve(cfg, params, prompts, card)
+    paths.update(a_paths)
+    grid_paths.update(g_paths)
+    phase_done("rollout")
     for name, by_path in (("ax_matmul", paths), ("ax_matmul_grid", grid_paths)):
         if not all(v > 0 for v in by_path.values()):
             fail(f"{name} was not launched on every serving path: {by_path}")
@@ -1438,6 +1887,12 @@ def main(argv):
     _, _, err = app_table(dev, card, profile)
     sweep_errs.append(err[:2])
     phase_done("apps")
+    device_trace_serve()
+    from repro_torch.serve import graph as G
+
+    G.clear_programs()
+    del params, device_trace_serve
+    torch.cuda.empty_cache()
     sweep_errs += [(r["max_abs_err"], r["max_rel_err_f32"]) for r in sweep_rows]
     if _build.NVCC_RUNS["count"] != nvcc_runs or len(_build._LOADED) != len(built):
         fail(f"kernels were rebuilt after the build phase: nvcc runs "

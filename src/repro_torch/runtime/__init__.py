@@ -10,11 +10,9 @@ re-tune, closing the loop for the paper's *online* error reduction.
   drift      — bit-occupancy distribution-shift scoring against the
                tuned-on reference
   controller — drift-triggered re-tune: NoSwap and all 4M configs scored in
-               one batched call over buffered live operands
-
-The guarded rollout, the policy store, the fleet and the metrics registry
-of the JAX package are not ported yet (the policy store and rollout, the
-fleet and observability: ROADMAP queue 1).
+               one batched call over buffered live operands; with a
+               ``fleet.PolicyStore`` the guarded rollout (canary, SLO veto,
+               auto-rollback) and the audit log
 """
 from .controller import (
     AdaptiveConfig,

@@ -6,9 +6,9 @@ operands — the sufficient statistic of the single-bit decision family: if
 no bit's occupancy moved, no single-bit config changed its mask
 population.  Score: mean absolute difference between the current
 exponentially-decayed bit-probability matrix and the reference captured
-when the policy was last tuned.  (The JAX package also exports the score as
-a metrics gauge; the port's observability layer is still to come, ROADMAP
-queue 1.)
+when the policy was last tuned.  Every sweep exports each target's score as
+the ``repro_drift_score`` gauge, so dashboards see drift build up before a
+re-tune fires.
 """
 from __future__ import annotations
 
@@ -17,7 +17,13 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import obs
+
 __all__ = ["DriftConfig", "DriftDetector", "drift_score"]
+
+_DRIFT_SCORE = obs.default_registry().gauge(
+    "repro_drift_score",
+    "mean |bit-probability shift| vs the tuned-on reference, per target")
 
 
 def drift_score(ref: np.ndarray, cur: np.ndarray) -> float:
@@ -64,6 +70,7 @@ class DriftDetector:
         drifted = []
         for target, snap in snapshot.items():
             s = self.score(target, snap.get("bit_probs"))
+            _DRIFT_SCORE.set(s, target=target)
             if (s > self.cfg.threshold
                     and self._steps_since_rebase.get(target, 0) >= self.cfg.min_steps):
                 drifted.append((target, s))

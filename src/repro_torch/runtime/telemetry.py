@@ -30,6 +30,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.metrics import ErrorStats, abs_err
 from repro_torch.core.multipliers import AxMult
 from repro_torch.core.swapper import NO_SWAP_TRIPLE, apply_swapper_dyn
@@ -433,6 +434,12 @@ class Telemetry:
 # admission control
 # ---------------------------------------------------------------------------
 
+_QUARANTINED = obs.default_registry().counter(
+    "repro_telemetry_quarantined_total",
+    "telemetry records quarantined before the accumulators, by target and "
+    "reason (nonfinite / bounds / outlier)")
+
+
 class TelemetryQuarantine:
     """Record sanitization in front of the accumulators and ring buffers.
 
@@ -537,4 +544,5 @@ class TelemetryQuarantine:
                 dropped.append((target, reason))
                 self.quarantined += 1
                 self.by_reason[reason] = self.by_reason.get(reason, 0) + 1
+                _QUARANTINED.inc(1, target=target, reason=reason)
         return admitted, dropped

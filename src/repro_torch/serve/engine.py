@@ -44,6 +44,14 @@ stepwise schedule reads it before every step and observes step i-1's
 records after step i was issued, so the controller's work overlaps step i
 on the card.
 
+**Observability** (``obs``, the JAX package's series).  ``prefill`` and
+``decode`` spans, ``repro_prefill_dispatch_seconds``,
+``repro_decode_dispatch_seconds{path=}`` (``fused``, ``fused_adaptive`` or
+``stepwise``), ``repro_decode_tokens_total`` and
+``repro_slots_retired_total``; each graph capture counts into
+``repro_retraces_total`` (``serve/graph.py``).  All of it is host clock and
+dict writes outside the captured step: no host synchronise is added.
+
 The fleet mesh and the continuous batcher are later work (the fleet
 serving item of ROADMAP queue 1); :func:`token_step`, :func:`prefill_one`
 and :func:`splice_slot` are the API it is built on.
@@ -58,6 +66,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import decode_step, prefill
 from repro_torch.runtime.scope import ax_scope
@@ -67,6 +76,24 @@ from . import graph as G
 
 __all__ = ["ServeConfig", "generate", "slot_sample", "token_step", "prefill_one",
            "splice_slot"]
+
+_PREFILL_WALL = obs.default_registry().histogram(
+    "repro_prefill_dispatch_seconds",
+    "host wall of generate()'s prefill + first-token sample "
+    "(async dispatch: excludes on-device completion)",
+    buckets=obs.DISPATCH_BUCKETS)
+_DECODE_WALL = obs.default_registry().histogram(
+    "repro_decode_dispatch_seconds",
+    "host wall of generate()'s decode-loop dispatch by path "
+    "(async dispatch: excludes on-device completion)",
+    buckets=obs.DISPATCH_BUCKETS)
+_DECODE_TOKENS = obs.default_registry().counter(
+    "repro_decode_tokens_total",
+    "tokens produced by generate() decode loops (slots x steps)")
+_SLOTS_RETIRED = obs.default_registry().counter(
+    "repro_slots_retired_total",
+    "slots whose done-flag fires before the scan/budget end "
+    "(per-slot token budgets below the generation length)")
 
 
 @dataclasses.dataclass
@@ -263,15 +290,22 @@ def generate(params, prompt_batch, cfg: ModelConfig, scfg: ServeConfig, *,
 
     with torch.inference_mode():
         t0 = time.perf_counter()
-        logits, cache = prefill(params, {"tokens": tokens}, cfg, max_cache_len=max_len,
-                                prompt_lens=pl)
-        rows = torch.arange(B, device=device)
-        last = logits[:, -1] if pl is None else logits[rows, pl - 1]
-        zeros = torch.zeros(B, dtype=torch.int64, device=device)
-        tok = slot_sample(last, seeds, zeros, scfg.temperature)
-        if stats is not None:
-            _sync(device)
-            stats["prefill_s"] = time.perf_counter() - t0
+        with obs.span("prefill", cat="engine", batch=B, seq=S):
+            logits, cache = prefill(params, {"tokens": tokens}, cfg, max_cache_len=max_len,
+                                    prompt_lens=pl)
+            rows = torch.arange(B, device=device)
+            last = logits[:, -1] if pl is None else logits[rows, pl - 1]
+            zeros = torch.zeros(B, dtype=torch.int64, device=device)
+            tok = slot_sample(last, seeds, zeros, scfg.temperature)
+            if stats is not None:
+                _sync(device)
+                stats["prefill_s"] = time.perf_counter() - t0
+        _PREFILL_WALL.observe(time.perf_counter() - t0)
+        if prompt_lens is not None or slot_new_tokens is not None or slot_seeds is not None \
+                or scfg.eos_id is not None:
+            # slots whose budget ends before the generation does (JAX counts
+            # them on its per-slot path only)
+            _SLOTS_RETIRED.inc(int(np.sum(budget_host < n_steps)))
         t0 = time.perf_counter()
         out = torch.zeros((B, scfg.max_new_tokens), dtype=torch.int64, device=device)
         out[:, 0] = tok
@@ -285,29 +319,37 @@ def generate(params, prompt_batch, cfg: ModelConfig, scfg: ServeConfig, *,
         bmax = int(budget_host.max()) if B else 0
         gates = [adaptive is not None and i % k == 0 and i < bmax for i in range(n_steps)]
         graphs = _use_graphs(device, scfg.cuda_graphs)
+        fused = param_hook is None and scfg.fused
         path = "eager"
-        if param_hook is None and scfg.fused and n_steps > 0:
-            dyn = _dyn_on(adaptive, device) if adaptive is not None else None
-            tile_rows = adaptive.tile_rows if adaptive is not None else 0
-            kw = dict(temperature=scfg.temperature, eos_id=scfg.eos_id, tile_rows=tile_rows)
-            if graphs:
-                path = "graph"
-                st = _fused_graph(params, st, cfg, dyn, gates, kw, max_len, adaptive)
-            else:
-                copies = []
-                for gate in gates:
-                    rec = _decode(params, st, cfg, dyn=dyn, gate=gate, **kw)
-                    if rec is not None:
-                        copies.append(start_host_copy(rec))
-                for copy in copies:
-                    adaptive.observe(finish_host_copy(copy))
-        elif n_steps > 0:
-            _decode_stepwise(params, st, cfg, scfg, adaptive, param_hook, gates)
-        result = st.out.to(torch.int32)
-        if stats is not None:
-            _sync(device)
-            stats["decode_s"] = time.perf_counter() - t0
-            stats["path"] = path
+        kind = ("stepwise" if not fused else
+                "fused" if adaptive is None else "fused_adaptive")
+        with obs.span("decode", cat="engine", path=kind, batch=B,
+                      steps=scfg.max_new_tokens):
+            if fused and n_steps > 0:
+                dyn = _dyn_on(adaptive, device) if adaptive is not None else None
+                tile_rows = adaptive.tile_rows if adaptive is not None else 0
+                kw = dict(temperature=scfg.temperature, eos_id=scfg.eos_id,
+                          tile_rows=tile_rows)
+                if graphs:
+                    path = "graph"
+                    st = _fused_graph(params, st, cfg, dyn, gates, kw, max_len, adaptive)
+                else:
+                    copies = []
+                    for gate in gates:
+                        rec = _decode(params, st, cfg, dyn=dyn, gate=gate, **kw)
+                        if rec is not None:
+                            copies.append(start_host_copy(rec))
+                    for copy in copies:
+                        adaptive.observe(finish_host_copy(copy))
+            elif n_steps > 0:
+                _decode_stepwise(params, st, cfg, scfg, adaptive, param_hook, gates)
+            result = st.out.to(torch.int32)
+            if stats is not None:
+                _sync(device)
+                stats["decode_s"] = time.perf_counter() - t0
+                stats["path"] = path
+        _DECODE_WALL.observe(time.perf_counter() - t0, path=kind)
+        _DECODE_TOKENS.inc(B * scfg.max_new_tokens)
     return result
 
 
@@ -317,8 +359,8 @@ def _fused_graph(params, st: _State, cfg, dyn, gates, kw, max_len, adaptive):
     gate (module note of ``serve/graph.py``).  Returns the program's state,
     whose ``out`` holds the tokens."""
     B = st.tok.shape[0]
-    key = ("generate", cfg, B, max_len, st.out.shape[1], kw["temperature"], kw["eos_id"],
-           kw["tile_rows"], _dyn_sig(dyn))
+    key = ("fused" if dyn is None else "fused_adaptive", cfg, B, max_len, st.out.shape[1],
+           kw["temperature"], kw["eos_id"], kw["tile_rows"], _dyn_sig(dyn))
 
     def build():
         buf = dict(state=_state_like(st), dyn=({k: torch.empty_like(v) for k, v in dyn.items()}

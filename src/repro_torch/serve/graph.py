@@ -15,10 +15,13 @@ read.  A graph reads the parameters and the KV cache by address, so a
 program also holds them (and the cached codes of the weights) and is
 rebuilt, and counted as a capture, when a call brings other tensors.
 
-``CAPTURES`` counts captures per program key (config, batch, cache length,
-path, observed or not, scalar or tile mode, EOS, sampling): the port's
-witness that policy updates and splices re-capture nothing (JAX:
-``obs.count_retrace``).  ``REPLAYS`` counts replays per key, and each
+``CAPTURES`` counts captures per program key (its kind, config, batch,
+cache length, observed or not, scalar or tile mode, EOS, sampling): the
+port's witness that policy updates and splices re-capture nothing.  Each
+capture also counts into ``repro_retraces_total{kind=}``
+(``obs.count_retrace``), the kind being the key's first element:
+``fused`` (the static decode step), ``fused_adaptive`` (the adaptive one)
+or ``token_step``.  ``REPLAYS`` counts replays per key, and each
 program keeps the kernel launches its captured step holds
 (``kernels/ax_matmul.py::LAUNCHES`` counts a launch when the Python wrapper
 runs, so at capture and not at replay): launches executed on a graph path
@@ -38,11 +41,12 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels.ax_matmul import LAUNCHES
 from repro_torch.quant.ax import weight_cache_payloads
 
 __all__ = ["StepProgram", "program", "CAPTURES", "REPLAYS", "counts", "executed_launches",
-           "clear_programs", "leaves", "no_sync"]
+           "captures_by_kind", "clear_programs", "leaves", "no_sync"]
 
 CAPTURES: Dict[tuple, int] = collections.Counter()
 REPLAYS: Dict[tuple, int] = collections.Counter()
@@ -120,6 +124,7 @@ class StepProgram:
         self.launches[gate] = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
         self.graphs[gate] = g
         CAPTURES[self.key + (gate,)] += 1
+        obs.count_retrace(self.key[0])
         return out
 
     def run(self, gate: bool):
@@ -162,6 +167,15 @@ def executed_launches(before, launches: Dict[str, int]) -> Dict[str, int]:
             for name, v in per.items():
                 out[name] += v * n
     return out
+
+
+def captures_by_kind() -> Dict[str, int]:
+    """``CAPTURES`` summed by program kind (the key's first element), the
+    counterpart of ``repro_retraces_total{kind=}``."""
+    out: Dict[str, int] = collections.Counter()
+    for key, n in CAPTURES.items():
+        out[key[0]] += n
+    return dict(out)
 
 
 def clear_programs() -> None:

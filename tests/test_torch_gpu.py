@@ -557,3 +557,73 @@ def test_graph_token_step_equals_eager_and_a_splice_recaptures_nothing(cuda):
         if graphs:
             assert caps[1:] == [caps[0]] * 4           # splices re-capture nothing
     assert torch.equal(results[False], results[True])
+
+
+def test_replica_adoption_on_the_card_recaptures_nothing(cuda, tmp_path):
+    """A PolicyReader on the card serving the fused graph path: each adopted
+    version reaches the captured graph as values (no new capture), its tokens
+    equal an eager controller serve of ``store.load(version)``, and
+    ``repro_retraces_total`` counts exactly the captures."""
+    from repro_torch import obs
+    from repro_torch.fleet import PolicyReader, PolicyStore
+    from repro_torch.serve import graph as G
+
+    cfg = _serve_cfg("kernel")
+    params = init_params(cfg, seed=13, device=cuda)
+    toks = torch.randint(0, cfg.vocab, (4, 8), generator=torch.Generator().manual_seed(14))
+    store = PolicyStore(str(tmp_path))
+    store.publish(SwapPolicy.from_ax_policy(cfg.ax))
+    replica = PolicyReader(store, cfg.ax.targets, device=cuda)
+    generate(params, {"tokens": toks}, cfg, ServeConfig(max_new_tokens=6), adaptive=replica)
+    c0, _ = _graph_counts()
+    for mlp, attn in ((("B", 5, 1), ("A", 6, 1)), (("A", 1, 0), None), (("A", 7, 1), ("B", 2, 0))):
+        p = SwapPolicy.from_ax_policy(cfg.ax)
+        p.set_config("mlp", TC.SwapConfig(*mlp))
+        p.set_config("attn_out", None if attn is None else TC.SwapConfig(*attn))
+        v = store.publish(p)
+        assert replica.staleness() == 1 and replica.poll() is True and replica.staleness() == 0
+        got = generate(params, {"tokens": toks}, cfg, ServeConfig(max_new_tokens=6),
+                       adaptive=replica)
+        assert _graph_counts()[0] == c0
+        ref = AdaptiveController(store.load(v), cfg.ax.targets,
+                                 AdaptiveConfig(drift_threshold=1e9), device=cuda)
+        want = generate(params, {"tokens": toks}, cfg,
+                        ServeConfig(max_new_tokens=6, cuda_graphs=False), adaptive=ref)
+        assert torch.equal(got, want), v
+    by_kind = G.captures_by_kind()
+    for kind, n in by_kind.items():
+        assert obs.retrace_total(kind) == n, kind
+
+
+def test_rollback_on_the_card_equals_the_cpu(cuda, tmp_path):
+    """The auto-rollback stream scored on the card: the same audit events
+    (exact scores) as on the CPU, CURRENT re-pointed to last-good and the
+    pre-adoption policy restored byte for byte."""
+    import numpy as np
+
+    from repro_torch.fleet import PolicyStore
+
+    ctrls = {}
+    for dev in (cuda, "cpu"):
+        store = PolicyStore(str(tmp_path / str(dev)))
+        c = AdaptiveController(
+            SwapPolicy("mul8u_trunc0_4", configs={"*": None}), ("stream",),
+            AdaptiveConfig(decay=0.4, drift_threshold=10.0, min_observe_steps=1,
+                           cooldown_steps=0, buffer_size=1024, canary=True,
+                           rollback_guard=0.5, rollback_min_steps=2, rollback_window=32),
+            store=store, device=dev)
+        c.warmup()
+        c.resume_from_store()
+        rng = np.random.default_rng(6)
+        for _ in range(4):
+            c.observe_operands("stream", rng.integers(0, 64, 2048), rng.integers(0, 64, 2048))
+        assert c.retune("stream").promoted
+        for _ in range(12):
+            c.observe_operands("stream", rng.integers(128, 256, 2048),
+                               rng.integers(128, 256, 2048))
+        ctrls[str(dev)] = c
+    g, h = ctrls[str(cuda)], ctrls["cpu"]
+    strip = lambda c: [{k: v for k, v in e.items() if k != "unix_time"} for e in c.audit.read()]
+    assert strip(g) == strip(h)
+    assert len(g.rollbacks) == 1 and g.store.current_version() == 1
+    assert g.policy.to_json() == g.store.load(1).to_json()

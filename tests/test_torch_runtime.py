@@ -318,14 +318,20 @@ def test_controller_tile_stream_retunes_like_jax():
     _assert_same_events(j, t)
 
 
-def test_controller_refuses_what_is_not_ported():
+def test_controller_refuses_what_is_not_ported(tmp_path):
+    """Nothing of the controller is left unported: a store, the canary and
+    an SLO engine are taken on the CPU; what it still refuses is a policy
+    of another multiplier (ValueError, where JAX asserts)."""
+    from repro_torch import obs as tobs
+    from repro_torch.fleet import PolicyStore
+
     pol = TR.SwapPolicy("mul8s_trunc0_4")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        TR.AdaptiveController(pol, ("mlp",), TR.AdaptiveConfig(canary=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="policy store and rollout"):
-        TR.AdaptiveController(pol, ("mlp",), store=object(), device="cpu")
-    ctrl = TR.AdaptiveController(pol, ("mlp",), device="cpu")
-    with pytest.raises(NotImplementedError, match="observability"):
-        ctrl.attach_slo(object())
+    ctrl = TR.AdaptiveController(pol, ("mlp",), TR.AdaptiveConfig(canary=True),
+                                 store=PolicyStore(str(tmp_path)), device="cpu")
+    assert ctrl.resume_from_store() is False and ctrl.store.current_version() == 1
+    ctrl.attach_slo(tobs.SLOEngine(tobs.default_serving_slos(qor_targets=("mlp",))))
+    ctrl.warmup()
+    with pytest.raises(ValueError, match="cannot adopt"):
+        ctrl.adopt(TR.SwapPolicy("mul8u_trunc0_4"))
     assert TR.all_triples(8).tolist() == JR.all_triples(8).tolist()
     assert TR.tile_triples(8).tolist() == JR.tile_triples(8).tolist()
