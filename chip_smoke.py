@@ -73,6 +73,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
             graph) over 4 slots: the per-request tokens of the wave oracle,
             mid-flight splices with no re-capture, no host synchronise in a
             step, inactive slots' cache rows unchanged;
+   fleet  — the continuous batcher (``fleet.ContinuousBatcher``) over the
+            same model with ``mxu`` (route T): 12 seeded requests (prompts
+            of 5-32 tokens in buckets 16 and 32, budgets 1-8) over 4 slots
+            and an EOS taken from the run's own tokens.  Wave == token per
+            request, greedy and at temperature 0.8 with per-request seeds,
+            with sync and async admission; EOS truncation; an adaptive token
+            drain and an adaptive wave (a threshold that never fires) give
+            the static wave's tokens, every token completion carries a QoR
+            summary and every wave completion a corr id and none; no
+            capture after warm-up, none in a second drain on one batcher;
+            executed launches 8 x (admissions + steps) static token, 8 x
+            admissions + 8 x steps adaptive token, 8 x forwards static wave,
+            8 x waves + 8 x 7 x waves adaptive wave; a ``prefill_one`` under
+            ``no_sync``; ``max_queue`` sheds the excess, a lapsed deadline
+            times out with 0 tokens, a ``stall_step`` fires once, a
+            ``crash_replica`` is survived with every request retired once;
+            a Poisson trace at 200 req/s gives the direct drain's tokens;
+            the serve CLI in process (``--smoke --ax --fleet 1
+            --token-granular`` with ``--obs-dir``: ``token_step`` spans in
+            ``trace.json``; ``--smoke --ax --adaptive``).  Decode ms/step,
+            TTFT, e2e and queue-delay percentiles, occupancy, tokens/s and
+            stragglers per mode are printed;
    rollout — observability and the guarded rollout over a ``PolicyStore`` in
             a temporary directory, a ``TraceRecorder`` installed: the drift
             serve (stepwise, scalar mode, 12 tokens) as the writer, with
@@ -1335,6 +1357,266 @@ def token_serve(cfg, params, card: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 6c, fleet: the continuous batcher and the serve CLI
+# ---------------------------------------------------------------------------
+
+FLEET_SLOTS, FLEET_BUCKETS, FLEET_T, FLEET_N = 4, (16, 32), 8, 12
+
+
+def fleet_serve(cfg, params, card: str):
+    """Phase 6c, fleet: ``fleet.ContinuousBatcher`` over the serve's model
+    with the ``mxu`` backend (route T): 12 seeded requests (prompts of 5-32
+    tokens in buckets 16 and 32, budgets 1-8) over 4 slots, an EOS taken
+    from the run's own tokens.  Wave == token per request (greedy, sampled
+    at temperature 0.8 with per-request seeds, sync and async admission),
+    EOS truncation, the adaptive token drain and the adaptive wave == the
+    static wave with a QoR summary on every token completion, no capture
+    after warm-up nor in a second drain, the exact executed launches,
+    ``prefill_one`` free of host synchronises, shedding, deadlines, a
+    stall, a crash survived, an arrival trace, and the serve CLI in
+    process.  Returns the ax_matmul and ax_matmul_grid launches of its
+    paths."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import AxPolicy
+    from repro_torch.fleet import (BatcherConfig, ContinuousBatcher, Request, chaos,
+                                   poisson_arrivals)
+    from repro_torch.kernels.ax_matmul import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.runtime import AdaptiveConfig, AdaptiveController, SwapPolicy
+    from repro_torch.serve import graph as G
+    from repro_torch.serve import prefill_one
+
+    cfg = dataclasses.replace(cfg, ax=AxPolicy(backend="mxu"))
+    dev = params["embed"]["w"].device
+    rng = np.random.default_rng(19)
+    trace = [(rid, rng.integers(0, cfg.vocab, int(rng.integers(5, 33))).astype(np.int32),
+              int(rng.integers(1, FLEET_T + 1))) for rid in range(FLEET_N)]
+    per_fwd = L * 4
+
+    def batcher(adaptive=None, **kw):
+        bc = dict(n_slots=FLEET_SLOTS, prompt_buckets=FLEET_BUCKETS, new_token_bucket=FLEET_T)
+        bc.update(kw)
+        return ContinuousBatcher(params, cfg, BatcherConfig(**bc), adaptive=adaptive)
+
+    def controller():
+        ctrl = AdaptiveController(SwapPolicy.from_ax_policy(cfg.ax), cfg.ax.targets,
+                                  AdaptiveConfig(drift_threshold=1e9), device=dev)
+        ctrl.warmup()
+        return ctrl
+
+    def drain(bat, label, offset=0, arrivals=False):
+        reqs = [Request(rid + offset, p.copy(), n) for rid, p, n in trace]
+        s0 = dict(bat.stats)
+        before = G.counts()
+        caps0 = sum(G.CAPTURES.values())
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if arrivals:
+            done = bat.run_arrivals(poisson_arrivals(reqs, 200.0, seed=0))
+        else:
+            for r in reqs:
+                bat.submit(r)
+            done = bat.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        info = {k: bat.stats[k] - s0[k] for k in ("decode_steps", "waves", "requests",
+                                                   "real_tokens", "stragglers", "splices")}
+        info.update(wall=wall, executed=G.executed_launches(before, dict(LAUNCHES)),
+                    caps=sum(G.CAPTURES.values()) - caps0,
+                    retraces=bat.stats["decode_retraces_post_warmup"])
+        toks = {c.rid - offset: [int(t) for t in c.tokens] for c in done}
+        if len(done) != FLEET_N or sorted(toks) != list(range(FLEET_N)) or \
+                any(c.status != "ok" for c in done):
+            fail(f"fleet {label}: completions {[(c.rid, c.status) for c in done]}")
+        if info["retraces"] != 0:
+            fail(f"fleet {label}: decode_retraces_post_warmup {info['retraces']}")
+        return done, toks, info
+
+    # the static wave without EOS; the EOS is a token it produced
+    _, base, w0 = drain(batcher(), "static wave")
+    want = {"ax_matmul": per_fwd * w0["waves"] * FLEET_T, "ax_matmul_grid": 0}
+    if w0["executed"] != want:
+        fail(f"fleet static wave: executed launches {w0['executed']}, expected {want}")
+    eos = next(t[1] for t in base.values() if len(t) >= 3)
+    trunc = {rid: (t[:t.index(eos) + 1] if eos in t else t) for rid, t in base.items()}
+    n_eos = sum(eos in t for t in base.values())
+
+    runs = {}
+    for temp in (0.0, 0.8):
+        for mode in ("wave", "sync", "async"):
+            bat = batcher(eos_id=eos, temperature=temp, seed=5, token_granular=mode != "wave",
+                          async_admission=mode == "async")
+            done, toks, info = drain(bat, f"{mode} T={temp}")
+            runs[temp, mode] = (bat, done, toks, info)
+            if temp == 0.0 and mode == "sync":
+                # a second drain on the same batcher captures nothing
+                _, toks2, info2 = drain(bat, "second sync drain", offset=100)
+                if info2["caps"] != 0 or toks2 != toks:
+                    fail(f"fleet second drain: {info2['caps']} captures, tokens equal "
+                         f"{toks2 == toks}")
+    for temp in (0.0, 0.8):
+        toks = {m: runs[temp, m][2] for m in ("wave", "sync", "async")}
+        if not toks["wave"] == toks["sync"] == toks["async"]:
+            fail(f"fleet T={temp}: wave/sync/async tokens differ:\n{toks}")
+    if runs[0.0, "wave"][2] != trunc or runs[0.0, "wave"][0].stats["eos_retired"] != n_eos:
+        fail(f"fleet EOS {eos}: wave tokens are not the EOS-free wave's truncated at EOS "
+             f"({runs[0.0, 'wave'][0].stats['eos_retired']} EOS retirements, want {n_eos})")
+    if runs[0.8, "wave"][2] == runs[0.0, "wave"][2]:
+        fail("fleet: the sampled drain gave the greedy tokens")
+    for mode in ("sync", "async"):
+        info = runs[0.0, mode][3]
+        want = {"ax_matmul": per_fwd * (info["requests"] + info["decode_steps"]),
+                "ax_matmul_grid": 0}
+        if info["executed"] != want:
+            fail(f"fleet static token drain ({mode}): executed {info['executed']}, "
+                 f"expected {want}")
+
+    # adaptive, a threshold that never fires: the static wave's tokens
+    abat = batcher(adaptive=controller(), eos_id=eos, token_granular=True)
+    adone, atoks, ainfo = drain(abat, "adaptive token")
+    want = {"ax_matmul": per_fwd * ainfo["requests"],
+            "ax_matmul_grid": per_fwd * ainfo["decode_steps"]}
+    if atoks != trunc or ainfo["executed"] != want or abat.adaptive.retunes:
+        fail(f"fleet adaptive token drain: tokens equal {atoks == trunc}, executed "
+             f"{ainfo['executed']} (want {want}), re-tunes {len(abat.adaptive.retunes)}")
+    if not all(c.qor is not None and c.corr for c in adone):
+        fail(f"fleet adaptive token drain: completions without a QoR summary")
+    wbat = batcher(adaptive=controller(), eos_id=eos)
+    wdone, wtoks, winfo = drain(wbat, "adaptive wave")
+    want = {"ax_matmul": per_fwd * winfo["waves"],
+            "ax_matmul_grid": per_fwd * winfo["waves"] * (FLEET_T - 1)}
+    if wtoks != trunc or winfo["executed"] != want:
+        fail(f"fleet adaptive wave: tokens equal {wtoks == trunc}, executed "
+             f"{winfo['executed']} (want {want})")
+    if not all(c.qor is None and c.corr for c in wdone):
+        fail("fleet adaptive wave: a completion carries a QoR summary or lacks a corr id")
+
+    # an admission's prefill reads nothing back from the card
+    rid0, p0, _ = trace[0]
+    bucket0 = min(b for b in FLEET_BUCKETS if b >= len(p0))
+    padded0 = np.concatenate([p0, np.full(bucket0 - len(p0), p0[-1], np.int32)])[None]
+    admit = dict(max_cache_len=FLEET_BUCKETS[-1] + FLEET_T + 1)
+    with G.no_sync():
+        first, _ = prefill_one(params, padded0, len(p0), cfg, rows=FLEET_SLOTS, **admit)
+    if int(first[0]) != base[rid0][0]:
+        fail(f"prefill_one under no_sync: first token {int(first[0])}, wave {base[rid0][0]}")
+    # why an admission prefills over the slot count: alone (1 row) a request
+    # rounds otherwise than in the wave's batch (printed, not gated)
+    alone = 0
+    for rid, p, _ in trace:
+        bucket = min(b for b in FLEET_BUCKETS if b >= len(p))
+        one = np.concatenate([p, np.full(bucket - len(p), p[-1], np.int32)])[None]
+        alone += int(prefill_one(params, one, len(p), cfg, **admit)[0][0]) == base[rid][0]
+    ms = {r: cuda_ms(lambda r=r: prefill_one(params, padded0, len(p0), cfg, rows=r, **admit),
+                     iters=20) for r in (1, FLEET_SLOTS)}
+    print(f"admission prefill: alone (1 row) {alone} of {FLEET_N} requests get the wave's "
+          f"first token, over {FLEET_SLOTS} rows all {FLEET_N}; prefill_one of a "
+          f"{len(p0)}-token prompt (bucket {bucket0}) {ms[1]:.3f} ms at 1 row, "
+          f"{ms[FLEET_SLOTS]:.3f} ms at {FLEET_SLOTS} rows (CUDA events) [{card}]", flush=True)
+
+    # robustness: shedding, a lapsed deadline and a stall; a crash survived
+    rbat = batcher(eos_id=eos, token_granular=True, max_queue=8)
+    acc = [rbat.submit(Request(rid, p.copy(), n, deadline_s=0.0 if rid == 0 else None))
+           for rid, p, n in trace]
+    plan = chaos.FaultPlan([chaos.FaultSpec("sched.step", "stall_step", at=1, arg=0.05)])
+    with chaos.active(plan) as h:
+        rdone = {c.rid: c for c in rbat.run()}
+    if acc != [True] * 8 + [False] * 4 or rbat.stats["shed"] != 4 or sorted(rdone) != \
+            list(range(8)) or h.fired_count("stall_step") != 1:
+        fail(f"fleet shedding/stall: accepted {acc}, shed {rbat.stats['shed']}, retired "
+             f"{sorted(rdone)}, stalls {h.fired_count('stall_step')}")
+    if rdone[0].status != "timeout" or len(rdone[0].tokens) or \
+            any(rdone[r].status != "ok" or list(rdone[r].tokens) != trunc[r]
+                for r in range(1, 8)):
+        fail(f"fleet deadline: rid 0 {rdone[0].status} {list(rdone[0].tokens)}; others "
+             f"{[(r, rdone[r].status) for r in range(1, 8)]}")
+    cbat = batcher(eos_id=eos)
+    for rid, p, n in trace:
+        cbat.submit(Request(rid, p.copy(), n))
+    plan = chaos.FaultPlan([chaos.FaultSpec("sched.step", "crash_replica", at=0)])
+    cdone, crashes = [], 0
+    with chaos.active(plan):
+        while True:
+            try:
+                cdone.extend(cbat.run())
+                break
+            except chaos.InjectedFault:
+                crashes += 1
+    if crashes != 1 or sorted(c.rid for c in cdone) != list(range(FLEET_N)) or \
+            {c.rid: [int(t) for t in c.tokens] for c in cdone} != trunc:
+        fail(f"fleet crash: {crashes} crashes, retired {sorted(c.rid for c in cdone)}")
+
+    # an arrival trace at 200 req/s, token mode
+    abat2 = batcher(eos_id=eos, token_granular=True)
+    _, rtoks, rinfo = drain(abat2, "arrivals", arrivals=True)
+    if rtoks != trunc:
+        fail("fleet arrivals: tokens differ from the direct drain's")
+
+    for label, (bat, info) in (("wave", runs[0.0, "wave"][::3]),
+                               ("token sync", runs[0.0, "sync"][::3]),
+                               ("token async", runs[0.0, "async"][::3]),
+                               ("token adaptive", (abat, ainfo)),
+                               ("token arrivals 200 req/s", (abat2, rinfo))):
+        s = bat.latency_summary()
+        per_step = (f"{info['wall'] * 1e3 / info['decode_steps']:.2f} ms/step (drain wall / "
+                    f"steps, admissions included), median step dispatch "
+                    f"{np.median(bat.watchdog.times) * 1e3:.2f} ms; "
+                    if bat.mode == "token" else "")
+        qd = (f"queue delay p50/p99 {s['queue_delay_p50'] * 1e3:.1f}/"
+              f"{s['queue_delay_p99'] * 1e3:.1f} ms; " if "queue_delay_p50" in s else "")
+        print(f"fleet {label}: {FLEET_N} requests in {info['wall'] * 1e3:.1f} ms, "
+              f"{info['decode_steps']} steps, {info['waves']} waves, {info['splices']} "
+              f"splices; {per_step}TTFT p50/p99 {s['ttft_p50'] * 1e3:.1f}/"
+              f"{s['ttft_p99'] * 1e3:.1f} ms, e2e p50/p99 {s['e2e_p50'] * 1e3:.1f}/"
+              f"{s['e2e_p99'] * 1e3:.1f} ms; {qd}occupancy {bat.occupancy():.3f}, "
+              f"{info['real_tokens'] / info['wall']:.1f} tokens/s, stragglers "
+              f"{info['stragglers']} [{card}]", flush=True)
+    print(f"fleet (qwen2-72b x{L} layers, mxu route T, {FLEET_SLOTS} slots, buckets "
+          f"{FLEET_BUCKETS}, {FLEET_N} requests, EOS {eos}): wave == token per request, "
+          f"greedy and sampled (T=0.8, per-request seeds), sync and async admission; EOS "
+          f"truncation ({n_eos} requests); adaptive token drain and adaptive wave == the "
+          f"static wave, QoR on every token completion; 0 captures after warm-up and in a "
+          f"second drain; executed launches: static wave {w0['executed']}, static token "
+          f"{runs[0.0, 'sync'][3]['executed']}, adaptive token {ainfo['executed']}, adaptive "
+          f"wave {winfo['executed']}; prefill_one under no_sync; 4 shed, a queued timeout, "
+          f"a stall, a crash survived with every request retired once; arrivals == direct "
+          f"[{card}]", flush=True)
+
+    # the serve CLI in process, on the card (the reduced model of --smoke)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        obs_dir, store = f"{tmp}/obs", f"{tmp}/store"
+        t0 = time.perf_counter()
+        cli_bat, cli_done = serve_main(["--smoke", "--ax", "--fleet", "1", "--token-granular",
+                                        "--requests", "8", "--obs-dir", obs_dir,
+                                        "--policy-store", store])
+        events = json.loads(Path(obs_dir, "trace.json").read_text())["traceEvents"]
+        n_steps = sum(e["name"] == "token_step" for e in events)
+        if len(cli_done) != 8 or n_steps == 0 or cli_bat.stats["decode_retraces_post_warmup"]:
+            fail(f"serve CLI --fleet 1: {len(cli_done)} completions, {n_steps} token_step "
+                 f"spans")
+        cli_out, cli_ctrl = serve_main(["--smoke", "--ax", "--adaptive"])
+        if cli_out.shape != (4, 32) or cli_ctrl.step == 0:
+            fail(f"serve CLI --adaptive: tokens {cli_out.shape}, observed {cli_ctrl.step}")
+        print(f"serve CLI in process (--smoke --ax --fleet 1 --token-granular: 8 served, "
+              f"{n_steps} token_step spans in trace.json; --smoke --ax --adaptive: "
+              f"{len(cli_ctrl.retunes)} re-tunes): {time.perf_counter() - t0:.1f} s "
+              f"[{card}]", flush=True)
+
+    paths = {"fleet static wave": w0["executed"]["ax_matmul"],
+             "fleet static token": runs[0.0, "sync"][3]["executed"]["ax_matmul"],
+             "fleet adaptive token (prefill)": ainfo["executed"]["ax_matmul"],
+             "fleet adaptive wave (prefill)": winfo["executed"]["ax_matmul"]}
+    grid_paths = {"fleet adaptive token": ainfo["executed"]["ax_matmul_grid"],
+                  "fleet adaptive wave": winfo["executed"]["ax_matmul_grid"]}
+    return paths, grid_paths
+
+
+# ---------------------------------------------------------------------------
 # phase 6d: observability and the guarded rollout
 # ---------------------------------------------------------------------------
 
@@ -1873,6 +2155,10 @@ def main(argv):
     paths["per-slot graph"] = slot_serve(cfg, params, card)
     paths["token-granular graph"] = token_serve(cfg, params, card)
     phase_done("slot and token")
+    f_paths, f_grid_paths = fleet_serve(cfg, params, card)
+    paths.update(f_paths)
+    grid_paths.update(f_grid_paths)
+    phase_done("fleet")
     a_paths, g_paths, device_trace_serve = rollout_serve(cfg, params, prompts, card)
     paths.update(a_paths)
     grid_paths.update(g_paths)

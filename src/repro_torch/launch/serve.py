@@ -1,11 +1,64 @@
-"""The serve CLI's synthetic drift (``repro.launch.serve._drift_hook``).
-The command-line front end itself is the serve CLI item of ROADMAP
-queue 1."""
+"""The serve CLI of the port (``repro.launch.serve``): batched prefill and
+decode, adaptive serving, and the continuous-batching fleet front end.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --ax \\
+        [--adaptive] [--fleet 1 --token-granular] [--device cpu]
+
+``--adaptive`` attaches the online adaptive SWAPPER runtime: the decode step
+streams operand and error telemetry, a drift detector scores the live
+operand distribution against the tuned one, and on drift the controller
+re-tunes the swap configs in place, capturing nothing anew.  Under
+``--smoke`` a synthetic weight drift is injected mid-generation
+(``--drift-at``, :func:`drift_hook`).  ``--tile-rows N`` switches the
+runtime to per-row-tile configs and telemetry.
+
+``--fleet 1`` serves through the continuous batcher
+(``fleet/scheduler.py``) on one card: variable-length seeded requests in
+fixed decode slots, one fused adaptive wave per dispatch or, with
+``--token-granular``, one token step per step with mid-flight admission;
+re-tunes publish through the versioned ``PolicyStore`` (``--policy-store``)
+behind a canary, an SLO engine reads the batcher's latencies, and each
+replica's ``PolicyReader`` reports its staleness at the end.
+``--eos-id``, ``--arrival-rate`` (a Poisson trace through
+``run_arrivals``), ``--async-admission`` and ``--chaos-plan`` (a
+``fleet.chaos`` fault plan; the drain survives an injected replica kill)
+work as in the JAX package.  ``--fleet N`` with N > 1 needs the device
+mesh, ROADMAP queue 1, item 8.
+
+Observability (``repro_torch.obs``): ``--metrics-port`` serves Prometheus
+``/metrics`` (``--metrics-hold`` keeps it up after the run), ``--obs-dir``
+writes ``trace.json``, ``metrics.prom`` and ``metrics.jsonl`` at exit,
+``--statsd`` / ``--statsd-mirror`` and ``--otlp-out`` push the registry at
+exit, ``--device-trace DIR`` wraps the run in a ``torch.profiler`` trace;
+at exit the histogram bucket coverage is checked.  There is no compile
+listener: the port has no XLA.
+
+``--device`` (default ``cuda``) chooses where the model runs; ``cpu`` runs
+the plain kernels.  ``--arch`` takes the architectures of
+``repro_torch.configs.ARCHS``; the other families are ROADMAP queue 1,
+item 7.  ``--autotune`` and ``--schedule-store`` exit: the port picks the
+CUDA block and the K split from the shapes (``kernels/ax_matmul.py::plan``),
+and the schedule autotuner is its own ROADMAP queue 1 item.
+"""
 from __future__ import annotations
 
+import argparse
+import contextlib
+import dataclasses
+import os
+import tempfile
+import time
+
+import numpy as np
 import torch
 
-__all__ = ["drift_hook"]
+from repro_torch import obs
+from repro_torch.configs import ARCHS, reduced
+from repro_torch.configs.base import AxPolicy
+from repro_torch.models import init_params
+from repro_torch.serve import ServeConfig, generate
+
+__all__ = ["drift_hook", "main"]
 
 
 def _tree_map(fn, t):
@@ -40,3 +93,315 @@ def drift_hook(at_step: int, scale: float):
         return _tree_map(perturb, params)
 
     return hook
+
+
+@contextlib.contextmanager
+def _observability(args):
+    """Driver-level observability, all opt-in (module note).  At exit the
+    trace and snapshots are written, the exporters pushed, and any
+    histogram whose +Inf bucket holds more than 5% of its observations
+    warns."""
+    enabled = (args.metrics_port is not None or args.obs_dir
+               or args.device_trace or args.statsd or args.otlp_out)
+    if not enabled:
+        yield
+        return
+    server = (obs.start_metrics_server(args.metrics_port)
+              if args.metrics_port is not None else None)
+    if server is not None:
+        print(f"[obs] serving /metrics on port {server.port}")
+    exporters = []
+    if args.statsd:
+        exporters.append(obs.StatsdExporter.from_spec(
+            args.statsd, mirror=args.statsd_mirror))
+        print(f"[obs] statsd push -> udp://{args.statsd}"
+              + (f" (mirror {args.statsd_mirror})" if args.statsd_mirror else ""))
+    if args.otlp_out:
+        exporters.append(obs.OtlpJsonExporter(args.otlp_out))
+        print(f"[obs] otlp-json push -> {args.otlp_out}")
+    rec = None
+    if args.obs_dir:
+        os.makedirs(args.obs_dir, exist_ok=True)
+        rec = obs.TraceRecorder()
+        obs.install_recorder(rec)
+    dev = (obs.device_trace(args.device_trace, device=args.device) if args.device_trace
+           else contextlib.nullcontext())
+    try:
+        with dev:
+            yield
+    finally:
+        if args.obs_dir:
+            obs.install_recorder(None)
+            rec.save(os.path.join(args.obs_dir, "trace.json"))
+            with open(os.path.join(args.obs_dir, "metrics.prom"), "w") as f:
+                f.write(obs.prometheus_text())
+            obs.write_snapshot(os.path.join(args.obs_dir, "metrics.jsonl"),
+                               run=" ".join(f"{k}={v}" for k, v in sorted(
+                                   vars(args).items()) if v))
+            print(f"[obs] trace + metrics snapshots written to {args.obs_dir}")
+        if exporters:
+            n = obs.push_all(exporters)
+            print(f"[obs] pushed {n} payload units through {len(exporters)} backend(s)")
+            for e in exporters:
+                e.close()
+        findings = obs.default_registry().check_bucket_coverage()
+        if findings:
+            print(f"[obs] {len(findings)} histogram series exceeded the "
+                  f"+Inf-bucket coverage threshold (see warnings)")
+        if server is not None:
+            if args.metrics_hold > 0:
+                print(f"[obs] holding /metrics open {args.metrics_hold}s")
+                time.sleep(args.metrics_hold)
+            server.close()
+
+
+def _run_fleet(args, cfg, device):
+    """The continuous batcher over a policy store (module note)."""
+    from repro_torch.fleet import (BatcherConfig, ContinuousBatcher, PolicyReader,
+                                   PolicyStore, Request, chaos, poisson_arrivals)
+    from repro_torch.runtime import AdaptiveConfig, AdaptiveController, SwapPolicy
+
+    n = args.fleet
+    if n > 1:
+        raise SystemExit(
+            f"--fleet {n}: serving over more than one card needs the torch device "
+            f"mesh (ROADMAP queue 1, item 8); --fleet 1 serves on one card")
+    harness = None
+    if args.chaos_plan:
+        plan = chaos.FaultPlan.load(args.chaos_plan)
+        harness = chaos.install(plan)
+        print(f"[chaos] {plan.describe()}")
+    slots = args.slots or n * max(1, -(-4 // n))
+    store = PolicyStore(args.policy_store)
+    # guarded rollout: re-tune winners are canaried on a holdout before
+    # promotion, and a regressed adoption rolls CURRENT back
+    controller = AdaptiveController(
+        SwapPolicy.from_ax_policy(cfg.ax), targets=cfg.ax.targets,
+        cfg=AdaptiveConfig(min_observe_steps=2, cooldown_steps=2,
+                           tile_rows=args.tile_rows, canary=True),
+        store=store, log_fn=lambda line: print(f"[fleet] {line}"), device=device)
+    resumed = controller.resume_from_store()
+    print(f"[fleet] replicas={n} device={device} slots={slots} store={store.root} "
+          f"{'resumed v' + str(store.current_version()) if resumed else 'fresh'}")
+    controller.warmup()
+    # latency SLOs on the batcher's TTFT/e2e stream, QoR guard bands per
+    # target; an alerting QoR SLO vetoes canary promotion
+    slo = obs.SLOEngine(obs.default_serving_slos(qor_targets=cfg.ax.targets),
+                        audit=controller.audit)
+    controller.attach_slo(slo)
+
+    params = init_params(cfg, seed=0, device=device)
+    bcfg = BatcherConfig(n_slots=slots, prompt_buckets=(args.prompt_len,),
+                         new_token_bucket=args.new_tokens, temperature=args.temperature,
+                         token_granular=args.token_granular, eos_id=args.eos_id,
+                         async_admission=args.async_admission)
+    bat = ContinuousBatcher(params, cfg, bcfg, adaptive=controller)
+    bat.attach_slo(slo)
+    # one PolicyReader per replica: each adopts the policy current at spin-up
+    # and reports its staleness (versions behind CURRENT) until it polls
+    readers = [PolicyReader(store, cfg.ax.targets, tile_rows=args.tile_rows,
+                            name=f"r{i}", device=device) for i in range(n)]
+    rng = np.random.default_rng(0)
+    requests = []
+    for rid in range(args.requests):
+        L = int(rng.integers(max(args.prompt_len // 2, 1), args.prompt_len + 1))
+        requests.append(Request(rid, rng.integers(0, cfg.vocab, L),
+                                max_new=int(rng.integers(1, args.new_tokens + 1))))
+    source = None
+    if args.arrival_rate > 0:
+        source = poisson_arrivals(requests, args.arrival_rate, seed=0)
+        print(f"[fleet] arrival trace: {len(source)} requests @ "
+              f"{args.arrival_rate} req/s (Poisson, seed 0)")
+    else:
+        for r in requests:
+            bat.submit(r)
+    t0 = time.time()
+    done = []
+    while True:                # supervise the drain: an injected replica
+        try:                   # kill restarts it (faults fire once per plan)
+            done.extend(bat.run_arrivals(source) if source is not None else bat.run())
+            break
+        except chaos.InjectedFault as e:
+            print(f"[chaos] survived injected crash ({e}); resuming drain")
+    dt = time.time() - t0
+    toks = sum(len(c.tokens) for c in done)
+    print(f"[fleet] {bat.describe()}")
+    print(f"[fleet] served {len(done)} requests / {toks} tokens in {dt:.2f}s "
+          f"(incl. graph captures)")
+    ls = bat.latency_summary()
+    if "queue_delay_p99" in ls:
+        print(f"[fleet] queue delay p50={ls['queue_delay_p50']:.4f}s "
+              f"p99={ls['queue_delay_p99']:.4f}s "
+              f"ttft p99={ls.get('ttft_p99', float('nan')):.4f}s")
+    if bat.stats.get("eos_retired"):
+        print(f"[fleet] eos-retired: {bat.stats['eos_retired']}")
+    print(f"[fleet] {controller.telemetry.describe()}")
+    print(f"[fleet] {bat.qor.describe()}")
+    print(f"[fleet] {slo.describe()}")
+    print(f"[fleet] re-tunes: {len(controller.retunes)} "
+          f"tile re-tunes: {len(controller.tile_retunes)} "
+          f"store v{store.current_version()} {controller.policy.describe()}")
+    stale = [r.staleness() for r in readers]
+    print("[fleet] replica staleness (versions behind CURRENT): "
+          + " ".join(f"r{i}=v{r.version}+{s}" for i, (r, s) in enumerate(zip(readers, stale))))
+    for i, r in enumerate(readers):
+        try:
+            r.poll()
+        except chaos.InjectedFault as e:
+            print(f"[chaos] reader r{i} survived injected crash ({e}); re-polling")
+            r.poll()
+    print(f"[fleet] after poll: staleness={[r.staleness() for r in readers]} "
+          f"(all replicas adopted v{store.current_version()})")
+    if harness is not None:
+        print(f"[chaos] {harness.describe()}")
+        if controller.rollbacks:
+            print(f"[chaos] rollbacks: {controller.rollbacks}")
+        chaos.uninstall()
+    return bat, done
+
+
+def _run_single(args, cfg, device):
+    controller = None
+    param_hook = None
+    if args.adaptive:
+        from repro_torch.runtime import AdaptiveConfig, AdaptiveController, SwapPolicy
+
+        policy = SwapPolicy.from_ax_policy(cfg.ax)
+        controller = AdaptiveController(
+            policy, targets=cfg.ax.targets,
+            cfg=AdaptiveConfig(min_observe_steps=2, cooldown_steps=4,
+                               tile_rows=args.tile_rows),
+            log_fn=lambda line: print(f"[adaptive] {line}"), device=device)
+        controller.warmup()
+        drift_at = args.drift_at
+        if drift_at is None:
+            drift_at = args.new_tokens // 3 if args.smoke else -1
+        if drift_at >= 0:
+            param_hook = drift_hook(drift_at, args.drift_scale)
+            print(f"[drift] step {drift_at}: synthetic weight drift (x{args.drift_scale})")
+        print(f"[adaptive] {policy.describe()}")
+
+    params = init_params(cfg, seed=0, device=device)
+    rng = np.random.default_rng(0)
+    prompt = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)))}
+    t0 = time.time()
+    out = generate(params, prompt, cfg,
+                   ServeConfig(max_new_tokens=args.new_tokens, temperature=args.temperature),
+                   adaptive=controller, param_hook=param_hook).cpu().numpy()
+    dt = time.time() - t0
+    toks = out.size
+    print(f"arch={cfg.name} generated {toks} tokens in {dt:.2f}s "
+          f"({toks / dt:.1f} tok/s incl. graph captures)")
+    print(out[:, :16])
+
+    if controller is not None:
+        print(f"[adaptive] {controller.telemetry.describe()}")
+        print(f"[adaptive] re-tunes: {len(controller.retunes)} "
+              f"tile re-tunes: {len(controller.tile_retunes)} "
+              f"final {controller.policy.describe()}")
+        if args.policy_out:
+            controller.policy.save(args.policy_out)
+            print(f"[adaptive] policy written to {args.policy_out}")
+    return out, controller
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
+    ap.add_argument("--arch", default="qwen2-72b",
+                    help=f"one of {sorted(ARCHS)} (the other families: ROADMAP "
+                         f"queue 1, item 7)")
+    ap.add_argument("--device", default="cuda",
+                    help="where the model runs: cuda (the default) or cpu")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--ax", action="store_true")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="online SWAPPER runtime (telemetry + drift-triggered re-tune)")
+    ap.add_argument("--tile-rows", type=int, default=0, metavar="N",
+                    help="per-row-tile adaptation granularity (0 = scalar configs; "
+                         "N > 0 = N-row-tile config grids + tile telemetry, with "
+                         "--adaptive/--fleet)")
+    ap.add_argument("--drift-at", type=int, default=None,
+                    help="decode step at which to inject synthetic drift "
+                         "(default: new_tokens//3 with --adaptive --smoke; -1 disables)")
+    ap.add_argument("--drift-scale", type=float, default=0.05)
+    ap.add_argument("--policy-out", default=None,
+                    help="write the final (possibly re-tuned) SwapPolicy JSON here")
+    ap.add_argument("--fleet", type=int, default=0, metavar="N",
+                    help="serve through the continuous batcher + policy store "
+                         "(implies --adaptive; N = 1 on one card)")
+    ap.add_argument("--token-granular", action="store_true",
+                    help="--fleet: per-slot positions + mid-flight admission")
+    ap.add_argument("--eos-id", type=int, default=None, metavar="TOK",
+                    help="--fleet: a slot retires the moment it samples TOK")
+    ap.add_argument("--arrival-rate", type=float, default=0.0, metavar="RPS",
+                    help="--fleet: submit requests as a Poisson arrival trace at RPS "
+                         "req/s instead of pre-loading the queue")
+    ap.add_argument("--async-admission", action="store_true",
+                    help="--fleet --token-granular: launch a freed slot's prefill and "
+                         "splice it at the next step boundary")
+    ap.add_argument("--slots", type=int, default=0,
+                    help="--fleet decode slots (default max(N, 4))")
+    ap.add_argument("--requests", type=int, default=16,
+                    help="--fleet synthetic request count")
+    ap.add_argument("--policy-store",
+                    default=os.path.join(tempfile.gettempdir(), "repro_torch_policy_store"),
+                    help="--fleet PolicyStore root directory")
+    ap.add_argument("--autotune", action="store_true",
+                    help="not in the port (module note)")
+    ap.add_argument("--schedule-store", default=None, metavar="DIR",
+                    help="not in the port (module note)")
+    ap.add_argument("--chaos-plan", default=None, metavar="PATH",
+                    help="--fleet: install a fleet.chaos FaultPlan JSON")
+    ap.add_argument("--metrics-port", type=int, default=None, metavar="P",
+                    help="serve Prometheus /metrics on this port for the whole run "
+                         "(0 = ephemeral, printed at startup)")
+    ap.add_argument("--metrics-hold", type=float, default=0.0, metavar="S",
+                    help="keep /metrics up S seconds after serving finishes")
+    ap.add_argument("--obs-dir", default=None, metavar="DIR",
+                    help="write Chrome trace + Prometheus/JSONL metric snapshots here "
+                         "at exit")
+    ap.add_argument("--device-trace", default=None, metavar="DIR",
+                    help="wrap the run in a torch.profiler trace (DIR/device_trace.json)")
+    ap.add_argument("--statsd", default=None, metavar="HOST:PORT",
+                    help="push the metric registry as StatsD UDP datagrams at exit")
+    ap.add_argument("--statsd-mirror", default=None, metavar="FILE",
+                    help="also append every StatsD line to FILE (requires --statsd)")
+    ap.add_argument("--otlp-out", default=None, metavar="PATH|URL",
+                    help="push one OTLP-JSON resourceMetrics payload at exit: append "
+                         "to PATH (.jsonl) or POST to an http(s):// endpoint")
+    return ap
+
+
+def main(argv=None):
+    """Parse ``argv`` (``sys.argv[1:]`` when None) and serve; returns the
+    fleet's ``(batcher, completions)`` or the single serve's ``(tokens,
+    controller)``."""
+    args = _parser().parse_args(argv)
+    if args.arch not in ARCHS:
+        raise SystemExit(f"--arch {args.arch}: the port has {sorted(ARCHS)}; the other "
+                         f"model families are ROADMAP queue 1, item 7")
+    if args.autotune or args.schedule_store:
+        raise SystemExit("--autotune/--schedule-store: the port picks the CUDA block and "
+                         "the K split from the shapes (kernels/ax_matmul.py::plan); the "
+                         "schedule autotuner and its store are a later ROADMAP queue 1 item")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device is visible (pass --device cpu)")
+    cfg = ARCHS[args.arch]
+    if args.smoke:
+        cfg = reduced(cfg)
+    if args.ax or args.adaptive or args.fleet:
+        cfg = dataclasses.replace(cfg, ax=AxPolicy(backend="mxu"))
+    with _observability(args):
+        if args.fleet:
+            return _run_fleet(args, cfg, device)
+        return _run_single(args, cfg, device)
+
+
+if __name__ == "__main__":
+    main()

@@ -52,9 +52,12 @@ on the card.
 ``repro_retraces_total`` (``serve/graph.py``).  All of it is host clock and
 dict writes outside the captured step: no host synchronise is added.
 
-The fleet mesh and the continuous batcher are later work (the fleet
-serving item of ROADMAP queue 1); :func:`token_step`, :func:`prefill_one`
-and :func:`splice_slot` are the API it is built on.
+The continuous batcher (``fleet/scheduler.py``) drives :func:`token_step`,
+:func:`prefill_one` and :func:`splice_slot` in its token mode and
+:func:`generate` in its wave mode.  :func:`prefill_one` reads nothing back
+from the card (a host prompt goes up through pinned memory), so a batcher
+can launch an admission's prefill and read its first token later.  The
+fleet mesh is later work (ROADMAP queue 1, item 8).
 """
 from __future__ import annotations
 
@@ -228,6 +231,16 @@ def _use_graphs(device: torch.device, enabled: bool) -> bool:
 def _sync(device: torch.device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _upload(x, device: torch.device) -> torch.Tensor:
+    """``x`` as a tensor on ``device``.  A host array goes to the card
+    through pinned memory, asynchronously: a copy from pageable memory
+    would synchronise the host."""
+    t = torch.as_tensor(x)
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def _dyn_on(adaptive, device):
@@ -500,27 +513,32 @@ def token_step(params, cache, tok, pos, active, cfg: ModelConfig, *,
 
 
 def prefill_one(params, tokens, length: int, cfg: ModelConfig, *, max_cache_len: int,
-                temperature: float = 0.0, seed: Optional[int] = None):
+                temperature: float = 0.0, seed: Optional[int] = None, rows: int = 1):
     """Prefill ONE right-padded request ``tokens`` (1, bucket) of real
     length ``length`` (``repro.serve.engine.prefill_one``): the pad-mask
     forward, the first token sampled at the last real position (index 0 of
     the request's stream ``seed``; needed for ``temperature > 0``), and a
     cache padded to ``max_cache_len`` that :func:`splice_slot` writes into
-    any slot.  Returns ``(first_token (1,), cache)``."""
+    any slot.  Returns ``(first_token (1,), cache)``.
+
+    ``rows`` runs the forward over that many copies of the request and
+    keeps the first.  On the card a GEMM's rounding depends on its row
+    count, so a continuous batcher passes its slot count: the request then
+    gets the bits of a wave's batched prefill at the same bucket."""
     device = params["embed"]["w"].device
     if temperature > 0 and seed is None:
         raise ValueError("prefill_one samples at temperature > 0 from the request's "
                          "stream: pass seed")
-    toks = torch.as_tensor(tokens, device=device).reshape(1, -1)
-    lens = torch.full((1,), int(length), dtype=torch.int64, device=device)
+    toks = _upload(tokens, device).reshape(1, -1).expand(rows, -1)
+    lens = torch.full((rows,), int(length), dtype=torch.int64, device=device)
     with torch.inference_mode():
         logits, cache = prefill(params, {"tokens": toks}, cfg, max_cache_len=max_cache_len,
                                 prompt_lens=lens)
         zero = torch.zeros(1, dtype=torch.int64, device=device)
         s = zero if seed is None else torch.full((1,), int(seed), dtype=torch.int64,
                                                  device=device)
-        first = slot_sample(logits[:, int(length) - 1], s, zero, temperature)
-    return first, cache
+        first = slot_sample(logits[:1, int(length) - 1], s, zero, temperature)
+    return first, [{k: v[:1] for k, v in c.items()} for c in cache]
 
 
 def splice_slot(cache, fresh, slot):

@@ -627,3 +627,82 @@ def test_rollback_on_the_card_equals_the_cpu(cuda, tmp_path):
     assert strip(g) == strip(h)
     assert len(g.rollbacks) == 1 and g.store.current_version() == 1
     assert g.policy.to_json() == g.store.load(1).to_json()
+
+
+def _fleet_trace(cfg, n=7, seed=21):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [(rid, rng.integers(0, cfg.vocab, int(rng.integers(3, 17))).astype(np.int32),
+             int(rng.integers(1, 6))) for rid in range(n)]
+
+
+def _fleet_drain(params, cfg, trace, offset=0, bat=None, **kw):
+    from repro_torch.fleet import BatcherConfig, ContinuousBatcher, Request
+
+    if bat is None:
+        bat = ContinuousBatcher(params, cfg, BatcherConfig(
+            n_slots=3, prompt_buckets=(8, 16), new_token_bucket=5, **kw))
+    for rid, p, n in trace:
+        bat.submit(Request(rid + offset, p.copy(), n))
+    return {c.rid - offset: c.tokens.tolist() for c in bat.run()}, bat
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_batcher_token_drain_equals_wave_and_async_equals_sync(cuda, temperature):
+    cfg = _serve_cfg("mxu")
+    params = init_params(cfg, seed=15, device=cuda)
+    trace = _fleet_trace(cfg)
+    wave, _ = _fleet_drain(params, cfg, trace, temperature=temperature, seed=2)
+    sync, sbat = _fleet_drain(params, cfg, trace, temperature=temperature, seed=2,
+                              token_granular=True)
+    asyn, abat = _fleet_drain(params, cfg, trace, temperature=temperature, seed=2,
+                              token_granular=True, async_admission=True)
+    assert sorted(wave) == list(range(len(trace)))
+    assert sync == wave and asyn == wave
+    for bat in (sbat, abat):
+        assert bat.stats["decode_retraces_post_warmup"] == 0 and bat.stats["splices"] > 0
+        assert all(t.device == cuda for layer in bat._cache for t in layer.values())
+
+
+def test_batcher_second_drain_captures_nothing(cuda):
+    """The slot cache is kept across drains, so a second drain on the same
+    batcher replays the step graph captured by the first (adaptive: one
+    graph per observe gate)."""
+    from repro_torch.fleet import BatcherConfig, ContinuousBatcher
+    from repro_torch.serve import graph as G
+
+    cfg = _serve_cfg("mxu")
+    params = init_params(cfg, seed=16, device=cuda)
+    trace = _fleet_trace(cfg, seed=22)
+    ctrl = AdaptiveController(SwapPolicy.from_ax_policy(cfg.ax), cfg.ax.targets,
+                              AdaptiveConfig(drift_threshold=1e9), device=cuda)
+    bat = ContinuousBatcher(params, cfg, BatcherConfig(
+        n_slots=3, prompt_buckets=(8, 16), new_token_bucket=5, token_granular=True,
+        observe_every=2), adaptive=ctrl)
+    first, _ = _fleet_drain(params, cfg, trace, bat=bat)
+    c0 = sum(G.CAPTURES.values())
+    second, _ = _fleet_drain(params, cfg, trace, offset=200, bat=bat)
+    assert sum(G.CAPTURES.values()) == c0 and second == first
+    assert bat.stats["decode_retraces_post_warmup"] == 0
+    assert {False, True} <= {k[-1] for k in G.CAPTURES if k[0] == "token_step"}
+
+
+def test_prefill_one_reads_nothing_from_the_card(cuda):
+    import numpy as np
+
+    from repro_torch.serve import graph as G
+    from repro_torch.serve import prefill_one
+
+    cfg = _serve_cfg("mxu")
+    params = init_params(cfg, seed=17, device=cuda)
+    p = np.random.default_rng(23).integers(0, cfg.vocab, 11).astype(np.int32)
+    padded = np.concatenate([p, np.full(5, p[-1], np.int32)])[None]
+    want, _ = prefill_one(params, padded, 11, cfg, max_cache_len=24)      # warm
+    with G.no_sync():
+        first, fresh = prefill_one(params, padded, 11, cfg, max_cache_len=24)
+        sampled, _ = prefill_one(params, padded, 11, cfg, max_cache_len=24,
+                                 temperature=0.8, seed=5)
+    torch.cuda.synchronize()
+    assert torch.equal(first, want) and fresh[0]["k"].shape[1] == 24
+    assert sampled.device == cuda

@@ -1,8 +1,9 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
 neither JAX nor anything of the JAX package ``repro`` (importing every
-module, serving a tiny model static and adaptive, and a canaried writer
-serve over a policy store with an SLO engine, a trace recorder and a
-replica loads neither), and
+module, serving a tiny model static and adaptive, a canaried writer serve over a
+policy store with an SLO engine, a trace recorder and a replica, a
+continuous-batcher drain, the telemetry aggregation and the serve CLI load
+neither), and
 ``chip_smoke.py`` refuses to run without a CUDA device or outside a
 checkout."""
 import ast
@@ -62,12 +63,32 @@ with tempfile.TemporaryDirectory() as root:
              ServeConfig(max_new_tokens=3), adaptive=replica)
     kinds = sorted({{e["kind"] for e in writer.audit.read()}})
     text = obs.prometheus_text()
+    import numpy as np
+    from repro_torch.fleet import (BatcherConfig, ContinuousBatcher, Request,
+                                   combine_shards, make_sharded_summarizer)
+    from repro_torch.launch.serve import main
+    from repro_torch.train import StragglerWatchdog
+    bat = ContinuousBatcher(p, cfg, BatcherConfig(n_slots=2, prompt_buckets=(8,),
+                                                  new_token_bucket=3, token_granular=True),
+                            adaptive=replica)
+    for rid in range(3):
+        bat.submit(Request(rid, np.arange(1, 4 + rid), max_new=3))
+    served = len(bat.run())
+    summ = make_sharded_summarizer("mul8s_trunc0_4")
+    rec = summ(torch.ones((2, 8), dtype=torch.int8), torch.ones((8, 4), dtype=torch.int8),
+               torch.tensor([1, 3, 0], dtype=torch.int32))
+    combine_shards([{{"s": rec}}, {{"s": rec}}])
+    StragglerWatchdog().observe(0.1)
+    cli, _ = main(["--device", "cpu", "--smoke", "--fleet", "1", "--token-granular",
+                   "--requests", "2", "--prompt-len", "8", "--new-tokens", "3",
+                   "--policy-store", root + "/cli"])
 bad = sorted(m for m in sys.modules
              if m.startswith("jax") or m == "repro" or m.startswith("repro."))
 print(json.dumps({{"modules": len(names), "bad": bad, "shape": list(toks.shape),
                   "adaptive": list(adaptive.shape), "observed": ctrl.step,
                   "retunes": len(writer.retunes), "audit": kinds,
-                  "replica": replica.version, "metrics": "repro_canary_total" in text}}))
+                  "replica": replica.version, "metrics": "repro_canary_total" in text,
+                  "served": served, "cli": cli.stats["requests"]}}))
 """
 
 
@@ -87,7 +108,7 @@ def test_importing_and_running_the_port_loads_no_jax_and_no_repro():
     assert res["modules"] >= 22 and res["shape"] == [1, 2]
     assert res["adaptive"] == [2, 3] and res["observed"] == 2
     assert res["retunes"] >= 1 and "retune" in res["audit"] and res["replica"] >= 1
-    assert res["metrics"]
+    assert res["metrics"] and res["served"] == 3 and res["cli"] == 2
 
 
 def _imported_roots(path: Path):
