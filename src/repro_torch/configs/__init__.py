@@ -1,11 +1,36 @@
-"""Architecture configs (--arch <id>) + shapes.  Only the dense qwen2-72b
-is ported so far; the other families arrive with their model code."""
+"""Architecture configs (--arch <id>) + shapes: every decoder-only
+configuration of the JAX package (``repro.configs``).  whisper-base (the
+encoder-decoder) arrives with its own slice of the port."""
 import dataclasses
 
 from .base import SHAPES, AxPolicy, ModelConfig, ShapeConfig
+from .deepseek_moe_16b import CONFIG as deepseek_moe_16b
+from .gemma3_27b import CONFIG as gemma3_27b
+from .granite_moe_1b import CONFIG as granite_moe_1b_a400m
+from .mamba2_370m import CONFIG as mamba2_370m
+from .qwen15_110b import CONFIG as qwen15_110b
 from .qwen2_72b import CONFIG as qwen2_72b
+from .qwen2_vl_72b import CONFIG as qwen2_vl_72b
+from .recurrentgemma_2b import CONFIG as recurrentgemma_2b
+from .starcoder2_15b import CONFIG as starcoder2_15b
 
-ARCHS = {c.name: c for c in (qwen2_72b,)}
+ARCHS = {
+    c.name: c
+    for c in (
+        qwen2_72b,
+        gemma3_27b,
+        starcoder2_15b,
+        qwen15_110b,
+        qwen2_vl_72b,
+        deepseek_moe_16b,
+        granite_moe_1b_a400m,
+        recurrentgemma_2b,
+        mamba2_370m,
+    )
+}
+
+# long_500k requires a sub-quadratic path; pure full-attention archs skip it
+LONG_CONTEXT_OK = {"gemma3-27b", "recurrentgemma-2b", "mamba2-370m"}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -44,5 +69,7 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **kw)
 
 
-__all__ = ["ARCHS", "SHAPES", "AxPolicy", "ModelConfig", "ShapeConfig",
-           "get_config", "reduced", "qwen2_72b"]
+__all__ = ["ARCHS", "LONG_CONTEXT_OK", "SHAPES", "AxPolicy", "ModelConfig", "ShapeConfig",
+           "get_config", "reduced", "qwen2_72b", "gemma3_27b", "starcoder2_15b",
+           "qwen15_110b", "qwen2_vl_72b", "deepseek_moe_16b", "granite_moe_1b_a400m",
+           "recurrentgemma_2b", "mamba2_370m"]

@@ -1,0 +1,17 @@
+"""starcoder2-15b [dense] — GQA, RoPE, gelu MLP, biases [arXiv:2402.19173; hf]."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="starcoder2-15b",
+    family="dense",
+    n_layers=40,
+    d_model=6144,
+    n_heads=48,
+    n_kv_heads=4,
+    d_ff=24576,
+    vocab=49152,
+    head_dim=128,
+    qkv_bias=True,
+    rope_theta=1e5,
+    act="gelu",
+)

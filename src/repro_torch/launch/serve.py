@@ -34,9 +34,10 @@ at exit the histogram bucket coverage is checked.  There is no compile
 listener: the port has no XLA.
 
 ``--device`` (default ``cuda``) chooses where the model runs; ``cpu`` runs
-the plain kernels.  ``--arch`` takes the architectures of
-``repro_torch.configs.ARCHS``; the other families are ROADMAP queue 1,
-item 7.  ``--autotune`` and ``--schedule-store`` exit: the port picks the
+the plain kernels.  ``--arch`` takes every decoder-only architecture of
+``repro_torch.configs.ARCHS`` (a prompt of tokens for each, as in the JAX
+package); whisper-base, the encoder-decoder, is ROADMAP queue 1, item 7b.
+``--autotune`` and ``--schedule-store`` exit: the port picks the
 CUDA block and the K split from the shapes (``kernels/ax_matmul.py::plan``),
 and the schedule autotuner is its own ROADMAP queue 1 item.
 """
@@ -309,8 +310,8 @@ def _run_single(args, cfg, device):
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", default="qwen2-72b",
-                    help=f"one of {sorted(ARCHS)} (the other families: ROADMAP "
-                         f"queue 1, item 7)")
+                    help=f"one of {sorted(ARCHS)} (whisper-base: ROADMAP queue 1, "
+                         f"item 7b)")
     ap.add_argument("--device", default="cuda",
                     help="where the model runs: cuda (the default) or cpu")
     ap.add_argument("--smoke", action="store_true")
@@ -383,8 +384,8 @@ def main(argv=None):
     controller)``."""
     args = _parser().parse_args(argv)
     if args.arch not in ARCHS:
-        raise SystemExit(f"--arch {args.arch}: the port has {sorted(ARCHS)}; the other "
-                         f"model families are ROADMAP queue 1, item 7")
+        raise SystemExit(f"--arch {args.arch}: the port has {sorted(ARCHS)}; the "
+                         f"encoder-decoder (whisper-base) is ROADMAP queue 1, item 7b")
     if args.autotune or args.schedule_store:
         raise SystemExit("--autotune/--schedule-store: the port picks the CUDA block and "
                          "the K split from the shapes (kernels/ax_matmul.py::plan); the "

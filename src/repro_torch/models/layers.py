@@ -1,6 +1,7 @@
 """Shared model layers (``repro.models.layers``): projections (exact or
-SWAPPER-approximate), RMSNorm, RoPE, GQA attention (chunked flash-style for
-prefill, cached for decode) and the SwiGLU MLP.
+SWAPPER-approximate), RMSNorm, RoPE and M-RoPE, GQA attention (chunked
+flash-style for prefill, cached for decode; sliding-window layers keep a
+ring cache) and the SwiGLU / gelu MLPs.
 
 Parameters are plain nested dicts of tensors in the JAX package's layout:
 a projection weight is ``(in, out)`` and ``y = x @ w``.  Every op keeps the
@@ -88,9 +89,19 @@ def make_rope(head_dim: int, theta: float, device="cpu"):
 
 
 def apply_rope(x, pos, inv_freq):
-    """x (B,S,H,hd); pos (B,S) integer positions."""
+    """x (B,S,H,hd); pos (B,S) integer positions, or (B,S,3) for M-RoPE:
+    the temporal, height and width streams each rotate their own section
+    of the frequencies (a quarter, three eighths and the rest)."""
     half = x.shape[-1] // 2
-    ang = pos[..., None].to(torch.float32) * inv_freq            # (B,S,half)
+    if pos.dim() == 3:
+        sec = [half // 4, (half * 3) // 8, half - half // 4 - (half * 3) // 8]
+        freqs, start = [], 0
+        for i, n in enumerate(sec):
+            freqs.append(pos[..., i:i + 1].to(torch.float32) * inv_freq[start:start + n])
+            start += n
+        ang = torch.cat(freqs, dim=-1)                           # (B,S,half)
+    else:
+        ang = pos[..., None].to(torch.float32) * inv_freq        # (B,S,half)
     sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
     cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
     x1, x2 = x[..., :half], x[..., half:]
@@ -169,8 +180,8 @@ def chunked_attention(q, k, v, q_pos, k_pos, *, causal=True, window=0,
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, q_pos, kv_len):
-    """Single-token attention over a cache.
+def decode_attention(q, k_cache, v_cache, q_pos, kv_len, *, window=0):
+    """Single-token attention over a (possibly ring-buffered) cache.
 
     q: (B, 1, H, hd); caches: (B, S, KV, hd); kv_len: valid prefix length.
     """
@@ -181,7 +192,10 @@ def decode_attention(q, k_cache, v_cache, q_pos, kv_len):
     qg = q.reshape(B, KV, G, hd)
     s = torch.einsum("bkgh,bckh->bkgc", qg, k_cache).to(torch.float32) * scale
     idx = torch.arange(S, device=q.device)[None, :]
-    valid = (idx < kv_len[:, None]) & (idx <= q_pos[:, None])
+    valid = idx < kv_len[:, None]
+    if window:
+        valid = valid & (idx > (q_pos[:, None] - window))
+    valid = valid & (idx <= q_pos[:, None])
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1).to(v_cache.dtype)
     out = torch.einsum("bkgc,bckh->bkgh", p, v_cache)
@@ -217,15 +231,22 @@ def _write_rows(buf, rows, slot, new, ok):
     buf[rows, idx] = torch.where(ok.view(-1, *([1] * (new.dim() - 1))), new.to(buf.dtype), old)
 
 
-def attn_apply(p, x, cfg: ModelConfig, *, pos, inv_freq, mode="train",
+def attn_apply(p, x, cfg: ModelConfig, *, pos, inv_freq, window=0, mode="train",
                cache=None, cache_index=None, max_cache_len=0,
                q_chunk=512, kv_chunk=1024, prompt_lens=None, write_mask=None):
-    """GQA attention block with full (non-windowed) causal attention.
+    """GQA attention block, causal, full or sliding-window (``window``).
 
     mode='train'   — chunked attention, no cache, returns (y, None)
     mode='prefill' — the same, plus a decode cache padded to ``max_cache_len``
+                     (a ring of ``min(window, max_cache_len)`` rows for a
+                     windowed layer, position p at row ``p % ring``)
     mode='decode'  — S == 1 against ``cache``: this step's K/V are written
-                     in place and the cache dict is returned.
+                     in place (at ``cache_index % ring`` when windowed: the
+                     overwritten rows are the window's mask) and the cache
+                     dict is returned.
+
+    ``pos`` is (B, S), or (B, S, 3) under M-RoPE (the rotation takes all
+    three streams, attention masks take the temporal one).
 
     ``cache_index`` is an int64 (B,) tensor of per-slot positions on the
     activations' device (``transformer.forward`` makes one from a scalar):
@@ -250,24 +271,48 @@ def attn_apply(p, x, cfg: ModelConfig, *, pos, inv_freq, mode="train",
     if mode == "decode":
         ring = cache["k"].shape[1]
         ci = cache_index
-        ok = (ci >= 0) & (ci < ring)              # out of range drops, as in JAX
+        if window:
+            slot = ci % ring                      # always in the ring
+            ok = torch.ones_like(ci, dtype=torch.bool)
+        else:
+            slot = ci
+            ok = (ci >= 0) & (ci < ring)          # out of range drops, as in JAX
         if write_mask is not None:
             ok = ok & write_mask
         rows = torch.arange(B, device=x.device)
-        _write_rows(cache["k"], rows, ci, k[:, 0], ok)
-        _write_rows(cache["v"], rows, ci, v[:, 0], ok)
-        out = decode_attention(q, cache["k"], cache["v"], q_pos=pos[:, 0],
+        _write_rows(cache["k"], rows, slot, k[:, 0], ok)
+        _write_rows(cache["v"], rows, slot, v[:, 0], ok)
+        # a windowed layer attends every filled ring row (JAX's quirk: the
+        # query sits at ring - 1, so the first min(ci + 1, ring) rows count)
+        qp = pos[:, 0] if pos.dim() == 2 else pos[:, 0, 0]
+        out = decode_attention(q, cache["k"], cache["v"],
+                               q_pos=torch.full_like(ci, ring - 1) if window else qp,
                                kv_len=torch.clamp(ci + 1, max=ring))
         new_cache = cache
     else:
-        kpos = pos
+        qpos = pos if pos.dim() == 2 else pos[..., 0]
+        kpos = qpos
         if prompt_lens is not None:
             idx = torch.arange(S, device=x.device)[None, :]
-            kpos = torch.where(idx < prompt_lens[:, None].to(idx.dtype), pos,
-                               torch.full_like(pos, 2 ** 30))
-        out = chunked_attention(q, k, v, pos, kpos, causal=True,
+            kpos = torch.where(idx < prompt_lens[:, None].to(idx.dtype), qpos,
+                               torch.full_like(qpos, 2 ** 30))
+        out = chunked_attention(q, k, v, qpos, kpos, causal=True, window=window,
                                 q_chunk=q_chunk, kv_chunk=kv_chunk)
-        if mode == "prefill":
+        if mode == "prefill" and window:
+            if prompt_lens is not None:
+                raise ValueError("pad-mask prefill: ring (sliding-window) caches hold "
+                                 "the last `window` positions including pads; per-slot "
+                                 "serving takes full-attention cache layouts only")
+            ring = min(window, max_cache_len)
+            take = min(ring, S)
+            slots = torch.arange(S - take, S, device=x.device) % ring
+            new_cache = {}
+            for nm, t in (("k", k), ("v", v)):
+                buf = torch.zeros((B, ring, cfg.n_kv_heads, hd), dtype=cdtype,
+                                  device=x.device)
+                buf[:, slots] = t[:, S - take:].to(cdtype)
+                new_cache[nm] = buf
+        elif mode == "prefill":
             pad = max_cache_len - S
             shp = (B, pad, cfg.n_kv_heads, hd)
             new_cache = {

@@ -1,4 +1,5 @@
-"""Model entry points (``repro.models.registry``): init / prefill / decode."""
+"""Model entry points (``repro.models.registry``): init / prefill / decode
+for every decoder-only family (``transformer``)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
@@ -17,9 +18,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
 
 
 def prefill(params, batch, cfg: ModelConfig, *, max_cache_len: int, prompt_lens=None):
-    """Logits for the prompt and a decode cache of ``max_cache_len``.
+    """Logits for the prompt (``{"tokens"}``, or ``{"embeds", "pos"}`` for
+    the vlm family) and a decode cache of ``max_cache_len``.
     ``prompt_lens`` — optional (B,) real prompt lengths: the pad-mask
-    prefill (right-padded prompts attend only to real tokens)."""
+    prefill (right-padded prompts attend only to real tokens; full-attention
+    stacks only, ``ValueError`` otherwise)."""
     return transformer.forward(params, batch, cfg, mode="prefill",
                                max_cache_len=max_cache_len, prompt_lens=prompt_lens)
 
@@ -27,7 +30,8 @@ def prefill(params, batch, cfg: ModelConfig, *, max_cache_len: int, prompt_lens=
 def decode_step(params, cache, tokens, cache_index, cfg: ModelConfig, write_mask=None):
     """One serving step: tokens (B, 1) at ``cache_index``, a scalar (the
     whole batch) or an int (B,) vector of per-slot positions; ``write_mask``
-    (B,) bool gates each slot's cache write.  The cache is updated in place
+    (B,) bool gates each slot's attention-cache write (recurrent and SSM
+    state advances regardless, as in JAX).  The cache is updated in place
     and returned."""
     return transformer.forward(params, {"tokens": tokens}, cfg, mode="decode",
                                cache=cache, cache_index=cache_index,

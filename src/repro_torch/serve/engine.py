@@ -13,6 +13,16 @@ padded prompt generates exactly what it generates unpadded.  Without these
 arguments every slot is live for the whole generation, which gives the
 tokens of the JAX package's scalar path.
 
+**Families.**  Every decoder-only family serves here: a prompt batch is
+``{"tokens": (B, S)}``, or ``{"embeds": (B, S, D), "pos": (B, S, 3)}`` for
+the vlm family.  The pad-mask prefill (``prompt_lens``, and so
+:func:`prefill_one`) needs a full-attention stack and raises
+``ValueError`` on one with ring, recurrent or SSM state, as JAX asserts;
+budgets and EOS work on every stack, a retired slot's recurrent and SSM
+state advancing as in JAX.  The decode cache is any per-layer dict of
+tensors with the batch on dim 0, which the graph programs copy and
+:func:`splice_slot` writes row by row.
+
 **Sampling** (:func:`slot_sample`).  Greedy (``temperature == 0``) is
 ``argmax`` with the first maximum winning, as in JAX.  ``temperature > 0`` is
 a counter-based Gumbel-max: the noise of vocabulary entry v for token t of
@@ -247,6 +257,13 @@ def _dyn_on(adaptive, device):
     return {k: v.to(device) for k, v in adaptive.dyn_tree().items()}
 
 
+def _cache_sig(cache):
+    """A cache's part of a program key: its longest K/V length (0 for a
+    stack of recurrent or SSM state only).  With the config and the batch,
+    which the key also holds, it fixes every layer's shape."""
+    return max((c["k"].shape[1] for c in cache if "k" in c), default=0)
+
+
 def _dyn_sig(dyn):
     return tuple((k, tuple(v.shape)) for k, v in sorted(dyn.items())) if dyn else None
 
@@ -259,8 +276,9 @@ def generate(params, prompt_batch, cfg: ModelConfig, scfg: ServeConfig, *,
              adaptive=None, param_hook: Optional[Callable] = None,
              prompt_lens=None, slot_new_tokens=None, slot_seeds=None,
              max_cache_len: Optional[int] = None, stats: Optional[dict] = None):
-    """prompt_batch: {'tokens': (B, S)}.  Returns (B, max_new_tokens) int32
-    on the params' device.
+    """prompt_batch: {'tokens': (B, S)}, or {'embeds': (B, S, D), 'pos':
+    (B, S, 3)} for the vlm family.  Returns (B, max_new_tokens) int32 on
+    the params' device.
 
     ``adaptive`` — optional AdaptiveController driving the dynamic SWAPPER
     policy of ``cfg.ax.targets`` during decode (see the module note).
@@ -278,8 +296,8 @@ def generate(params, prompt_batch, cfg: ModelConfig, scfg: ServeConfig, *,
     synchronise, and ``path`` (``"graph"`` or ``"eager"``).
     """
     device = params["embed"]["w"].device
-    tokens = torch.as_tensor(prompt_batch["tokens"], device=device)
-    B, S = tokens.shape
+    batch = {k: torch.as_tensor(v, device=device) for k, v in prompt_batch.items()}
+    B, S = (batch["tokens"] if "tokens" in batch else batch["embeds"]).shape[:2]
     max_len = max_cache_len or (S + scfg.max_new_tokens + 1)
     if max_len < S + scfg.max_new_tokens + 1:
         raise ValueError(f"max_cache_len {max_len} < prompt {S} + "
@@ -304,7 +322,7 @@ def generate(params, prompt_batch, cfg: ModelConfig, scfg: ServeConfig, *,
     with torch.inference_mode():
         t0 = time.perf_counter()
         with obs.span("prefill", cat="engine", batch=B, seq=S):
-            logits, cache = prefill(params, {"tokens": tokens}, cfg, max_cache_len=max_len,
+            logits, cache = prefill(params, batch, cfg, max_cache_len=max_len,
                                     prompt_lens=pl)
             rows = torch.arange(B, device=device)
             last = logits[:, -1] if pl is None else logits[rows, pl - 1]
@@ -475,7 +493,7 @@ def token_step(params, cache, tok, pos, active, cfg: ModelConfig, *,
     kw = dict(temperature=temperature, eos_id=eos_id, tile_rows=tile_rows)
     with torch.inference_mode():
         if _use_graphs(device, cuda_graphs):
-            key = ("token_step", cfg, B, cache[0]["k"].shape[1], temperature, eos_id,
+            key = ("token_step", cfg, B, _cache_sig(cache), temperature, eos_id,
                    tile_rows, _dyn_sig(dyn))
 
             def build():

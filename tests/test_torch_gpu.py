@@ -706,3 +706,66 @@ def test_prefill_one_reads_nothing_from_the_card(cuda):
     torch.cuda.synchronize()
     assert torch.equal(first, want) and fresh[0]["k"].shape[1] == 24
     assert sampled.device == cuda
+
+
+FAMILIES = ["gemma3-27b", "starcoder2-15b", "qwen1.5-110b", "qwen2-vl-72b", "deepseek-moe-16b",
+            "granite-moe-1b-a400m", "recurrentgemma-2b", "mamba2-370m"]
+
+
+def _ends(n, cap, dev):
+    """All of 0..n-1 up to ``cap``, else the first and the last 128."""
+    idx = torch.arange(n, device=dev)
+    return idx if n <= cap else torch.cat([idx[:128], idx[-128:]])
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_shapes_equal_plain_and_graph_serve_equals_eager(cuda, name):
+    """Every approximate projection of the family at its published widths
+    (``transformer.ax_projections``), as ``chip_smoke.py``'s families phase
+    serves it — 4 rows at decode, 128 at prefill, 4080 in gemma3's
+    1020-token serve — through the dense path's integer matmul (padded as
+    the path pads) equals the plain version (at prefill on the first and
+    last 128 columns, beyond 512 rows on the first and last 128 rows); the
+    decode shapes of recurrentgemma and deepseek, whose no-drift adaptive
+    serve runs them, also through ``ax_matmul_grid`` with the serve's
+    (3,) triple and with a 2-row-tile grid.  The reduced config serves the same greedy tokens eagerly and
+    as a CUDA graph (embeds and 3-stream positions for the vlm)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.transformer import ax_projections
+    from repro_torch.quant.ax import ax_matmul_int, ax_matmul_int_dyn
+    from repro_torch.serve import graph as G
+
+    policy = AxPolicy(backend="kernel")
+    m = TC.get(policy.mult_name)
+    assert AXM.route_of(m, torch.int8) == "T"
+    kn = sorted({(K, N) for _, _, K, N in
+                 ax_projections(dataclasses.replace(ARCHS[name], ax=policy))})
+    Ms = (4, 128) + ((4080,) if name == "gemma3-27b" else ())
+    grid = torch.tensor([[[1, 3, 0]], [[1, 5, 1]]], dtype=torch.int32, device=cuda)
+    for i, (M, (K, N)) in enumerate((M, s) for M in Ms for s in kn):
+        a = _ops((M, K), True, 40 + i, cuda)
+        b = _ops((K, N), True, 60 + i, cuda)
+        ri, ci = _ends(M, 512, cuda), _ends(N, N if M <= 4 else 256, cuda)
+        got = ax_matmul_int(a, b, policy).index_select(0, ri).index_select(1, ci)
+        want = ax_matmul_ref(a.index_select(0, ri), b.index_select(1, ci), m, policy.swap)
+        assert torch.equal(got, want), (M, K, N)
+        if M == 4 and name in ("recurrentgemma-2b", "deepseek-moe-16b"):
+            emul = dataclasses.replace(policy, backend="emul")
+            for dyn in (grid[0, 0], grid):         # the serve's triple, a tile grid
+                assert torch.equal(ax_matmul_int_dyn(a, b, policy, dyn),
+                                   ax_matmul_int_dyn(a, b, emul, dyn)), (M, K, N, dyn.shape)
+        del a, b
+    cfg = dataclasses.replace(reduced(ARCHS[name]), ax=AxPolicy(backend="kernel"))
+    params = init_params(cfg, seed=3, device=cuda)
+    g = torch.Generator().manual_seed(4)
+    if cfg.family == "vlm":
+        t = torch.arange(16)
+        batch = {"embeds": torch.randn((2, 16, cfg.d_model), generator=g),
+                 "pos": torch.stack([t, t // 4, t % 4], -1)[None].expand(2, 16, 3)}
+    else:
+        batch = {"tokens": torch.randint(0, cfg.vocab, (2, 16), generator=g)}
+    eager = generate(params, batch, cfg, ServeConfig(max_new_tokens=6, cuda_graphs=False))
+    stats = {}
+    graph = generate(params, batch, cfg, ServeConfig(max_new_tokens=6), stats=stats)
+    assert stats["path"] == "graph" and torch.equal(graph, eager)
+    G.clear_programs()

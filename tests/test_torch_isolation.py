@@ -1,6 +1,7 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
 neither JAX nor anything of the JAX package ``repro`` (importing every
-module, serving a tiny model static and adaptive, a canaried writer serve over a
+module, serving a tiny model static and adaptive, tiny models of the
+local/global, MoE, RG-LRU, SSD and M-RoPE families, a canaried writer serve over a
 policy store with an SLO engine, a trace recorder and a replica, a
 continuous-batcher drain, the telemetry aggregation and the serve CLI load
 neither), and
@@ -43,6 +44,14 @@ ctrl = AdaptiveController(SwapPolicy.from_ax_policy(cfg.ax), cfg.ax.targets,
 adaptive = generate(p, {{"tokens": torch.zeros((2, 4), dtype=torch.int64)}}, cfg,
                     ServeConfig(max_new_tokens=3), adaptive=ctrl,
                     param_hook=drift_hook(1, 0.05))
+from repro_torch.configs import ARCHS
+families = {{}}
+for n in ("gemma3-27b", "deepseek-moe-16b", "recurrentgemma-2b", "mamba2-370m",
+          "qwen2-vl-72b"):
+    c = dataclasses.replace(reduced(ARCHS[n]), n_layers=3, ax=AxPolicy(backend="kernel"))
+    pp = init_params(c, seed=0, device="cpu")
+    families[n] = list(generate(pp, {{"tokens": torch.zeros((1, 4), dtype=torch.int64)}}, c,
+                                ServeConfig(max_new_tokens=2)).shape)
 import tempfile
 from repro_torch import obs
 from repro_torch.fleet import PolicyReader, PolicyStore
@@ -88,7 +97,8 @@ print(json.dumps({{"modules": len(names), "bad": bad, "shape": list(toks.shape),
                   "adaptive": list(adaptive.shape), "observed": ctrl.step,
                   "retunes": len(writer.retunes), "audit": kinds,
                   "replica": replica.version, "metrics": "repro_canary_total" in text,
-                  "served": served, "cli": cli.stats["requests"]}}))
+                  "served": served, "cli": cli.stats["requests"],
+                  "families": families}}))
 """
 
 
@@ -109,6 +119,9 @@ def test_importing_and_running_the_port_loads_no_jax_and_no_repro():
     assert res["adaptive"] == [2, 3] and res["observed"] == 2
     assert res["retunes"] >= 1 and "retune" in res["audit"] and res["replica"] >= 1
     assert res["metrics"] and res["served"] == 3 and res["cli"] == 2
+    assert res["families"] == {n: [1, 2] for n in ("gemma3-27b", "deepseek-moe-16b",
+                                                   "recurrentgemma-2b", "mamba2-370m",
+                                                   "qwen2-vl-72b")}
 
 
 def _imported_roots(path: Path):
@@ -160,6 +173,7 @@ def _entry_points():
 
     return {"init_params": models.init_params, "init_cache": models.init_cache,
             "params_from_jax": convert.params_from_jax,
+            "cache_from_jax": convert.cache_from_jax,
             "AdaptiveController": AdaptiveController.__init__,
             "PolicyReader": PolicyReader.__init__, "SwapPolicy.dyn_tree": SwapPolicy.dyn_tree,
             "device_trace": obs.trace.device_trace.__wrapped__,
