@@ -51,6 +51,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
             is below the max bound; MoE routing flips counted and allowed
             only on a near-tie); reduced qwen2 adaptive too (tokens and
             re-tunes);
+   whisper — (this phase and the next run before serve, whose model
+            stays on the card to the end) whisper-base, the
+            encoder-decoder, at its full published config (6 + 6 layers,
+            d_model 512, vocab 51865), random f32
+            weights, bf16 compute, the serve phase's policy: prefill + 3
+            decode steps against the full forward over 1500 frames (f32,
+            exact projections, as the families); B = 4 with 1500 seeded
+            frames, 8 decoder tokens, 16 greedy tokens eagerly and as a
+            CUDA graph twice (equal tokens, 1 capture then 0, launches
+            18 + 24 in the prefill and 24 a decode step, reckoned from
+            ``models.whisper.ax_projections``), adaptive serving refused,
+            the launched shapes (the encoder's 6000-row GEMMs among them)
+            equal the reckoned ones and each is held to the plain version;
+   train  — reduced qwen2 and deepseek-moe (2 layers, f32) train 5 AdamW
+            steps on the CPU, exact and SWAPPER, each step also on the card
+            from the CPU's state: loss, grad norm and every leaf's update
+            within ``TOL_TRAIN_*``, a MoE routing flip only on a near-tie;
+            at published widths with ``--ax`` (``mxu``):
+            whisper-base (4 x 1500 frames, 64 target tokens) and
+            deepseek-moe-16b at 2 layers (1.09 G parameters) take 10 steps
+            each (finite losses, ``ax_matmul`` launches = projections x
+            steps, none in the backward), deepseek 4 adaptive steps with a
+            policy change after step 2 (telemetry from every target,
+            ``ax_matmul_grid`` launches = projections x steps, nothing
+            rebuilt), ``run_supervised`` on whisper-base survives a
+            ``SimulatedFailure`` at step 6 of 12 within 1e-5 relative of
+            the uninterrupted run (bit-equality printed); ms/step and
+            tokens/s; every launched shape held to the plain version.
 5. serve  — qwen2-72b at its published widths, depth cut to 2 layers,
             random weights from a seed: the per-forward weight work that
             the weight cache removes, timed against its bytes; B=4 prompts
@@ -95,7 +123,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
             times out with 0 tokens, a ``stall_step`` fires once, a
             ``crash_replica`` is survived with every request retired once;
             a Poisson trace at 200 req/s gives the direct drain's tokens;
-            the serve CLI in process (``--smoke --ax --fleet 1
+            a cross-bucket backfill drain (a 20-token request opens a
+            bucket-32 wave, three 16-bucket requests fill it:
+            ``repro_backfills_total`` above 0) equal bit for bit to a
+            token-mode drain whose one bucket is the wave's (admissions
+            prefilled at 32 over the slot count), and against the
+            token-mode drain with both buckets equal or diverging below a
+            top-2 margin of ``TOL_BATCH``; the serve CLI in process (``--smoke --ax --fleet 1
             --token-granular`` with ``--obs-dir``: ``token_step`` spans in
             ``trace.json``; ``--smoke --ax --adaptive``).  Decode ms/step,
             TTFT, e2e and queue-delay percentiles, occupancy, tokens/s and
@@ -176,6 +210,7 @@ import contextlib
 import dataclasses
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -317,7 +352,8 @@ def main_shape_checks(dev, card: str, clock_mhz: float, grid_kernel: bool,
 
     ``ax_matmul``: default 128/128/128 blocks, swap A[3]==0.  ``ax_matmul_grid``:
     the blocks of tile mode with 2 row tiles (bm = M/2: 2 at decode, 64 at
-    prefill) and a 2-row-tile A-side grid (A[3]==0, A[5]==1).  The bound of
+    prefill; 128, the block cap, beyond 256 rows, with more tiles) and an
+    A-side grid whose row tiles alternate A[3]==0 and A[5]==1.  The bound of
     route T is the larger of the bytes over the memory rate and the
     2 * M * 2K * N operations of the stacked product over the int8
     tensor-core rate; of route C the bytes (the product table included)
@@ -355,9 +391,10 @@ def main_shape_checks(dev, card: str, clock_mhz: float, grid_kernel: bool,
         bs = b[:, :cols].contiguous()
         ri, ci = torch.arange(M, device=dev), torch.arange(cols, device=dev)
         if grid_kernel:
-            bm, bn = M // 2, 128
+            bm, bn = min(M // 2, 128), 128
             triples = torch.tensor([[1, 3, 0], [1, 5, 1]], dtype=torch.int32, device=dev)
-            grid = triples[:, None, :].expand(2, -(-N // bn), 3).contiguous()
+            triples = triples[torch.arange(M // bm, device=dev) % 2]    # alternating row tiles
+            grid = triples[:, None, :].expand(M // bm, -(-N // bn), 3).contiguous()
             sched = KernelSchedule(bm, bn, 128)
             run = lambda: ops.ax_matmul_grid(a, b, mult, grid, schedule=sched)  # noqa: E731
             gs = grid[:, :-(-cols // bn)].contiguous()
@@ -826,7 +863,10 @@ def app_table(dev, card: str, profile: bool = False):
 # period and a rest layer; 70 tokens, so the reduced ring of 64 wraps),
 # starcoder2 and qwen1.5 by 0.10-0.19 (PERF.md section 6), within the
 # bounds of the port-vs-JAX comparison with a flip (tests/test_torch_families.py)
-REF_CONFIGS = {"qwen2-72b": (2, 8, 5e-2, None), "gemma3-27b": (7, 70, 0.4, 0.05)}
+# whisper-base met no int8 code flip card vs CPU (2.98e-7 in the logits), so
+# it takes qwen2's bound rather than the flip bound of the families
+REF_CONFIGS = {"qwen2-72b": (2, 8, 5e-2, None), "gemma3-27b": (7, 70, 0.4, 0.05),
+               "whisper-base": (None, 16, 5e-2, None)}
 REF_DEFAULT = (None, 16, 0.4, 0.05)
 MOE_NEAR_TIE = 1e-3      # a routing flip is allowed only below this probability gap
 
@@ -876,17 +916,7 @@ def card_vs_cpu(name: str, dev):
                             max_cache_len=S_ + 8)
     finally:
         blocks._route = real
-    flips = 0
-    for (pc, ic), (_, ig) in zip(seen[:n_cpu], seen[n_cpu:]):
-        for r in (ic != ig).any(-1).nonzero().flatten().tolist():
-            top = torch.sort(pc[r], descending=True).values
-            gap = (top[cfg.top_k - 1] - top[cfg.top_k]).item()
-            print(f"{name} (reduced): MoE routing flip card vs CPU at token {r}: "
-                  f"{ic[r].tolist()} vs {ig[r].tolist()}, top-k gap {gap:.3g}", flush=True)
-            if gap > MOE_NEAR_TIE:
-                fail(f"{name}: MoE routing differs card vs CPU away from a near-tie "
-                     f"(gap {gap} > {MOE_NEAR_TIE})")
-            flips += 1
+    flips = _route_flips(cfg, seen[:n_cpu], seen[n_cpu:], f"{name} (reduced)")
     diff = (lc - lg.cpu()).abs()
     err, mean = diff.max().item(), diff.mean().item()
     if not (err <= tol and (tol_mean is None or mean <= tol_mean)):
@@ -901,7 +931,7 @@ def card_vs_cpu(name: str, dev):
             fail(f"{name}: card and CPU tokens differ:\n{tg}\n{tc}")
         seq = torch.cat([prompt["tokens"], tc[:, :-1].to(torch.int64)], 1)
         with torch.inference_mode():
-            lm, _ = prefill(p_cpu, {"tokens": seq}, cfg, max_cache_len=seq.shape[1] + 1)
+            lm, _ = prefill(p_cpu, dict(prompt, tokens=seq), cfg, max_cache_len=seq.shape[1] + 1)
         top2 = torch.sort(lm[:, S_ - 1:].float(), dim=-1).values[..., -2:]
         margin = top2[..., 1] - top2[..., 0]
         for b_ in range(tc.shape[0]):
@@ -1685,6 +1715,59 @@ def fleet_serve(cfg, params, card: str):
     if rtoks != trunc:
         fail("fleet arrivals: tokens differ from the direct drain's")
 
+    # a cross-bucket backfill: the oldest request (20 tokens, bucket 32)
+    # opens a wave of bucket 32 and the three 16-bucket requests fill its
+    # free slots, prefilled at 32 there.  A token-mode drain whose only
+    # bucket is the wave's prefills every admission at 32 over the slot
+    # count, as the wave does: its tokens equal the wave's bit for bit.  A
+    # token-mode drain with both buckets prefills the three at 16: it may
+    # diverge, below a top-2 margin of TOL_BATCH
+    from repro_torch import obs
+
+    back = [(rid, rng.integers(0, cfg.vocab, n).astype(np.int32), FLEET_T)
+            for rid, n in enumerate((20, 6, 9, 12))]
+    wave_bucket = min(b for b in FLEET_BUCKETS if b >= len(back[0][1]))
+    got = {}
+    for mode, kw in (("wave", {}), ("token", dict(token_granular=True)),
+                     ("token at the wave's bucket",
+                      dict(token_granular=True, prompt_buckets=(wave_bucket,)))):
+        bbat = batcher(**kw)
+        n0 = obs.default_registry().get("repro_backfills_total").total()
+        for rid, p, n in back:
+            bbat.submit(Request(rid + 200, p.copy(), n))
+        bdone = bbat.run()
+        got[mode] = {c.rid - 200: [int(t) for t in c.tokens] for c in bdone}
+        if sorted(got[mode]) != list(range(len(back))):
+            fail(f"fleet backfill drain ({mode}): retired {sorted(got[mode])}")
+        if mode == "wave":
+            n_back = obs.default_registry().get("repro_backfills_total").total() - n0
+            if n_back <= 0 or bbat.stats["backfilled"] != 3 or bbat.stats["waves"] != 1:
+                fail(f"fleet backfill drain: repro_backfills_total +{n_back}, backfilled "
+                     f"{bbat.stats['backfilled']}, waves {bbat.stats['waves']} (want 3 in 1)")
+    at_wave = got["token at the wave's bucket"]
+    if at_wave != got["wave"]:
+        fail(f"fleet backfill: the token-mode drain prefilled at the wave's bucket "
+             f"{wave_bucket} and {FLEET_SLOTS} rows gave\n{at_wave}\nthe backfilled wave\n"
+             f"{got['wave']}")
+    back_div = []
+    for rid, p, _ in back:
+        w, t = got["wave"][rid], got["token"][rid]
+        d = next((i for i in range(FLEET_T) if w[i] != t[i]), None)
+        if d is not None:
+            seq = torch.cat([torch.from_numpy(p).long(), torch.tensor(t[:d]).long()]).to(dev)
+            m = _margin(params, cfg, seq)
+            back_div.append((rid, d, round(m, 3)))
+            if m > TOL_BATCH:
+                fail(f"fleet backfill: request {rid} token {d} in the wave {w[d]} != token "
+                     f"mode {t[d]} at a top-2 margin {m:.3f} > {TOL_BATCH}")
+    print(f"fleet backfill drain (prompts 20/6/9/12 tokens, {FLEET_SLOTS} slots, buckets "
+          f"{FLEET_BUCKETS}): one wave of bucket {wave_bucket} with 3 requests backfilled "
+          f"from bucket 16 (repro_backfills_total +{n_back:.0f}); token mode prefilled at "
+          f"bucket {wave_bucket} == the wave's tokens for all {len(back)} requests; token mode "
+          f"with both buckets == the wave's for {len(back) - len(back_div)} of {len(back)}, "
+          f"divergences (request, token, top-2 margin) {back_div or 'none'} (bound "
+          f"{TOL_BATCH}) [{card}]", flush=True)
+
     for label, (bat, info) in (("wave", runs[0.0, "wave"][::3]),
                                ("token sync", runs[0.0, "sync"][::3]),
                                ("token async", runs[0.0, "async"][::3]),
@@ -2235,12 +2318,19 @@ def kernel_shapes():
             setattr(QA, n, real[n])
 
 
-def family_prompt(cfg, B_: int, S_: int, dev, seed: int):
+def family_prompt(cfg, B_: int, S_: int, dev, seed: int, frames: int = 0):
     """``{"tokens"}``, or for the vlm ``{"embeds", "pos"}`` with three
-    distinct M-RoPE streams (temporal, t // 4, t % 4)."""
+    distinct M-RoPE streams (temporal, t // 4, t % 4), or for the
+    encoder-decoder ``{"frames", "tokens"}`` with ``frames`` (2 x S_ when 0)
+    seeded normal frame embeddings in bf16, as the JAX serve CLI makes
+    them."""
     import torch
 
     gen = torch.Generator().manual_seed(seed)
+    if cfg.family == "encdec":
+        fr = torch.randn((B_, frames or 2 * S_, cfg.d_model), generator=gen)
+        return {"frames": fr.to(torch.bfloat16).to(dev),
+                "tokens": torch.randint(0, cfg.vocab, (B_, S_), generator=gen).to(dev)}
     if cfg.family == "vlm":
         t = torch.arange(S_)
         pos = torch.stack([t, t // 4, t % 4], -1)[None].expand(B_, S_, 3).contiguous()
@@ -2249,7 +2339,7 @@ def family_prompt(cfg, B_: int, S_: int, dev, seed: int):
     return {"tokens": torch.randint(0, cfg.vocab, (B_, S_), generator=gen).to(dev)}
 
 
-def forward_consistency(params, cfg, toks, label: str):
+def forward_consistency(params, cfg, toks, label: str, extra=None):
     """Prefill of all but the last 3 tokens, then 3 decode steps, against
     the full forward, to ``tests/test_arch_smoke.py``'s tolerances (the
     last prefill logit rtol 0.1 / atol 0.15; each decode step's max |diff|
@@ -2263,19 +2353,23 @@ def forward_consistency(params, cfg, toks, label: str):
     other choices in a forward of S tokens than in a prefill of S - 3
     (deepseek at its published 1.25: 0.20 in the last prefill logits).
     Beside those bounds, every compared logit is held to ``TOL_CONSIST_F32``
-    of the full forward's largest.  Returns the worst relative difference
-    (the last prefill logits and the decode steps)."""
+    of the full forward's largest.  ``extra`` joins the prompt batch (the
+    encoder-decoder's frames).  Returns the worst relative difference (the
+    last prefill logits and the decode steps)."""
     import torch
 
-    from repro_torch.models import decode_step, prefill, transformer
+    from repro_torch.models import decode_step, prefill, registry
 
     cfg = dataclasses.replace(cfg, ax=None, compute_dtype="float32",
                               moe_capacity=float(max(cfg.n_experts, 1)))
+    extra = extra or {}
     S_ = toks.shape[1]
     with torch.inference_mode():
-        full, _ = transformer.forward(params, {"tokens": toks}, cfg, mode="train")
+        full, _ = registry._mod(cfg).forward(params, dict(extra, tokens=toks), cfg,
+                                             mode="train")
         full = full.float()
-        lg, cache = prefill(params, {"tokens": toks[:, :S_ - 3]}, cfg, max_cache_len=S_ + 2)
+        lg, cache = prefill(params, dict(extra, tokens=toks[:, :S_ - 3]), cfg,
+                            max_cache_len=S_ + 2)
         a, b = full[:, S_ - 4], lg[:, -1].float()
         rel = ((a - b).abs().max() / a.abs().max().clamp(min=1e-6)).item()
         if not (bool(((a - b).abs() <= 0.15 + 0.1 * b.abs()).all()) and rel <= TOL_CONSIST_F32):
@@ -2421,7 +2515,7 @@ def families(dev, card: str, clock: float):
     ax_matmul_grid launches by path)."""
     from repro_torch.configs import ARCHS
 
-    names = [n for n in ARCHS if n != "qwen2-72b"]
+    names = [n for n in ARCHS if n != "qwen2-72b" and ARCHS[n].family != "encdec"]
     if sorted(names) != sorted(FAMILY_DEPTH):
         fail(f"the families phase covers {sorted(FAMILY_DEPTH)}, the port holds {sorted(ARCHS)}")
     rows = [family_serve(n, dev, card) for n in names]
@@ -2438,6 +2532,562 @@ def families(dev, card: str, clock: float):
              "families graph": sum(r["graph_launches"] for r in rows)}
     grid_paths = {"families no-drift": sum(r.get("grid_launches", 0) for r in rows)}
     return rows, checked["ax_matmul"], checked["ax_matmul_grid"], paths, grid_paths
+
+
+# ---------------------------------------------------------------------------
+# phase 6f: whisper-base, the encoder-decoder
+# ---------------------------------------------------------------------------
+
+W_FRAMES, W_TOKENS, W_T = 1500, 8, 16     # Whisper's 30-s window, decoder prompt, tokens
+
+
+def whisper_kernel_shapes(cfg, B_: int, frames: int, tokens: int, modes=("prefill", "decode")):
+    """{(M, K, N): label} of the kernel launches of ``cfg``'s approximate
+    projections (``models.whisper.ax_projections``): encoder and cross
+    rows B x frames, decoder rows B x tokens in a full forward and B at
+    decode, padded as the dense path pads them."""
+    from repro_torch.models.whisper import ax_projections
+
+    rows = {"enc": B_ * frames, "cross": B_ * frames, "dec": B_ * tokens}
+    shapes = {}
+    for mode in modes:
+        for stack, _, proj, K, N in ax_projections(cfg, mode):
+            M = B_ if mode == "decode" else rows[stack]
+            key = (_padded(M), _padded(K), _padded(N))
+            shapes.setdefault(key, [f"whisper {stack} M={M}"]).append(proj)
+    return {k: f"{v[0]} {'/'.join(dict.fromkeys(v[1:]))}" for k, v in shapes.items()}
+
+
+def whisper_phase(dev, card: str, clock: float):
+    """Phase 6f: whisper-base at its full published config (6 encoder and 6
+    decoder layers, d_model 512, vocab 51865), random f32 weights from a
+    seed, bf16 compute, SWAPPER ``kernel`` (the serve phase's policy): prefill
+    + 3 decode steps vs the full forward (exact projections, f32, 1500
+    frames: the encoder's and the cross-attention's non-causal attention
+    over keys padded to 2048); B = 4 with 1500 seeded frames, 8 decoder
+    tokens and 16 greedy tokens, eagerly and as a CUDA graph twice (equal
+    tokens, the launches reckoned from the config, one capture then none);
+    adaptive serving refused; then the kernel against its plain version at
+    every shape the serves launched.  Returns (a row, the shape rows, the
+    launches by path)."""
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import AxPolicy
+    from repro_torch.kernels.ax_matmul import LAUNCHES, reset_launches
+    from repro_torch.models import init_params
+    from repro_torch.models.whisper import ax_projections
+    from repro_torch.runtime import AdaptiveConfig, AdaptiveController, SwapPolicy
+    from repro_torch.serve import ServeConfig, generate
+    from repro_torch.serve import graph as G
+
+    cfg = dataclasses.replace(ARCHS["whisper-base"], ax=AxPolicy(backend="kernel"))
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    init_s = time.perf_counter() - t0
+    n_pre, n_dec = len(ax_projections(cfg)), len(ax_projections(cfg, "decode"))
+    if (n_pre, n_dec) != (18 + 24, 24):
+        fail(f"whisper-base: {n_pre} approximate projections in a full forward and {n_dec} "
+             f"at decode, expected 42 (18 encoder + 24 decoder) and 24")
+    want = {"ax_matmul": n_pre + n_dec * (W_T - 1), "ax_matmul_grid": 0}
+    row = dict(name="whisper-base", layers=cfg.n_layers, enc_layers=cfg.n_enc_layers,
+               params_g=n_params / 1e9, ax_per_forward=n_pre, ax_per_decode=n_dec)
+    with kernel_shapes() as seen:
+        small = family_prompt(cfg, 2, 24, dev, seed=5, frames=W_FRAMES)
+        row["decode_vs_full_rel"] = forward_consistency(
+            params, cfg, small["tokens"], "whisper-base", extra={"frames": small["frames"]})
+        prompts = family_prompt(cfg, B, W_TOKENS, dev, seed=1, frames=W_FRAMES)
+        stats_e = {}
+        reset_launches()
+        eager = generate(params, prompts, cfg, ServeConfig(max_new_tokens=W_T, cuda_graphs=False),
+                         stats=stats_e).cpu()
+        if dict(LAUNCHES) != want:
+            fail(f"whisper-base: launches in one eager serve {dict(LAUNCHES)}, expected {want} "
+                 f"({n_pre} in the prefill + {n_dec} x {W_T - 1} decode steps)")
+        if tuple(eager.shape) != (B, W_T) or int(eager.min()) < 0 or \
+                int(eager.max()) >= cfg.vocab:
+            fail(f"whisper-base: tokens out of range or misshapen: {tuple(eager.shape)}")
+        for run in range(2):
+            got, stats_g, executed, caps = graph_run(lambda st: generate(
+                params, prompts, cfg, ServeConfig(max_new_tokens=W_T), stats=st).cpu())
+            if stats_g["path"] != "graph" or executed != want or caps != (1 if run == 0 else 0) \
+                    or not torch.equal(got, eager):
+                fail(f"whisper-base graph serve (run {run}): path {stats_g['path']}, executed "
+                     f"{executed} (want {want}), captures {caps}, tokens equal the eager "
+                     f"serve's {torch.equal(got, eager)}")
+    ctrl = AdaptiveController(SwapPolicy.from_ax_policy(cfg.ax), cfg.ax.targets,
+                              AdaptiveConfig(), device=dev)
+    try:
+        generate(params, prompts, cfg, ServeConfig(max_new_tokens=2), adaptive=ctrl)
+        fail("whisper-base: an adaptive serve was not refused")
+    except ValueError as e:
+        if "JAX package fails" not in str(e):
+            raise
+    shapes = whisper_kernel_shapes(cfg, B, W_FRAMES, W_TOKENS)
+    if seen["ax_matmul"] != set(shapes) or seen["ax_matmul_grid"]:
+        fail(f"whisper-base: kernel shapes launched {seen}, reckoned from the config {shapes}")
+    dec_ms = stats_g["decode_s"] * 1e3 / (W_T - 1)
+    row.update(eager=dict(stats_e), graph=dict(stats_g), launches=want["ax_matmul"],
+               graph_launches=executed["ax_matmul"], tokens=eager.tolist(), init_s=init_s,
+               graph_decode_ms_per_step=dec_ms)
+    print(f"whisper-base ({cfg.n_enc_layers} encoder + {cfg.n_layers} decoder layers, "
+          f"{n_params / 1e9:.3f} G params f32, init {init_s:.2f} s): prefill + 3 decode steps "
+          f"vs the full forward over {W_FRAMES} frames, worst relative diff "
+          f"{row['decode_vs_full_rel']:.3g} (< 0.15, f32 tol {TOL_CONSIST_F32}); B={B}, "
+          f"{W_FRAMES} frames, {W_TOKENS} decoder tokens, {W_T} greedy tokens: graph tokens == "
+          f"eager; ax_matmul launches {want['ax_matmul']} (= {n_pre} + {n_dec} x {W_T - 1}) "
+          f"eager and executed by the graph, captures 1 then 0; adaptive refused; eager "
+          f"{_speed(stats_e, W_T)}; graph {_speed(stats_g, W_T)} [{card}]", flush=True)
+    G.clear_programs()
+    del params
+    torch.cuda.empty_cache()
+    rows = main_shape_checks(dev, card, clock, grid_kernel=False,
+                             shapes=[(label,) + key for key, label in sorted(shapes.items())])
+    paths = {"whisper eager": want["ax_matmul"], "whisper graph": executed["ax_matmul"]}
+    return row, rows, paths
+
+
+# ---------------------------------------------------------------------------
+# phase 6g: training on one card
+# ---------------------------------------------------------------------------
+
+TRAIN_LR, TRAIN_WARMUP = 3e-3, 2
+# card vs CPU, reduced qwen2 and deepseek-moe at 2 layers, f32, 5 AdamW
+# steps, each card step from the CPU's state before it: losses and grad
+# norms within TOL_TRAIN_STEP relative, and each parameter leaf's update
+# within TOL_TRAIN_UPDATE of the CPU's, relative to the CPU's update (a
+# step that leaves a leaf unchanged reads 1).  The same bounds hold the
+# port's step to JAX's on the CPU (tests/test_torch_train.py), where one
+# step read 1.06e-5 (loss), 3.7e-5 (grad norm) and 0.021 (update) through
+# the SWAPPER projection, whose int8 codes flip on ulp-level differences.
+# A step that meets a flip is held to TOL_TRAIN_STEP_FLIP: an int8
+# activation code flip, shown to be a rounding flip (in the first
+# projection that differs, each code one step apart and the CPU's
+# x / scale within TOL_CODE_FLIP, relative, of a rounding boundary: read
+# 0 to 5.6e-7), whose change later projections inherit (on an H100 80GB
+# HBM3 at 700 W, one root flip in deepseek's SWAPPER step 4 became 6376
+# differing codes: loss 1.3e-4, grad norm 1.65e-3, update 0.092 apart;
+# qwen2's step 4, grad norm 1.0086e-4); or a MoE routing flip, allowed only on a near-tie
+# (MOE_NEAR_TIE, as the ref phase), whose step's update is not held (the
+# flipped token moves its experts' whole update).  The kernels themselves
+# are held bit-exact at every train shape; this check holds the float
+# path around them
+TOL_TRAIN_STEP, TOL_TRAIN_UPDATE, TOL_TRAIN_STEP_FLIP = 1e-4, 0.1, 1e-2
+TOL_CODE_FLIP = 1e-5
+TRAIN_STEPS, TRAIN_ADAPTIVE_STEPS = 10, 4
+DS_B, DS_S = 4, 256                      # deepseek at its widths: 1024 tokens a step
+W_TRAIN_TOKENS = 64                      # whisper: 4 x 1500 frames, 64 target tokens
+
+
+class FramesStream:
+    """A ``SyntheticStream`` of decoder tokens and labels with seeded frame
+    embeddings (bf16, the step's own seed) beside them: the whisper train
+    batch, resumable from the step counter alone."""
+
+    def __init__(self, stream, frames: int, d_model: int, seed: int = 0):
+        self.stream, self.frames, self.d_model, self.seed = stream, frames, d_model, seed
+
+    def next(self):
+        import torch
+
+        gen = torch.Generator().manual_seed(self.seed * 1000003 + self.stream.step)
+        b = self.stream.next()
+        B_ = b["tokens"].shape[0]
+        fr = torch.randn((B_, self.frames, self.d_model), generator=gen).to(torch.bfloat16)
+        return dict(b, frames=fr)
+
+    def state(self):
+        return self.stream.state()
+
+    def restore(self, state):
+        self.stream.restore(state)
+        return self
+
+
+def _train_diff(a, b) -> float:
+    from repro_torch.train.optimizer import tree_leaves
+
+    return max((x.float().cpu() - y.float().cpu()).abs().max().item()
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def _update_gap(new, ref, start) -> float:
+    """The largest over leaves of |(new - start) - (ref - start)| /
+    |ref - start|: how far one step's update departs from the reference's."""
+    from repro_torch.train.optimizer import tree_leaves
+
+    gaps = []
+    for x, y, p in zip(tree_leaves(new), tree_leaves(ref), tree_leaves(start)):
+        p = p.float().cpu()
+        dx, dy = x.float().cpu() - p, y.float().cpu() - p
+        gaps.append(((dx - dy).norm() / dy.norm()).item())
+    return max(gaps)
+
+
+def _route_flips(cfg, cpu_routes, card_routes, label: str) -> int:
+    """Tokens routed apart card vs CPU (``_route_recorder``'s records of
+    the same forwards); each must be a near-tie of the CPU's probabilities
+    (``MOE_NEAR_TIE``).  Returns how many."""
+    import torch
+
+    flips = 0
+    for (pc, ic), (_, ig) in zip(cpu_routes, card_routes):
+        for r in (ic != ig).any(-1).nonzero().flatten().tolist():
+            top = torch.sort(pc[r], descending=True).values
+            gap = (top[cfg.top_k - 1] - top[cfg.top_k]).item()
+            print(f"{label}: MoE routing flip card vs CPU at token {r}: "
+                  f"{ic[r].tolist()} vs {ig[r].tolist()}, top-k gap {gap:.3g}", flush=True)
+            if gap > MOE_NEAR_TIE:
+                fail(f"{label}: MoE routing differs card vs CPU away from a near-tie "
+                     f"(gap {gap} > {MOE_NEAR_TIE})")
+            flips += 1
+    return flips
+
+
+def _code_recorder():
+    """Wrap ``quant.ax.quantize_rows`` so that each activation quantization
+    keeps its int8 codes and its pre-rounding ``x / scale`` (the train
+    card-vs-CPU check's code flips)."""
+    from repro_torch.quant import ax as QA
+
+    real, seen = QA.quantize_rows, []
+
+    def rec(x, axis=-1):
+        q, s = real(x, axis)
+        if axis == -1:
+            seen.append((q.detach().cpu(), (x / s).detach().float().cpu()))
+        return q, s
+
+    return QA, real, rec, seen
+
+
+def _code_flips(cpu_codes, card_codes, label: str) -> int:
+    """int8 activation codes that differ card vs CPU in one step.  In the
+    first projection (in forward order) that differs, each must be a
+    rounding flip: one step apart, the CPU's ``x / scale`` within
+    ``TOL_CODE_FLIP`` (relative) of a rounding boundary; later projections
+    inherit the change.  Returns how many codes differ."""
+    if len(cpu_codes) != len(card_codes):
+        fail(f"train card vs CPU {label}: {len(card_codes)} activation quantizations on "
+             f"the card, {len(cpu_codes)} on the CPU")
+    n = 0
+    for (qc, rc), (qg, _) in zip(cpu_codes, card_codes):
+        d = qc != qg
+        if not bool(d.any()):
+            continue
+        if n == 0:
+            step = (qc[d].int() - qg[d].int()).abs()
+            r = rc[d].abs()
+            dist = (r % 1 - 0.5).abs()
+            print(f"train card vs CPU {label}: first int8 code flips: {int(d.sum())} codes, "
+                  f"steps {sorted(set(step.tolist()))}, distance from a rounding boundary up "
+                  f"to {(dist / r.clamp(min=1)).max().item():.3g} relative", flush=True)
+            if not (bool((step == 1).all()) and
+                    bool((dist <= TOL_CODE_FLIP * r.clamp(min=1)).all())):
+                fail(f"train card vs CPU {label}: int8 codes differ away from a rounding "
+                     f"boundary: steps {step.tolist()[:8]}, x / scale {rc[d].tolist()[:8]}")
+        n += int(d.sum())
+    return n
+
+
+def train_card_vs_cpu(dev):
+    """Reduced qwen2 and deepseek-moe (2 layers, f32) train 5 AdamW steps on
+    the CPU; each step also runs on the card from the CPU's state before
+    it, on the same batch, on the exact path and through the SWAPPER
+    projection (``mxu``).  Returns {label: {"loss", "grad_norm", "update":
+    the largest relative differences, "code_flips", "route_flips"}}."""
+    from repro_torch.configs import ARCHS, ParallelConfig, reduced
+    from repro_torch.configs.base import AxPolicy
+    from repro_torch.models import blocks
+    from repro_torch.train import (AdamWConfig, DataConfig, SyntheticStream, fresh_train_state,
+                                   make_train_step)
+    from repro_torch.train.optimizer import tree_map
+
+    out = {}
+    opt = AdamWConfig(lr=TRAIN_LR, warmup=TRAIN_WARMUP)
+    real, rec, seen = _route_recorder()
+    QA, q_real, q_rec, codes = _code_recorder()
+    for name in ("qwen2-72b", "deepseek-moe-16b"):
+        for ax in (None, AxPolicy(backend="mxu")):
+            cfg = dataclasses.replace(reduced(ARCHS[name]), n_layers=2, compute_dtype="float32",
+                                      ax=ax)
+            label = f"{name} {'exact' if ax is None else 'swapper'}"
+            step = make_train_step(cfg, ParallelConfig(remat="none"), opt)
+            cpu = fresh_train_state(cfg, opt, seed=0, device="cpu")
+            stream = SyntheticStream(DataConfig(cfg.vocab, 32, 4, seed=1, mode="arith"))
+            row = {"loss": 0.0, "grad_norm": 0.0, "update": 0.0, "code_flips": 0,
+                   "route_flips": 0}
+            held = 0
+            for i in range(5):
+                b = stream.next()
+                card = tree_map(lambda t: t.to(dev), cpu)
+                blocks._route, QA.quantize_rows = rec, q_rec
+                try:
+                    seen.clear()
+                    codes.clear()
+                    new_cpu, mc = step(cpu, b)
+                    n_cpu, c_cpu = len(seen), len(codes)
+                    card, mg = step(card, b)
+                finally:
+                    blocks._route, QA.quantize_rows = real, q_real
+                flips = _route_flips(cfg, seen[:n_cpu], seen[n_cpu:], f"train {label} step {i}")
+                n_codes = _code_flips(codes[:c_cpu], codes[c_cpu:], f"{label} step {i}")
+                gaps = {k: abs(float(mg[k]) / float(mc[k]) - 1) for k in ("loss", "grad_norm")}
+                if not all(math.isfinite(float(mg[k])) for k in gaps):
+                    fail(f"train card vs CPU {label}: step {i} metrics {mg}")
+                tol = TOL_TRAIN_STEP_FLIP if flips or n_codes else TOL_TRAIN_STEP
+                upd = None if flips else _update_gap(card["params"], new_cpu["params"],
+                                                     cpu["params"])
+                if max(gaps.values()) > tol or (upd is not None and upd > TOL_TRAIN_UPDATE):
+                    fail(f"train card vs CPU {label} step {i}: relative loss / grad norm "
+                         f"differences {gaps} (tol {tol}), update {upd} "
+                         f"(tol {TOL_TRAIN_UPDATE}), int8 code flips {n_codes}, routing "
+                         f"flips {flips}")
+                for k, v in gaps.items():
+                    row[k] = max(row[k], v)
+                row["update"] = max(row["update"], upd or 0.0)
+                row["code_flips"] += n_codes
+                row["route_flips"] += flips
+                held += upd is not None
+                cpu = new_cpu
+            if not held:
+                fail(f"train card vs CPU {label}: every step met a routing flip")
+            out[label] = row
+            print(f"train card vs CPU, reduced {label} (2 layers, f32, 5 AdamW steps, each "
+                  f"from the CPU's state): relative loss diff {row['loss']:.4g}, grad norm "
+                  f"{row['grad_norm']:.4g} (tol {TOL_TRAIN_STEP}, {TOL_TRAIN_STEP_FLIP} in a "
+                  f"step with a flip), update {row['update']:.4g} (tol "
+                  f"{TOL_TRAIN_UPDATE}, {held} of 5 steps held), int8 code flips "
+                  f"{row['code_flips']}, MoE routing flips {row['route_flips']}", flush=True)
+            del cpu, card
+    return out
+
+
+def _timed_steps(step, state, batches, *args):
+    """Run ``step`` over ``batches``; returns (state, losses, ms per step)."""
+    import torch
+
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        state, m = step(state, b, *args)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    return state, [float(x) for x in losses], ms
+
+
+def train_phase(dev, card: str, clock: float):
+    """Phase 6g: training on the card.  Card vs CPU on the reduced configs
+    (``train_card_vs_cpu``); then at published widths with ``--ax``
+    semantics (``mxu``, route T): whisper-base (full config; 4 x 1500
+    frames, 64 target tokens) and deepseek-moe-16b (depth 2: its dense
+    leading layer and one MoE layer) each take 10 steps: finite losses,
+    ``ax_matmul`` launches = projections a forward x steps (the backward
+    launches none); deepseek takes 4 adaptive steps, the policy changed
+    between steps 2 and 3 (telemetry from every target, ``ax_matmul_grid``
+    launches = projections x steps, nothing rebuilt); ``run_supervised`` on
+    whisper-base with a ``SimulatedFailure`` at step 6 of 12
+    (``ckpt_every=4``) ends within 1e-5 relative of the uninterrupted run;
+    then each kernel against its plain version at every shape the steps
+    launched.  Returns (rows, ax_matmul shape rows, ax_matmul_grid shape
+    rows, launches by path, grid launches by path)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS, ParallelConfig
+    from repro_torch.configs.base import AxPolicy
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ax_matmul import LAUNCHES, reset_launches
+    from repro_torch.models import transformer, whisper
+    from repro_torch.runtime import SwapPolicy
+    from repro_torch.runtime.telemetry import records_to_host
+    from repro_torch.train import (AdamWConfig, DataConfig, FaultConfig, SimulatedFailure,
+                                   SyntheticStream, fresh_train_state, make_train_step,
+                                   run_supervised)
+    from repro_torch.train.optimizer import tree_leaves
+
+    rows = {"card_vs_cpu": train_card_vs_cpu(dev)}
+    opt = AdamWConfig(lr=1e-4, warmup=2)
+    par = ParallelConfig(remat="none")
+    ax = AxPolicy(backend="mxu")
+    nvcc0, libs0 = _build.NVCC_RUNS["count"], len(_build._LOADED)
+    paths, grid_paths = {}, {}
+    with kernel_shapes() as seen:
+        # whisper-base, 10 static steps
+        wcfg = dataclasses.replace(ARCHS["whisper-base"], ax=ax)
+        wstream = lambda: FramesStream(SyntheticStream(DataConfig(  # noqa: E731
+            wcfg.vocab, W_TRAIN_TOKENS, B, seed=2)), W_FRAMES, wcfg.d_model, seed=2)
+        n_w = len(whisper.ax_projections(wcfg, "train"))
+        wstep = make_train_step(wcfg, par, opt)
+        state = fresh_train_state(wcfg, opt, seed=0, device=dev)
+        ws = wstream()
+        batches = [ws.next() for _ in range(TRAIN_STEPS)]
+        step_0 = wstep(state, batches[0])           # the first step, outside the timing
+        reset_launches()
+        state, losses, w_ms = _timed_steps(wstep, step_0[0], batches[1:])
+        want = {"ax_matmul": n_w * (TRAIN_STEPS - 1), "ax_matmul_grid": 0}
+        losses = [float(step_0[1]["loss"])] + losses
+        if dict(LAUNCHES) != want or not all(math.isfinite(x) for x in losses):
+            fail(f"whisper-base train: launches {dict(LAUNCHES)} (want {want}: {n_w} a forward, "
+                 f"none in the backward), losses {losses}")
+        w_tok = B * W_TRAIN_TOKENS / w_ms * 1e3
+        rows["whisper"] = dict(steps=TRAIN_STEPS, ms_per_step=w_ms, target_tokens_per_s=w_tok,
+                               frames_per_s=B * W_FRAMES / w_ms * 1e3, losses=losses,
+                               ax_per_forward=n_w)
+        paths["train whisper (9 timed steps)"] = want["ax_matmul"]
+        print(f"train whisper-base (full config, --ax mxu, B={B} x {W_FRAMES} frames, "
+              f"{W_TRAIN_TOKENS} target tokens, {TRAIN_STEPS} steps): losses {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}, all finite; {w_ms:.1f} ms/step over steps 2-{TRAIN_STEPS}, "
+              f"{w_tok:.0f} target tokens/s, {B * W_FRAMES / w_ms * 1e3:.0f} frames/s; "
+              f"ax_matmul launches {want['ax_matmul']} (= {n_w} x {TRAIN_STEPS - 1}, none in "
+              f"the backward) [{card}]", flush=True)
+        del state, step_0, batches
+
+        # deepseek-moe-16b at depth 2, 10 static steps, then 4 adaptive ones
+        dcfg = dataclasses.replace(ARCHS["deepseek-moe-16b"], n_layers=2, ax=ax)
+        n_d = len(transformer.ax_projections(dcfg))
+        dstream = SyntheticStream(DataConfig(dcfg.vocab, DS_S, DS_B, seed=3, mode="arith"))
+        batches = [dstream.next() for _ in range(TRAIN_STEPS + TRAIN_ADAPTIVE_STEPS)]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        state = fresh_train_state(dcfg, opt, seed=0, device=dev)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+        state_gb = 4 * 3 * n_params / 1e9
+        init_s = time.perf_counter() - t0
+        dstep = make_train_step(dcfg, par, opt)
+        state, m0 = dstep(state, batches[0])
+        reset_launches()
+        state, losses, d_ms = _timed_steps(dstep, state, batches[1:TRAIN_STEPS])
+        losses = [float(m0["loss"])] + losses
+        want = {"ax_matmul": n_d * (TRAIN_STEPS - 1), "ax_matmul_grid": 0}
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        if dict(LAUNCHES) != want or not all(math.isfinite(x) for x in losses):
+            fail(f"deepseek-moe-16b train: launches {dict(LAUNCHES)} (want {want}), "
+                 f"losses {losses}")
+        d_tok = DS_B * DS_S / d_ms * 1e3
+        rows["deepseek"] = dict(steps=TRAIN_STEPS, ms_per_step=d_ms, tokens_per_s=d_tok,
+                                losses=losses, params_g=n_params / 1e9, ax_per_forward=n_d,
+                                peak_gb=peak)
+        paths["train deepseek (9 timed steps)"] = want["ax_matmul"]
+        print(f"train deepseek-moe-16b (2 layers {'/'.join(dcfg.layer_kinds())}, "
+              f"{n_params / 1e9:.3f} G params, {state_gb:.1f} GB of f32 parameters and AdamW "
+              f"moments, init {init_s:.1f} s, peak allocated {peak:.1f} GB; --ax mxu, B={DS_B} x "
+              f"S={DS_S}, {TRAIN_STEPS} steps): losses {losses[0]:.4f} -> {losses[-1]:.4f}, all "
+              f"finite; {d_ms:.1f} ms/step over steps 2-{TRAIN_STEPS}, {d_tok:.0f} tokens/s; "
+              f"ax_matmul launches {want['ax_matmul']} (= {n_d} x {TRAIN_STEPS - 1}) [{card}]",
+              flush=True)
+
+        astep = make_train_step(dcfg, par, opt, adaptive=True)
+        pol_a = SwapPolicy.from_ax_policy(ax)
+        pol_b = SwapPolicy.from_ax_policy(dataclasses.replace(ax, swap_bit=5, swap_value=1))
+        dyns = [p.dyn_tree(ax.targets, device=dev) for p in (pol_a, pol_a, pol_b, pol_b)]
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a_losses, ns = [], []
+        for i in range(TRAIN_ADAPTIVE_STEPS):
+            state, m = astep(state, batches[TRAIN_STEPS + i], dyns[i])
+            rec = records_to_host(m["ax_telemetry"])
+            ns.append({t: int(np.sum(r["n"])) for t, r in rec.items()})
+            a_losses.append(float(m["loss"]))
+        a_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_ADAPTIVE_STEPS
+        want = {"ax_matmul": 0, "ax_matmul_grid": n_d * TRAIN_ADAPTIVE_STEPS}
+        rebuilt = (_build.NVCC_RUNS["count"] - nvcc0, len(_build._LOADED) - libs0)
+        if dict(LAUNCHES) != want or rebuilt != (0, 0) or not all(
+                sorted(n) == sorted(ax.targets) and min(n.values()) > 0 for n in ns) or \
+                not all(math.isfinite(x) for x in a_losses):
+            fail(f"deepseek adaptive train: launches {dict(LAUNCHES)} (want {want}), rebuilt "
+                 f"{rebuilt}, telemetry n {ns}, losses {a_losses}")
+        rows["deepseek_adaptive"] = dict(steps=TRAIN_ADAPTIVE_STEPS, ms_per_step=a_ms,
+                                         tokens_per_s=DS_B * DS_S / a_ms * 1e3, n=ns,
+                                         losses=a_losses)
+        grid_paths["train deepseek adaptive"] = want["ax_matmul_grid"]
+        # the MoE dispatch sums with index_add_ (atomics on the card): is a
+        # step bit-deterministic? (printed, not gated)
+        twice = [dstep(state, batches[0])[0]["params"] for _ in range(2)]
+        moe_equal = all(torch.equal(x, y) for x, y in zip(tree_leaves(twice[0]),
+                                                          tree_leaves(twice[1])))
+        moe_diff = _train_diff(twice[0], twice[1])
+        rows["deepseek"].update(step_bit_equal=moe_equal, step_rerun_max_diff=moe_diff)
+        del twice
+        print(f"train deepseek-moe-16b: one step run twice from the same state and batch: "
+              f"bit-equal {moe_equal}, max parameter diff {moe_diff:.3g}", flush=True)
+        print(f"train deepseek-moe-16b adaptive ({TRAIN_ADAPTIVE_STEPS} steps, policy "
+              f"{pol_a.describe()} then {pol_b.describe()} from step 3): telemetry n per "
+              f"target {ns}; ax_matmul_grid launches {want['ax_matmul_grid']} (= {n_d} x "
+              f"{TRAIN_ADAPTIVE_STEPS}); no nvcc run, no new library; {a_ms:.1f} ms/step "
+              f"(telemetry read each step), {DS_B * DS_S / a_ms * 1e3:.0f} tokens/s [{card}]",
+              flush=True)
+        del state, batches, m, m0
+        torch.cuda.empty_cache()
+
+        # supervised restart on whisper-base
+        wstep = make_train_step(wcfg, par, opt)
+        params0 = fresh_train_state(wcfg, opt, seed=0, device=dev)["params"]
+
+        def make_state():
+            from repro_torch.train import init_train_state
+            return init_train_state(params0, opt)
+
+        fired = []
+
+        def chaos(i):
+            if i == 6 and not fired:
+                fired.append(i)
+                raise SimulatedFailure("node died")
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+            reset_launches()
+            t0 = time.perf_counter()
+            s_ref, log_ref = run_supervised(make_state, wstep, wstream(), 12,
+                                            FaultConfig(ckpt_dir=f"{tmp}/ref", ckpt_every=4))
+            ref_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            s_chaos, log_chaos = run_supervised(make_state, wstep, wstream(), 12,
+                                                FaultConfig(ckpt_dir=f"{tmp}/chaos",
+                                                            ckpt_every=4), chaos=chaos)
+            chaos_s = time.perf_counter() - t0
+        launched = dict(LAUNCHES)["ax_matmul"]
+        pairs = list(zip(tree_leaves(s_ref["params"]), tree_leaves(s_chaos["params"])))
+        close = all(torch.allclose(a, b, rtol=1e-5, atol=1e-6) for a, b in pairs)
+        bit_equal = all(torch.equal(a, b) for a, b in pairs)
+        rel = max(((a - b).abs().max() / a.abs().max().clamp(min=1e-12)).item() for a, b in pairs)
+        if log_ref["restarts"] != 0 or log_chaos["restarts"] != 1 or not close or \
+                launched != n_w * (12 + 12 + 2):
+            fail(f"supervised restart: restarts {log_ref['restarts']}/{log_chaos['restarts']}, "
+                 f"within 1e-5 relative {close} (worst {rel}), launches {launched} (want "
+                 f"{n_w * 26})")
+        rows["restart"] = dict(bit_equal=bit_equal, worst_rel=rel, ref_s=ref_s, chaos_s=chaos_s)
+        paths["train supervised restart"] = launched
+        print(f"supervised restart (whisper-base, 12 steps, ckpt_every 4, SimulatedFailure at "
+              f"step 6): 1 restart, the steps 5-6 redone from the step-4 checkpoint; final "
+              f"parameters within 1e-5 relative of the uninterrupted run (worst {rel:.3g}), "
+              f"bit-equal: {bit_equal}; walls {ref_s:.1f} s and {chaos_s:.1f} s [{card}]",
+              flush=True)
+        del s_ref, s_chaos, params0, pairs
+        torch.cuda.empty_cache()
+
+    shapes = whisper_kernel_shapes(wcfg, B, W_FRAMES, W_TRAIN_TOKENS, modes=("train",))
+    dshapes = {}
+    for _, proj, K, N in transformer.ax_projections(dcfg):
+        key = (_padded(DS_B * DS_S), _padded(K), _padded(N))
+        dshapes.setdefault(key, f"deepseek train M={DS_B * DS_S} {proj}")
+    if seen["ax_matmul"] != set(shapes) | set(dshapes) or seen["ax_matmul_grid"] != set(dshapes):
+        fail(f"train: kernel shapes launched {seen}, reckoned {shapes} and {dshapes}")
+    shapes.update(dshapes)
+    ax_rows = main_shape_checks(dev, card, clock, grid_kernel=False,
+                                shapes=[(label,) + k for k, label in sorted(shapes.items())])
+    grid_rows = main_shape_checks(dev, card, clock, grid_kernel=True,
+                                  shapes=[(label,) + k for k, label in sorted(dshapes.items())])
+    return rows, ax_rows, grid_rows, paths, grid_paths
 
 
 def profile_serve(run, label: str, card: str):
@@ -2545,10 +3195,21 @@ def main(argv):
     phase_done("kernel")
     ref_checks = reference_check(dev)
     phase_done("ref")
+    # whisper and training run before the serve phase, whose 2-layer qwen2
+    # (17 GB of f32 weights, their codes and graphs) stays on the card to
+    # the end: deepseek's 13 GB train state and its update need the room
+    whisper_row, whisper_shape_rows, w_paths = whisper_phase(dev, card, clock)
+    phase_done("whisper")
+    train_rows, train_shape_rows, train_grid_rows, t_paths, t_grid_paths = \
+        train_phase(dev, card, clock)
+    phase_done("train")
     profile = "--profile" in argv
     cfg, params, prompts, tokens, paths, stats = serve(dev, card, profile)
+    paths.update(w_paths)
+    paths.update(t_paths)
     phase_done("serve")
     grid_paths = adaptive_serve(cfg, params, prompts, tokens, stats, card, profile)
+    grid_paths.update(t_grid_paths)
     phase_done("adapt")
     paths["per-slot graph"] = slot_serve(cfg, params, card)
     paths["token-granular graph"] = token_serve(cfg, params, card)
@@ -2615,9 +3276,18 @@ def main(argv):
                      rows, c_rows)
     grid_entry = entry("ax_matmul_grid", "src/repro/kernels/ax_matmul.py:253", grid_launches,
                        grid_paths, grid_rows, c_grid_rows)
-    for e, fam_rows in ((ax_entry, family_shape_rows), (grid_entry, family_grid_rows)):
+    for e, fam_rows, w_rows, t_rows in (
+            (ax_entry, family_shape_rows, whisper_shape_rows, train_shape_rows),
+            (grid_entry, family_grid_rows, [], train_grid_rows)):
         e["family_shapes"] = fam_rows
-        e["max_abs_err"] = max([e["max_abs_err"]] + [r["max_abs_err"] for r in fam_rows])
+        e["whisper_shapes"] = w_rows
+        e["train_shapes"] = t_rows
+        e["max_abs_err"] = max([e["max_abs_err"]] + [r["max_abs_err"]
+                                                     for r in fam_rows + w_rows + t_rows])
+    ax_entry["whisper"] = {k: whisper_row[k] for k in (
+        "name", "layers", "enc_layers", "params_g", "ax_per_forward", "ax_per_decode",
+        "launches", "decode_vs_full_rel", "graph_decode_ms_per_step")}
+    ax_entry["train"] = train_rows
     ax_entry["families"] = [{k: r[k] for k in ("name", "layers", "params_g", "ax_per_forward",
                                                "launches")} for r in family_rows]
     ax_entry["reduced_card_vs_cpu"] = {

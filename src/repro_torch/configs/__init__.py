@@ -1,9 +1,8 @@
-"""Architecture configs (--arch <id>) + shapes: every decoder-only
-configuration of the JAX package (``repro.configs``).  whisper-base (the
-encoder-decoder) arrives with its own slice of the port."""
+"""Architecture configs (--arch <id>) + shapes + the parallel config: every
+configuration of the JAX package (``repro.configs``)."""
 import dataclasses
 
-from .base import SHAPES, AxPolicy, ModelConfig, ShapeConfig
+from .base import SHAPES, AxPolicy, ModelConfig, ParallelConfig, ShapeConfig
 from .deepseek_moe_16b import CONFIG as deepseek_moe_16b
 from .gemma3_27b import CONFIG as gemma3_27b
 from .granite_moe_1b import CONFIG as granite_moe_1b_a400m
@@ -13,6 +12,7 @@ from .qwen2_72b import CONFIG as qwen2_72b
 from .qwen2_vl_72b import CONFIG as qwen2_vl_72b
 from .recurrentgemma_2b import CONFIG as recurrentgemma_2b
 from .starcoder2_15b import CONFIG as starcoder2_15b
+from .whisper_base import CONFIG as whisper_base
 
 ARCHS = {
     c.name: c
@@ -25,6 +25,7 @@ ARCHS = {
         deepseek_moe_16b,
         granite_moe_1b_a400m,
         recurrentgemma_2b,
+        whisper_base,
         mamba2_370m,
     )
 }
@@ -69,7 +70,8 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **kw)
 
 
-__all__ = ["ARCHS", "LONG_CONTEXT_OK", "SHAPES", "AxPolicy", "ModelConfig", "ShapeConfig",
+__all__ = ["ARCHS", "LONG_CONTEXT_OK", "SHAPES", "AxPolicy", "ModelConfig", "ParallelConfig",
+           "ShapeConfig",
            "get_config", "reduced", "qwen2_72b", "gemma3_27b", "starcoder2_15b",
            "qwen15_110b", "qwen2_vl_72b", "deepseek_moe_16b", "granite_moe_1b_a400m",
-           "recurrentgemma_2b", "mamba2_370m"]
+           "recurrentgemma_2b", "whisper_base", "mamba2_370m"]

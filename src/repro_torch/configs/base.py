@@ -1,11 +1,11 @@
-"""Model / shape configuration dataclasses (the port's own copy of
-``repro.configs.base``; ``ParallelConfig`` is not needed on one card)."""
+"""Model / shape / parallelism configuration dataclasses (the port's own
+copy of ``repro.configs.base``)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
-__all__ = ["ModelConfig", "ShapeConfig", "AxPolicy", "SHAPES"]
+__all__ = ["ModelConfig", "ShapeConfig", "ParallelConfig", "AxPolicy", "SHAPES"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,3 +113,36 @@ SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """The JAX package's distribution knobs, with the fields of
+    ``repro.configs.base.ParallelConfig``, as the port's one-card train
+    step reads them (``train/train_step.py``):
+
+    * ``remat`` — ``'none'``, or ``'layer'`` (``torch.utils.checkpoint``
+      around each layer of a train forward); ``'dots'`` has no counterpart
+      and raises;
+    * ``grad_accum`` — microbatches per step, gradients summed in f32;
+    * ``fsdp``, ``seq_shard``, ``ep`` and ``dp_only`` shard over a device
+      mesh, which waits for ROADMAP queue 1, item 8: set, they raise.
+      Their defaults are the one-card values here (the JAX defaults shard);
+    * ``grad_compress`` compresses the all-reduce, which one card does not
+      run: anything but ``'none'`` raises (the optimizer's own
+      ``AdamWConfig.compress`` is ported);
+    * ``scan_layers`` is accepted and has no effect: the port runs its
+      layers as a list either way.
+
+    JAX's ``donate`` (buffer donation) has no field here: the optimizer
+    returns new tensors and donates nothing.
+    """
+
+    fsdp: bool = False
+    seq_shard: bool = False
+    remat: str = "layer"         # 'none' | 'layer' | 'dots'
+    grad_accum: int = 1
+    grad_compress: str = "none"
+    scan_layers: bool = True
+    ep: bool = False
+    dp_only: bool = False

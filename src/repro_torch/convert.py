@@ -15,6 +15,18 @@ with a leading period axis, and keeps the pattern's remainder as
     rest{i}           -> layer first_dense + n_periods * len(period) + i
 
 Weight layouts are the same: ``(in, out)``.
+
+The encoder-decoder (whisper) keeps each stack, ``layers_enc`` and
+``layers_dec``, as one ``jax.vmap``-stacked tree with a leading layer axis;
+the port's stacks are plain lists in layer order.  Its JAX decode cache
+``{"self": {"k", "v"}, "cross"}`` (the self K/V with a leading layer axis,
+the cross K/V one ``(L, 2, B, S_enc, KV, hd)`` tensor) becomes the port's
+per-layer list ``{"k", "v", "xk", "xv"}`` (``models/whisper.py``).
+
+``train_state_from_jax`` carries a JAX train state ``{"params", "opt":
+{"step", "m", "v"[, "ef"]}}`` across: the moments and the error feedback
+have the parameters' tree and convert as they do; bfloat16 leaves (numpy's
+``ml_dtypes`` type, or its raw 2-byte view) become ``torch.bfloat16``.
 """
 from __future__ import annotations
 
@@ -23,11 +35,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 
-__all__ = ["params_from_jax", "cache_from_jax", "layer_order"]
+__all__ = ["params_from_jax", "cache_from_jax", "train_state_from_jax", "layer_order"]
 
 
 def _tensor(x, device):
-    return torch.from_numpy(np.array(x, copy=True, order="C")).to(device)
+    a = np.array(x, copy=True, order="C")
+    if a.dtype.name == "bfloat16" or (a.dtype.kind == "V" and a.dtype.itemsize == 2):
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def _map(tree, fn):
@@ -40,8 +55,8 @@ def layer_order(cfg: ModelConfig):
     """``[(tree key, period index or None), ...]`` in layer order: where
     layer i of the port sits in the JAX package's stack (module note)."""
     if cfg.family == "encdec":
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder family is not ported "
-                                  f"yet (ROADMAP queue 1, item 7b)")
+        raise ValueError(f"{cfg.name}: the encoder-decoder's stacks are layers_enc and "
+                         f"layers_dec, one layer axis each (module note)")
     n = len(cfg.layer_kinds())
     lead = cfg.first_dense
     period = len(cfg.pattern) if cfg.pattern else 1
@@ -71,7 +86,37 @@ def _layers(np_tree, cfg: ModelConfig, stack_key: str, device):
     return out
 
 
+def _unstack(np_tree, n: int, device):
+    """A tree whose leaves carry a leading layer axis of ``n`` as a list of
+    ``n`` per-layer trees."""
+    first = {a.shape[0] for a in _leaves(np_tree)}
+    if first != {n}:
+        raise ValueError(f"a stacked layer tree with leading axes {sorted(first)}, "
+                         f"expected {n}")
+    return [_map(np_tree, lambda a, i=i: _tensor(np.asarray(a)[i], device)) for i in range(n)]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield np.asarray(tree)
+
+
+_ENCDEC_KEYS = {"embed", "pos_embed", "layers_enc", "layers_dec", "ln_enc", "ln_f"}
+
+
 def params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
+    if cfg.family == "encdec":
+        if set(np_tree) != _ENCDEC_KEYS:
+            raise ValueError(f"{cfg.name}: tree keys {sorted(np_tree)}, expected "
+                             f"{sorted(_ENCDEC_KEYS)}")
+        out = {k: _map(np_tree[k], lambda a: _tensor(a, device))
+               for k in ("embed", "pos_embed", "ln_enc", "ln_f")}
+        out["layers_enc"] = _unstack(np_tree["layers_enc"], cfg.n_enc_layers, device)
+        out["layers_dec"] = _unstack(np_tree["layers_dec"], cfg.n_layers, device)
+        return out
     extra = {k for k in np_tree if not k.startswith(("lead", "rest"))} - {
         "embed", "ln_f", "lm_head", "layers"}
     if extra:
@@ -84,4 +129,24 @@ def params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
 
 def cache_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
     """A JAX decode cache (numpy leaves) as the port's per-layer list."""
+    if cfg.family == "encdec":
+        self_c = _unstack(np_tree["self"], cfg.n_layers, device)
+        cross = np.asarray(np_tree["cross"])
+        return [dict(c, xk=_tensor(cross[i, 0], device), xv=_tensor(cross[i, 1], device))
+                for i, c in enumerate(self_c)]
     return _layers(np_tree, cfg, "stack", device)
+
+
+def train_state_from_jax(np_state, cfg: ModelConfig, device="cuda"):
+    """A JAX train state (numpy leaves: ``jax.device_get`` of
+    ``repro.train.init_train_state`` or a step's, or a JAX checkpoint read
+    by ``train.checkpoint.load_tree``) as the port's (module note)."""
+    opt = np_state["opt"]
+    extra = set(opt) - {"step", "m", "v", "ef"}
+    if extra:
+        raise ValueError(f"unexpected optimizer state keys: {sorted(extra)}")
+    out_opt = {"step": _tensor(np.asarray(opt["step"], np.int32), device)}
+    for k in ("m", "v", "ef"):
+        if k in opt:
+            out_opt[k] = params_from_jax(opt[k], cfg, device)
+    return {"params": params_from_jax(np_state["params"], cfg, device), "opt": out_opt}

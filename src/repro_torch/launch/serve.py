@@ -34,9 +34,13 @@ at exit the histogram bucket coverage is checked.  There is no compile
 listener: the port has no XLA.
 
 ``--device`` (default ``cuda``) chooses where the model runs; ``cpu`` runs
-the plain kernels.  ``--arch`` takes every decoder-only architecture of
-``repro_torch.configs.ARCHS`` (a prompt of tokens for each, as in the JAX
-package); whisper-base, the encoder-decoder, is ROADMAP queue 1, item 7b.
+the plain kernels.  ``--arch`` takes every architecture of
+``repro_torch.configs.ARCHS``, with the JAX CLI's prompt: tokens for a
+decoder-only model; for whisper-base, the encoder-decoder, seeded normal
+frame embeddings ``(batch, prompt_len, d_model)`` in bf16 and 8 seeded
+decoder tokens.  Whisper serves statically only: ``--adaptive`` and
+``--fleet`` exit, as far as the JAX package cannot do them either (its
+adaptive decode fails on whisper, its batcher has no frames).
 ``--autotune`` and ``--schedule-store`` exit: the port picks the
 CUDA block and the K split from the shapes (``kernels/ax_matmul.py::plan``),
 and the schedule autotuner is its own ROADMAP queue 1 item.
@@ -284,8 +288,13 @@ def _run_single(args, cfg, device):
 
     params = init_params(cfg, seed=0, device=device)
     rng = np.random.default_rng(0)
-    prompt = {"tokens": torch.from_numpy(
-        rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)))}
+    if cfg.family == "encdec":
+        frames = rng.normal(0, 1, (args.batch, args.prompt_len, cfg.d_model))
+        prompt = {"frames": torch.from_numpy(frames).to(torch.bfloat16),
+                  "tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (args.batch, 8)))}
+    else:
+        prompt = {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)))}
     t0 = time.time()
     out = generate(params, prompt, cfg,
                    ServeConfig(max_new_tokens=args.new_tokens, temperature=args.temperature),
@@ -309,9 +318,7 @@ def _run_single(args, cfg, device):
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--arch", default="qwen2-72b",
-                    help=f"one of {sorted(ARCHS)} (whisper-base: ROADMAP queue 1, "
-                         f"item 7b)")
+    ap.add_argument("--arch", default="qwen2-72b", help=f"one of {sorted(ARCHS)}")
     ap.add_argument("--device", default="cuda",
                     help="where the model runs: cuda (the default) or cpu")
     ap.add_argument("--smoke", action="store_true")
@@ -384,8 +391,12 @@ def main(argv=None):
     controller)``."""
     args = _parser().parse_args(argv)
     if args.arch not in ARCHS:
-        raise SystemExit(f"--arch {args.arch}: the port has {sorted(ARCHS)}; the "
-                         f"encoder-decoder (whisper-base) is ROADMAP queue 1, item 7b")
+        raise SystemExit(f"--arch {args.arch}: not an architecture of the port; it has "
+                         f"{sorted(ARCHS)}")
+    if ARCHS[args.arch].family == "encdec" and (args.adaptive or args.fleet):
+        raise SystemExit(f"--arch {args.arch}: the encoder-decoder serves statically only; "
+                         f"--adaptive and --fleet exit, as the JAX package cannot serve it "
+                         f"so either (ROADMAP queue 3)")
     if args.autotune or args.schedule_store:
         raise SystemExit("--autotune/--schedule-store: the port picks the CUDA block and "
                          "the K split from the shapes (kernels/ax_matmul.py::plan); the "

@@ -1,7 +1,8 @@
 """Shared model layers (``repro.models.layers``): projections (exact or
-SWAPPER-approximate), RMSNorm, RoPE and M-RoPE, GQA attention (chunked
-flash-style for prefill, cached for decode; sliding-window layers keep a
-ring cache) and the SwiGLU / gelu MLPs.
+SWAPPER-approximate), RMSNorm and LayerNorm, RoPE and M-RoPE, sinusoid
+positions, GQA attention (chunked flash-style for prefill, cached for
+decode; sliding-window layers keep a ring cache; cross-attention over
+precomputed encoder K/V) and the SwiGLU / gelu MLPs.
 
 Parameters are plain nested dicts of tensors in the JAX package's layout:
 a projection weight is ``(in, out)`` and ``y = x @ w``.  Every op keeps the
@@ -20,7 +21,7 @@ from repro_torch.configs.base import AxPolicy, ModelConfig
 from repro_torch.quant.ax import ax_dense, ax_dense_dyn, weight_cast, weight_codes
 from repro_torch.runtime.scope import active_scope
 
-__all__ = ["ninit", "dense", "rmsnorm", "make_rope", "apply_rope",
+__all__ = ["ninit", "dense", "rmsnorm", "layernorm", "make_rope", "apply_rope", "sinusoid_pos",
            "chunked_attention", "decode_attention", "attn_init", "attn_apply",
            "mlp_init", "mlp_apply"]
 
@@ -70,6 +71,16 @@ def rmsnorm(x, p, eps):
     return (out * (1.0 + p["scale"].to(torch.float32))).to(x.dtype)
 
 
+def layernorm(x, p, eps):
+    """LayerNorm in f32 with the mean of squared deviations (``jnp.var``)."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    d = xf - mu
+    var = (d * d).mean(dim=-1, keepdim=True)
+    out = d * torch.rsqrt(var + eps)
+    return (out * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # rotary embeddings
 # ---------------------------------------------------------------------------
@@ -108,6 +119,25 @@ def apply_rope(x, pos, inv_freq):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
+_SINUSOID = {}
+
+
+def sinusoid_pos(seq: int, d_model: int, dtype, device="cpu"):
+    """(seq, d_model) sinusoid positions (sin on even, cos on odd columns),
+    computed in float64 numpy, rounded to f32 and cast to ``dtype``; made
+    once per shape, dtype and device."""
+    key = (seq, d_model, dtype, torch.device(device))
+    if key not in _SINUSOID:
+        pos = np.arange(seq)[:, None]
+        dim = np.arange(0, d_model, 2)[None, :]
+        ang = pos / (10000 ** (dim / d_model))
+        emb = np.zeros((seq, d_model), np.float32)
+        emb[:, 0::2] = np.sin(ang)
+        emb[:, 1::2] = np.cos(ang)
+        _SINUSOID[key] = torch.from_numpy(emb).to(device=device, dtype=dtype)
+    return _SINUSOID[key]
+
+
 # ---------------------------------------------------------------------------
 # attention — chunked (flash-style online softmax) + decode path
 # ---------------------------------------------------------------------------
@@ -139,6 +169,10 @@ def chunked_attention(q, k, v, q_pos, k_pos, *, causal=True, window=0,
 
     q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd) with H = KV * G; positions are
     global indices.  Padded queries and keys sit outside every causal window.
+    Without ``causal`` the keys padded up to a multiple of ``kv_chunk`` are
+    masked too (the JAX package attends to them there: ROADMAP queue 3), so
+    a non-causal call is softmax attention over the ``Sk`` real keys and
+    agrees with ``decode_attention`` over the same keys.
     """
     B, Sq, H, hd = q.shape
     _, Sk, KV, _ = k.shape
@@ -167,6 +201,8 @@ def chunked_attention(q, k, v, q_pos, k_pos, *, causal=True, window=0,
             s = torch.einsum("bqkgh,bckh->bkgqc", qb, kb).to(torch.float32) * scale
             s = s + _mask_bias(qpb[:, None, None, :], kpb[:, None, None, :],
                                causal=causal, window=window)
+            if not causal and (j + 1) * kv_chunk > Sk:    # the chunk holds padded keys
+                s = s.masked_fill(kpb[:, None, None, None, :] >= 2 ** 30, -1e30)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -231,10 +267,11 @@ def _write_rows(buf, rows, slot, new, ok):
     buf[rows, idx] = torch.where(ok.view(-1, *([1] * (new.dim() - 1))), new.to(buf.dtype), old)
 
 
-def attn_apply(p, x, cfg: ModelConfig, *, pos, inv_freq, window=0, mode="train",
-               cache=None, cache_index=None, max_cache_len=0,
-               q_chunk=512, kv_chunk=1024, prompt_lens=None, write_mask=None):
-    """GQA attention block, causal, full or sliding-window (``window``).
+def attn_apply(p, x, cfg: ModelConfig, *, pos, inv_freq, causal=True, window=0,
+               mode="train", cache=None, cache_index=None, max_cache_len=0,
+               q_chunk=512, kv_chunk=1024, cross_kv=None, prompt_lens=None,
+               write_mask=None):
+    """GQA attention block, causal or not, full or sliding-window (``window``).
 
     mode='train'   — chunked attention, no cache, returns (y, None)
     mode='prefill' — the same, plus a decode cache padded to ``max_cache_len``
@@ -246,7 +283,13 @@ def attn_apply(p, x, cfg: ModelConfig, *, pos, inv_freq, window=0, mode="train",
                      dict is returned.
 
     ``pos`` is (B, S), or (B, S, 3) under M-RoPE (the rotation takes all
-    three streams, attention masks take the temporal one).
+    three streams, attention masks take the temporal one); ``inv_freq=None``
+    rotates nothing.
+
+    ``cross_kv`` — ``(k, v)``, each (B, S_enc, KV, hd), precomputed from an
+    encoder (whisper's cross-attention): only q is projected, the keys have
+    their own positions ``0 .. S_enc - 1``, attention is over all of them,
+    and no cache is written or returned in any mode.
 
     ``cache_index`` is an int64 (B,) tensor of per-slot positions on the
     activations' device (``transformer.forward`` makes one from a scalar):
@@ -261,14 +304,22 @@ def attn_apply(p, x, cfg: ModelConfig, *, pos, inv_freq, window=0, mode="train",
     hd = cfg.head_dim_
     ax = cfg.ax
     q = dense(x, p["q"], ax, "attn_qkv").reshape(B, S, cfg.n_heads, hd)
-    k = dense(x, p["k"], ax, "attn_qkv").reshape(B, S, cfg.n_kv_heads, hd)
-    v = dense(x, p["v"], ax, "attn_qkv").reshape(B, S, cfg.n_kv_heads, hd)
-    q = apply_rope(q, pos, inv_freq)
-    k = apply_rope(k, pos, inv_freq)
+    if cross_kv is None:
+        k = dense(x, p["k"], ax, "attn_qkv").reshape(B, S, cfg.n_kv_heads, hd)
+        v = dense(x, p["v"], ax, "attn_qkv").reshape(B, S, cfg.n_kv_heads, hd)
+        if inv_freq is not None:
+            q = apply_rope(q, pos, inv_freq)
+            k = apply_rope(k, pos, inv_freq)
+    else:
+        k, v = cross_kv
 
     cdtype = getattr(torch, cfg.compute_dtype)
     new_cache = None
-    if mode == "decode":
+    if mode == "decode" and cross_kv is not None:
+        Se = k.shape[1]
+        out = decode_attention(q, k, v, q_pos=torch.full((B,), Se - 1, device=x.device),
+                               kv_len=torch.full((B,), Se, device=x.device))
+    elif mode == "decode":
         ring = cache["k"].shape[1]
         ci = cache_index
         if window:
@@ -292,13 +343,16 @@ def attn_apply(p, x, cfg: ModelConfig, *, pos, inv_freq, window=0, mode="train",
     else:
         qpos = pos if pos.dim() == 2 else pos[..., 0]
         kpos = qpos
-        if prompt_lens is not None:
+        if cross_kv is not None:
+            kpos = torch.arange(k.shape[1], device=x.device)[None].expand(B, k.shape[1])
+        elif prompt_lens is not None:
             idx = torch.arange(S, device=x.device)[None, :]
             kpos = torch.where(idx < prompt_lens[:, None].to(idx.dtype), qpos,
                                torch.full_like(qpos, 2 ** 30))
-        out = chunked_attention(q, k, v, qpos, kpos, causal=True, window=window,
+        out = chunked_attention(q, k, v, qpos, kpos, causal=causal, window=window,
                                 q_chunk=q_chunk, kv_chunk=kv_chunk)
-        if mode == "prefill" and window:
+        prefill = mode == "prefill" and cross_kv is None
+        if prefill and window:
             if prompt_lens is not None:
                 raise ValueError("pad-mask prefill: ring (sliding-window) caches hold "
                                  "the last `window` positions including pads; per-slot "
@@ -312,7 +366,7 @@ def attn_apply(p, x, cfg: ModelConfig, *, pos, inv_freq, window=0, mode="train",
                                   device=x.device)
                 buf[:, slots] = t[:, S - take:].to(cdtype)
                 new_cache[nm] = buf
-        elif mode == "prefill":
+        elif prefill:
             pad = max_cache_len - S
             shp = (B, pad, cfg.n_kv_heads, hd)
             new_cache = {

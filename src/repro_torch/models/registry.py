@@ -1,28 +1,68 @@
-"""Model entry points (``repro.models.registry``): init / prefill / decode
-for every decoder-only family (``transformer``)."""
+"""Model entry points (``repro.models.registry``): init / loss / prefill /
+decode for every family, dispatched on ``cfg.family``: the encoder-decoder
+(``encdec``) is ``whisper``, every other family ``transformer``."""
 from __future__ import annotations
 
-from repro_torch.configs.base import ModelConfig
+from typing import Optional
 
-from . import transformer
+import torch
 
-__all__ = ["init_params", "init_cache", "prefill", "decode_step"]
+from repro_torch.configs.base import ModelConfig, ParallelConfig
+
+from . import transformer, whisper
+
+__all__ = ["init_params", "init_cache", "train_loss", "prefill", "decode_step"]
+
+
+def _mod(cfg: ModelConfig):
+    return whisper if cfg.family == "encdec" else transformer
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", dtype=None):
-    return transformer.init_params(cfg, seed=seed, device=device, dtype=dtype)
+    return _mod(cfg).init_params(cfg, seed=seed, device=device, dtype=dtype)
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda", enc_len: int = 0):
+    """An empty decode cache; ``enc_len`` is the encoder's frame count of an
+    encoder-decoder (``max_len`` when 0, as in JAX)."""
+    if cfg.family == "encdec":
+        return whisper.init_cache(cfg, batch, max_len, enc_len or max_len, device=device)
     return transformer.init_cache(cfg, batch, max_len, device=device)
 
 
+def train_loss(params, batch, cfg: ModelConfig, par: Optional[ParallelConfig] = None):
+    """Next-token (or seq2seq) cross-entropy plus ``0.01 *`` the MoE
+    load-balancing term; returns (loss, {"ce", "aux"}).  Labels below 0 are
+    masked out; the padded tail of the vocabulary is pushed out of the
+    softmax.  ``par.remat == "layer"`` recomputes each decoder-only layer in
+    the backward pass (the JAX whisper forward takes no remat, nor does the
+    port's)."""
+    kw = {} if cfg.family == "encdec" else {"remat": par is not None and par.remat == "layer"}
+    logits, _, aux = _mod(cfg).forward(params, batch, cfg, mode="train", with_aux=True, **kw)
+    labels = batch["labels"].to(torch.int64)
+    logits = logits.to(torch.float32)
+    if cfg.padded_vocab != cfg.vocab:
+        pad_mask = (torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab)
+        logits = logits - 1e9 * pad_mask.to(torch.float32)
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    loss = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss + 0.01 * aux, {"ce": loss, "aux": aux}
+
+
 def prefill(params, batch, cfg: ModelConfig, *, max_cache_len: int, prompt_lens=None):
-    """Logits for the prompt (``{"tokens"}``, or ``{"embeds", "pos"}`` for
-    the vlm family) and a decode cache of ``max_cache_len``.
-    ``prompt_lens`` — optional (B,) real prompt lengths: the pad-mask
-    prefill (right-padded prompts attend only to real tokens; full-attention
-    stacks only, ``ValueError`` otherwise)."""
+    """Logits for the prompt (``{"tokens"}``, ``{"embeds", "pos"}`` for the
+    vlm family, ``{"frames", "tokens"}`` for the encoder-decoder) and a
+    decode cache of ``max_cache_len``.  ``prompt_lens`` — optional (B,) real
+    prompt lengths: the pad-mask prefill (right-padded prompts attend only to
+    real tokens; decoder-only full-attention stacks only, ``ValueError``
+    otherwise, where JAX asserts)."""
+    if cfg.family == "encdec":
+        if prompt_lens is not None:
+            raise ValueError("pad-mask prefill: the encoder-decoder family has none "
+                             "(repro.models.registry asserts the same)")
+        return whisper.forward(params, batch, cfg, mode="prefill", max_cache_len=max_cache_len)
     return transformer.forward(params, batch, cfg, mode="prefill",
                                max_cache_len=max_cache_len, prompt_lens=prompt_lens)
 
@@ -31,8 +71,15 @@ def decode_step(params, cache, tokens, cache_index, cfg: ModelConfig, write_mask
     """One serving step: tokens (B, 1) at ``cache_index``, a scalar (the
     whole batch) or an int (B,) vector of per-slot positions; ``write_mask``
     (B,) bool gates each slot's attention-cache write (recurrent and SSM
-    state advances regardless, as in JAX).  The cache is updated in place
-    and returned."""
+    state advances regardless, as in JAX; the encoder-decoder takes none and
+    raises, where JAX asserts).  The cache is updated in place and
+    returned."""
+    if cfg.family == "encdec":
+        if write_mask is not None:
+            raise ValueError("per-slot decode: the encoder-decoder family has no write "
+                             "mask (repro.models.registry asserts the same)")
+        return whisper.forward(params, {"tokens": tokens}, cfg, mode="decode", cache=cache,
+                               cache_index=cache_index)
     return transformer.forward(params, {"tokens": tokens}, cfg, mode="decode",
                                cache=cache, cache_index=cache_index,
                                write_mask=write_mask)

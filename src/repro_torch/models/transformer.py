@@ -39,6 +39,7 @@ can be captured in a CUDA graph (``serve/graph.py``).
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 
@@ -52,9 +53,8 @@ __all__ = ["init_params", "init_cache", "forward", "ax_projections"]
 
 def _check(cfg: ModelConfig):
     if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder family (whisper) is not ported yet "
-            f"(ROADMAP queue 1, item 7b)")
+        raise ValueError(f"{cfg.name}: the encoder-decoder family is models/whisper.py "
+                         f"(models.registry dispatches on cfg.family)")
 
 
 def _layer_init(cfg: ModelConfig, kind: str, dtype, generator, device):
@@ -96,7 +96,8 @@ def _empty_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtype, d
 
 def _layer_apply(p, x, cfg: ModelConfig, kind: str, *, pos, inv_freq, mode, cache=None,
                  cache_index=None, max_cache_len=0, prompt_lens=None, write_mask=None):
-    """Returns (x, new_cache)."""
+    """Returns (x, new_cache, aux): ``aux`` is a MoE layer's load-balancing
+    term, else None."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if kind in ("global", "local", "dense_ffn"):
         a, new_cache = attn_apply(p["attn"], h, cfg, pos=pos, inv_freq=inv_freq,
@@ -113,14 +114,15 @@ def _layer_apply(p, x, cfg: ModelConfig, kind: str, *, pos, inv_freq, mode, cach
         fn = blocks.rglru_apply if kind == "recurrent" else blocks.ssd_apply
         a, new_cache = fn(p["rec" if kind == "recurrent" else "ssm"], h, cfg, rc)
         if kind == "ssm":
-            return x + a, new_cache
+            return x + a, new_cache, None
     x = x + a
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    aux = None
     if "moe" in p:
-        m, _ = blocks.moe_apply(p["moe"], h, cfg)
+        m, aux = blocks.moe_apply(p["moe"], h, cfg)
     else:
         m = mlp_apply(p["mlp"], h, cfg.act, cfg.ax)
-    return x + m, new_cache
+    return x + m, new_cache, aux
 
 
 def ax_projections(cfg: ModelConfig):
@@ -216,16 +218,20 @@ def _embed_in(params, batch, cfg: ModelConfig, dtype):
 
 def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
             cache=None, cache_index=None, max_cache_len: int = 0,
-            prompt_lens=None, write_mask=None):
+            prompt_lens=None, write_mask=None, with_aux: bool = False,
+            remat: bool = False):
     """Returns (logits, new_cache); ``new_cache`` is None in train mode.
+    ``with_aux`` appends the MoE load-balancing term summed over the
+    layers (an f32 scalar, 0 without MoE layers), as the JAX forward's
+    third result; ``remat`` recomputes each layer of a train forward in
+    the backward pass (``torch.utils.checkpoint``, the JAX package's
+    ``remat="layer"``).
 
     ``cache_index`` — decode position, a scalar or an int (B,) vector of
     per-slot positions; ``write_mask`` — optional (B,) bool gating each
     slot's decode attention-cache write; ``prompt_lens`` — optional (B,)
     real prompt lengths for the pad-mask prefill, on full-attention stacks
-    only (``repro.models.transformer.forward``).  MoE layers compute their
-    load-balancing term (``blocks.moe_apply``); it leaves ``forward`` with
-    training.
+    only (``repro.models.transformer.forward``).
     """
     _check(cfg)
     if prompt_lens is not None and not all(k in ("global", "dense_ffn")
@@ -250,14 +256,21 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
         else None
 
     new_cache = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (kind, lp) in enumerate(zip(cfg.layer_kinds(), params["layers"])):
         lc = cache[i] if mode == "decode" else None
-        x, nc = _layer_apply(lp, x, cfg, kind, pos=pos, inv_freq=inv_freq, mode=mode,
-                                  cache=lc, cache_index=ci, max_cache_len=max_cache_len,
-                                  prompt_lens=pl, write_mask=wm)
+        kw = dict(pos=pos, inv_freq=inv_freq, mode=mode, cache=lc, cache_index=ci,
+                  max_cache_len=max_cache_len, prompt_lens=pl, write_mask=wm)
+        if remat and mode == "train":
+            x, nc, a = checkpoint(_layer_apply, lp, x, cfg, kind, use_reentrant=False, **kw)
+        else:
+            x, nc, a = _layer_apply(lp, x, cfg, kind, **kw)
+        if a is not None:
+            aux = aux + a
         new_cache.append(nc)
 
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     head_w = params["embed"]["w"] if cfg.tie_embeddings else params["lm_head"]["w"]
     logits = torch.einsum("bsd,vd->bsv", x, weight_cast(head_w, x.dtype))
-    return logits, (new_cache if mode != "train" else None)
+    out = (logits, new_cache if mode != "train" else None)
+    return out + (aux,) if with_aux else out

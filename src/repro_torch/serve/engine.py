@@ -13,9 +13,15 @@ padded prompt generates exactly what it generates unpadded.  Without these
 arguments every slot is live for the whole generation, which gives the
 tokens of the JAX package's scalar path.
 
-**Families.**  Every decoder-only family serves here: a prompt batch is
-``{"tokens": (B, S)}``, or ``{"embeds": (B, S, D), "pos": (B, S, 3)}`` for
-the vlm family.  The pad-mask prefill (``prompt_lens``, and so
+**Families.**  Every family serves here: a prompt batch is ``{"tokens":
+(B, S)}``, ``{"embeds": (B, S, D), "pos": (B, S, 3)}`` for the vlm family,
+or ``{"frames": (B, T, D), "tokens": (B, S)}`` for the encoder-decoder
+(whisper).  As in JAX the encoder-decoder serves the whole batch at one
+position: it refuses ``prompt_lens``, ``slot_new_tokens``, ``slot_seeds``
+and ``eos_id``, and it refuses ``adaptive`` too, which the JAX package
+cannot serve on it (``ValueError``; ROADMAP queue 3).  Its cross-attention
+K/V live in the decode cache, so its decode step is captured like any
+other.  The pad-mask prefill (``prompt_lens``, and so
 :func:`prefill_one`) needs a full-attention stack and raises
 ``ValueError`` on one with ring, recurrent or SSM state, as JAX asserts;
 budgets and EOS work on every stack, a retired slot's recurrent and SSM
@@ -202,7 +208,7 @@ def _decode(params, st: _State, cfg, *, temperature, eos_id, dyn=None, gate=Fals
              if dyn is not None else contextlib.nullcontext())
     with scope as sc:
         logits, _ = decode_step(params, st.cache, st.tok[:, None], st.pos, cfg,
-                                write_mask=active)
+                                write_mask=None if cfg.family == "encdec" else active)
     nxt = slot_sample(logits[:, -1], st.seeds, st.nt, temperature)
     tok = torch.where(active, nxt, st.tok)
     inc = active.to(torch.int64)
@@ -259,9 +265,27 @@ def _dyn_on(adaptive, device):
 
 def _cache_sig(cache):
     """A cache's part of a program key: its longest K/V length (0 for a
-    stack of recurrent or SSM state only).  With the config and the batch,
-    which the key also holds, it fixes every layer's shape."""
-    return max((c["k"].shape[1] for c in cache if "k" in c), default=0)
+    stack of recurrent or SSM state only), and an encoder-decoder's frame
+    count beside it.  With the config and the batch, which the key also
+    holds, it fixes every layer's shape."""
+    kv = max((c["k"].shape[1] for c in cache if "k" in c), default=0)
+    enc = max((c["xk"].shape[1] for c in cache if "xk" in c), default=0)
+    return (kv, enc) if enc else kv
+
+
+def _check_encdec(cfg, adaptive, prompt_lens, slot_new_tokens, slot_seeds, eos_id):
+    """The encoder-decoder's refusals (module note)."""
+    if cfg.family != "encdec":
+        return
+    asked = [n for n, v in (("prompt_lens", prompt_lens), ("slot_new_tokens", slot_new_tokens),
+                            ("slot_seeds", slot_seeds), ("eos_id", eos_id)) if v is not None]
+    if asked:
+        raise ValueError(f"{cfg.name}: per-slot decode ({', '.join(asked)}) is not supported "
+                         f"for encoder-decoder models (nor in the JAX package)")
+    if adaptive is not None:
+        raise ValueError(f"{cfg.name}: adaptive serving of the encoder-decoder is refused: the "
+                         f"JAX package fails there (an int8 telemetry record leaks out of its "
+                         f"scan over layers; ROADMAP queue 3)")
 
 
 def _dyn_sig(dyn):
@@ -276,9 +300,10 @@ def generate(params, prompt_batch, cfg: ModelConfig, scfg: ServeConfig, *,
              adaptive=None, param_hook: Optional[Callable] = None,
              prompt_lens=None, slot_new_tokens=None, slot_seeds=None,
              max_cache_len: Optional[int] = None, stats: Optional[dict] = None):
-    """prompt_batch: {'tokens': (B, S)}, or {'embeds': (B, S, D), 'pos':
-    (B, S, 3)} for the vlm family.  Returns (B, max_new_tokens) int32 on
-    the params' device.
+    """prompt_batch: {'tokens': (B, S)}, {'embeds': (B, S, D), 'pos':
+    (B, S, 3)} for the vlm family, or {'frames': (B, T, D), 'tokens':
+    (B, S)} for the encoder-decoder (module note).  Returns
+    (B, max_new_tokens) int32 on the params' device.
 
     ``adaptive`` — optional AdaptiveController driving the dynamic SWAPPER
     policy of ``cfg.ax.targets`` during decode (see the module note).
@@ -295,6 +320,7 @@ def generate(params, prompt_batch, cfg: ModelConfig, scfg: ServeConfig, *,
     controller's work included), host-clock walls taken after a device
     synchronise, and ``path`` (``"graph"`` or ``"eager"``).
     """
+    _check_encdec(cfg, adaptive, prompt_lens, slot_new_tokens, slot_seeds, scfg.eos_id)
     device = params["embed"]["w"].device
     batch = {k: torch.as_tensor(v, device=device) for k, v in prompt_batch.items()}
     B, S = (batch["tokens"] if "tokens" in batch else batch["embeds"]).shape[:2]
@@ -391,7 +417,8 @@ def _fused_graph(params, st: _State, cfg, dyn, gates, kw, max_len, adaptive):
     whose ``out`` holds the tokens."""
     B = st.tok.shape[0]
     key = ("fused" if dyn is None else "fused_adaptive", cfg, B, max_len, st.out.shape[1],
-           kw["temperature"], kw["eos_id"], kw["tile_rows"], _dyn_sig(dyn))
+           kw["temperature"], kw["eos_id"], kw["tile_rows"], _dyn_sig(dyn),
+           _cache_sig(st.cache))
 
     def build():
         buf = dict(state=_state_like(st), dyn=({k: torch.empty_like(v) for k, v in dyn.items()}

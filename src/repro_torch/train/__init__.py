@@ -1,7 +1,14 @@
-"""Training-side runtime of the port (``repro.train``).  Only the fault
-module's straggler watchdog is ported so far: the continuous batcher
-watches its steps with it.  The train step, the optimizer, checkpoints and
-the supervised run loop are the training item of ROADMAP queue 1."""
-from .fault import SimulatedFailure, StragglerWatchdog
+"""Training on one device (``repro.train``): AdamW, the train step (static
+and adaptive), synthetic and file data, checkpoints, the supervised run loop
+and the straggler watchdog.  The sharded step waits for the device mesh
+(ROADMAP queue 1, item 8)."""
+from .checkpoint import AsyncCheckpointer, latest_step, load_tree, restore, save
+from .data import DataConfig, FileStream, SyntheticStream, make_batch_specs
+from .fault import FaultConfig, SimulatedFailure, StragglerWatchdog, run_supervised
+from .optimizer import AdamWConfig, adamw_init, adamw_update
+from .train_step import fresh_train_state, init_train_state, make_train_step
 
-__all__ = ["SimulatedFailure", "StragglerWatchdog"]
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "DataConfig", "SyntheticStream",
+           "FileStream", "make_batch_specs", "save", "restore", "latest_step", "load_tree",
+           "AsyncCheckpointer", "FaultConfig", "StragglerWatchdog", "SimulatedFailure",
+           "run_supervised", "init_train_state", "fresh_train_state", "make_train_step"]

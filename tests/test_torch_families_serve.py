@@ -2,8 +2,9 @@
 (the companion of ``tests/test_torch_families.py``, whose configs, inputs
 and tolerances it uses): greedy ``generate`` per family, the raises of the
 pad-mask prefill on stacks with ring, recurrent or SSM state, M-RoPE's
-default streams, the serve CLI for every family, and whisper refused
-until its slice.  Recurrent and SSM state through budgets, splices and the
+default streams, the serve CLI for every family, and the port's configs
+equal to the JAX package's, whisper's included (whisper against JAX:
+``tests/test_torch_whisper.py``).  Recurrent and SSM state through budgets, splices and the
 batcher: ``tests/test_torch_families_state.py``.
 """
 import dataclasses
@@ -115,24 +116,34 @@ def test_vlm_positions_default_to_three_equal_streams():
 
 
 def test_whisper_is_refused_until_its_slice():
-    assert "whisper-base" not in TC.ARCHS
-    cfg = dataclasses.replace(TC.reduced(TC.qwen2_72b), family="encdec", name="whisper-x")
-    with pytest.raises(NotImplementedError, match="7b"):
-        init_params(cfg, device="cpu")
+    """Whisper's slice is in: the port's ARCHS equal the JAX package's,
+    config for config and reduced config for reduced config, and whisper's
+    ``init_params`` runs (its two stacks as lists)."""
+    assert list(TC.ARCHS) == list(JC.ARCHS) and "whisper-base" in TC.ARCHS
     assert TC.LONG_CONTEXT_OK == JC.LONG_CONTEXT_OK
-    assert {n for n in JC.ARCHS if JC.ARCHS[n].family != "encdec"} == set(TC.ARCHS)
     for n, c in TC.ARCHS.items():
         assert dataclasses.asdict(c) == dataclasses.asdict(JC.ARCHS[n])
+        assert dataclasses.asdict(TC.reduced(c)) == dataclasses.asdict(JC.reduced(JC.ARCHS[n]))
+    cfg = TC.reduced(TC.ARCHS["whisper-base"])
+    p = init_params(cfg, device="cpu")
+    assert len(p["layers_enc"]) == cfg.n_enc_layers == 2
+    assert len(p["layers_dec"]) == cfg.n_layers
+    assert p["embed"]["w"].shape == (cfg.padded_vocab, cfg.d_model)
 
 
 @pytest.mark.parametrize("name", FAMILIES)
 def test_serve_cli_takes_every_family(name, capsys):
-    """``python -m repro_torch.launch.serve --arch <family> --device cpu``."""
+    """``python -m repro_torch.launch.serve --arch <family> --device cpu``;
+    with the first family, the encoder-decoder too."""
     from repro_torch.launch import serve
 
     out, _ = serve.main(["--arch", name, "--device", "cpu", "--smoke", "--ax", "--batch", "2",
                          "--prompt-len", "16", "--new-tokens", "3"])
     assert out.shape == (2, 3)
     assert f"arch={name}-smoke generated 6 tokens" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="item 7b"):
-        serve.main(["--arch", "whisper-base", "--device", "cpu", "--smoke"])
+    if name != FAMILIES[0]:
+        return
+    out, _ = serve.main(["--arch", "whisper-base", "--device", "cpu", "--smoke", "--ax",
+                         "--batch", "2", "--prompt-len", "16", "--new-tokens", "2"])
+    assert out.shape == (2, 2)
+    assert "arch=whisper-base-smoke generated 4 tokens" in capsys.readouterr().out

@@ -10,6 +10,7 @@ tests).  On the machine with the card:
 This file imports no JAX: the card's machine has none.
 """
 import dataclasses
+import math
 import sys
 
 import pytest
@@ -769,3 +770,109 @@ def test_family_shapes_equal_plain_and_graph_serve_equals_eager(cuda, name):
     graph = generate(params, batch, cfg, ServeConfig(max_new_tokens=6), stats=stats)
     assert stats["path"] == "graph" and torch.equal(graph, eager)
     G.clear_programs()
+
+
+def test_whisper_shapes_equal_plain_and_graph_serve_equals_eager(cuda):
+    """whisper-base's approximate projections at its published widths
+    (``models.whisper.ax_projections``) through the dense path's integer
+    matmul equal the plain version at the rows ``chip_smoke.py``'s whisper
+    phase gives them (4 at decode, 32 decoder-prompt rows, 6000 encoder
+    rows: the first and last 128 of those); the reduced whisper with 40
+    frames serves the same greedy tokens eagerly and as a CUDA graph, with
+    the reckoned launches, and again with a captured program replayed."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.ax_matmul import LAUNCHES, reset_launches
+    from repro_torch.models import whisper
+    from repro_torch.quant.ax import ax_matmul_int
+    from repro_torch.serve import graph as G
+
+    policy = AxPolicy(backend="kernel")
+    m = TC.get(policy.mult_name)
+    full = dataclasses.replace(ARCHS["whisper-base"], ax=policy)
+    rows = {"enc": 6000, "cross": 6000, "dec": 32}
+    shapes = {(rows[st], K, N) for st, _, _, K, N in whisper.ax_projections(full)}
+    shapes |= {(4, K, N) for *_, K, N in whisper.ax_projections(full, "decode")}
+    for i, (M, K, N) in enumerate(sorted(shapes)):
+        a = _ops((M, K), True, 70 + i, cuda)
+        b = _ops((K, N), True, 90 + i, cuda)
+        ri, ci = _ends(M, 512, cuda), _ends(N, N if M <= 4 else 256, cuda)
+        got = ax_matmul_int(a, b, policy).index_select(0, ri).index_select(1, ci)
+        want = ax_matmul_ref(a.index_select(0, ri), b.index_select(1, ci), m, policy.swap)
+        assert torch.equal(got, want), (M, K, N)
+    cfg = dataclasses.replace(reduced(ARCHS["whisper-base"]), ax=policy)
+    params = init_params(cfg, seed=3, device=cuda)
+    g = torch.Generator().manual_seed(4)
+    batch = {"frames": torch.randn((2, 40, cfg.d_model), generator=g).to(torch.bfloat16),
+             "tokens": torch.randint(0, cfg.vocab, (2, 8), generator=g)}
+    T = 6
+    reset_launches()
+    eager = generate(params, batch, cfg, ServeConfig(max_new_tokens=T, cuda_graphs=False))
+    n_pre, n_dec = len(whisper.ax_projections(cfg)), len(whisper.ax_projections(cfg, "decode"))
+    assert dict(LAUNCHES) == {"ax_matmul": n_pre + n_dec * (T - 1), "ax_matmul_grid": 0}
+    for run in range(2):
+        before = G.counts()
+        caps = sum(G.CAPTURES.values())
+        stats = {}
+        reset_launches()
+        graph = generate(params, batch, cfg, ServeConfig(max_new_tokens=T), stats=stats)
+        assert stats["path"] == "graph" and torch.equal(graph, eager), run
+        assert sum(G.CAPTURES.values()) - caps == (1 if run == 0 else 0)
+        assert G.executed_launches(before, dict(LAUNCHES))["ax_matmul"] == \
+            n_pre + n_dec * (T - 1)
+    G.clear_programs()
+
+
+def test_one_train_step_on_the_card(cuda):
+    """One static and one adaptive AdamW step of reduced deepseek-moe (its
+    dense layer and a MoE layer) with the SWAPPER projection (``mxu``,
+    route T) on the card: the loss, the grad norm and each leaf's update
+    near the CPU's (the same weights and batch, f32; the bounds of
+    ``chip_smoke.py``'s train card-vs-CPU check), the approximate
+    projections launched once per forward and never in the backward pass, the adaptive step through the grid kernel
+    with telemetry, and new parameters that a serve quantizes afresh."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.ax_matmul import LAUNCHES, reset_launches
+    from repro_torch.models.transformer import ax_projections
+    from repro_torch.quant.ax import WEIGHT_CACHE
+    from repro_torch.train import (AdamWConfig, DataConfig, SyntheticStream, fresh_train_state,
+                                   make_train_step)
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(reduced(ARCHS["deepseek-moe-16b"]), n_layers=2,
+                              compute_dtype="float32", ax=AxPolicy(backend="mxu"))
+    opt = AdamWConfig(lr=1e-3, warmup=1)
+    state = fresh_train_state(cfg, opt, seed=0, device="cpu")
+    batch = SyntheticStream(DataConfig(cfg.vocab, 32, 4, seed=1, mode="arith")).next()
+    n_ax = len(ax_projections(cfg))
+    par = ParallelConfig(remat="none")
+    cpu_state, cpu_m = make_train_step(cfg, par, opt)(state, batch)
+    gstate = tree_map(lambda t: t.to(cuda), state)
+    reset_launches()
+    new, m = make_train_step(cfg, par, opt)(gstate, batch)
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == {"ax_matmul": n_ax, "ax_matmul_grid": 0}
+    loss = float(m["loss"])
+    for k in ("loss", "grad_norm"):
+        assert abs(float(m[k]) / float(cpu_m[k]) - 1) <= 1e-4, k
+    for a, b, p in zip(tree_leaves(new["params"]), tree_leaves(cpu_state["params"]),
+                       tree_leaves(state["params"])):
+        da, db = a.float().cpu() - p.float(), b.float() - p.float()
+        assert ((da - db).norm() / db.norm()).item() <= 0.1
+    assert int(new["opt"]["step"]) == 1 and new["params"]["embed"]["w"].device == cuda
+
+    ctrl = AdaptiveController(SwapPolicy.from_ax_policy(cfg.ax), cfg.ax.targets,
+                              AdaptiveConfig(), device=cuda)
+    reset_launches()
+    _, am = make_train_step(cfg, par, opt, adaptive=True)(gstate, batch, ctrl.dyn_tree())
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == {"ax_matmul": 0, "ax_matmul_grid": n_ax}
+    assert float(am["loss"]) == pytest.approx(loss, abs=1e-4)
+    assert all(int(r["n"].sum()) > 0 for r in am["ax_telemetry"].values())
+
+    # a serve after the step quantizes the new weights, not the old codes
+    misses = WEIGHT_CACHE["misses"]
+    prompt = {"tokens": torch.from_numpy(batch["tokens"][:, :8]).to(cuda)}
+    generate(gstate["params"], prompt, cfg, ServeConfig(max_new_tokens=2, cuda_graphs=False))
+    generate(new["params"], prompt, cfg, ServeConfig(max_new_tokens=2, cuda_graphs=False))
+    assert WEIGHT_CACHE["misses"] - misses == 2 * n_ax

@@ -1,10 +1,10 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
 neither JAX nor anything of the JAX package ``repro`` (importing every
 module, serving a tiny model static and adaptive, tiny models of the
-local/global, MoE, RG-LRU, SSD and M-RoPE families, a canaried writer serve over a
-policy store with an SLO engine, a trace recorder and a replica, a
-continuous-batcher drain, the telemetry aggregation and the serve CLI load
-neither), and
+local/global, MoE, RG-LRU, SSD and M-RoPE families and of whisper, a canaried
+writer serve over a policy store with an SLO engine, a trace recorder and a
+replica, a continuous-batcher drain, the telemetry aggregation, the serve
+CLI, a train step with a checkpoint and the train CLI load neither), and
 ``chip_smoke.py`` refuses to run without a CUDA device or outside a
 checkout."""
 import ast
@@ -52,7 +52,25 @@ for n in ("gemma3-27b", "deepseek-moe-16b", "recurrentgemma-2b", "mamba2-370m",
     pp = init_params(c, seed=0, device="cpu")
     families[n] = list(generate(pp, {{"tokens": torch.zeros((1, 4), dtype=torch.int64)}}, c,
                                 ServeConfig(max_new_tokens=2)).shape)
+wc = dataclasses.replace(reduced(ARCHS["whisper-base"]), n_layers=1, n_enc_layers=1,
+                         ax=AxPolicy(backend="kernel"))
+wp = init_params(wc, seed=0, device="cpu")
+families["whisper-base"] = list(generate(
+    wp, {{"frames": torch.zeros((1, 6, wc.d_model)), "tokens": torch.zeros((1, 4), dtype=torch.int64)}},
+    wc, ServeConfig(max_new_tokens=2)).shape)
 import tempfile
+from repro_torch import train
+with tempfile.TemporaryDirectory() as root:
+    opt = train.AdamWConfig()
+    state = train.fresh_train_state(cfg, opt, device="cpu")
+    state, m = train.make_train_step(cfg, None, opt)(
+        state, train.SyntheticStream(train.DataConfig(cfg.vocab, 8, 2)).next())
+    train.save(root, 1, state)
+    state, _ = train.restore(root, 1, state, device="cpu")
+    from repro_torch.launch.train import main as train_main
+    _, tlog, _ = train_main(["--device", "cpu", "--smoke", "--steps", "1", "--batch", "2",
+                             "--seq", "8", "--ckpt-dir", root + "/cli"])
+    trained = [int(state["opt"]["step"]), tlog["steps_run"]]
 from repro_torch import obs
 from repro_torch.fleet import PolicyReader, PolicyStore
 with tempfile.TemporaryDirectory() as root:
@@ -98,7 +116,7 @@ print(json.dumps({{"modules": len(names), "bad": bad, "shape": list(toks.shape),
                   "retunes": len(writer.retunes), "audit": kinds,
                   "replica": replica.version, "metrics": "repro_canary_total" in text,
                   "served": served, "cli": cli.stats["requests"],
-                  "families": families}}))
+                  "families": families, "trained": trained}}))
 """
 
 
@@ -121,7 +139,8 @@ def test_importing_and_running_the_port_loads_no_jax_and_no_repro():
     assert res["metrics"] and res["served"] == 3 and res["cli"] == 2
     assert res["families"] == {n: [1, 2] for n in ("gemma3-27b", "deepseek-moe-16b",
                                                    "recurrentgemma-2b", "mamba2-370m",
-                                                   "qwen2-vl-72b")}
+                                                   "qwen2-vl-72b", "whisper-base")}
+    assert res["trained"] == [1, 1]
 
 
 def _imported_roots(path: Path):
@@ -166,14 +185,24 @@ def _entry_points():
     import repro_torch.core.multipliers as mults
     import repro_torch.core.tuning as tuning
     import repro_torch.kernels.ops as ops
+    import repro_torch.launch.train as launch_train
     import repro_torch.models as models
+    import repro_torch.models.whisper as whisper
+    import repro_torch.train.checkpoint as checkpoint
+    import repro_torch.train.train_step as train_step
     from repro_torch import obs
     from repro_torch.fleet import PolicyReader
     from repro_torch.runtime import AdaptiveController, SwapPolicy
 
     return {"init_params": models.init_params, "init_cache": models.init_cache,
+            "whisper.init_params": whisper.init_params,
+            "whisper.init_cache": whisper.init_cache,
+            "train_step.fresh_train_state": train_step.fresh_train_state,
+            "checkpoint.restore": checkpoint.restore,
+            "launch.train": launch_train._parser(),
             "params_from_jax": convert.params_from_jax,
             "cache_from_jax": convert.cache_from_jax,
+            "train_state_from_jax": convert.train_state_from_jax,
             "AdaptiveController": AdaptiveController.__init__,
             "PolicyReader": PolicyReader.__init__, "SwapPolicy.dyn_tree": SwapPolicy.dyn_tree,
             "device_trace": obs.trace.device_trace.__wrapped__,
@@ -187,8 +216,13 @@ def _entry_points():
 @pytest.mark.parametrize("name", sorted(_entry_points()))
 def test_entry_points_default_to_the_card(name):
     """Every entry point that holds tensors runs on ``cuda`` unless the
-    caller passes ``device="cpu"``."""
+    caller passes ``device="cpu"`` (a CLI: ``--device cpu``)."""
+    import argparse
     import inspect
 
-    sig = inspect.signature(_entry_points()[name])
+    entry = _entry_points()[name]
+    if isinstance(entry, argparse.ArgumentParser):
+        assert entry.parse_args([]).device == "cuda", name
+        return
+    sig = inspect.signature(entry)
     assert sig.parameters["device"].default == "cuda", name
