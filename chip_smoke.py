@@ -88,6 +88,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
             default ``mxu`` backend (the same tokens and launches), then
             both with the decode step as a CUDA graph: the eager tokens,
             64 executed launches, one capture and then none;
+   autotune — ``kernels.autotune.tune_table`` (quick) on the same card
+            over the serve's three projection shapes (8192 x 8192,
+            8192 x 29568, 29568 x 8192) at 4 decode and 128 prefill rows,
+            for ``matmul``/``matmul_grid`` and ``int_static``/``int_dyn``,
+            each candidate a CUDA graph of back-to-back dispatches timed
+            with events (winner and default walls printed); every
+            candidate's output and ``tile_hist`` == the plain version
+            (max |diff| 0); no nvcc run in the sweep or the install; the
+            table published to a temporary ``ScheduleStore`` and adopted
+            by a ``ScheduleReader``; the serve phase's graph serve after the
+            adoption: the same tokens, 0 captures (every program's count
+            unchanged), table hits > 0 from the eager prefill; the table is
+            cleared at the end;
 6. adapt  — the same model served with an ``AdaptiveController``: with a
             threshold that never fires the tokens equal the static serve's
             (8 ``ax_matmul`` launches in prefill, 56 ``ax_matmul_grid`` in
@@ -1124,6 +1137,138 @@ def serve(dev, card: str, profile: bool = False):
                                        ServeConfig(max_new_tokens=T)),
                       "static serve (graph)", card)
     return cfg, params, prompts, t1, paths, stats
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the kernel-schedule autotuner
+# ---------------------------------------------------------------------------
+
+AT_OPS = ("matmul", "matmul_grid", "int_static", "int_dyn")
+
+
+def autotune_phase(dev, card: str, cfg, params, prompts, tokens):
+    """Phase 5b: ``kernels.autotune.tune_table`` (quick) over the serve's
+    three projection shapes at B decode rows and B x S prefill rows, for
+    ``matmul``/``matmul_grid`` (``kernel``) and ``int_static``/``int_dyn``
+    (``mxu``), each candidate timed as a CUDA graph of back-to-back
+    dispatches; every candidate's output and ``tile_hist`` held to the plain
+    version; no nvcc run in the sweep or the install; the table published to
+    a temporary ``ScheduleStore`` and adopted by a ``ScheduleReader``; the
+    serve phase's graph serve after the adoption: its tokens, no capture,
+    table hits from the eager prefill.  Returns the per-signature rows."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.configs.base import AxPolicy
+    from repro_torch.core.multipliers import get
+    from repro_torch.kernels import _build, autotune as TA, clear_table, installed_table, ops
+    from repro_torch.kernels.ax_matmul import route_of
+    from repro_torch.kernels.ref import ax_matmul_ref, tile_hist_blocks
+    from repro_torch.serve import ServeConfig, generate
+    from repro_torch.serve import graph as G
+
+    t_phase = time.perf_counter()
+    runs = _build.NVCC_RUNS["count"]
+    name = cfg.ax.mult_name
+    mult = get(name)
+    swap = AxPolicy(mult_name=name).swap          # the swap of TA.dispatch_fn
+    d, ff = cfg.d_model, cfg.d_ff
+    shapes = sorted({s for m in (B, B * S) for s in ((m, d, d), (m, d, ff), (m, ff, d))})
+    t0 = time.perf_counter()
+    table, reports = TA.tune_table(shapes, name, backends=("kernel", "mxu"), quick=True,
+                                   device=dev)
+    tune_s = time.perf_counter() - t0
+    if _build.NVCC_RUNS["count"] != runs:
+        fail(f"autotune: the sweep ran nvcc {_build.NVCC_RUNS['count'] - runs} time(s)")
+    by_sig = {r["sig"]: r for r in reports}
+    rows = []
+    for r in reports:
+        rows.append({k: r[k] for k in ("sig", "winner", "best_us", "default_us", "candidates",
+                                       "route", "timer")})
+        print(f"autotune {r['sig']}: winner {r['winner']} {r['best_us']:.2f} us, default "
+              f"{r['default_us']:.2f} us (winner/default {r['best_us'] / r['default_us']:.3f}; "
+              f"{r['candidates']} candidates, {r['timer']}) [{card}]", flush=True)
+
+    # every candidate against the plain version, on operands of its own
+    t0 = time.perf_counter()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(23)
+    checked = 0
+    for M, K, N in shapes:
+        a = torch.randint(-128, 128, (M, K), generator=gen, device=dev, dtype=torch.int8)
+        b = torch.randint(-128, 128, (K, N), generator=gen, device=dev, dtype=torch.int8)
+        cols = torch.arange(N, device=dev) if M <= B else \
+            torch.cat([torch.arange(128, device=dev), torch.arange(N - 128, N, device=dev)])
+        want = ax_matmul_ref(a, b.index_select(1, cols).contiguous(), mult, swap)
+        hist_want = {}
+        grid = torch.tensor([1, swap.bit, swap.value], dtype=torch.int32, device=dev)
+        for op in AT_OPS:
+            backend = "kernel" if op.startswith("matmul") else "mxu"
+            route = "T" if backend == "mxu" else route_of(mult, torch.int8)
+            cands = TA.candidate_schedules(backend, M, K, N, op=op, quick=True, route=route,
+                                           sms=sms)
+            if len(cands) != by_sig[f"{M}x{K}x{N}/{backend}/{name}/{op}"]["candidates"]:
+                fail(f"autotune: {op} at {(M, K, N)} checks {len(cands)} candidates, the "
+                     f"sweep timed a different set")
+            first = None
+            for s in cands:
+                got = TA.dispatch_fn(op, a, b, name, s)()
+                bm, bn = min(s.bm, M), min(s.bn, N)
+                if op in TA.STATIC_OPS:
+                    _, hist = ops.ax_matmul(a, b, mult, swap, schedule=s, tile_hist=True)
+                else:
+                    g = grid.expand(-(-M // bm), -(-N // bn), 3).contiguous()
+                    _, hist = ops.ax_matmul_grid(a, b, mult, g, schedule=s, tile_hist=True)
+                if (bm, bn) not in hist_want:
+                    hist_want[bm, bn] = tile_hist_blocks(a, b, mult.bits, bm, bn)
+                first = got if first is None else first
+                err = (got.index_select(1, cols).long() - want.long()).abs().max().item()
+                if err != 0 or not torch.equal(got, first) or \
+                        not torch.equal(hist, hist_want[bm, bn]):
+                    fail(f"autotune candidate {s.short()} ({op}, {(M, K, N)}) != plain: max "
+                         f"|diff| {err}, equal to the default's output "
+                         f"{torch.equal(got, first)}, tile_hist equal "
+                         f"{torch.equal(hist, hist_want[bm, bn])}")
+                checked += 1
+        del a, b, want, hist_want
+    torch.cuda.synchronize()
+    check_s = time.perf_counter() - t0
+
+    # publish, adopt, and serve the graph captured before the install
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sched_") as root:
+        store = TA.ScheduleStore(root)
+        version = store.publish(table)
+        reader = TA.ScheduleReader(store, name="chip_smoke")
+        if reader.version != version or installed_table() is not reader.table:
+            fail(f"autotune: the reader adopted v{reader.version} of v{version}")
+        caps_before = dict(G.CAPTURES)
+        hits = obs.default_registry().get("repro_sched_lookups_total").value(result="hit")
+        got, stats_g, executed, caps = graph_run(
+            lambda st: generate(params, {"tokens": prompts}, cfg,
+                                ServeConfig(max_new_tokens=T), stats=st))
+        hits = obs.default_registry().get("repro_sched_lookups_total").value(
+            result="hit") - hits
+    clear_table()
+    if not torch.equal(got.cpu(), tokens) or caps != 0 or dict(G.CAPTURES) != caps_before \
+            or hits <= 0 or stats_g["path"] != "graph" \
+            or executed != {"ax_matmul": L * 4 * T, "ax_matmul_grid": 0}:
+        fail(f"autotune: graph serve after the adoption: tokens equal "
+             f"{torch.equal(got.cpu(), tokens)}, captures {caps}, the earlier program's "
+             f"captures unchanged {dict(G.CAPTURES) == caps_before}, table hits {hits}, "
+             f"path {stats_g['path']}, executed {executed}")
+    if _build.NVCC_RUNS["count"] != runs:
+        fail(f"autotune: nvcc ran {_build.NVCC_RUNS['count'] - runs} time(s) by the install")
+    wins = sum(r["best_us"] < r["default_us"] for r in reports)
+    print(f"autotune: {len(reports)} signatures tuned in {tune_s:.1f} s, {checked} candidates "
+          f"== plain (outputs and tile_hist, max |diff| 0) in {check_s:.1f} s; nvcc runs 0; "
+          f"published v{version}, adopted by a reader; graph serve after the adoption: the "
+          f"tokens of before, 0 captures ({sum(caps_before.values())} programs' captures "
+          f"unchanged), {hits:.0f} table hits (eager prefill), executed {executed}; "
+          f"{wins} winners other than the default; phase {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]", flush=True)
+    return rows
 
 
 def graph_run(run):
@@ -3208,6 +3353,8 @@ def main(argv):
     paths.update(w_paths)
     paths.update(t_paths)
     phase_done("serve")
+    autotune_rows = autotune_phase(dev, card, cfg, params, prompts, tokens)
+    phase_done("autotune")
     grid_paths = adaptive_serve(cfg, params, prompts, tokens, stats, card, profile)
     grid_paths.update(t_grid_paths)
     phase_done("adapt")
@@ -3288,6 +3435,7 @@ def main(argv):
         "name", "layers", "enc_layers", "params_g", "ax_per_forward", "ax_per_decode",
         "launches", "decode_vs_full_rel", "graph_decode_ms_per_step")}
     ax_entry["train"] = train_rows
+    ax_entry["autotune"] = autotune_rows
     ax_entry["families"] = [{k: r[k] for k in ("name", "layers", "params_g", "ax_per_forward",
                                                "launches")} for r in family_rows]
     ax_entry["reduced_card_vs_cpu"] = {

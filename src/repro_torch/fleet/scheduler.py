@@ -204,7 +204,7 @@ class ContinuousBatcher:
         if mesh is not None or par is not None:
             raise NotImplementedError(
                 "ContinuousBatcher: the port has no device mesh; a mesh-sharded "
-                "batcher is ROADMAP queue 1, item 8 (training and launch)")
+                "batcher is ROADMAP queue 1, item 8 (the device mesh)")
         self.params = params
         self.cfg = cfg
         self.bcfg = bcfg or BatcherConfig()

@@ -21,8 +21,10 @@ Two routes, chosen here once per (multiplier, operand type) and cached
   CUDA cores.
 
 :func:`plan` picks the block shape and the split of K from the shapes and
-the card's SM count.  The source's head note says what bounds each route
-and what the design does about it.
+the card's SM count; a schedule's ``tile``/``slots``/``splits``
+(``kernels/schedule.py``) override that choice without a rebuild.  The
+source's head note says what bounds each route and what the design does
+about it.
 
 :func:`ax_matmul_blocks` and :func:`ax_matmul_grid_blocks` launch the
 kernel for CUDA tensors (and raise on anything the kernel does not take)
@@ -175,28 +177,58 @@ def _pow2_ceil(v: int) -> int:
     return 1 << max(0, (v - 1).bit_length())
 
 
-def plan(route: str, M: int, N: int, K: int, sms: int = 132) -> Plan:
+def _check_knob(name: str, v: Optional[int]) -> None:
+    if v is not None and v not in (1, 2, 4, 8):
+        raise ValueError(f"{name} must be 1, 2, 4 or 8 (None: plan's choice), got {v!r}")
+
+
+def plan(route: str, M: int, N: int, K: int, sms: int = 132, tile: Optional[int] = None,
+         slots: Optional[int] = None, splits: Optional[int] = None) -> Plan:
     """The block shape and the split of K for an (M, K) @ (K, N) launch on
     a card with ``sms`` SMs: route T covers up to 128 rows per block (B is
     read once for M <= 128), route C up to 64; K is split until the grid
     holds about 4 x ``sms`` blocks (route T at 32 rows or fewer, 3 blocks
-    per SM) or 2 x ``sms`` (otherwise), never below one step per split."""
+    per SM) or 2 x ``sms`` (otherwise), never below one step per split.
+
+    ``tile``, ``slots`` and ``splits`` override that choice (a schedule's
+    knobs, ``kernels/schedule.py``): ``tile`` and ``slots`` are 1, 2, 4 or
+    8 (route T has 8 row slots and takes no other), ``splits`` lies in
+    1..the K steps and leaves no split without a step.  Any override gives
+    the bits of plan's own choice: int32 sums wrap, and atomic adds of
+    int32 are exact mod 2^32.  ``atomic`` follows from the result."""
+    _check_knob("tile", tile)
+    _check_knob("slots", slots)
     if route == "T":
-        tile = min(8, _pow2_ceil(-(-M // 16)))
+        if slots not in (None, 8):
+            raise ValueError(f"route T runs 8 row slots; slots={slots} is a route-C knob")
+        if tile is None:
+            tile = min(8, _pow2_ceil(-(-M // 16)))
         slots, rows = 8, 16 * tile
         target = (4 if tile <= 2 else 2) * sms
     elif route == "C":
-        slots = 8 if M >= 8 else _pow2_ceil(M)
-        tile = min(8, _pow2_ceil(-(-M // 8))) if M >= 8 else 1
+        if slots is None:
+            slots = 8 if M >= 8 else _pow2_ceil(M)
+        if tile is None:
+            tile = min(8, _pow2_ceil(-(-M // slots)))
         rows = slots * tile
         target = 2 * sms
     else:
         raise ValueError(f"route must be one of {ROUTES}: {route!r}")
     steps = -(-K // K_STEP)
-    tiles = -(-M // rows) * -(-N // BLOCK_N)
-    splits = max(1, min(steps, -(-target // tiles)))
-    splits = -(-steps // -(-steps // splits))       # no split without a step
+    if splits is None:
+        tiles = -(-M // rows) * -(-N // BLOCK_N)
+        splits = _whole_steps(steps, max(1, min(steps, -(-target // tiles))))
+    elif not 1 <= splits <= steps or _whole_steps(steps, splits) != splits:
+        raise ValueError(f"splits={splits} at {steps} K steps of {K_STEP}: each of the "
+                         f"splits needs a step (valid: 1..{steps}, ceil(steps / "
+                         f"ceil(steps / splits)) == splits)")
     return Plan(route, tile, slots, splits, splits > 1 or slots < 8)
+
+
+def _whole_steps(steps: int, splits: int) -> int:
+    """``splits`` lowered until every split has a step: blocks take
+    ceil(steps / splits) steps each."""
+    return -(-steps // -(-steps // splits))
 
 
 def ax_matmul_plain(a, b, mult: AxMult, swap: Optional[SwapConfig], *,
@@ -239,15 +271,15 @@ def _sms(device: torch.device) -> int:
 
 def launch_args(name: str, a, b, mult: AxMult, cfg_grid, swap_triple, bm: int, bn: int,
                 bk: int, grid_order: str, tile_hist: bool, route: str, sms: int,
-                stream=None):
+                stream=None, knobs: Optional[dict] = None):
     """Allocate the outputs and build the argument list of ``<name>_launch``
     for ``route``: returns (args, out, hist, work), ``work`` the histogram
     workspace, which must outlive the call.  Tensors stay where they are
     (the kernel takes device pointers); only :func:`plan`'s atomic sums
-    need the output zeroed."""
+    need the output zeroed.  ``knobs``: :func:`plan`'s overrides."""
     M, K = a.shape
     N = b.shape[1]
-    pl = plan(route, M, N, K, sms)
+    pl = plan(route, M, N, K, sms, **(knobs or {}))
     dev = a.device
     if route == "T":
         fg = fg_table(mult, a.dtype, dev)
@@ -279,7 +311,7 @@ def launch_args(name: str, a, b, mult: AxMult, cfg_grid, swap_triple, bm: int, b
 
 
 def _launch(name: str, a, b, mult: AxMult, cfg_grid, swap_triple, bm: int, bn: int,
-            bk: int, grid_order: str, tile_hist: bool, route: Optional[str]):
+            bk: int, grid_order: str, tile_hist: bool, route: Optional[str], knobs: dict):
     """Launch ``<name>_launch`` on the current stream; shapes, types and
     devices are checked by the callers."""
     if not (a.is_contiguous() and b.is_contiguous()):
@@ -291,7 +323,7 @@ def _launch(name: str, a, b, mult: AxMult, cfg_grid, swap_triple, bm: int, bn: i
         stream = torch.cuda.current_stream(a.device).cuda_stream
         args, out, hist, _work = launch_args(name, a, b, mult, cfg_grid, swap_triple, bm,
                                              bn, bk, grid_order, tile_hist, route,
-                                             _sms(a.device), stream)
+                                             _sms(a.device), stream, knobs)
         rc = _c_fn(name)(*args)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with cudaError {rc} (route "
@@ -303,23 +335,27 @@ def _launch(name: str, a, b, mult: AxMult, cfg_grid, swap_triple, bm: int, bn: i
 
 def ax_matmul_cuda(a, b, mult: AxMult, swap: Optional[SwapConfig], *,
                    bm: int, bn: int, bk: int, grid_order: str = "mn",
-                   tile_hist: bool = False, _route: Optional[str] = None):
+                   tile_hist: bool = False, tile: Optional[int] = None,
+                   slots: Optional[int] = None, splits: Optional[int] = None,
+                   _route: Optional[str] = None):
     """Launch the static-swap CUDA kernel on the current stream (shapes
-    already checked by :func:`ax_matmul_blocks`).  ``_route`` forces a
-    route (tests only)."""
+    already checked by :func:`ax_matmul_blocks`).  ``tile``/``slots``/
+    ``splits`` override :func:`plan`; ``_route`` forces a route (tests
+    only)."""
     return _launch("ax_matmul", a, b, mult, None, cfg_to_triple(swap), bm, bn, bk,
-                   grid_order, tile_hist, _route)
+                   grid_order, tile_hist, _route, dict(tile=tile, slots=slots, splits=splits))
 
 
 def ax_matmul_grid_cuda(a, b, mult: AxMult, cfg_grid, *, bm: int, bn: int,
                         bk: int, grid_order: str = "mn", tile_hist: bool = False,
-                        _route: Optional[str] = None):
+                        tile: Optional[int] = None, slots: Optional[int] = None,
+                        splits: Optional[int] = None, _route: Optional[str] = None):
     """Launch the grid CUDA kernel on the current stream; the grid goes by
     its device pointer (shapes already checked by
-    :func:`ax_matmul_grid_blocks`).  ``_route`` forces a route (tests
-    only)."""
+    :func:`ax_matmul_grid_blocks`).  ``tile``/``slots``/``splits``
+    override :func:`plan`; ``_route`` forces a route (tests only)."""
     return _launch("ax_matmul_grid", a, b, mult, cfg_grid, (), bm, bn, bk, grid_order,
-                   tile_hist, _route)
+                   tile_hist, _route, dict(tile=tile, slots=slots, splits=splits))
 
 
 def _check(a, b, bm: int, bn: int, bk: int, grid_order: str) -> None:
@@ -338,32 +374,39 @@ def _check(a, b, bm: int, bn: int, bk: int, grid_order: str) -> None:
         raise ValueError(grid_order)
 
 
-def _require_cpu(*ts) -> None:
-    if all(t.device.type == "cpu" for t in ts):
-        return
-    raise ValueError(f"ax_matmul runs on cuda or cpu tensors: "
-                     f"{', '.join(str(t.device) for t in ts)}")
+def _require_cpu(a, b, mult: AxMult, route: Optional[str], knobs: dict) -> None:
+    """CPU tensors run the plain version, which has no launch shape: given
+    knobs are checked as a launch would check them, then ignored."""
+    if not all(t.device.type == "cpu" for t in (a, b)):
+        raise ValueError(f"ax_matmul runs on cuda or cpu tensors: {a.device}, {b.device}")
+    if any(v is not None for v in knobs.values()):
+        plan(route or route_of(mult, a.dtype), a.shape[0], b.shape[1], a.shape[1], **knobs)
 
 
 def ax_matmul_blocks(a, b, mult: AxMult, swap: Optional[SwapConfig] = None, *,
                      bm: int, bn: int, bk: int, grid_order: str = "mn",
-                     tile_hist: bool = False, _route: Optional[str] = None):
+                     tile_hist: bool = False, tile: Optional[int] = None,
+                     slots: Optional[int] = None, splits: Optional[int] = None,
+                     _route: Optional[str] = None):
     """int32 (M, N) ``sum_k mult(swap(a[m, k], b[k, n]))`` over int8 or uint8
     operands with (bm, bn) output tiles and K steps of ``bk``; with
     ``tile_hist`` also the (ceil(M/bm), ceil(N/bn), 2, bits+1) int32 tile
     histogram.  K must be a multiple of ``bk`` (callers zero-pad K); ragged
-    M and N edges are masked."""
+    M and N edges are masked.  ``tile``/``slots``/``splits`` override
+    :func:`plan`'s launch shape (the bits stay the same)."""
     _check(a, b, bm, bn, bk, grid_order)
+    knobs = dict(tile=tile, slots=slots, splits=splits)
     if a.device.type == "cuda":
-        return ax_matmul_cuda(a, b, mult, swap, bm=bm, bn=bn, bk=bk,
-                              grid_order=grid_order, tile_hist=tile_hist, _route=_route)
-    _require_cpu(a, b)
+        return ax_matmul_cuda(a, b, mult, swap, bm=bm, bn=bn, bk=bk, grid_order=grid_order,
+                              tile_hist=tile_hist, _route=_route, **knobs)
+    _require_cpu(a, b, mult, _route, knobs)
     return ax_matmul_plain(a, b, mult, swap, bm=bm, bn=bn, tile_hist=tile_hist)
 
 
 def ax_matmul_grid_blocks(a, b, mult: AxMult, cfg_grid, *, bm: int, bn: int,
                           bk: int, grid_order: str = "mn", tile_hist: bool = False,
-                          _route: Optional[str] = None):
+                          tile: Optional[int] = None, slots: Optional[int] = None,
+                          splits: Optional[int] = None, _route: Optional[str] = None):
     """:func:`ax_matmul_blocks` with a swap triple per output tile: output
     tile (ti, tj) applies the ``(op_is_a, bit, value)`` triple
     ``cfg_grid[ti, tj]`` (value 2 = NoSwap).  ``cfg_grid`` is a contiguous
@@ -379,10 +422,11 @@ def ax_matmul_grid_blocks(a, b, mult: AxMult, cfg_grid, *, bm: int, bn: int,
         raise ValueError(f"cfg_grid on {cfg_grid.device}, operands on {a.device}")
     if not cfg_grid.is_contiguous():
         raise ValueError("cfg_grid must be contiguous")
+    knobs = dict(tile=tile, slots=slots, splits=splits)
     if a.device.type == "cuda":
         return ax_matmul_grid_cuda(a, b, mult, cfg_grid, bm=bm, bn=bn, bk=bk,
                                    grid_order=grid_order, tile_hist=tile_hist,
-                                   _route=_route)
-    _require_cpu(a, b)
+                                   _route=_route, **knobs)
+    _require_cpu(a, b, mult, _route, knobs)
     return ax_matmul_grid_plain(a, b, mult, cfg_grid, bm=bm, bn=bn,
                                 tile_hist=tile_hist)

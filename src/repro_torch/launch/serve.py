@@ -41,9 +41,15 @@ frame embeddings ``(batch, prompt_len, d_model)`` in bf16 and 8 seeded
 decoder tokens.  Whisper serves statically only: ``--adaptive`` and
 ``--fleet`` exit, as far as the JAX package cannot do them either (its
 adaptive decode fails on whisper, its batcher has no frames).
-``--autotune`` and ``--schedule-store`` exit: the port picks the
-CUDA block and the K split from the shapes (``kernels/ax_matmul.py::plan``),
-and the schedule autotuner is its own ROADMAP queue 1 item.
+
+``--autotune`` runs a quick timed sweep of the kernel schedule
+(``kernels/autotune.py``) over the decode projections this config
+dispatches, at ``--batch`` rows: (batch, d_model, d_model), (batch,
+d_model, d_ff) and (batch, d_ff, d_model) for the config's backend.  It
+installs the winners before the first serve and, with
+``--schedule-store DIR``, publishes them to a ``ScheduleStore`` for other
+replicas.  The sweep launches the kernels already built (a schedule is
+run-time ints), and a CUDA graph keeps the launch shapes of its capture.
 """
 from __future__ import annotations
 
@@ -158,6 +164,32 @@ def _observability(args):
                 print(f"[obs] holding /metrics open {args.metrics_hold}s")
                 time.sleep(args.metrics_hold)
             server.close()
+
+
+def _run_autotune(args, cfg, device):
+    """``--autotune``: tune the decode projections' signatures, install the
+    table process-wide before the first serve, and publish it when asked
+    (module note)."""
+    from repro_torch.kernels import install_table
+    from repro_torch.kernels.autotune import ScheduleStore, tune_table
+
+    ax = cfg.ax if cfg.ax is not None else AxPolicy(backend="mxu")
+    rows = max(args.batch, 1)
+    shapes = {(rows, cfg.d_model, cfg.d_model)}
+    if cfg.d_ff:
+        shapes.add((rows, cfg.d_model, cfg.d_ff))
+        shapes.add((rows, cfg.d_ff, cfg.d_model))
+    table, reports = tune_table(sorted(shapes), ax.mult_name, backends=(ax.backend,),
+                                quick=True, device=device)
+    install_table(table)
+    for rep in reports:
+        print(f"[autotune] {rep['sig']}: {rep['winner']} "
+              f"best={rep['best_us']:.0f}us default={rep['default_us']:.0f}us")
+    if args.schedule_store:
+        v = ScheduleStore(args.schedule_store).publish(table)
+        print(f"[autotune] published schedule table v{v} "
+              f"({len(table)} entries) to {args.schedule_store}")
+    return table, reports
 
 
 def _run_fleet(args, cfg, device):
@@ -360,9 +392,12 @@ def _parser() -> argparse.ArgumentParser:
                     default=os.path.join(tempfile.gettempdir(), "repro_torch_policy_store"),
                     help="--fleet PolicyStore root directory")
     ap.add_argument("--autotune", action="store_true",
-                    help="not in the port (module note)")
+                    help="warm-up: a quick timed kernel-schedule sweep over this config's "
+                         "decode shapes, installed before serving (kernels.autotune)")
     ap.add_argument("--schedule-store", default=None, metavar="DIR",
-                    help="not in the port (module note)")
+                    help="with --autotune: also publish the tuned table to this "
+                         "ScheduleStore directory (replicas adopt it with a "
+                         "ScheduleReader)")
     ap.add_argument("--chaos-plan", default=None, metavar="PATH",
                     help="--fleet: install a fleet.chaos FaultPlan JSON")
     ap.add_argument("--metrics-port", type=int, default=None, metavar="P",
@@ -397,10 +432,6 @@ def main(argv=None):
         raise SystemExit(f"--arch {args.arch}: the encoder-decoder serves statically only; "
                          f"--adaptive and --fleet exit, as the JAX package cannot serve it "
                          f"so either (ROADMAP queue 3)")
-    if args.autotune or args.schedule_store:
-        raise SystemExit("--autotune/--schedule-store: the port picks the CUDA block and "
-                         "the K split from the shapes (kernels/ax_matmul.py::plan); the "
-                         "schedule autotuner and its store are a later ROADMAP queue 1 item")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is visible (pass --device cpu)")
@@ -409,6 +440,8 @@ def main(argv=None):
         cfg = reduced(cfg)
     if args.ax or args.adaptive or args.fleet:
         cfg = dataclasses.replace(cfg, ax=AxPolicy(backend="mxu"))
+    if args.autotune:
+        _run_autotune(args, cfg, device)
     with _observability(args):
         if args.fleet:
             return _run_fleet(args, cfg, device)

@@ -44,6 +44,7 @@ straight-through backward needs the cast of the live weight.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import weakref
 from typing import Dict, Optional
 
@@ -59,7 +60,7 @@ from repro_torch.core.tiling import (largest_divisor_leq, rowtile_count,
 from repro_torch.kernels.ax_matmul import route_of
 from repro_torch.kernels.ops import ax_matmul, ax_matmul_grid
 from repro_torch.kernels.ref import ax_matmul_ref, ax_matmul_tiles_ref
-from repro_torch.kernels.schedule import KernelSchedule
+from repro_torch.kernels.schedule import MAX_BLOCK, KernelSchedule, resolve_for
 
 __all__ = ["ax_dense", "ax_dense_dyn", "quantize_rows", "separable_transforms",
            "ax_matmul_int", "ax_matmul_int_dyn", "ax_matmul_int_dyn_hist",
@@ -99,6 +100,32 @@ def _pad_to_multiple(v: torch.Tensor, mult_: int, axis: int) -> torch.Tensor:
     widths = [0, 0] * v.dim()
     widths[2 * (v.dim() - 1 - (axis % v.dim())) + 1] = pad
     return F.pad(v, widths)
+
+
+def _resolve(a_i8, b_i8, backend: str, mult_name: str, op: str,
+             schedule: Optional[KernelSchedule], caps: bool = True) -> KernelSchedule:
+    """The dispatch's schedule from the logical shape before padding
+    (``kernels.schedule.resolve_for``: explicit > installed table >
+    defaults), under the JAX package's signature ops.
+
+    An explicit schedule is taken as it is.  A table entry brings its launch
+    knobs and grid order everywhere, but its caps only where ``caps`` (the
+    static call, which has no ``tile_hist``): elsewhere the caps stay the
+    defaults, so a table never changes the grid the controller wrote, the
+    ``tile_hist`` layout or the telemetry.  Caps other than the defaults
+    are lowered to divisors of the logical dims, so an entry never pads (a
+    cached weight is not copied each step)."""
+    sched = resolve_for(a_i8.shape, b_i8.shape, backend, mult_name, op, override=schedule)
+    if schedule is not None:
+        return sched
+    if not caps:
+        return dataclasses.replace(sched, bm=MAX_BLOCK, bn=MAX_BLOCK, bk=MAX_BLOCK)
+    if (sched.bm, sched.bn, sched.bk) == (MAX_BLOCK,) * 3:
+        return sched
+    m0 = a_i8.numel() // max(1, a_i8.shape[-1])
+    return dataclasses.replace(sched, bm=largest_divisor_leq(m0, sched.bm),
+                               bn=largest_divisor_leq(b_i8.shape[-1], sched.bn),
+                               bk=largest_divisor_leq(a_i8.shape[-1], sched.bk))
 
 
 def _pad_for_kernel(a_i8, b_i8, sched: KernelSchedule):
@@ -244,29 +271,33 @@ def _mxu_row_grid(dyn):
     return rows[:, None, :].contiguous()
 
 
-def _kernel_static(a_i8, b_i8, mult, swap, schedule):
-    sched = schedule or KernelSchedule()
+def _kernel_static(a_i8, b_i8, mult, swap, sched: KernelSchedule):
     a2d, bp, lead, m0, n0, (bm, bn, bk) = _pad_for_kernel(a_i8, b_i8, sched)
     out = ax_matmul(a2d, bp, mult, swap,
-                    schedule=KernelSchedule(bm, bn, bk, sched.grid_order))
+                    schedule=dataclasses.replace(sched, bm=bm, bn=bn, bk=bk))
     return out[:m0, :n0].reshape(*lead, n0)
 
 
 def ax_matmul_int(a_i8, b_i8, policy: AxPolicy,
                   schedule: Optional[KernelSchedule] = None) -> torch.Tensor:
-    """Approximate int matmul (..., K) @ (K, N) -> (..., N) int32."""
+    """Approximate int matmul (..., K) @ (K, N) -> (..., N) int32.  The
+    schedule resolves as ``_resolve`` says, under op "matmul" (``kernel``)
+    or "int_static" (``mxu``)."""
     mult = M.get(policy.mult_name)
     swap = policy.swap
     if policy.backend == "kernel":
-        return _kernel_static(a_i8, b_i8, mult, swap, schedule)
+        return _kernel_static(a_i8, b_i8, mult, swap,
+                              _resolve(a_i8, b_i8, "kernel", policy.mult_name, "matmul",
+                                       schedule))
     if policy.backend == "emul":
         lead = a_i8.shape[:-1]
         a2d = a_i8.reshape(-1, a_i8.shape[-1])
         return ax_matmul_ref(a2d, b_i8, mult, swap).reshape(*lead, b_i8.shape[-1])
     if policy.backend == "mxu":
+        sched = _resolve(a_i8, b_i8, "mxu", policy.mult_name, "int_static", schedule)
         f, g = _mxu_transforms(policy.mult_name, a_i8.dtype)
         if a_i8.device.type == "cuda":          # route T: the same limbs
-            return _kernel_static(a_i8, b_i8, mult, swap, schedule)
+            return _kernel_static(a_i8, b_i8, mult, swap, sched)
         ai, bi = a_i8.to(torch.int32), b_i8.to(torch.int32)
         if swap is None:
             return _int_mm(_i8(f(ai)), _i8(g(bi)))
@@ -338,7 +369,7 @@ def _kernel_grid_tiled(a_i8, b_i8, mult, dyn, sched: KernelSchedule,
     ci = torch.clamp((torch.arange(gnk, device=dev) * bn) // cols_per, max=g_n - 1)
     grid = dyn.index_select(0, ri).index_select(1, ci).contiguous()
     res = ax_matmul_grid(a2d, bp, mult, grid, tile_hist=tile_hist,
-                         schedule=KernelSchedule(bm, bn, bk, sched.grid_order))
+                         schedule=dataclasses.replace(sched, bm=bm, bn=bn, bk=bk))
     if not tile_hist:
         return res[:m0, :n0].reshape(*lead, n0)
     out, hist = res
@@ -364,7 +395,9 @@ def ax_matmul_int_dyn(a_i8, b_i8, policy: AxPolicy, dyn,
     or the logical grid gathered onto tile-aligned blocks); ``emul`` is the
     plain reference for both.  ``mxu`` takes a triple or a row-tile grid
     (gn must be 1): on the CPU the stacked limbs (2K deep for a triple, 4K
-    for a grid), on the card route T of the grid kernel."""
+    for a grid), on the card route T of the grid kernel.  The schedule
+    resolves under op "matmul_grid" (``kernel``) or "int_dyn" (``mxu``),
+    with the default caps (``_resolve``)."""
     mult = M.get(policy.mult_name)
     dyn = _as_dyn(dyn, a_i8.device)
     tiled = dyn.dim() == 3
@@ -375,9 +408,11 @@ def ax_matmul_int_dyn(a_i8, b_i8, policy: AxPolicy, dyn,
                              f"{tuple(dyn.shape)}); use backend='kernel' for column tiles")
         if a_i8.device.type == "cuda":
             return _kernel_grid(a_i8, b_i8, mult, _mxu_row_grid(dyn) if tiled else dyn,
-                                schedule)
+                                _resolve(a_i8, b_i8, "mxu", policy.mult_name, "int_dyn",
+                                         schedule, caps=False))
         ai, bi = a_i8.to(torch.int32), b_i8.to(torch.int32)
         if not tiled:
+            _resolve(a_i8, b_i8, "mxu", policy.mult_name, "int_dyn", schedule, caps=False)
             return _mxu_dyn_scalar(ai, bi, f, g, dyn)
         lead = a_i8.shape[:-1]
         a2 = ai.reshape(-1, ai.shape[-1])
@@ -387,7 +422,9 @@ def ax_matmul_int_dyn(a_i8, b_i8, policy: AxPolicy, dyn,
                                               _bside_representative(dyn[:, 0, :])))
         return out.reshape(*lead, b_i8.shape[-1])
     if policy.backend == "kernel":
-        return _kernel_grid(a_i8, b_i8, mult, dyn, schedule)
+        return _kernel_grid(a_i8, b_i8, mult, dyn,
+                            _resolve(a_i8, b_i8, "kernel", policy.mult_name, "matmul_grid",
+                                     schedule, caps=False))
     if policy.backend == "emul":
         lead = a_i8.shape[:-1]
         a2d = a_i8.reshape(-1, a_i8.shape[-1])
@@ -404,16 +441,15 @@ def ax_matmul_int_dyn(a_i8, b_i8, policy: AxPolicy, dyn,
     raise ValueError(f"unknown backend {policy.backend!r}")
 
 
-def _kernel_grid(a_i8, b_i8, mult, dyn, schedule):
+def _kernel_grid(a_i8, b_i8, mult, dyn, sched: KernelSchedule):
     """The grid kernel for a (3,) triple (broadcast to every block) or a
     (gm, gn, 3) grid (gathered onto tile-aligned blocks)."""
-    sched = schedule or KernelSchedule()
     if dyn.dim() == 3:
         return _kernel_grid_tiled(a_i8, b_i8, mult, dyn, sched)
     a2d, bp, lead, m0, n0, (bm, bn, bk) = _pad_for_kernel(a_i8, b_i8, sched)
     grid = dyn.expand(a2d.shape[0] // bm, bp.shape[1] // bn, 3).contiguous()
     out = ax_matmul_grid(a2d, bp, mult, grid,
-                         schedule=KernelSchedule(bm, bn, bk, sched.grid_order))
+                         schedule=dataclasses.replace(sched, bm=bm, bn=bn, bk=bk))
     return out[:m0, :n0].reshape(*lead, n0)
 
 
@@ -440,8 +476,10 @@ def ax_matmul_int_dyn_hist(a_i8, b_i8, policy: AxPolicy, dyn,
     if policy.backend != "kernel" or dyn.dim() != 3:
         raise ValueError(f"the kernel tile histogram needs backend='kernel' and a "
                          f"(gm, gn, 3) grid: {policy.backend!r}, {tuple(dyn.shape)}")
-    return _kernel_grid_tiled(a_i8, b_i8, M.get(policy.mult_name), dyn,
-                              schedule or KernelSchedule(), tile_hist=True)
+    sched = _resolve(a_i8, b_i8, "kernel", policy.mult_name, "matmul_grid", schedule,
+                     caps=False)
+    return _kernel_grid_tiled(a_i8, b_i8, M.get(policy.mult_name), dyn, sched,
+                              tile_hist=True)
 
 
 # ---------------------------------------------------------------------------

@@ -265,7 +265,35 @@ def test_crash_supervision_resumes_drain(model, token):
         assert len(queued) < N_REQ
 
 
+def _twin_within_resolution(s, bat, k):
+    """The histogram twin ``s[k + "_bucketed"]`` lies in the bucket of the
+    order statistic that the histogram reads, the ceil(q * n)-th smallest
+    sample (numpy's ``inverted_cdf``), so it is within ``_resolution`` of
+    it; and within ``_resolution`` of the interpolated ``s[k]`` too wherever
+    the two samples that ``s[k]`` interpolates share that bucket.  Where
+    they do not (a gap in wall-clock latencies, as waves land together
+    under load), ``s[k]`` lies outside the bucket and no bound holds."""
+    fam, q = k.split("_p")
+    samples = np.sort([r[fam] for r in bat.request_log if r[fam] is not None])
+    q = int(q) / 100.0
+    assert s[k] == float(np.percentile(samples, 100 * q))
+    res = s[f"{k}_resolution"]
+    if res == float("inf"):
+        return
+    edges = np.asarray(obs.TTFT_BUCKETS if fam == "ttft" else obs.E2E_BUCKETS)
+    read = float(np.percentile(samples, 100 * q, method="inverted_cdf"))
+    assert abs(s[f"{k}_bucketed"] - read) <= res
+    pos = (len(samples) - 1) * q
+    lo, hi = samples[int(np.floor(pos))], samples[int(np.ceil(pos))]
+    if np.searchsorted(edges, lo, side="left") == np.searchsorted(edges, hi, side="left"):
+        assert abs(s[f"{k}_bucketed"] - s[k]) <= res
+
+
 def test_arrivals_replay_direct_drain_and_latency_summary(model, port_drains):
+    """Arrivals at 200 req/s on the wall clock give the direct drain's
+    tokens in both modes (the CPU's prefill logits are bit-equal at every
+    bucket, so wave composition does not move a token) and a latency
+    summary whose histogram twins keep their stated resolution."""
     _, tc, _, tp = model
     trace = _trace(tc.vocab)
     for token in (False, True):
@@ -282,8 +310,7 @@ def test_arrivals_replay_direct_drain_and_latency_summary(model, port_drains):
         assert s["requests"] == N_REQ and "queue_delay_p99" in s
         for k in ("e2e_p50", "e2e_p99", "ttft_p50", "ttft_p99"):
             assert np.isfinite(s[k]) and f"{k}_bucketed" in s
-            if s[f"{k}_resolution"] != float("inf"):
-                assert abs(s[f"{k}_bucketed"] - s[k]) <= s[f"{k}_resolution"]
+            _twin_within_resolution(s, bat, k)
         assert "batcher[" + ("token" if token else "wave") + "]" in bat.describe()
 
 

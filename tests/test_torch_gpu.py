@@ -876,3 +876,78 @@ def test_one_train_step_on_the_card(cuda):
     generate(gstate["params"], prompt, cfg, ServeConfig(max_new_tokens=2, cuda_graphs=False))
     generate(new["params"], prompt, cfg, ServeConfig(max_new_tokens=2, cuda_graphs=False))
     assert WEIGHT_CACHE["misses"] - misses == 2 * n_ax
+
+
+# ---------------------------------------------------------------------------
+# the kernel-schedule autotuner on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("M", [4, 128])
+@pytest.mark.parametrize("name", ["mul8s_trunc0_4", "mul8s_drum3_4"])
+def test_every_autotune_candidate_equals_plain_and_builds_nothing(cuda, M, name):
+    """Each candidate of the full sweep, through the production dispatch of
+    every op its route takes, gives the plain version's bits, and its
+    ``tile_hist`` the plain histogram of its tiles; nothing is built."""
+    from repro_torch.kernels import _build, autotune as TA
+
+    K, N = 1280, 384
+    a, b = TA.operands(M, K, N, seed=5, device=cuda)
+    m = TC.get(name)
+    want = ax_matmul_ref(a, b, m, TC.SwapConfig("A", 3, 0))
+    route = AXM.route_of(m, torch.int8)
+    ops_ = ("matmul", "matmul_grid") + (("int_static", "int_dyn") if route == "T" else ())
+    ops.ax_matmul(a, b, m, None)                     # built and loaded before counting
+    runs = _build.NVCC_RUNS["count"]
+    n = 0
+    for op in ops_:
+        backend = "kernel" if op.startswith("matmul") else "mxu"
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        for s in TA.candidate_schedules(backend, M, K, N, op=op, route=route, sms=sms):
+            got = TA.dispatch_fn(op, a, b, name, s)()
+            out, hist = ops.ax_matmul(a, b, m, None, schedule=s, tile_hist=True)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (op, s.short())
+            bm, bn = min(s.bm, M), min(s.bn, N)
+            assert torch.equal(hist, tile_hist_blocks(a, b, m.bits, bm, bn)), (op, s.short())
+            n += 1
+    assert n >= 10 and _build.NVCC_RUNS["count"] == runs
+
+
+def test_autotune_install_keeps_captured_graphs_and_builds_nothing(cuda, tmp_path):
+    """A graph captured before a table is installed replays its own launches
+    (the same tokens, no capture); the table, tuned on the card as CUDA
+    graphs and adopted through a store, resolves the eager prefill's
+    dispatches (hits) and builds nothing."""
+    from repro_torch import obs
+    from repro_torch.kernels import _build, autotune as TA, clear_table, installed_table
+    from repro_torch.serve import graph as G
+
+    cfg = _serve_cfg("mxu")
+    params = init_params(cfg, seed=7, device=cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 8), generator=torch.Generator().manual_seed(9))
+    before = generate(params, {"tokens": toks}, cfg, ServeConfig(max_new_tokens=4))
+    runs = _build.NVCC_RUNS["count"]
+    try:
+        shapes = sorted({(r, cfg.d_model, cfg.d_ff) for r in (2, 16)} |
+                        {(r, cfg.d_ff, cfg.d_model) for r in (2, 16)})
+        table, reports = TA.tune_table(shapes, cfg.ax.mult_name, backends=("mxu",),
+                                       device=cuda)
+        assert all("CUDA graph" in r["timer"] for r in reports)
+        assert all(r["best_us"] <= r["default_us"] for r in reports)
+        assert table.meta["device"] == torch.cuda.get_device_name(cuda)
+        store = TA.ScheduleStore(str(tmp_path / "sched"))
+        store.publish(table)
+        reader = TA.ScheduleReader(store)
+        assert reader.version == 1 and installed_table() is reader.table
+        caps = sum(G.CAPTURES.values())
+        hits = obs.default_registry().get("repro_sched_lookups_total").value(result="hit")
+        after = generate(params, {"tokens": toks}, cfg, ServeConfig(max_new_tokens=4))
+        torch.cuda.synchronize()
+        assert torch.equal(after, before)
+        assert sum(G.CAPTURES.values()) == caps
+        assert obs.default_registry().get("repro_sched_lookups_total").value(
+            result="hit") > hits
+        assert _build.NVCC_RUNS["count"] == runs
+    finally:
+        clear_table()
+        G.clear_programs()

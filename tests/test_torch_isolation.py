@@ -4,7 +4,10 @@ module, serving a tiny model static and adaptive, tiny models of the
 local/global, MoE, RG-LRU, SSD and M-RoPE families and of whisper, a canaried
 writer serve over a policy store with an SLO engine, a trace recorder and a
 replica, a continuous-batcher drain, the telemetry aggregation, the serve
-CLI, a train step with a checkpoint and the train CLI load neither), and
+CLI, a train step with a checkpoint, the train CLI, the schedule autotuner's
+CLI with a store, a reader and ``resolve``, and the serve CLI's
+``--autotune`` load neither; the examples are held so in
+``tests/test_torch_examples.py``), and
 ``chip_smoke.py`` refuses to run without a CUDA device or outside a
 checkout."""
 import ast
@@ -109,6 +112,15 @@ with tempfile.TemporaryDirectory() as root:
     cli, _ = main(["--device", "cpu", "--smoke", "--fleet", "1", "--token-granular",
                    "--requests", "2", "--prompt-len", "8", "--new-tokens", "3",
                    "--policy-store", root + "/cli"])
+from repro_torch.kernels import autotune as TA, clear_table, resolve
+with tempfile.TemporaryDirectory() as root:
+    TA.main(["--device", "cpu", "--quick", "--shapes", "4x64x48", "--store", root])
+    sched_reader = TA.ScheduleReader(TA.ScheduleStore(root))
+    sched = resolve(4, 64, 48, "mxu", "mul8s_trunc0_4", "int_dyn")
+    tuned, _ = main(["--device", "cpu", "--smoke", "--ax", "--autotune", "--batch", "1",
+                     "--prompt-len", "4", "--new-tokens", "2",
+                     "--schedule-store", root + "/serve"])
+    clear_table()
 bad = sorted(m for m in sys.modules
              if m.startswith("jax") or m == "repro" or m.startswith("repro."))
 print(json.dumps({{"modules": len(names), "bad": bad, "shape": list(toks.shape),
@@ -116,7 +128,8 @@ print(json.dumps({{"modules": len(names), "bad": bad, "shape": list(toks.shape),
                   "retunes": len(writer.retunes), "audit": kinds,
                   "replica": replica.version, "metrics": "repro_canary_total" in text,
                   "served": served, "cli": cli.stats["requests"],
-                  "families": families, "trained": trained}}))
+                  "families": families, "trained": trained,
+                  "autotune": [sched_reader.version, sched.backend, list(tuned.shape)]}}))
 """
 
 
@@ -141,6 +154,7 @@ def test_importing_and_running_the_port_loads_no_jax_and_no_repro():
                                                    "recurrentgemma-2b", "mamba2-370m",
                                                    "qwen2-vl-72b", "whisper-base")}
     assert res["trained"] == [1, 1]
+    assert res["autotune"] == [1, "mxu", [1, 2]]
 
 
 def _imported_roots(path: Path):
@@ -154,7 +168,8 @@ def _imported_roots(path: Path):
 
 
 def test_no_import_statement_names_jax_or_repro():
-    files = sorted((SRC / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((SRC / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
+        sorted((ROOT / "examples").glob("torch_*.py"))
     assert len(files) >= 15
     for f in files:
         roots = set(_imported_roots(f))
@@ -184,7 +199,9 @@ def _entry_points():
     import repro_torch.convert as convert
     import repro_torch.core.multipliers as mults
     import repro_torch.core.tuning as tuning
+    import repro_torch.kernels.autotune as autotune
     import repro_torch.kernels.ops as ops
+    import repro_torch.launch.serve as launch_serve
     import repro_torch.launch.train as launch_train
     import repro_torch.models as models
     import repro_torch.models.whisper as whisper
@@ -200,6 +217,10 @@ def _entry_points():
             "train_step.fresh_train_state": train_step.fresh_train_state,
             "checkpoint.restore": checkpoint.restore,
             "launch.train": launch_train._parser(),
+            "launch.serve": launch_serve._parser(),
+            "kernels.autotune": autotune._parser(),
+            "autotune.tune_table": autotune.tune_table,
+            "autotune.tune_signature": autotune.tune_signature,
             "params_from_jax": convert.params_from_jax,
             "cache_from_jax": convert.cache_from_jax,
             "train_state_from_jax": convert.train_state_from_jax,

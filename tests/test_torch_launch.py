@@ -62,8 +62,8 @@ def test_fleet_wave_arrivals_survive_an_injected_crash(capsys, tmp_path):
 
 @pytest.mark.parametrize("argv,match", [
     (["--fleet", "2"], "queue 1, item 8"),
-    (["--autotune"], "autotuner"),
-    (["--schedule-store", "x"], "autotuner"),
+    (["--arch", "whisper-base", "--adaptive"], "serves statically only"),
+    (["--arch", "whisper-base", "--fleet", "1"], "serves statically only"),
 ])
 def test_flags_that_exit_with_a_message(argv, match):
     with pytest.raises(SystemExit, match=match):
