@@ -79,6 +79,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
             ``SimulatedFailure`` at step 6 of 12 within 1e-5 relative of
             the uninterrupted run (bit-equality printed); ms/step and
             tokens/s; every launched shape held to the plain version.
+   mesh   — the fleet mesh on the serve's model (qwen2-72b x2, ``mxu``,
+            adaptive with a detector that never fires; B = 8 x 32, 8
+            tokens; 12 requests over 8 slots): (a) a one-rank ``nccl``
+            world in this process: ``generate(mesh=)`` and a mesh token
+            drain equal the same serves without a mesh bit for bit
+            (tokens, the 7 fleet records, executed launches 8 + 56, no
+            capture); (b) two ``gloo`` ranks spawned on the card while this
+            process holds no model: which ``gloo`` collectives take card
+            tensors (printed), the mesh tokens == each rank's solo serve of
+            its rows and the single-process unrolled adaptive loop over
+            them, bit for bit; against that loop over all 8 rows in one
+            process (an 8-row prefill) equal or diverging below a top-2
+            margin of ``TOL_BATCH``; every fleet record ==
+            ``combine_records`` of the solo records, the telemetry sums and
+            max == the solo runs', executed launches per rank == the solo
+            half batch's, a policy update captures nothing and builds
+            nothing, the 2-rank drain == the one-rank drain per request or
+            below the margin bound; the walls and the aggregation's share
+            of the decode wall are printed;
 5. serve  — qwen2-72b at its published widths, depth cut to 2 layers,
             random weights from a seed: the per-forward weight work that
             the weight cache removes, timed against its bytes; B=4 prompts
@@ -3235,6 +3254,375 @@ def train_phase(dev, card: str, clock: float):
     return rows, ax_rows, grid_rows, paths, grid_paths
 
 
+# ---------------------------------------------------------------------------
+# phase 4c: the fleet mesh
+# ---------------------------------------------------------------------------
+
+MESH_B, MESH_RANKS, MESH_SLOTS, MESH_N = 8, 2, 8, 12
+
+
+def _mesh_model(dev):
+    """The serve phase's model: qwen2-72b at its published widths, 2
+    layers, random weights from seed 0, ``mxu`` (route T of
+    ``mul8s_trunc0_4``)."""
+    from repro_torch.configs import qwen2_72b
+    from repro_torch.configs.base import AxPolicy
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(qwen2_72b, n_layers=L, ax=AxPolicy(backend="mxu"))
+    return cfg, init_params(cfg, seed=0, device=dev)
+
+
+def _mesh_inputs(cfg):
+    """B = 8 seeded prompts of S tokens; 12 seeded requests (prompts of 5-32
+    tokens, budgets 1-T) for the drains."""
+    import numpy as np
+    import torch
+
+    prompts = torch.randint(0, cfg.vocab, (MESH_B, S),
+                            generator=torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(19)
+    trace = [(rng.integers(0, cfg.vocab, int(rng.integers(5, 33))).astype(np.int32),
+              int(rng.integers(1, T + 1))) for _ in range(MESH_N)]
+    return prompts, trace
+
+
+def _mesh_ctrl(cfg, dev):
+    """A controller that never re-tunes, its observed records kept in
+    ``ctrl.seen``."""
+    import copy
+
+    from repro_torch.runtime import AdaptiveConfig, AdaptiveController, SwapPolicy
+
+    ctrl = AdaptiveController(SwapPolicy.from_ax_policy(cfg.ax), cfg.ax.targets,
+                              AdaptiveConfig(drift_threshold=1e9), device=dev)
+    ctrl.warmup()
+    ctrl.seen = []
+    observe = ctrl.observe
+
+    def keep(records):
+        ctrl.seen.append(copy.deepcopy(records))
+        return observe(records)
+
+    ctrl.observe = keep
+    return ctrl
+
+
+def _mesh_serve(params, cfg, prompts, ctrl, mesh=None, fused=True):
+    """One adaptive serve of T tokens: (tokens on the host, stats, executed
+    launches, captures)."""
+    from repro_torch.serve import ServeConfig, generate
+
+    out, stats, executed, caps = graph_run(
+        lambda st: generate(params, {"tokens": prompts}, cfg,
+                            ServeConfig(max_new_tokens=T, fused=fused), adaptive=ctrl,
+                            mesh=mesh, stats=st))
+    return out.cpu(), stats, executed, caps
+
+
+def _mesh_drain(params, cfg, trace, ctrl, mesh=None):
+    """A token-mode drain of the requests over MESH_SLOTS slots: ({rid:
+    tokens}, wall)."""
+    import torch
+
+    from repro_torch.fleet import BatcherConfig, ContinuousBatcher, Request
+
+    bat = ContinuousBatcher(params, cfg, BatcherConfig(
+        n_slots=MESH_SLOTS, prompt_buckets=(16, 32), new_token_bucket=T, token_granular=True),
+        adaptive=ctrl, mesh=mesh)
+    for rid, (p, n) in enumerate(trace):
+        bat.submit(Request(rid, p.copy(), n))
+    sync = torch.cuda.synchronize if bat.device.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    done = bat.run()
+    sync()
+    if sorted(c.rid for c in done) != list(range(MESH_N)) or \
+            bat.stats["decode_retraces_post_warmup"] != 0:
+        fail(f"mesh drain: completions {sorted(c.rid for c in done)}, retraces "
+             f"{bat.stats['decode_retraces_post_warmup']}")
+    return {c.rid: [int(t) for t in c.tokens] for c in done}, time.perf_counter() - t0
+
+
+def _records_equal(a, b) -> bool:
+    return set(a) == set(b) and all(
+        set(a[t]) == set(b[t]) and all(a[t][k].dtype == b[t][k].dtype and
+                                       (a[t][k] == b[t][k]).all() for k in b[t])
+        for t in b)
+
+
+def _first_gap(a, b):
+    """The first index where two token lists differ (None when equal)."""
+    for j, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return j
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def _gloo_card_probe(group, dev) -> dict:
+    """Which ``gloo`` collectives take card tensors (each rank runs the same
+    calls; an unsupported one raises before it communicates)."""
+    import torch
+    import torch.distributed as dist
+
+    t = torch.arange(3, dtype=torch.int64, device=dev) + dist.get_rank()
+    calls = {
+        "all_reduce SUM": lambda: dist.all_reduce(t.clone(), group=group),
+        "all_reduce MAX": lambda: dist.all_reduce(t.clone(), op=dist.ReduceOp.MAX,
+                                                  group=group),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(t) for _ in range(
+            dist.get_world_size(group))], t, group=group),
+        "broadcast": lambda: dist.broadcast(t.clone(), src=0, group=group),
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            out[name] = "card tensors taken"
+        except Exception as e:          # recorded: the port stages gloo through the host
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:100]}"
+    return out
+
+
+def mesh_rank(rank, mesh, ref_drain):
+    """One of the two ``gloo`` ranks sharing the card (phase 4c): this
+    rank's solo serve of its half of the batch, the mesh serve of all of
+    it, a policy update, the 2-rank drain; rank 0 also the single-process
+    unrolled loop over the whole batch and the top-2 margins where tokens
+    differ.  Everything numpy or plain Python."""
+    import torch
+
+    from repro_torch.core import SwapConfig
+    from repro_torch.fleet import collect
+    from repro_torch.kernels import _build
+    from repro_torch.serve import graph as G
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    nvcc0 = _build.NVCC_RUNS["count"]
+    t0 = time.perf_counter()
+    cfg, params = _mesh_model(torch.device(mesh.device_type, torch.cuda.current_device())
+                              if mesh.device_type == "cuda" else torch.device("cpu"))
+    dev = params["embed"]["w"].device
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    probe = _gloo_card_probe(mesh.get_group("data"), dev)
+    prompts, trace = _mesh_inputs(cfg)
+    half = MESH_B // MESH_RANKS
+    rows = slice(rank * half, (rank + 1) * half)
+    solo_c = _mesh_ctrl(cfg, dev)
+    solo = _mesh_serve(params, cfg, prompts[rows], solo_c)
+    solo_again = _mesh_serve(params, cfg, prompts[rows], _mesh_ctrl(cfg, dev))
+    # the collectives' share of the observed steps: host wall of aggregate_records
+    agg = {"s": 0.0, "calls": 0}
+    aggregate = collect.aggregate_records
+
+    def timed(records, group=None):
+        t = time.perf_counter()
+        out = aggregate(records, group)
+        agg["s"] += time.perf_counter() - t
+        agg["calls"] += 1
+        return out
+
+    collect.aggregate_records = timed
+    mesh_c = _mesh_ctrl(cfg, dev)
+    meshed = _mesh_serve(params, cfg, prompts, mesh_c, mesh=mesh)
+    collect.aggregate_records = aggregate
+    caps0, nvcc1 = sum(G.CAPTURES.values()), _build.NVCC_RUNS["count"]
+    mesh_c.policy.set_config("mlp", SwapConfig("B", 5, 1))
+    updated = _mesh_serve(params, cfg, prompts, mesh_c, mesh=mesh)
+    update = dict(captures=sum(G.CAPTURES.values()) - caps0,
+                  nvcc=_build.NVCC_RUNS["count"] - nvcc1, path=updated[1]["path"],
+                  changed=not torch.equal(updated[0], meshed[0]))
+    drain, drain_wall = _mesh_drain(params, cfg, trace, _mesh_ctrl(cfg, dev), mesh=mesh)
+    # the single-process unrolled adaptive loop (stepwise, eager) over this
+    # rank's rows: the computation the rank's block of the mesh serve makes
+    unrolled = _mesh_serve(params, cfg, prompts[rows], _mesh_ctrl(cfg, dev), fused=False)
+    res = dict(probe=probe, unrolled_equal=bool(torch.equal(unrolled[0], meshed[0][rows])),
+               unrolled_path=unrolled[1]["path"], init_s=init_s, nvcc=_build.NVCC_RUNS["count"] - nvcc0,
+               solo=solo[0].numpy(), solo_records=solo_c.seen, solo_exec=solo[2],
+               solo_stats=solo_again[1], solo_again=torch.equal(solo[0], solo_again[0]),
+               tokens=meshed[0].numpy(), records=mesh_c.seen[:T - 1], exec=meshed[2],
+               caps=meshed[3], stats=meshed[1], agg=agg, update=update, drain=drain,
+               drain_wall=drain_wall,
+               telemetry={t: (int(x.stats.n), int(x.stats.sum_abs), int(x.stats.count_neq),
+                              int(x.stats.max_abs))
+                          for t, x in solo_c.telemetry.targets.items()},
+               mesh_telemetry=None)
+    # the fleet telemetry of the first mesh serve alone (before the update)
+    fleet = _mesh_ctrl(cfg, dev)
+    for rec in mesh_c.seen[:T - 1]:
+        fleet.observe(rec)
+    res["mesh_telemetry"] = {t: (int(x.stats.n), int(x.stats.sum_abs), int(x.stats.count_neq),
+                                 int(x.stats.max_abs))
+                             for t, x in fleet.telemetry.targets.items()}
+    if rank == 0:
+        # the same loop over all 8 rows in one process: its prefill runs over
+        # 8 rows where each rank's runs over 4
+        full = _mesh_serve(params, cfg, prompts, _mesh_ctrl(cfg, dev), fused=False)[0]
+        res["unrolled"] = full.numpy()
+        res["margins"] = {}
+        for b in range(MESH_B):
+            j = _first_gap(meshed[0][b].tolist(), full[b].tolist())
+            if j is not None:
+                seq = torch.cat([prompts[b], full[b, :j]]).to(dev)
+                res["margins"][f"serve {b}"] = (j, _margin(params, cfg, seq))
+        for rid, want in ref_drain.items():
+            j = _first_gap(drain[rid], want)
+            if j is not None:
+                seq = torch.tensor(list(trace[rid][0]) + want[:j], device=dev)
+                res["margins"][f"drain {rid}"] = (j, _margin(params, cfg, seq))
+    from repro_torch.serve import graph as G2
+
+    G2.clear_programs()
+    return res
+
+
+def mesh_phase(dev, card: str):
+    """Phase 4c (module note): (a) a one-rank ``nccl`` world in this
+    process, (b) two ``gloo`` ranks spawned on the card while this process
+    holds no model.  Returns the executed launches of its paths and the
+    phase's walls."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_fleet_mesh, spawn
+    from repro_torch.runtime.telemetry import combine_records
+    from repro_torch.serve import graph as G
+
+    # (a) one nccl rank: the mesh path against the same serve without one
+    t_a = time.perf_counter()
+    mesh = make_fleet_mesh(1, device="cuda")
+    if dist.get_backend() != "nccl" or tuple(mesh.shape) != (1,):
+        fail(f"mesh: backend {dist.get_backend()}, shape {tuple(mesh.shape)}")
+    cfg, params = _mesh_model(dev)
+    prompts, trace = _mesh_inputs(cfg)
+    plain_c, mesh_c = _mesh_ctrl(cfg, dev), _mesh_ctrl(cfg, dev)
+    _mesh_serve(params, cfg, prompts, _mesh_ctrl(cfg, dev))   # the weight cache, the graph
+    plain = _mesh_serve(params, cfg, prompts, plain_c)
+    meshed = _mesh_serve(params, cfg, prompts, mesh_c, mesh=mesh)
+    per_fwd = L * 4
+    want_exec = {"ax_matmul": per_fwd, "ax_matmul_grid": per_fwd * (T - 1)}
+    if not torch.equal(plain[0], meshed[0]) or meshed[1]["path"] != "graph" or \
+            plain[2] != want_exec or meshed[2] != want_exec or meshed[3] != 0 or \
+            len(mesh_c.seen) != T - 1 or \
+            not all(_records_equal(a, b) for a, b in zip(mesh_c.seen, plain_c.seen)):
+        fail(f"mesh 1-rank nccl: tokens equal {torch.equal(plain[0], meshed[0])}, path "
+             f"{meshed[1]['path']}, executed {plain[2]} / {meshed[2]} (want {want_exec}), "
+             f"captures {meshed[3]}, records equal "
+             f"{[_records_equal(a, b) for a, b in zip(mesh_c.seen, plain_c.seen)]}")
+    _mesh_drain(params, cfg, trace, _mesh_ctrl(cfg, dev))       # captures the token step
+    ref_drain, wall_plain = _mesh_drain(params, cfg, trace, _mesh_ctrl(cfg, dev))
+    mesh_drain, wall_mesh = _mesh_drain(params, cfg, trace, _mesh_ctrl(cfg, dev), mesh=mesh)
+    if mesh_drain != ref_drain:
+        fail(f"mesh 1-rank nccl drain: {sum(mesh_drain[r] != ref_drain[r] for r in ref_drain)} "
+             f"of {MESH_N} requests differ from the drain without a mesh")
+    dist.destroy_process_group()
+    one = dict(serve_ms=(meshed[1]["prefill_s"] + meshed[1]["decode_s"]) * 1e3,
+               plain_ms=(plain[1]["prefill_s"] + plain[1]["decode_s"]) * 1e3,
+               drain_s=wall_mesh, plain_drain_s=wall_plain)
+    print(f"mesh (a) one nccl rank, qwen2-72b x{L} B={MESH_B} S={S} T={T} (mxu, route T, "
+          f"adaptive, graph): tokens, {T - 1} fleet records and executed launches "
+          f"{meshed[2]} equal the serve without a mesh; serve {one['serve_ms']:.1f} ms "
+          f"(no mesh {one['plain_ms']:.1f}); token drain of {MESH_N} requests over "
+          f"{MESH_SLOTS} slots equal per request, {wall_mesh:.3f} s (no mesh "
+          f"{wall_plain:.3f} s) [{card}]", flush=True)
+    G.clear_programs()
+    del params, plain, meshed
+    torch.cuda.empty_cache()
+    t_b = time.perf_counter()
+    phase_a = t_b - t_a
+
+    # (b) two gloo ranks sharing the card
+    res = spawn(mesh_rank, MESH_RANKS, args=(ref_drain,), device="cuda", backend="gloo",
+                timeout_s=600)
+    phase_b = time.perf_counter() - t_b
+    r0 = res[0]
+    print(f"mesh (b) gloo with card tensors: {r0['probe']}", flush=True)
+    problems = []
+    for rank, r in enumerate(res):
+        if r["nvcc"] != 0:
+            problems.append(f"rank {rank}: {r['nvcc']} nvcc runs")
+        if not r["solo_again"]:
+            problems.append(f"rank {rank}: two solo serves differ")
+        if not r["unrolled_equal"] or r["unrolled_path"] != "eager":
+            problems.append(f"rank {rank}: its rows differ from the unrolled loop over them "
+                            f"(path {r['unrolled_path']})")
+        if r["stats"]["path"] != "graph" or r["solo_stats"]["path"] != "graph":
+            problems.append(f"rank {rank}: paths {r['stats']['path']}/{r['solo_stats']['path']}")
+        if r["exec"] != r["solo_exec"] or r["exec"] != want_exec:
+            problems.append(f"rank {rank}: executed {r['exec']}, solo {r['solo_exec']}, "
+                            f"want {want_exec}")
+        if not np.array_equal(r["tokens"], res[0]["tokens"]):
+            problems.append(f"rank {rank}: tokens differ from rank 0's")
+        u = r["update"]
+        if u["captures"] or u["nvcc"] or u["path"] != "graph":
+            problems.append(f"rank {rank}: policy update {u}")
+    tokens = r0["tokens"]
+    half = MESH_B // MESH_RANKS
+    solo_tok = np.concatenate([r["solo"] for r in res])
+    if not np.array_equal(tokens, solo_tok):
+        problems.append("mesh tokens differ from the ranks' solo serves")
+    for i in range(T - 1):
+        want = combine_records([r["solo_records"][i] for r in res])
+        if not all(_records_equal(r["records"][i], want) for r in res):
+            problems.append(f"step {i}: fleet records differ from combine_records")
+    sums = {}
+    for t in r0["telemetry"]:
+        solo_t = [r["telemetry"][t] for r in res]
+        sums[t] = (sum(s[0] for s in solo_t), sum(s[1] for s in solo_t),
+                   sum(s[2] for s in solo_t), max(s[3] for s in solo_t))
+        if any(r["mesh_telemetry"][t] != sums[t] for r in res):
+            problems.append(f"{t}: fleet telemetry {r0['mesh_telemetry'][t]} != solo "
+                            f"sums {sums[t]}")
+    drain_eq = sum(r0["drain"][rid] == ref_drain[rid] for rid in ref_drain)
+    if any(r["drain"] != r0["drain"] for r in res):
+        problems.append("the ranks' drains differ")
+    serve_eq = int(sum(np.array_equal(tokens[b], r0["unrolled"][b]) for b in range(MESH_B)))
+    bad_margins = {k: v for k, v in r0["margins"].items() if v[1] >= TOL_BATCH}
+    if bad_margins:
+        problems.append(f"divergences at top-2 margins >= {TOL_BATCH}: {bad_margins}")
+    if problems:
+        fail("mesh (b) two gloo ranks: " + "; ".join(problems))
+    stats = r0["stats"]
+    agg = r0["agg"]
+    share = agg["s"] / stats["decode_s"] if stats["decode_s"] else float("nan")
+    two = dict(serve_ms=(stats["prefill_s"] + stats["decode_s"]) * 1e3,
+               solo_ms=(r0["solo_stats"]["prefill_s"] + r0["solo_stats"]["decode_s"]) * 1e3,
+               decode_ms_step=stats["decode_s"] * 1e3 / (T - 1),
+               agg_ms=agg["s"] * 1e3 / max(agg["calls"], 1), agg_share=share,
+               drain_s=r0["drain_wall"], init_s=r0["init_s"])
+    print(f"mesh (b) two gloo ranks on one card, B={MESH_B} ({half} per rank): mesh tokens "
+          f"== the ranks' solo serves and == the single-process unrolled adaptive loop over "
+          f"each rank's rows (bit for bit); the same loop over all {MESH_B} rows in one "
+          f"process (an 8-row prefill) gives {serve_eq} of {MESH_B} rows (the rest diverge "
+          f"at top-2 margins "
+          f"{ {k: round(v[1], 4) for k, v in r0['margins'].items() if k.startswith('serve')} } "
+          f"< {TOL_BATCH}); {T - 1} fleet records == combine_records of the solo records; "
+          f"telemetry (n, sum_abs, count_neq, max_abs) == the solo sums/max {sums}; executed "
+          f"launches per rank {r0['exec']} == the solo half-batch serve's; a policy update: "
+          f"captures 0, nvcc 0; 2-rank drain == 1-rank drain on {drain_eq} of {MESH_N} "
+          f"requests (the rest below the margin bound) [{card}]", flush=True)
+    print(f"mesh walls: (a) serve {one['serve_ms']:.1f} ms, drain {one['drain_s']:.3f} s; "
+          f"(b) per rank: model init {two['init_s']:.1f} s, mesh serve {two['serve_ms']:.1f} ms "
+          f"(solo half batch {two['solo_ms']:.1f} ms), decode {two['decode_ms_step']:.2f} "
+          f"ms/step, aggregate_records {two['agg_ms']:.2f} ms per observed step = "
+          f"{100 * share:.1f}% of the decode wall, drain {two['drain_s']:.3f} s (a capture "
+          f"included); phase (a) "
+          f"{phase_a:.1f} s, (b) {phase_b:.1f} s incl. spawn [{card}]", flush=True)
+    paths = {"mesh 1-rank nccl": want_exec["ax_matmul"],
+             "mesh 2-rank gloo (rank 0)": r0["exec"]["ax_matmul"]}
+    grid_paths = {"mesh 1-rank nccl": want_exec["ax_matmul_grid"],
+                  "mesh 2-rank gloo (rank 0)": r0["exec"]["ax_matmul_grid"]}
+    return paths, grid_paths, dict(one=one, two=two, probe=r0["probe"], serve_equal=serve_eq,
+                                   drain_equal=drain_eq)
+
+
+
 def profile_serve(run, label: str, card: str):
     """One more serve (or tuning run) under torch.profiler: device time by
     kernel and the device's busy share of the wall (``--profile``)."""
@@ -3348,15 +3736,20 @@ def main(argv):
     train_rows, train_shape_rows, train_grid_rows, t_paths, t_grid_paths = \
         train_phase(dev, card, clock)
     phase_done("train")
+    # the mesh phase spawns two ranks that each hold the serve's model
+    m_paths, m_grid_paths, mesh_info = mesh_phase(dev, card)
+    phase_done("mesh")
     profile = "--profile" in argv
     cfg, params, prompts, tokens, paths, stats = serve(dev, card, profile)
     paths.update(w_paths)
     paths.update(t_paths)
+    paths.update(m_paths)
     phase_done("serve")
     autotune_rows = autotune_phase(dev, card, cfg, params, prompts, tokens)
     phase_done("autotune")
     grid_paths = adaptive_serve(cfg, params, prompts, tokens, stats, card, profile)
     grid_paths.update(t_grid_paths)
+    grid_paths.update(m_grid_paths)
     phase_done("adapt")
     paths["per-slot graph"] = slot_serve(cfg, params, card)
     paths["token-granular graph"] = token_serve(cfg, params, card)
@@ -3436,6 +3829,7 @@ def main(argv):
         "launches", "decode_vs_full_rel", "graph_decode_ms_per_step")}
     ax_entry["train"] = train_rows
     ax_entry["autotune"] = autotune_rows
+    ax_entry["mesh"] = mesh_info
     ax_entry["families"] = [{k: r[k] for k in ("name", "layers", "params_g", "ax_per_forward",
                                                "launches")} for r in family_rows]
     ax_entry["reduced_card_vs_cpu"] = {

@@ -125,9 +125,11 @@ class ParallelConfig:
       around each layer of a train forward); ``'dots'`` has no counterpart
       and raises;
     * ``grad_accum`` — microbatches per step, gradients summed in f32;
-    * ``fsdp``, ``seq_shard``, ``ep`` and ``dp_only`` shard over a device
-      mesh, which waits for ROADMAP queue 1, item 8: set, they raise.
-      Their defaults are the one-card values here (the JAX defaults shard);
+    * ``fsdp``, ``seq_shard``, ``ep`` and ``dp_only`` shard the train step
+      over a device mesh, ROADMAP queue 1, item 8b: set, the train step
+      raises.  The serving mesh's rules read them
+      (``launch/sharding.axis_rules``).  Their defaults are the one-card
+      values here (the JAX defaults shard);
     * ``grad_compress`` compresses the all-reduce, which one card does not
       run: anything but ``'none'`` raises (the optimizer's own
       ``AdamWConfig.compress`` is ported);

@@ -8,7 +8,9 @@
               deadlines, load shedding and per-request QoR attribution
   collect   — telemetry aggregation over a ``torch.distributed`` process
               group: sums, the max and the gathered samples of a step's
-              records, equal to the host oracle ``combine_records``
+              records, equal to the host oracle ``combine_records``; the
+              partition specs of the mesh-sharded decode and the helpers
+              that slice a rank's block and gather the global batch
   store     — versioned ``PolicyStore``: single-writer / many-reader policy
               JSON with monotonic versions, an atomic CURRENT pointer, a
               heartbeat fast path, candidates, promotion and rollback, in
@@ -18,13 +20,13 @@
               ``ChaosHarness``) at the store, reader, controller and
               scheduler sites
 
-The mesh-sharded parts (``shard_decode_specs``, ``token_step_specs``,
-``cache_pspecs``, ``batch_axis_names`` and the batcher's ``mesh=``) wait for
-the torch device mesh (ROADMAP queue 1, item 8).
+The batcher takes a fleet mesh (``mesh=``, ``launch/mesh.py``): every rank
+runs it over the same requests and serves its block of the slots.
 """
 from . import chaos
 from .chaos import ChaosHarness, FaultPlan, FaultSpec, InjectedFault
-from .collect import aggregate_records, combine_shards, make_sharded_summarizer
+from .collect import (aggregate_records, batch_axis_names, cache_pspecs, combine_shards,
+                      make_sharded_summarizer, shard_decode_specs, token_step_specs)
 from .scheduler import (
     ArrivalSource,
     BatcherConfig,
@@ -37,6 +39,10 @@ from .store import PolicyReader, PolicyStore
 
 __all__ = [
     "aggregate_records",
+    "batch_axis_names",
+    "cache_pspecs",
+    "shard_decode_specs",
+    "token_step_specs",
     "combine_shards",
     "make_sharded_summarizer",
     "ArrivalSource",

@@ -54,13 +54,30 @@ on its row count, so an admission prefills its request over ``n_slots``
 rows (``prefill_one(rows=)``), the shape of a wave's prefill: a request
 gets the wave's bits wherever the wave prefilled it at its own bucket (a
 request backfilled into a wave of a longer bucket is prefilled at that
-bucket there, where the card may round otherwise).  There is no mesh:
-``mesh=`` and ``par=`` raise (ROADMAP queue 1, item 8).  The engine calls (``generate``, ``prefill_one``, ``splice_slot``,
-``token_step``, ``init_cache``) are module-level names a test may replace.
+bucket there, where the card may round otherwise).  The engine calls
+(``generate``, ``prefill_one``, ``splice_slot``, ``token_step``,
+``init_cache``) are module-level names a test may replace.
+
+**The fleet mesh** (``mesh=``, with ``adaptive``; multi-process SPMD).
+Every rank runs a batcher over the same submits: each holds the whole host
+state (queues, buckets, deadlines, slot states) and only its block of the
+slots' cache rows (``n_slots`` must divide over the ranks).  A wave is one
+``generate(mesh=)``; a token step one ``token_step(mesh=)``, whose tokens
+come back all-gathered, so EOS, retirements and backfill are decided from
+the same values on every rank, and the controller on every rank observes
+the same fleet records.  An admission is prefilled by the rank that owns
+its slot and its first token broadcast.  Decisions read an agreed clock
+(:meth:`ContinuousBatcher.clock`: the ranks' largest reading, one
+all-reduce) for deadlines and arrivals; latency metrics keep each rank's
+own clock.  A ``PolicyReader`` polls the store on every rank, and the
+ranks then serve the newest version any of them saw
+(``PolicyReader.pin``).  ``par`` gives the mesh context's rules (MoE
+capacity per token shard, ``models/blocks.py``).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -68,15 +85,18 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from repro_torch import obs
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.launch.sharding import set_mesh_ctx
 from repro_torch.models import init_cache
 from repro_torch.runtime.telemetry import finish_host_copy, start_host_copy
 from repro_torch.serve.engine import (ServeConfig, generate, prefill_one, splice_slot,
                                       token_step)
 from repro_torch.train.fault import StragglerWatchdog
 
-from . import chaos
+from . import chaos, collect
 
 __all__ = ["Request", "Completion", "BatcherConfig", "ContinuousBatcher",
            "ArrivalSource", "poisson_arrivals"]
@@ -194,17 +214,17 @@ class ContinuousBatcher:
     ``adaptive`` is the re-tuning :class:`~repro_torch.runtime.AdaptiveController`
     or a replica's :class:`~repro_torch.fleet.store.PolicyReader` (polled
     before each wave and each admission); ``None`` serves the static policy.
-    The port has no device mesh yet: ``mesh`` and ``par`` raise
-    ``NotImplementedError`` (ROADMAP queue 1, item 8).  The slot cache of
-    token mode lives on the params' device and is kept across drains.
+    ``mesh`` shards the decode slots over a fleet mesh's ranks (module
+    note; the sharded decode is the adaptive one, so it needs
+    ``adaptive``); ``par`` gives its mesh context's rules.  The slot cache
+    of token mode lives on the params' device and is kept across drains.
     """
 
     def __init__(self, params, cfg: ModelConfig, bcfg: Optional[BatcherConfig] = None,
-                 adaptive=None, mesh=None, par=None):
-        if mesh is not None or par is not None:
-            raise NotImplementedError(
-                "ContinuousBatcher: the port has no device mesh; a mesh-sharded "
-                "batcher is ROADMAP queue 1, item 8 (the device mesh)")
+                 adaptive=None, mesh=None, par: Optional[ParallelConfig] = None):
+        if mesh is not None and adaptive is None:
+            raise ValueError("ContinuousBatcher: mesh= requires an adaptive controller or "
+                             "reader (the sharded decode is the adaptive one)")
         self.params = params
         self.cfg = cfg
         self.bcfg = bcfg or BatcherConfig()
@@ -224,6 +244,14 @@ class ContinuousBatcher:
                 f"eos_id retirement needs the per-slot (pad-mask) decode "
                 f"path; {cfg.name} has kinds {sorted(set(cfg.layer_kinds()))}")
         self.adaptive = adaptive
+        self.mesh = mesh
+        self.par = par
+        self.group, self.shard, self.n_shards = None, 0, 1
+        if mesh is not None:
+            collect.shard_decode_specs(None, self.bcfg.n_slots, mesh)  # divisibility, bound
+            self.group, self.shard, self.n_shards = collect.batch_group(mesh)
+        self.rows = self.bcfg.n_slots // self.n_shards   # this rank's slots
+        self._epoch = time.perf_counter()
         self.queues: Dict[int, collections.deque] = {
             b: collections.deque() for b in sorted(self.bcfg.prompt_buckets)
         }
@@ -237,6 +265,7 @@ class ContinuousBatcher:
         self.mode = "token" if self.bcfg.token_granular else "wave"
         self.watchdog = StragglerWatchdog(factor=self.bcfg.straggler_factor)
         self._submit_t: Dict[int, float] = {}    # rid -> submit perf_counter
+        self._submit_clock: Dict[int, float] = {}  # rid -> submit on clock()
         # per-request latency log (rid, bucket, prompt_len, max_new, ttft,
         # e2e, queue_delay, seed, finish)
         self.request_log: List[dict] = []
@@ -251,6 +280,29 @@ class ContinuousBatcher:
         """Attach an :class:`repro_torch.obs.slo.SLOEngine` to the latency
         stream (sources ``"ttft"`` and ``"e2e"``)."""
         self.slo = engine
+
+    # -- the mesh's agreement ------------------------------------------
+    def _agree(self, x: float, op) -> float:
+        """``x`` reduced over the mesh's ranks (one all-reduce on the
+        slot cache's device)."""
+        t = torch.tensor([x], dtype=torch.float64, device=self.device)
+        dist.all_reduce(t, op=op, group=self.group)
+        return float(t.item())
+
+    def clock(self) -> float:
+        """Seconds since this batcher was made, on a clock every rank of a
+        mesh agrees on (the ranks' largest reading); the local clock
+        without a mesh.  Deadlines and arrivals read it (module note)."""
+        t = time.perf_counter() - self._epoch
+        return t if self.mesh is None else self._agree(t, dist.ReduceOp.MAX)
+
+    def _mesh_ctx(self):
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return set_mesh_ctx(self.mesh, self.par or ParallelConfig())
+
+    def _owns(self, slot: int) -> bool:
+        return slot // self.rows == self.shard
 
     def _update_queue_gauges(self) -> None:
         for b, q in self.queues.items():
@@ -315,6 +367,7 @@ class ContinuousBatcher:
         self._corr[req.rid] = corr
         self._arrival += 1
         self._submit_t[req.rid] = time.perf_counter()
+        self._submit_clock[req.rid] = self.clock()
         obs.async_begin("request", req.rid, prompt_len=len(req.tokens),
                         max_new=req.max_new, corr=corr)
         if self.bcfg.token_granular:
@@ -331,8 +384,8 @@ class ContinuousBatcher:
     def _deadline_passed(self, req: Request) -> bool:
         if req.deadline_s is None:
             return False
-        t0 = self._submit_t.get(req.rid)
-        return t0 is not None and time.perf_counter() - t0 > req.deadline_s
+        t0 = self._submit_clock.get(req.rid)
+        return t0 is not None and self.clock() - t0 > req.deadline_s
 
     def _timeout(self, req: Request, tokens, where: str) -> Completion:
         """Retire ``req`` past its deadline: a ``timeout`` completion with
@@ -341,6 +394,7 @@ class ContinuousBatcher:
         _TIMEOUTS.inc(1, where=where)
         e2e = time.perf_counter() - self._submit_t.pop(
             req.rid, time.perf_counter())
+        self._submit_clock.pop(req.rid, None)
         self._record_latency(req, None, e2e, observe_ttft=False,
                              finish="timeout")
         corr = self._corr.pop(req.rid, None)
@@ -407,6 +461,10 @@ class ContinuousBatcher:
     def _poll_policy(self) -> None:
         if self.adaptive is not None and hasattr(self.adaptive, "poll"):
             self.adaptive.poll()             # replica: adopt a newer policy
+            if self.mesh is not None:        # every rank serves one version
+                v = int(self._agree(self.adaptive.version, dist.ReduceOp.MAX))
+                if v != self.adaptive.version:
+                    self.adaptive.pin(v)
 
     # -- wave execution (the oracle) -----------------------------------
     def step(self) -> List[Completion]:
@@ -461,8 +519,10 @@ class ContinuousBatcher:
             padmask_kw["slot_seeds"] = np.asarray(
                 [self._request_seed(r) for r in slots], np.int32)
         self._update_queue_gauges()
+        if self.mesh is not None:
+            padmask_kw["mesh"] = self.mesh
         with obs.span("wave", cat="scheduler", wave=self.wave, bucket=bucket,
-                      admitted=len(admitted), backfilled=n_backfilled):
+                      admitted=len(admitted), backfilled=n_backfilled), self._mesh_ctx():
             out = generate(self.params, {"tokens": torch.from_numpy(batch)}, self.cfg,
                            scfg, adaptive=self.adaptive, **padmask_kw).cpu().numpy()
         t_done = time.perf_counter()
@@ -486,6 +546,7 @@ class ContinuousBatcher:
             self.stats["padded_tokens"] += int(
                 bucket - len(req.tokens) + bc.new_token_bucket - len(toks))
             e2e = t_done - self._submit_t.pop(req.rid, t_done)
+            self._submit_clock.pop(req.rid, None)
             self._record_latency(req, e2e, e2e,
                                  queue_delay=qdelay.get(req.rid),
                                  finish=finish)
@@ -520,9 +581,10 @@ class ContinuousBatcher:
 
     def _admit_dispatch(self, slot: int):
         """Pop the next FIFO request and launch its prefill (asynchronous on
-        the card: nothing here reads from the device).  Returns
-        ``(pending admission | None, expired timeouts)``; the splice and the
-        first-token read happen in :meth:`_admit_complete`."""
+        the card: nothing here reads from the device; under a mesh only the
+        rank owning ``slot`` prefills).  Returns ``(pending admission |
+        None, expired timeouts)``; the splice and the first-token read
+        happen in :meth:`_admit_complete`."""
         req, expired = self._admit_pop()
         if req is None:
             return None, expired
@@ -534,12 +596,14 @@ class ContinuousBatcher:
         # sampling draws index 0 of the request's stream, as the wave does
         seed_kw = (dict(seed=self._request_seed(req)) if self.bcfg.temperature > 0
                    else {})
-        with obs.span("admit_dispatch", cat="scheduler", rid=req.rid,
-                      slot=slot, bucket=bucket):
-            first, fresh = prefill_one(
-                self.params, padded[None], L, self.cfg,
-                max_cache_len=self.max_cache_len(),
-                temperature=self.bcfg.temperature, rows=self.bcfg.n_slots, **seed_kw)
+        first = fresh = None
+        if self._owns(slot):
+            with obs.span("admit_dispatch", cat="scheduler", rid=req.rid,
+                          slot=slot, bucket=bucket), self._mesh_ctx():
+                first, fresh = prefill_one(
+                    self.params, padded[None], L, self.cfg,
+                    max_cache_len=self.max_cache_len(),
+                    temperature=self.bcfg.temperature, rows=self.bcfg.n_slots, **seed_kw)
         queue_delay = t_dispatch - self._submit_t.get(req.rid, t_dispatch)
         return dict(req=req, slot=slot, first=first, fresh=fresh,
                     queue_delay=queue_delay), expired
@@ -554,8 +618,10 @@ class ContinuousBatcher:
         req, slot = pend["req"], pend["slot"]
         done: List[Completion] = []
         with obs.span("admit", cat="scheduler", rid=req.rid, slot=slot):
-            self._cache = splice_slot(self._cache, pend["fresh"], slot)
-            first = int(pend["first"][0])    # sync: token on host
+            if self._owns(slot):
+                self._cache = splice_slot(self._cache, pend["fresh"],
+                                          slot - self.shard * self.rows)
+            first = self._first_token(pend["first"], slot)   # sync: token on host
         obs.instant("splice", cat="scheduler", rid=req.rid, slot=slot)
         ttft = time.perf_counter() - self._submit_t.get(
             req.rid, time.perf_counter())
@@ -585,6 +651,19 @@ class ContinuousBatcher:
             _SPLICES.inc(1)
         return done
 
+    def _first_token(self, first, slot: int) -> int:
+        """An admission's first token on the host; under a mesh broadcast
+        from the rank that owns ``slot``."""
+        if self.mesh is None:
+            return int(first[0])
+        # a clone: the prefill's token is an inference tensor, which a
+        # collective may not write in place outside inference mode
+        t = (first.reshape(1).to(torch.int64).clone() if first is not None else
+             torch.zeros(1, dtype=torch.int64, device=self.device))
+        dist.broadcast(t, src=dist.get_global_rank(self.group, slot // self.rows),
+                       group=self.group)
+        return int(t[0])
+
     def _retire(self, slot: int, state: list, status: str = "ok",
                 finish: Optional[str] = None) -> List[Completion]:
         st = state[slot]
@@ -599,6 +678,7 @@ class ContinuousBatcher:
                         where="decoding")
         e2e = time.perf_counter() - self._submit_t.pop(
             req.rid, time.perf_counter())
+        self._submit_clock.pop(req.rid, None)
         # TTFT was already observed at the admission splice
         self._record_latency(req, st.get("ttft"), e2e, observe_ttft=False,
                              queue_delay=st.get("queue_delay"), finish=finish)
@@ -625,8 +705,9 @@ class ContinuousBatcher:
         sleeps instead of running a step with no active slot."""
         bc = self.bcfg
         B = bc.n_slots
-        if self._cache is None:
-            self._cache = init_cache(self.cfg, B, self.max_cache_len(), device=self.device)
+        if self._cache is None:        # this rank's rows of the slot cache
+            self._cache = init_cache(self.cfg, self.rows, self.max_cache_len(),
+                                     device=self.device)
         state: list = [None] * B
         pending_admits: list = [None] * B    # async: launched, not spliced
         pos = np.zeros(B, np.int64)
@@ -640,13 +721,14 @@ class ContinuousBatcher:
         seeded = bc.temperature > 0          # per-request sampling streams
 
         t_drain = time.perf_counter()
+        c_drain = self.clock() if source is not None else 0.0
         tokens_at_start = self.stats["real_tokens"]
         steps_this_drain = 0
 
         def poll_arrivals():
             if source is None:
                 return
-            for r in source.poll(time.perf_counter() - t_drain):
+            for r in source.poll(self.clock() - c_drain):
                 self.submit(r)               # may shed (bounded queue)
 
         def fill_slots():
@@ -692,7 +774,7 @@ class ContinuousBatcher:
                     continue
                 if source is not None and not source.exhausted():
                     nd = source.next_due()
-                    now = time.perf_counter() - t_drain
+                    now = self.clock() - c_drain
                     if nd is not None and nd > now:
                         time.sleep(min(nd - now, 0.05))
                     poll_arrivals()
@@ -718,14 +800,15 @@ class ContinuousBatcher:
             t_step = time.perf_counter()
             with obs.span("token_step", cat="scheduler",
                           step=self.stats["decode_steps"],
-                          active=int(active_np.sum())):
+                          active=int(active_np.sum())), self._mesh_ctx():
                 out = token_step(
                     self.params, self._cache, torch.from_numpy(tok),
                     torch.from_numpy(pos), torch.from_numpy(active_np), self.cfg,
                     temperature=bc.temperature, adaptive=self.adaptive, gate=gate,
                     eos_id=eos,
                     seeds=torch.from_numpy(seeds) if seeded else None,
-                    nt=torch.from_numpy(nt) if seeded else None)
+                    nt=torch.from_numpy(nt) if seeded else None,
+                    **({} if self.mesh is None else {"mesh": self.mesh}))
             step_wall = time.perf_counter() - t_step
             if graph_gate in gates_run:
                 post += int(obs.retrace_total("token_step") - captures)
@@ -816,15 +899,15 @@ class ContinuousBatcher:
         if self.bcfg.token_granular:
             return self._run_token_granular(source=source)
         out: List[Completion] = []
-        t0 = time.perf_counter()
+        t0 = self.clock()
         while True:
-            for r in source.poll(time.perf_counter() - t0):
+            for r in source.poll(self.clock() - t0):
                 self.submit(r)
             if not self.pending():
                 if source.exhausted():
                     break
                 nd = source.next_due()
-                now = time.perf_counter() - t0
+                now = self.clock() - t0
                 if nd is not None and nd > now:
                     time.sleep(min(nd - now, 0.05))
                 continue

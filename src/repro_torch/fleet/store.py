@@ -462,6 +462,16 @@ class PolicyReader:
         self._set_staleness(None)
         return True
 
+    def pin(self, version: int) -> None:
+        """Serve exactly ``version``: the ranks of a mesh-sharded batcher
+        agree on one version after each poll (``fleet/scheduler.py``)."""
+        if version == self.version:
+            return
+        self.policy = self.store.load(version)
+        self.version = version
+        self._dyn_cache = None
+        self._set_staleness(None)
+
     def _load_degrading(self, v: Optional[int]):
         """Load version ``v`` with retries + backoff, then fall back to the
         newest loadable version.  Returns (version, policy) or None; never

@@ -22,8 +22,19 @@ replica's ``PolicyReader`` reports its staleness at the end.
 ``--eos-id``, ``--arrival-rate`` (a Poisson trace through
 ``run_arrivals``), ``--async-admission`` and ``--chaos-plan`` (a
 ``fleet.chaos`` fault plan; the drain survives an injected replica kill)
-work as in the JAX package.  ``--fleet N`` with N > 1 needs the device
-mesh, ROADMAP queue 1, item 8.
+work as in the JAX package.
+
+``--fleet N`` with N > 1 serves over an N-rank fleet mesh
+(``launch/mesh.py``): the CLI spawns the N ranks itself (a ``FileStore``
+rendezvous in a temporary directory, ``--world-timeout`` seconds at most),
+or, run under ``torchrun``, joins the world of its environment.  Every rank
+runs the mesh-sharded batcher over the same seeded requests and serves its
+block of the slots; rank 0 writes the policy store, the others' controllers
+take the same decisions from the same fleet records, each rank polls its
+own ``PolicyReader``, and only rank 0 prints the summary (and runs the
+observability exports).  ``--backend`` is ``nccl`` by default on the card;
+``gloo`` lets several ranks share one card; ``--device cpu`` runs ``gloo``
+ranks on the CPU.
 
 Observability (``repro_torch.obs``): ``--metrics-port`` serves Prometheus
 ``/metrics`` (``--metrics-hold`` keeps it up after the run), ``--obs-dir``
@@ -56,12 +67,14 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import io
 import os
 import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs
 from repro_torch.configs import ARCHS, reduced
@@ -192,34 +205,43 @@ def _run_autotune(args, cfg, device):
     return table, reports
 
 
-def _run_fleet(args, cfg, device):
-    """The continuous batcher over a policy store (module note)."""
+def _run_fleet(args, cfg, device, mesh=None):
+    """The continuous batcher over a policy store (module note); ``mesh``
+    shards it over the ranks of a fleet mesh, every rank running this."""
     from repro_torch.fleet import (BatcherConfig, ContinuousBatcher, PolicyReader,
                                    PolicyStore, Request, chaos, poisson_arrivals)
     from repro_torch.runtime import AdaptiveConfig, AdaptiveController, SwapPolicy
 
     n = args.fleet
-    if n > 1:
-        raise SystemExit(
-            f"--fleet {n}: serving over more than one card needs the torch device "
-            f"mesh (ROADMAP queue 1, item 8); --fleet 1 serves on one card")
+    rank = dist.get_rank() if mesh is not None else 0
+    say = print if rank == 0 else (lambda *a, **k: None)
     harness = None
     if args.chaos_plan:
         plan = chaos.FaultPlan.load(args.chaos_plan)
         harness = chaos.install(plan)
-        print(f"[chaos] {plan.describe()}")
+        say(f"[chaos] {plan.describe()}")
+    # slots must divide over the ranks: the default rounds 4 up to a multiple
     slots = args.slots or n * max(1, -(-4 // n))
     store = PolicyStore(args.policy_store)
     # guarded rollout: re-tune winners are canaried on a holdout before
-    # promotion, and a regressed adoption rolls CURRENT back
+    # promotion, and a regressed adoption rolls CURRENT back.  Rank 0 writes
+    # the store; every rank's controller takes the same decisions from the
+    # same fleet records
     controller = AdaptiveController(
         SwapPolicy.from_ax_policy(cfg.ax), targets=cfg.ax.targets,
         cfg=AdaptiveConfig(min_observe_steps=2, cooldown_steps=2,
                            tile_rows=args.tile_rows, canary=True),
-        store=store, log_fn=lambda line: print(f"[fleet] {line}"), device=device)
-    resumed = controller.resume_from_store()
-    print(f"[fleet] replicas={n} device={device} slots={slots} store={store.root} "
-          f"{'resumed v' + str(store.current_version()) if resumed else 'fresh'}")
+        store=store if rank == 0 else None, log_fn=lambda line: say(f"[fleet] {line}"),
+        device=device)
+    resumed = controller.resume_from_store() if rank == 0 else False
+    if mesh is not None:
+        dist.barrier()
+        if rank > 0:
+            controller.adopt(store.load_current()[1])
+    say(f"[fleet] replicas={n} device={device} slots={slots} store={store.root} "
+        f"{'resumed v' + str(store.current_version()) if resumed else 'fresh'}"
+        + (f" mesh={tuple(mesh.shape)} backend={dist.get_backend()}" if mesh is not None
+           else ""))
     controller.warmup()
     # latency SLOs on the batcher's TTFT/e2e stream, QoR guard bands per
     # target; an alerting QoR SLO vetoes canary promotion
@@ -232,12 +254,13 @@ def _run_fleet(args, cfg, device):
                          new_token_bucket=args.new_tokens, temperature=args.temperature,
                          token_granular=args.token_granular, eos_id=args.eos_id,
                          async_admission=args.async_admission)
-    bat = ContinuousBatcher(params, cfg, bcfg, adaptive=controller)
+    bat = ContinuousBatcher(params, cfg, bcfg, adaptive=controller, mesh=mesh)
     bat.attach_slo(slo)
-    # one PolicyReader per replica: each adopts the policy current at spin-up
-    # and reports its staleness (versions behind CURRENT) until it polls
+    # one PolicyReader per replica (one per rank on a mesh): each adopts the
+    # policy current at spin-up and reports its staleness until it polls
+    names = [f"r{i}" for i in range(n)] if mesh is None else [f"r{rank}"]
     readers = [PolicyReader(store, cfg.ax.targets, tile_rows=args.tile_rows,
-                            name=f"r{i}", device=device) for i in range(n)]
+                            name=nm, device=device) for nm in names]
     rng = np.random.default_rng(0)
     requests = []
     for rid in range(args.requests):
@@ -247,8 +270,8 @@ def _run_fleet(args, cfg, device):
     source = None
     if args.arrival_rate > 0:
         source = poisson_arrivals(requests, args.arrival_rate, seed=0)
-        print(f"[fleet] arrival trace: {len(source)} requests @ "
-              f"{args.arrival_rate} req/s (Poisson, seed 0)")
+        say(f"[fleet] arrival trace: {len(source)} requests @ "
+            f"{args.arrival_rate} req/s (Poisson, seed 0)")
     else:
         for r in requests:
             bat.submit(r)
@@ -259,42 +282,91 @@ def _run_fleet(args, cfg, device):
             done.extend(bat.run_arrivals(source) if source is not None else bat.run())
             break
         except chaos.InjectedFault as e:
-            print(f"[chaos] survived injected crash ({e}); resuming drain")
+            say(f"[chaos] survived injected crash ({e}); resuming drain")
     dt = time.time() - t0
     toks = sum(len(c.tokens) for c in done)
-    print(f"[fleet] {bat.describe()}")
-    print(f"[fleet] served {len(done)} requests / {toks} tokens in {dt:.2f}s "
-          f"(incl. graph captures)")
+    say(f"[fleet] {bat.describe()}")
+    say(f"[fleet] served {len(done)} requests / {toks} tokens in {dt:.2f}s "
+        f"(incl. graph captures)")
     ls = bat.latency_summary()
     if "queue_delay_p99" in ls:
-        print(f"[fleet] queue delay p50={ls['queue_delay_p50']:.4f}s "
-              f"p99={ls['queue_delay_p99']:.4f}s "
-              f"ttft p99={ls.get('ttft_p99', float('nan')):.4f}s")
+        say(f"[fleet] queue delay p50={ls['queue_delay_p50']:.4f}s "
+            f"p99={ls['queue_delay_p99']:.4f}s "
+            f"ttft p99={ls.get('ttft_p99', float('nan')):.4f}s")
     if bat.stats.get("eos_retired"):
-        print(f"[fleet] eos-retired: {bat.stats['eos_retired']}")
-    print(f"[fleet] {controller.telemetry.describe()}")
-    print(f"[fleet] {bat.qor.describe()}")
-    print(f"[fleet] {slo.describe()}")
-    print(f"[fleet] re-tunes: {len(controller.retunes)} "
-          f"tile re-tunes: {len(controller.tile_retunes)} "
-          f"store v{store.current_version()} {controller.policy.describe()}")
-    stale = [r.staleness() for r in readers]
-    print("[fleet] replica staleness (versions behind CURRENT): "
-          + " ".join(f"r{i}=v{r.version}+{s}" for i, (r, s) in enumerate(zip(readers, stale))))
-    for i, r in enumerate(readers):
+        say(f"[fleet] eos-retired: {bat.stats['eos_retired']}")
+    say(f"[fleet] {controller.telemetry.describe()}")
+    say(f"[fleet] {bat.qor.describe()}")
+    say(f"[fleet] {slo.describe()}")
+    say(f"[fleet] re-tunes: {len(controller.retunes)} "
+        f"tile re-tunes: {len(controller.tile_retunes)} "
+        f"store v{store.current_version()} {controller.policy.describe()}")
+    if mesh is not None:
+        dist.barrier()         # rank 0's publishes are in before the readers look
+    stale = _fleet_views([(r.version, r.staleness()) for r in readers], mesh)
+    say("[fleet] replica staleness (versions behind CURRENT): "
+        + " ".join(f"r{i}=v{v}+{s}" for i, (v, s) in enumerate(stale)))
+    for r in readers:
         try:
             r.poll()
         except chaos.InjectedFault as e:
-            print(f"[chaos] reader r{i} survived injected crash ({e}); re-polling")
+            say(f"[chaos] reader {r.name} survived injected crash ({e}); re-polling")
             r.poll()
-    print(f"[fleet] after poll: staleness={[r.staleness() for r in readers]} "
-          f"(all replicas adopted v{store.current_version()})")
+    after = _fleet_views([(r.version, r.staleness()) for r in readers], mesh)
+    say(f"[fleet] after poll: staleness={[s for _, s in after]} "
+        f"(all replicas adopted v{store.current_version()})")
     if harness is not None:
-        print(f"[chaos] {harness.describe()}")
+        say(f"[chaos] {harness.describe()}")
         if controller.rollbacks:
-            print(f"[chaos] rollbacks: {controller.rollbacks}")
+            say(f"[chaos] rollbacks: {controller.rollbacks}")
         chaos.uninstall()
     return bat, done
+
+
+def _fleet_views(local: list, mesh) -> list:
+    """Every replica's (version, staleness), gathered from the ranks of a
+    mesh in rank order."""
+    if mesh is None:
+        return local
+    views = [None] * dist.get_world_size()
+    dist.all_gather_object(views, local)
+    return [v for part in views for v in part]
+
+
+def _fleet_rank(rank, mesh, args, cfg):
+    """One rank of ``--fleet N`` (module note): rank 0 runs the
+    observability exports and returns the batcher's stats, describe line
+    and completions."""
+    device = torch.device("cuda", torch.cuda.current_device()) if args.device != "cpu" \
+        else torch.device("cpu")
+    if args.autotune:          # each rank tunes its own card; rank 0 reports
+        quiet = contextlib.nullcontext() if rank == 0 else \
+            contextlib.redirect_stdout(io.StringIO())
+        with quiet:
+            _run_autotune(args, cfg, device)
+    obs_ctx = _observability(args) if rank == 0 else contextlib.nullcontext()
+    with obs_ctx:
+        bat, done = _run_fleet(args, cfg, device, mesh=mesh)
+    return dict(stats=dict(bat.stats), describe=bat.describe()), done
+
+
+def _serve_fleet_mesh(args, cfg, device):
+    """``--fleet N`` for N > 1: join the world of ``torchrun``, or spawn the
+    N ranks; returns rank 0's (summary, completions)."""
+    from .mesh import default_backend, make_fleet_mesh, spawn
+
+    backend = args.backend or default_backend(device)
+    if device.type == "cpu" and backend != "gloo":
+        raise SystemExit(f"--backend {backend}: CPU ranks use gloo")
+    if "WORLD_SIZE" in os.environ and "MASTER_ADDR" in os.environ:
+        mesh = make_fleet_mesh(args.fleet, device=device.type, backend=backend)
+        try:
+            return _fleet_rank(dist.get_rank(), mesh, args, cfg)
+        finally:
+            dist.destroy_process_group()
+    return spawn(_fleet_rank, args.fleet, args=(args, cfg), device=device.type,
+                 backend=backend, timeout_s=args.world_timeout,
+                 threads=1 if device.type == "cpu" else None)[0]
 
 
 def _run_single(args, cfg, device):
@@ -373,7 +445,7 @@ def _parser() -> argparse.ArgumentParser:
                     help="write the final (possibly re-tuned) SwapPolicy JSON here")
     ap.add_argument("--fleet", type=int, default=0, metavar="N",
                     help="serve through the continuous batcher + policy store "
-                         "(implies --adaptive; N = 1 on one card)")
+                         "(implies --adaptive) over an N-rank fleet mesh")
     ap.add_argument("--token-granular", action="store_true",
                     help="--fleet: per-slot positions + mid-flight admission")
     ap.add_argument("--eos-id", type=int, default=None, metavar="TOK",
@@ -385,7 +457,12 @@ def _parser() -> argparse.ArgumentParser:
                     help="--fleet --token-granular: launch a freed slot's prefill and "
                          "splice it at the next step boundary")
     ap.add_argument("--slots", type=int, default=0,
-                    help="--fleet decode slots (default max(N, 4))")
+                    help="--fleet decode slots (default 4 rounded up to a multiple of N)")
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="--fleet N > 1: the ranks' backend (nccl on the card by default; "
+                         "gloo lets ranks share one card; always gloo on the CPU)")
+    ap.add_argument("--world-timeout", type=float, default=900.0, metavar="S",
+                    help="--fleet N > 1: kill the spawned ranks after S seconds")
     ap.add_argument("--requests", type=int, default=16,
                     help="--fleet synthetic request count")
     ap.add_argument("--policy-store",
@@ -422,8 +499,9 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     """Parse ``argv`` (``sys.argv[1:]`` when None) and serve; returns the
-    fleet's ``(batcher, completions)`` or the single serve's ``(tokens,
-    controller)``."""
+    fleet's ``(batcher, completions)`` (for N > 1, rank 0's ``(summary,
+    completions)``, the summary holding the batcher's ``stats`` and
+    ``describe`` line) or the single serve's ``(tokens, controller)``."""
     args = _parser().parse_args(argv)
     if args.arch not in ARCHS:
         raise SystemExit(f"--arch {args.arch}: not an architecture of the port; it has "
@@ -440,8 +518,10 @@ def main(argv=None):
         cfg = reduced(cfg)
     if args.ax or args.adaptive or args.fleet:
         cfg = dataclasses.replace(cfg, ax=AxPolicy(backend="mxu"))
-    if args.autotune:
+    if args.autotune and args.fleet <= 1:
         _run_autotune(args, cfg, device)
+    if args.fleet > 1:
+        return _serve_fleet_mesh(args, cfg, device)
     with _observability(args):
         if args.fleet:
             return _run_fleet(args, cfg, device)

@@ -14,7 +14,7 @@ the controller observes one step late (step i-1's records after step i was
 issued); re-tuned policies are published to ``<ckpt_dir>/policy`` (the
 fleet ``PolicyStore`` format) and a restarted job resumes the adapted
 policy from there.  ``--device`` (default ``cuda``) chooses where it runs.
-There is no mesh: the sharded step is ROADMAP queue 1, item 8.  The
+There is no mesh: the sharded step is ROADMAP queue 1, item 8b.  The
 synthetic stream holds tokens only, so the encoder-decoder (whisper-base),
 whose batches need frames, exits, as the JAX CLI cannot train it either.
 """

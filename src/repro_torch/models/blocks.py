@@ -1,8 +1,19 @@
 """Non-dense temporal / FFN blocks (``repro.models.blocks``): MoE (token
 choice top-k with a capacity-bounded scatter dispatch), RG-LRU
 (RecurrentGemma) and Mamba2 SSD (chunked state-space duality), each with an
-O(1)-state decode path.  Single-device paths only: the expert-parallel
-dispatch over a mesh comes with the mesh (ROADMAP queue 1, item 8).
+O(1)-state decode path.
+
+**MoE under a mesh.**  Inside a mesh context (``launch.sharding.set_mesh_ctx``)
+whose ``batch`` rule (with ``seq`` when sequence-sharded) spans more than one
+rank, each token shard gets its own capacity, ``C_loc = min(max(ceil(T_loc k
+/ E * moe_capacity), 8), T_loc)`` over the rank's ``T_loc`` tokens, and the
+dispatch and combine run on the rank's tokens alone: the JAX package's
+``shard_map``'d dispatch, where under the port's multi-process SPMD a
+rank's ``x`` already is its token shard.  One rank, or no mesh context, keeps
+the global capacity over all T tokens.  The load-balancing term is the
+rank's own (JAX's mean runs over the global batch; serving does not read
+it).  The expert all-to-all over a ``"model"`` axis (``ParallelConfig.ep``)
+is ROADMAP queue 1, item 8b.
 
 The SWAPPER projection reaches these blocks through ``layers.dense``: the
 RG-LRU and SSD ``in``/``gate``/``out`` projections carry the target
@@ -111,12 +122,15 @@ def _expert_ffn(buf, experts):
 def moe_apply(p, x, cfg: ModelConfig):
     """Returns (y (B, S, D), aux): the routed experts' combine plus the
     shared experts, and the load-balancing term
-    ``E * mean(mean(probs) * mean(one_hot(top-1)))``."""
+    ``E * mean(mean(probs) * mean(one_hot(top-1)))``.  Under a mesh whose
+    ``batch`` rule spans several ranks, ``x`` is this rank's token shard and
+    the capacity is its own (module note)."""
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     T = B * S
     flat = x.reshape(T, D)
     probs, topv, topi = _route(flat, p["router"]["w"], k)
+    # per token shard under a mesh: T is this rank's T_loc (module note)
     C = capacity(T, cfg)
     buf, slots, keeps = _dispatch(flat, topi, k, E, C)
     yflat = _expert_ffn(buf, p["experts"]).reshape(E * C, D)

@@ -5,7 +5,11 @@ decode; sliding-window layers keep a ring cache; cross-attention over
 precomputed encoder K/V) and the SwiGLU / gelu MLPs.
 
 Parameters are plain nested dicts of tensors in the JAX package's layout:
-a projection weight is ``(in, out)`` and ``y = x @ w``.  Every op keeps the
+a projection weight is ``(in, out)`` and ``y = x @ w``.  Their logical
+sharding axes come from their paths (:func:`axes_for_path`, the JAX
+package's rule; ``launch/sharding.py`` maps them onto mesh axes), and
+``init_params(..., device="meta")`` gives the parameter tree's shapes
+without allocating it.  Every op keeps the
 JAX package's dtype sequence (where bf16 is rounded, where f32 is used), so
 the two packages agree to within bf16 rounding.
 """
@@ -21,16 +25,87 @@ from repro_torch.configs.base import AxPolicy, ModelConfig
 from repro_torch.quant.ax import ax_dense, ax_dense_dyn, weight_cast, weight_codes
 from repro_torch.runtime.scope import active_scope
 
-__all__ = ["ninit", "dense", "rmsnorm", "layernorm", "make_rope", "apply_rope", "sinusoid_pos",
+__all__ = ["ninit", "generator", "axes_for_path", "dense", "rmsnorm", "layernorm", "make_rope", "apply_rope", "sinusoid_pos",
            "chunked_attention", "decode_attention", "attn_init", "attn_apply",
            "mlp_init", "mlp_apply"]
 
 
-def ninit(shape, dtype, generator: torch.Generator, device, scale=None):
-    """Seeded normal init scaled by ``1/sqrt(fan_in)`` (or ``scale``)."""
+def generator(seed: int, device) -> Optional[torch.Generator]:
+    """The seeded generator of an init on ``device``; None on ``meta``,
+    where an init only shapes its tensors."""
+    if torch.device(device).type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def ninit(shape, dtype, generator: Optional[torch.Generator], device, scale=None):
+    """Seeded normal init scaled by ``1/sqrt(fan_in)`` (or ``scale``); an
+    empty tensor of the shape on the ``meta`` device."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
     t = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
     return t.mul_(scale).to(dtype)
+
+
+def axes_for_path(path: str, ndim: int):
+    """Logical axes of a parameter from its '/'-joined path
+    (``repro.models.layers.axes_for_path``).  A leading ``layers`` segment
+    (a JAX scan-stacked leaf) contributes a ``None`` axis; the port's own
+    per-layer leaves are named without it (``launch/mesh.py``)."""
+    parts = path.split("/")
+    stacked = bool(parts) and parts[0] == "layers"
+    if stacked:
+        parts = parts[1:]
+    leaf = "/".join(parts)
+    base_ndim = ndim - (1 if stacked else 0)
+
+    def a(*axes):
+        if len(axes) != base_ndim:
+            raise ValueError(f"{path}: {ndim} dims, logical axes {axes}")
+        return (("layers",) if stacked else ()) + tuple(axes)
+
+    if leaf.endswith("embed/w") or leaf == "lm_head/w":
+        return a("vocab", "embed") if not leaf.startswith("pos") else a(None, "embed")
+    if leaf == "pos_embed/w":
+        return a(None, "embed")
+    if "/q/w" in leaf or leaf.endswith("q/w"):
+        return a("embed", "heads")
+    if leaf.endswith(("k/w", "v/w")):
+        return a("embed", "heads")
+    if leaf.endswith("o/w"):
+        return a("heads", "embed")
+    if leaf.endswith(("q/b", "k/b", "v/b")):
+        return a("heads")
+    if leaf.endswith("router/w"):
+        return a("embed", "experts")
+    if leaf.startswith("experts/") or "/experts/" in leaf:
+        if leaf.endswith(("in/w", "gate/w")):
+            return a("experts", "embed", "ff")
+        if leaf.endswith("out/w"):
+            return a("experts", "ff", "embed")
+    if leaf.endswith(("in/w", "gate/w")):
+        return a("embed", "ff")
+    if leaf.endswith("out/w"):
+        return a("ff", "embed")
+    if leaf.endswith(("in/b", "gate/b")):
+        return a("ff")
+    if leaf.endswith(("out/b", "o/b")):
+        return a("embed")
+    if leaf.endswith("scale") or leaf.endswith("bias"):
+        return a(*([None] * base_ndim))
+    # rg-lru / ssm specific
+    if leaf.endswith(("wa/w", "wx/w")):
+        return a("ff", "ff")
+    if leaf.endswith("conv/w"):
+        return a(None, "ff")
+    if leaf.endswith(("a_log", "d_skip", "dt_bias", "lam")):
+        return a(*(["ff"] if base_ndim == 1 else [None] * base_ndim))
+    if leaf.endswith(("wb/w", "wc/w")):
+        return a("embed", None)
+    if leaf.endswith("wdt/w"):
+        return a("embed", None)
+    return tuple([None] * ndim)
 
 
 # ---------------------------------------------------------------------------

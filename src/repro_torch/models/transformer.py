@@ -46,7 +46,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.quant.ax import weight_cast
 
 from . import blocks
-from .layers import attn_apply, attn_init, make_rope, mlp_apply, mlp_init, ninit, rmsnorm
+from .layers import attn_apply, attn_init, generator, make_rope, mlp_apply, mlp_init, ninit, \
+    rmsnorm
 
 __all__ = ["init_params", "init_cache", "forward", "ax_projections"]
 
@@ -172,7 +173,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", dtype=None):
     """Random weights from a seeded ``torch.Generator`` on ``device``."""
     _check(cfg)
     dtype = dtype or getattr(torch, cfg.param_dtype)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = generator(seed, device)
     V = cfg.padded_vocab
     params = {
         "embed": {"w": ninit((V, cfg.d_model), dtype, gen, device, scale=0.02)},

@@ -31,7 +31,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.quant.ax import weight_cast
 
 from .layers import attn_apply, attn_init, dense, layernorm, mlp_apply, mlp_init, ninit, \
-    sinusoid_pos
+    generator, sinusoid_pos
 from .transformer import _positions
 
 __all__ = ["init_params", "init_cache", "forward", "ax_projections", "MAX_DEC_POS"]
@@ -63,7 +63,7 @@ def _dec_layer_init(cfg, dtype, gen, device):
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", dtype=None):
     """Random weights from a seeded ``torch.Generator`` on ``device``."""
     dtype = dtype or getattr(torch, cfg.param_dtype)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = generator(seed, device)
     D = cfg.d_model
     return {
         "embed": {"w": ninit((cfg.padded_vocab, D), dtype, gen, device, scale=0.02)},

@@ -72,8 +72,23 @@ The continuous batcher (``fleet/scheduler.py``) drives :func:`token_step`,
 :func:`prefill_one` and :func:`splice_slot` in its token mode and
 :func:`generate` in its wave mode.  :func:`prefill_one` reads nothing back
 from the card (a host prompt goes up through pinned memory), so a batcher
-can launch an admission's prefill and read its first token later.  The
-fleet mesh is later work (ROADMAP queue 1, item 8).
+can launch an admission's prefill and read its first token later.
+
+**The fleet mesh** (``mesh=``, a ``launch.mesh.make_fleet_mesh`` mesh).
+The port is multi-process SPMD: every rank calls :func:`generate` or
+:func:`token_step` with the same global arguments, and each serves its
+block of the slot batch (``fleet.collect.shard_decode_specs`` /
+``token_step_specs`` and ``shard_args``) with the one-card kernels and
+CUDA graphs, unchanged.  After each observed step's replay the rank's
+records are aggregated over the mesh (``fleet.collect.aggregate_records``:
+all-reduce SUM and MAX, all-gather), outside the captured step, so every
+rank's controller observes the fleet record and takes the same decisions.
+The tokens come back all-gathered in the global batch order.  The observe
+gate reads the global budget maximum, so it is the same on every rank.
+``mesh=`` needs the adaptive fused path: an adaptive controller, no
+``param_hook`` and ``fused=True`` (``ValueError``, where JAX asserts).
+:func:`token_step` under a mesh takes the global per-slot vectors and the
+rank's own cache rows.
 """
 from __future__ import annotations
 
@@ -299,7 +314,8 @@ def _dyn_sig(dyn):
 def generate(params, prompt_batch, cfg: ModelConfig, scfg: ServeConfig, *,
              adaptive=None, param_hook: Optional[Callable] = None,
              prompt_lens=None, slot_new_tokens=None, slot_seeds=None,
-             max_cache_len: Optional[int] = None, stats: Optional[dict] = None):
+             max_cache_len: Optional[int] = None, stats: Optional[dict] = None,
+             mesh=None):
     """prompt_batch: {'tokens': (B, S)}, {'embeds': (B, S, D), 'pos':
     (B, S, 3)} for the vlm family, or {'frames': (B, T, D), 'tokens':
     (B, S)} for the encoder-decoder (module note).  Returns
@@ -319,8 +335,13 @@ def generate(params, prompt_batch, cfg: ModelConfig, scfg: ServeConfig, *,
     first token) and ``decode_s`` (the remaining steps, the adaptive
     controller's work included), host-clock walls taken after a device
     synchronise, and ``path`` (``"graph"`` or ``"eager"``).
+    ``mesh`` — a fleet mesh: this rank serves its block of the batch and
+    every rank returns the global tokens (module note).
     """
     _check_encdec(cfg, adaptive, prompt_lens, slot_new_tokens, slot_seeds, scfg.eos_id)
+    if mesh is not None and (adaptive is None or param_hook is not None or not scfg.fused):
+        raise ValueError("mesh= requires the adaptive fused path (an adaptive controller, "
+                         "fused=True and no param_hook)")
     device = params["embed"]["w"].device
     batch = {k: torch.as_tensor(v, device=device) for k, v in prompt_batch.items()}
     B, S = (batch["tokens"] if "tokens" in batch else batch["embeds"]).shape[:2]
@@ -344,6 +365,20 @@ def generate(params, prompt_batch, cfg: ModelConfig, scfg: ServeConfig, *,
     seeds = (_default_seeds(scfg.seed, B, device) if slot_seeds is None else
              torch.as_tensor(np.asarray(slot_seeds), dtype=torch.int64, device=device)
              .reshape(B))
+    # the observe gate reads the global budget maximum (shard-invariant)
+    bmax = int(budget_host.max()) if B else 0
+    group = None
+    if mesh is not None:
+        from repro_torch.fleet import collect
+
+        in_specs, out_specs, _ = collect.shard_decode_specs(None, B, mesh,
+                                                            seeded=slot_seeds is not None)
+        rows, group = in_specs[2], collect.batch_group(mesh)[0]
+        batch = {k: collect.local_slice(v, rows, mesh) for k, v in batch.items()}
+        pl = collect.local_slice(pl, in_specs[4], mesh)
+        budget_host = collect.local_slice(budget_host, in_specs[5], mesh)
+        seeds = collect.local_slice(seeds, rows, mesh)
+        B = B // collect.world_size(group)
 
     with torch.inference_mode():
         t0 = time.perf_counter()
@@ -373,7 +408,6 @@ def generate(params, prompt_batch, cfg: ModelConfig, scfg: ServeConfig, *,
                     i=torch.zeros(1, dtype=torch.int64, device=device),
                     seeds=seeds, cache=cache, out=out)
         k = scfg.observe_every
-        bmax = int(budget_host.max()) if B else 0
         gates = [adaptive is not None and i % k == 0 and i < bmax for i in range(n_steps)]
         graphs = _use_graphs(device, scfg.cuda_graphs)
         fused = param_hook is None and scfg.fused
@@ -389,18 +423,21 @@ def generate(params, prompt_batch, cfg: ModelConfig, scfg: ServeConfig, *,
                           tile_rows=tile_rows)
                 if graphs:
                     path = "graph"
-                    st = _fused_graph(params, st, cfg, dyn, gates, kw, max_len, adaptive)
+                    st = _fused_graph(params, st, cfg, dyn, gates, kw, max_len, adaptive,
+                                      group)
                 else:
                     copies = []
                     for gate in gates:
                         rec = _decode(params, st, cfg, dyn=dyn, gate=gate, **kw)
                         if rec is not None:
-                            copies.append(start_host_copy(rec))
+                            copies.append(start_host_copy(_fleet(rec, group)))
                     for copy in copies:
                         adaptive.observe(finish_host_copy(copy))
             elif n_steps > 0:
                 _decode_stepwise(params, st, cfg, scfg, adaptive, param_hook, gates)
             result = st.out.to(torch.int32)
+            if mesh is not None:      # (steps, B) tokens, as JAX's spec reads them
+                result = collect.gather_outputs((result.T,), out_specs[:1], mesh)[0].T
             if stats is not None:
                 _sync(device)
                 stats["decode_s"] = time.perf_counter() - t0
@@ -410,11 +447,22 @@ def generate(params, prompt_batch, cfg: ModelConfig, scfg: ServeConfig, *,
     return result
 
 
-def _fused_graph(params, st: _State, cfg, dyn, gates, kw, max_len, adaptive):
+def _fleet(rec, group):
+    """A step's records aggregated over the mesh's batch group (a copy, so
+    a graph's output buffers may be overwritten by the next replay)."""
+    if group is None:
+        return rec
+    from repro_torch.fleet import collect
+
+    return collect.aggregate_records(rec, group)
+
+
+def _fused_graph(params, st: _State, cfg, dyn, gates, kw, max_len, adaptive, group=None):
     """The fused paths on the card: the program's static state takes this
     generation's values, then each step replays the captured graph of its
-    gate (module note of ``serve/graph.py``).  Returns the program's state,
-    whose ``out`` holds the tokens."""
+    gate (module note of ``serve/graph.py``); under a mesh each observed
+    step's records are aggregated after its replay.  Returns the program's
+    state, whose ``out`` holds the tokens."""
     B = st.tok.shape[0]
     key = ("fused" if dyn is None else "fused_adaptive", cfg, B, max_len, st.out.shape[1],
            kw["temperature"], kw["eos_id"], kw["tile_rows"], _dyn_sig(dyn),
@@ -438,7 +486,7 @@ def _fused_graph(params, st: _State, cfg, dyn, gates, kw, max_len, adaptive):
     for gate in gates:
         rec = prog.run(gate)
         if gate:
-            copies.append(start_host_copy(rec))
+            copies.append(start_host_copy(_fleet(rec, group)))
     for copy in copies:
         adaptive.observe(finish_host_copy(copy))
     return prog.buf["state"]
@@ -488,7 +536,7 @@ def _token_decode(params, buf, cfg, *, temperature, eos_id, tile_rows, gate):
 def token_step(params, cache, tok, pos, active, cfg: ModelConfig, *,
                temperature: float = 0.0, adaptive=None, gate: bool = True,
                eos_id: Optional[int] = None, seeds=None, nt=None,
-               cuda_graphs: bool = True):
+               cuda_graphs: bool = True, mesh=None):
     """One token-granular decode step for the whole slot batch
     (``repro.serve.engine.token_step``): ``tok`` (B,) the last tokens,
     ``pos`` (B,) per-slot positions, ``active`` (B,) done-flags (False
@@ -502,10 +550,39 @@ def token_step(params, cache, tok, pos, active, cfg: ModelConfig, *,
     card the step is a CUDA graph per program (module note): the inputs are
     copied into its buffers, the records are its output buffers (valid
     until the next step of the same program), and a splice or a policy
-    update changes values only."""
+    update changes values only.
+
+    ``mesh`` (with ``adaptive``): the per-slot vectors are the global
+    batch's, ``cache`` holds this rank's rows; the step runs on the rank's
+    block, its records come back aggregated over the mesh and ``tok'``
+    all-gathered (module note)."""
     device = params["embed"]["w"].device
     if (seeds is None) != (nt is None):
         raise ValueError("seeds and nt come together")
+    if mesh is not None:
+        if adaptive is None:
+            raise ValueError("mesh= requires the adaptive token step")
+        from repro_torch.fleet import collect
+
+        in_specs, out_specs, _ = collect.token_step_specs(None, int(tok.shape[0]), mesh,
+                                                          seeded=seeds is not None)
+        extra = () if seeds is None else (seeds, nt)
+        local = collect.shard_args((params, None, tok, None, pos, active, None, None) + extra,
+                                   in_specs, mesh)
+        tok, pos, active = local[2], local[4], local[5]
+        if seeds is not None:
+            seeds, nt = local[8], local[9]
+        rows = {int(v.shape[0]) for c in cache for v in c.values()}
+        if rows != {int(tok.shape[0])}:
+            raise ValueError(f"token_step(mesh=): the cache holds {sorted(rows)} rows, this "
+                             f"rank's block of the batch is {int(tok.shape[0])}")
+        tok_new, cache, rec = token_step(params, cache, tok, pos, active, cfg,
+                                         temperature=temperature, adaptive=adaptive,
+                                         gate=gate, eos_id=eos_id, seeds=seeds, nt=nt,
+                                         cuda_graphs=cuda_graphs)
+        if rec is not None:
+            rec = _fleet(rec, collect.batch_group(mesh)[0])
+        return collect.gather_outputs((tok_new, cache, rec), out_specs, mesh)
     if temperature > 0 and seeds is None:
         raise ValueError("token_step samples at temperature > 0 from per-request "
                          "streams: pass seeds and nt")

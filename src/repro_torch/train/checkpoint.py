@@ -12,9 +12,14 @@ without ``ml_dtypes``) under the dtype name ``bfloat16``, and read back
 from a checkpoint of either package by that name.
 
 ``restore`` puts each leaf on ``device``, the card unless the caller says
-otherwise (JAX's restore puts it on the default device).  JAX's ``sharding_tree`` (a restore onto another mesh)
-waits for the device mesh, ROADMAP queue 1, item 8: this ``restore`` has no
-such argument.  ``load_tree`` reads a checkpoint as a nested dict of numpy
+otherwise (JAX's restore puts it on the default device).  With
+``sharding_tree`` (a tree of ``launch.sharding.PartitionSpec`` shaped like
+the state) it places each leaf by its spec on the current mesh, the
+elastic restore onto another mesh: a replicated spec gives the whole leaf
+on the rank's device, a sharded one the rank's block (the port is
+multi-process SPMD, so a rank holds its shard as a plain tensor, and
+``like`` describes the rank's own state).  :func:`gather_state` is the way
+back: the whole state on every rank, for rank 0 to save.  ``load_tree`` reads a checkpoint as a nested dict of numpy
 arrays: a JAX train state read so goes to ``convert.train_state_from_jax``.
 """
 from __future__ import annotations
@@ -27,7 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["save", "restore", "latest_step", "load_tree", "AsyncCheckpointer"]
+__all__ = ["save", "restore", "gather_state", "latest_step", "load_tree", "AsyncCheckpointer"]
 
 
 def _flatten(tree, prefix=""):
@@ -116,27 +121,90 @@ def load_tree(ckpt_dir: str, step: int):
     return tree, manifest["extra"]
 
 
-def restore(ckpt_dir: str, step: int, like, device="cuda"):
+def _block(mesh, spec, shape):
+    """The index of this rank's block of a leaf of ``shape`` under ``spec``
+    on ``mesh`` (a tuple of slices): along each sharded dim the rank's
+    coordinate over the dim's mesh axes, in row-major order."""
+    names = list(mesh.mesh_dim_names)
+    index = []
+    for d, ax in enumerate(tuple(spec) + (None,) * (len(shape) - len(spec))):
+        axes = ax if isinstance(ax, tuple) else ((ax,) if ax else ())
+        coord, size = 0, 1
+        for a in axes:
+            n = mesh.size(names.index(a))
+            coord, size = coord * n + mesh.get_local_rank(a), size * n
+        if shape[d] % size:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not divide over {size} ranks "
+                             f"({spec})")
+        k = shape[d] // size
+        index.append(slice(coord * k, (coord + 1) * k))
+    return tuple(index)
+
+
+def restore(ckpt_dir: str, step: int, like, device="cuda", sharding_tree=None, mesh=None):
     """Restore into the structure of ``like`` (nested dicts and lists of
     tensors or anything with a ``shape``), each leaf on ``device``.
-    Returns (state, extra)."""
+    ``sharding_tree`` (shaped like ``like``; a ``None`` leaf is replicated)
+    places each leaf by its spec on ``mesh``, the mesh context's when None
+    (module note); ``like`` then holds the rank's block shapes.  Returns
+    (state, extra)."""
     flat, manifest = _load(ckpt_dir, step)
     dtypes = manifest["dtypes"]
+    if sharding_tree is not None and mesh is None:
+        from repro_torch.launch.sharding import current_mesh
 
-    def build(node, prefix):
+        mesh = current_mesh()
+        if mesh is None:
+            raise ValueError("restore(sharding_tree=): no mesh given and no mesh context")
+
+    def build(node, spec, prefix):
         if isinstance(node, dict):
-            return {k: build(v, f"{prefix}/{k}" if prefix else str(k)) for k, v in node.items()}
+            return {k: build(v, None if spec is None else spec[k],
+                             f"{prefix}/{k}" if prefix else str(k)) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
-            return [build(v, f"{prefix}/{i}" if prefix else str(i)) for i, v in enumerate(node)]
+            return [build(v, None if spec is None else spec[i],
+                          f"{prefix}/{i}" if prefix else str(i)) for i, v in enumerate(node)]
         if prefix not in flat:
             raise KeyError(f"checkpoint step {step} in {ckpt_dir} has no leaf {prefix!r}")
         t = _from_numpy(flat[prefix], dtypes.get(prefix, str(flat[prefix].dtype)))
+        if spec is not None and any(spec):
+            t = t[_block(mesh, spec, tuple(t.shape))]
         if tuple(t.shape) != tuple(node.shape):
             raise ValueError(f"{prefix}: checkpoint shape {tuple(t.shape)}, expected "
                              f"{tuple(node.shape)}")
-        return t.to(device)
+        return t.contiguous().to(device)
 
-    return build(like, ""), manifest["extra"]
+    return build(like, sharding_tree, ""), manifest["extra"]
+
+
+def gather_state(state, sharding_tree, mesh):
+    """The whole state on every rank from each rank's blocks (the inverse
+    of ``restore(sharding_tree=)``): each sharded leaf all-gathered over its
+    mesh axis (one axis per dim) and its blocks concatenated in rank
+    order."""
+    import torch.distributed as dist
+
+    def build(node, spec):
+        if isinstance(node, dict):
+            return {k: build(v, None if spec is None else spec[k]) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [build(v, None if spec is None else spec[i]) for i, v in enumerate(node)]
+        if spec is None or not any(spec):
+            return node
+        for d, ax in enumerate(spec):
+            if not ax:
+                continue
+            if isinstance(ax, tuple) and len(ax) != 1:
+                raise NotImplementedError(f"a dim sharded over the mesh axes {ax} "
+                                          f"(ROADMAP queue 1, item 8b)")
+            group = mesh.get_group(ax[0] if isinstance(ax, tuple) else ax)
+            x = node.contiguous()
+            parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+            dist.all_gather(parts, x, group=group)
+            node = torch.cat(parts, dim=d)
+        return node
+
+    return build(state, sharding_tree)
 
 
 class AsyncCheckpointer:

@@ -5,8 +5,12 @@ straggler watchdog and the simulated worker crash.
 ``ckpt_every`` steps (asynchronously, ``train/checkpoint.py``), survives a
 worker failure (a :class:`SimulatedFailure` from a chaos hook), restores the
 newest checkpoint (onto the state's device) and the data stream's state,
-and resumes, so the data pipeline continues bit-identically.  A restore onto another device mesh (the
-JAX package's elastic path) waits for the mesh, ROADMAP queue 1, item 8.
+and resumes, so the data pipeline continues bit-identically.  With
+``sharding_tree`` and ``mesh`` the restore lands on the current mesh (the
+JAX package's elastic resume): each rank takes its block of each sharded
+leaf of the newest checkpoint, whatever mesh wrote it, and its checkpoints
+gather the blocks back (``checkpoint.gather_state``) for rank 0 to write;
+every rank waits for the write before a restart reads it.
 The watchdog flags a step that takes longer than ``factor`` times the
 trailing median of the last ``history`` steps, once at least 5 steps were
 seen; the continuous batcher (``fleet/scheduler.py``) watches its decode
@@ -58,14 +62,27 @@ class StragglerWatchdog:
 
 def run_supervised(make_state: Callable[[], dict], step_fn: Callable, stream, n_steps: int,
                    fcfg: FaultConfig, chaos: Optional[Callable[[int], None]] = None,
-                   on_step=None):
+                   on_step=None, sharding_tree=None, mesh=None):
     """Run ``n_steps`` with periodic checkpoints; on a failure, restore the
     newest checkpoint and resume.  ``chaos(step)`` may raise
-    :class:`SimulatedFailure` to exercise the recovery path.  Returns
-    (state, log), the log counting restarts, stragglers and steps run."""
+    :class:`SimulatedFailure` to exercise the recovery path.  With
+    ``sharding_tree`` and ``mesh``, ``make_state`` gives the rank's blocks
+    and the restore is elastic (module note).  Returns (state, log), the
+    log counting restarts, stragglers and steps run."""
+    import torch.distributed as dist
+
     log = {"restarts": 0, "stragglers": 0, "steps_run": 0}
     saver = ckpt_lib.AsyncCheckpointer()
     watchdog = StragglerWatchdog(fcfg.step_deadline_factor)
+    sharded = sharding_tree is not None
+    if sharded and mesh is None:
+        raise ValueError("run_supervised(sharding_tree=) needs the mesh")
+    writer = not sharded or dist.get_rank() == 0
+
+    def settle():
+        saver.wait()
+        if sharded:
+            dist.barrier()
 
     state = None
     restarts = 0
@@ -77,7 +94,8 @@ def run_supervised(make_state: Callable[[], dict], step_fn: Callable, stream, n_
                 start = 0
                 if last is not None:
                     device = tree_leaves(state)[0].device
-                    state, extra = ckpt_lib.restore(fcfg.ckpt_dir, last, state, device=device)
+                    state, extra = ckpt_lib.restore(fcfg.ckpt_dir, last, state, device=device,
+                                                    sharding_tree=sharding_tree, mesh=mesh)
                     stream.restore(extra["data"])
                     start = int(extra["train_step"])
             else:
@@ -96,14 +114,17 @@ def run_supervised(make_state: Callable[[], dict], step_fn: Callable, stream, n_
                 if on_step is not None:
                     on_step(i, metrics)
                 if (i + 1) % fcfg.ckpt_every == 0:
-                    saver.save_async(fcfg.ckpt_dir, i + 1, state,
-                                     extra={"train_step": i + 1, "data": stream.state()})
-            saver.wait()
+                    whole = (ckpt_lib.gather_state(state, sharding_tree, mesh) if sharded
+                             else state)
+                    if writer:
+                        saver.save_async(fcfg.ckpt_dir, i + 1, whole,
+                                         extra={"train_step": i + 1, "data": stream.state()})
+            settle()
             return state, log
         except SimulatedFailure:
             restarts += 1
             log["restarts"] = restarts
             if restarts > fcfg.max_restarts:
                 raise
-            saver.wait()
+            settle()
             state = None          # a full restart: rebuild, restore the newest checkpoint

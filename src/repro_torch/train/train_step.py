@@ -25,7 +25,7 @@ changes tensor values only.  As in JAX it needs ``grad_accum == 1`` and
 ``ParallelConfig`` (``configs/base.py``) on one device: ``remat="layer"``
 is ``torch.utils.checkpoint`` per layer of a decoder-only stack,
 ``remat="dots"`` raises, and the sharded settings raise (ROADMAP queue 1,
-item 8).
+item 8b: the sharded train step).
 """
 from __future__ import annotations
 
@@ -63,7 +63,7 @@ def check_parallel(par: ParallelConfig, adaptive: bool = False) -> None:
     if sharded or par.grad_compress != "none":
         raise NotImplementedError(
             f"ParallelConfig {sharded or ['grad_compress=' + par.grad_compress]}: sharded "
-            f"training needs the device mesh, ROADMAP queue 1, item 8")
+            f"training is ROADMAP queue 1, item 8b (the sharded train step)")
     if par.grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1: {par.grad_accum}")
     if adaptive and par.grad_accum > 1:

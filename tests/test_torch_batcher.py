@@ -350,10 +350,20 @@ def test_second_drain_reuses_the_slot_cache(model):
 
 
 def test_mesh_and_par_are_refused(model):
+    """A mesh needs the adaptive decode and slots that divide over its
+    ranks (``ValueError``, where JAX asserts); ``par`` alone is taken."""
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.launch.sharding import MeshShape
+
     _, tc, _, tp = model
-    for kw in (dict(mesh=object()), dict(par=object())):
-        with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-            ContinuousBatcher(tp, tc, BatcherConfig(), **kw)
+    with pytest.raises(ValueError, match="requires an adaptive"):
+        ContinuousBatcher(tp, tc, BatcherConfig(), mesh=MeshShape(("data",), (2,)))
+    ctrl = TR.AdaptiveController(TR.SwapPolicy.from_ax_policy(tc.ax), tc.ax.targets,
+                                 device="cpu")
+    with pytest.raises(ValueError, match="must divide"):
+        ContinuousBatcher(tp, tc, BatcherConfig(n_slots=8), adaptive=ctrl,
+                          mesh=MeshShape(("data",), (3,)))
+    assert ContinuousBatcher(tp, tc, BatcherConfig(), par=ParallelConfig()).mesh is None
     assert TS.ContinuousBatcher is ContinuousBatcher
 
 

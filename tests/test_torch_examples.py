@@ -1,7 +1,8 @@
 """The port's examples (``examples/torch_*.py``) run on the CPU.
 
 Each runs in a subprocess with ``--device cpu`` (and ``--smoke`` where the
-JAX namesake has a size), in a temporary directory, exits 0, prints what
+JAX namesake has a size; ``--ranks 2`` for the fleet, whose ranks are
+spawned processes), in a temporary directory, exits 0, prints what
 its JAX namesake prints, and loads neither JAX nor the JAX package; each
 defaults to the card.
 """
@@ -24,6 +25,7 @@ EXAMPLES = {
     "torch_serve_decode": (["--smoke"], "generated token ids:"),
     "torch_adaptive_drift": (["--smoke"], "re-tunes: 1"),
     "torch_train_lm_ax": (["--smoke"], "'steps_run': 3"),
+    "torch_fleet_serve": (["--ranks", "2"], "replica 1: v2 configs_equal(writer)=True"),
 }
 
 _RUN = r"""

@@ -951,3 +951,43 @@ def test_autotune_install_keeps_captured_graphs_and_builds_nothing(cuda, tmp_pat
     finally:
         clear_table()
         G.clear_programs()
+
+
+# ---------------------------------------------------------------------------
+# the fleet mesh on the card
+# ---------------------------------------------------------------------------
+
+def _card_world(n, backend):
+    import _torch_mesh_ranks as RK
+    from repro_torch.launch.mesh import spawn
+
+    return RK, spawn(RK.card_serve_rank, n, device="cuda", backend=backend, timeout_s=600)
+
+
+def _same_records(got, want):
+    assert set(got) == set(want)
+    for t in want:
+        for k, v in want[t].items():
+            assert got[t][k].dtype == v.dtype and (got[t][k] == v).all(), (t, k)
+
+
+def test_mesh_serve_on_one_nccl_rank_equals_the_serve_without_a_mesh(cuda):
+    RK, (r,) = _card_world(1, "nccl")
+    assert r["path"] == "graph"
+    assert (r["tokens"] == r["solo_tokens"]).all()
+    assert len(r["records"]) == RK.T - 1
+    for got, want in zip(r["records"], r["solo_records"]):
+        _same_records(got, want)
+
+
+def test_mesh_serve_on_two_gloo_ranks_sharing_the_card(cuda):
+    from repro_torch.runtime.telemetry import combine_records
+
+    RK, res = _card_world(2, "gloo")
+    solo = [r["solo_tokens"] for r in res]
+    for r in res:
+        assert (r["tokens"] == res[0]["tokens"]).all()
+        for rank, s in enumerate(solo):
+            assert (r["tokens"][RK.block(rank, 2)] == s).all()
+        for i, got in enumerate(r["records"]):
+            _same_records(got, combine_records([q["solo_records"][i] for q in res]))

@@ -5,8 +5,10 @@ local/global, MoE, RG-LRU, SSD and M-RoPE families and of whisper, a canaried
 writer serve over a policy store with an SLO engine, a trace recorder and a
 replica, a continuous-batcher drain, the telemetry aggregation, the serve
 CLI, a train step with a checkpoint, the train CLI, the schedule autotuner's
-CLI with a store, a reader and ``resolve``, and the serve CLI's
-``--autotune`` load neither; the examples are held so in
+CLI with a store, a reader and ``resolve``, the serve CLI's
+``--autotune``, its ``--fleet 2`` over spawned ranks, a one-rank fleet mesh
+with a mesh-sharded serve and batcher, and the spec trees of the multi-pod
+mesh load neither; the examples are held so in
 ``tests/test_torch_examples.py``), and
 ``chip_smoke.py`` refuses to run without a CUDA device or outside a
 checkout."""
@@ -112,6 +114,26 @@ with tempfile.TemporaryDirectory() as root:
     cli, _ = main(["--device", "cpu", "--smoke", "--fleet", "1", "--token-granular",
                    "--requests", "2", "--prompt-len", "8", "--new-tokens", "3",
                    "--policy-store", root + "/cli"])
+    fleet2, _ = main(["--device", "cpu", "--smoke", "--fleet", "2", "--token-granular",
+                      "--requests", "2", "--prompt-len", "8", "--new-tokens", "3",
+                      "--policy-store", root + "/cli2"])
+    import torch.distributed as dist
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.launch.mesh import make_fleet_mesh, param_shardings, production_mesh_shape
+    mesh = make_fleet_mesh(1, device="cpu")
+    mctrl = AdaptiveController(SwapPolicy.from_ax_policy(cfg.ax), cfg.ax.targets,
+                               AdaptiveConfig(tile_rows=2), device="cpu")
+    meshed = generate(p, {{"tokens": torch.zeros((2, 4), dtype=torch.int64)}}, cfg,
+                      ServeConfig(max_new_tokens=3), adaptive=mctrl, mesh=mesh)
+    mbat = ContinuousBatcher(p, cfg, BatcherConfig(n_slots=2, prompt_buckets=(8,),
+                                                   new_token_bucket=3, token_granular=True),
+                             adaptive=mctrl, mesh=mesh)
+    for rid in range(3):
+        mbat.submit(Request(rid, np.arange(1, 4 + rid), max_new=3))
+    mesh_served = len(mbat.run())
+    dist.destroy_process_group()
+    specs = param_shardings(production_mesh_shape(multi_pod=True), ParallelConfig(),
+                            init_params(ARCHS["qwen2-72b"], device="meta"))
 from repro_torch.kernels import autotune as TA, clear_table, resolve
 with tempfile.TemporaryDirectory() as root:
     TA.main(["--device", "cpu", "--quick", "--shapes", "4x64x48", "--store", root])
@@ -128,6 +150,8 @@ print(json.dumps({{"modules": len(names), "bad": bad, "shape": list(toks.shape),
                   "retunes": len(writer.retunes), "audit": kinds,
                   "replica": replica.version, "metrics": "repro_canary_total" in text,
                   "served": served, "cli": cli.stats["requests"],
+                  "mesh": [list(meshed.shape), mesh_served, fleet2["stats"]["requests"],
+                           list(specs["embed"]["w"])],
                   "families": families, "trained": trained,
                   "autotune": [sched_reader.version, sched.backend, list(tuned.shape)]}}))
 """
@@ -154,6 +178,7 @@ def test_importing_and_running_the_port_loads_no_jax_and_no_repro():
                                                    "recurrentgemma-2b", "mamba2-370m",
                                                    "qwen2-vl-72b", "whisper-base")}
     assert res["trained"] == [1, 1]
+    assert res["mesh"] == [[2, 3], 3, 2, ["model", None]]
     assert res["autotune"] == [1, "mxu", [1, 2]]
 
 
@@ -201,6 +226,7 @@ def _entry_points():
     import repro_torch.core.tuning as tuning
     import repro_torch.kernels.autotune as autotune
     import repro_torch.kernels.ops as ops
+    import repro_torch.launch.mesh as launch_mesh
     import repro_torch.launch.serve as launch_serve
     import repro_torch.launch.train as launch_train
     import repro_torch.models as models
@@ -218,6 +244,9 @@ def _entry_points():
             "checkpoint.restore": checkpoint.restore,
             "launch.train": launch_train._parser(),
             "launch.serve": launch_serve._parser(),
+            "mesh.make_fleet_mesh": launch_mesh.make_fleet_mesh,
+            "mesh.make_production_mesh": launch_mesh.make_production_mesh,
+            "mesh.spawn": launch_mesh.spawn,
             "kernels.autotune": autotune._parser(),
             "autotune.tune_table": autotune.tune_table,
             "autotune.tune_signature": autotune.tune_signature,

@@ -61,7 +61,7 @@ def test_fleet_wave_arrivals_survive_an_injected_crash(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--fleet", "2"], "queue 1, item 8"),
+    (["--fleet", "2", "--backend", "nccl"], "CPU ranks use gloo"),
     (["--arch", "whisper-base", "--adaptive"], "serves statically only"),
     (["--arch", "whisper-base", "--fleet", "1"], "serves statically only"),
 ])
