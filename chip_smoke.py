@@ -98,6 +98,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
             nothing, the 2-rank drain == the one-rank drain per request or
             below the margin bound; the walls and the aggregation's share
             of the decode wall are printed;
+   train mesh — the sharded train step (``make_train_step(mesh=)``) on
+            two ``gloo`` ranks spawned on the card while this process holds
+            no model (after its one-card reference steps): the step's
+            collectives on card tensors, values checked; deepseek-moe-16b
+            at its published widths, depth 2, ``mxu``, B = 4 x 256, on (a)
+            ``("data",)`` = 2 with FSDP (4 static steps, then 2 adaptive
+            ones with the policy changed between them) and (b) ``("data",
+            "model")`` = (1, 2) with ``dp_only`` + ``ep``, 32 of the 64
+            experts a rank and the expert all-to-all (4 static steps, and
+            a ``remat="layer"`` step from step 1's state, whose recomputed
+            all-to-all runs on autograd's device thread): finite losses,
+            step 1 within 1e-2 relative of the one-card step (a MoE routing
+            flip), the remat step's loss, ce, aux and grad norm within
+            ``TOL_TRAIN_STEP`` of step 1's, ``ax_matmul`` launches a rank =
+            projections x steps and ``ax_matmul_grid`` likewise in the
+            adaptive steps, no nvcc, every launched shape (recorded at the
+            wrappers, reckoned from the config) held to the plain version;
+            the reduced deepseek (f32, exact, no drops) sharded on both
+            layouts, and on (b) with ``remat="layer"``, against the
+            one-card step within ``TOL_TRAIN_STEP`` / ``TOL_TRAIN_UPDATE``;
+            ``run_supervised`` on (a) with a crash within 1e-5 relative of
+            the uninterrupted run; ms/step (steps 2-3, uninstrumented), peak
+            memory and the collectives' share of step 4 (each collective
+            between two synchronises) per rank printed;
 5. serve  — qwen2-72b at its published widths, depth cut to 2 layers,
             random weights from a seed: the per-forward weight work that
             the weight cache removes, timed against its bytes; B=4 prompts
@@ -240,6 +264,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -3623,6 +3648,445 @@ def mesh_phase(dev, card: str):
 
 
 
+
+# ---------------------------------------------------------------------------
+# phase 4d: the sharded train step
+# ---------------------------------------------------------------------------
+
+TM_STEPS, TM_ADAPTIVE_STEPS = 4, 2
+TM_RANKS = 2
+TM_RESTART = (6, 2, 3)                   # steps, ckpt_every, the step that crashes
+TOL_TM_STEP1 = TOL_TRAIN_STEP_FLIP       # step 1 against the one-card step (routing flips)
+TOL_TM_RESTART = 1e-5
+TM_METRICS = ("loss", "ce", "aux", "grad_norm")
+COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_to_all_single",
+               "all_reduce")
+
+
+def _tm_layouts(remat: bool = False):
+    """(label, mesh shape, axes, ParallelConfig) of the phase: (a) FSDP over
+    ``("data",)`` (JAX's rules need ``dp_only`` on a mesh without
+    ``"model"``), (b) the expert all-to-all over ``("data", "model")`` =
+    (1, 2) with ``dp_only`` + ``ep`` (32 of the 64 experts a rank).
+    ``remat``: also (b) with ``remat="layer"``, whose recomputed layers run
+    the all-to-all in the backward, on autograd's device thread."""
+    from repro_torch.configs import ParallelConfig
+
+    out = [("a", (2,), ("data",), ParallelConfig(dp_only=True, fsdp=True, remat="none")),
+           ("b", (1, 2), ("data", "model"), ParallelConfig(dp_only=True, ep=True,
+                                                           remat="none"))]
+    if remat:
+        out.append(("b remat", (1, 2), ("data", "model"),
+                    ParallelConfig(dp_only=True, ep=True, remat="layer")))
+    return out
+
+
+def _tm_configs():
+    """deepseek-moe-16b at its published widths, depth 2, ``mxu``; the
+    reduced one in f32 on the exact path (its capacity drops nothing)."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.configs.base import AxPolicy
+
+    big = dataclasses.replace(ARCHS["deepseek-moe-16b"], n_layers=2,
+                              ax=AxPolicy(backend="mxu"))
+    small = dataclasses.replace(reduced(ARCHS["deepseek-moe-16b"]), n_layers=2,
+                                compute_dtype="float32", ax=None)
+    return big, small
+
+
+def _tm_batches(cfg, n: int, b: int, s: int, seed: int):
+    from repro_torch.train import DataConfig, SyntheticStream
+
+    stream = SyntheticStream(DataConfig(cfg.vocab, s, b, seed=seed, mode="arith"))
+    return [stream.next() for _ in range(n)]
+
+
+def _tm_flat(tree):
+    from repro_torch.launch.mesh import tree_paths
+
+    paths, leaves = tree_paths(tree)
+    return {p: v.detach().float().cpu().numpy() for p, v in zip(paths, leaves)}
+
+
+@contextlib.contextmanager
+def _collective_timer():
+    """Host wall of each collective the step issues, the card synchronised
+    before and after it (``gloo`` stages card tensors through the host, so
+    it waits for the stream anyway)."""
+    import torch
+    import torch.distributed as dist
+
+    acc = {"s": 0.0, "calls": 0}
+    real = {n: getattr(dist, n) for n in COLLECTIVES}
+
+    def wrap(fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            acc["s"] += time.perf_counter() - t
+            acc["calls"] += 1
+            return out
+        return call
+
+    for n, fn in real.items():
+        setattr(dist, n, wrap(fn))
+    try:
+        yield acc
+    finally:
+        for n, fn in real.items():
+            setattr(dist, n, fn)
+
+
+def _gloo_train_probe(dev) -> dict:
+    """The collectives of the sharded step on card tensors over ``gloo``,
+    their values checked (each rank runs the same calls)."""
+    import torch
+    import torch.distributed as dist
+
+    n, r = dist.get_world_size(), dist.get_rank()
+    x = torch.arange(2 * n, dtype=torch.float32, device=dev) + 10 * r
+    out = {}
+    g = torch.empty(2 * n * n, device=dev)
+    dist.all_gather_into_tensor(g, x)
+    out["all_gather_into_tensor"] = torch.equal(g.cpu(), torch.cat(
+        [torch.arange(2 * n, dtype=torch.float32) + 10 * k for k in range(n)]))
+    rs = torch.empty(2, device=dev)
+    dist.reduce_scatter_tensor(rs, x)
+    out["reduce_scatter_tensor"] = torch.equal(rs.cpu(), sum(
+        torch.arange(2 * n, dtype=torch.float32)[2 * r:2 * r + 2] + 10 * k for k in range(n)))
+    a2a = torch.empty_like(x)
+    dist.all_to_all_single(a2a, x)
+    out["all_to_all_single"] = torch.equal(a2a.cpu(), torch.cat(
+        [torch.arange(2 * r, 2 * r + 2, dtype=torch.float32) + 10 * k for k in range(n)]))
+    return out
+
+
+def train_mesh_rank(rank, _fleet, ref):
+    """One of the two ``gloo`` ranks sharing the card (phase 4d): the
+    collectives probed; per layout 4 static steps of deepseek-moe-16b x2
+    from the seeded state (the rank builds its blocks), the last of them
+    with the collectives timed, (a) also 2 adaptive steps with the policy
+    changed between them, (b) also a ``remat="layer"`` step from the same
+    state as step 1; the reduced deepseek f32 step on both layouts and on
+    (b) with ``remat="layer"``; the restart on (a).  Everything numpy or
+    plain Python."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ax_matmul import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params, transformer
+    from repro_torch.runtime import SwapPolicy
+    from repro_torch.runtime.telemetry import records_to_host
+    from repro_torch.train import (AdamWConfig, FaultConfig, SimulatedFailure, SyntheticStream,
+                                   DataConfig, gather_state, init_train_state, make_train_step,
+                                   run_supervised)
+    from repro_torch.train import distributed as D
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = (torch.device("cuda", torch.cuda.current_device()) if _fleet.device_type == "cuda"
+           else torch.device("cpu"))
+    nvcc0 = _build.NVCC_RUNS["count"]
+    res = {"probe": _gloo_train_probe(dev), "layouts": {}, "small": {}}
+    big, small = _tm_configs()
+    opt = AdamWConfig(lr=1e-4, warmup=2)
+    n_d = len(transformer.ax_projections(big))
+    batches = _tm_batches(big, TM_STEPS + TM_ADAPTIVE_STEPS, DS_B, DS_S, 3)
+    with kernel_shapes() as seen:
+        for label, shape, axes, par in _tm_layouts():
+            mesh = make_mesh(shape, axes, device=dev.type, backend="gloo")
+            specs = D.state_specs(big, opt, mesh, par)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            whole = init_params(big, seed=0, device=dev)
+            state = init_train_state(D.local_state(whole, specs["params"], mesh), opt)
+            del whole
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            state_gb = sum(t.numel() * t.element_size() for t in _leaves(state)) / 1e9
+            torch.cuda.reset_peak_memory_stats(dev)
+            remat_m = None
+            if label == "b":
+                # remat="layer" from the same state and batch as step 1 (its
+                # new state dropped): the recompute's all-to-all and aux
+                # all-reduce run on autograd's device thread
+                out_r = make_train_step(big, dataclasses.replace(par, remat="layer"), opt,
+                                        mesh=mesh)(state, batches[0])
+                remat_m = {k: float(out_r[1][k]) for k in TM_METRICS}
+                del out_r
+                torch.cuda.empty_cache()
+            step = make_train_step(big, par, opt, mesh=mesh)
+            reset_launches()
+            losses, walls = [], []
+            for i in range(TM_STEPS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                # the last step times its collectives, a synchronise before and
+                # after each; the steps before it run uninstrumented
+                with (_collective_timer() if i == TM_STEPS - 1 else
+                      contextlib.nullcontext()) as coll:
+                    state, m = step(state, batches[i])
+                    losses.append(float(m["loss"]))
+                walls.append(time.perf_counter() - t)
+                if i == 0:
+                    first_m = {k: float(m[k]) for k in TM_METRICS}
+            row = dict(losses=losses, launches=dict(LAUNCHES), n_d=n_d, init_s=init_s,
+                       state_gb=state_gb,
+                       ms_per_step=1e3 * sum(walls[1:-1]) / (TM_STEPS - 2),
+                       first_ms=1e3 * walls[0], timed_ms=1e3 * walls[-1], coll_s=coll["s"],
+                       coll_calls=coll["calls"], coll_share=coll["s"] / walls[-1],
+                       grad_norm=float(m["grad_norm"]), remat=remat_m, step1=first_m)
+            if label == "a":
+                astep = make_train_step(big, par, opt, adaptive=True, mesh=mesh)
+                pol_a = SwapPolicy.from_ax_policy(big.ax)
+                pol_b = SwapPolicy.from_ax_policy(dataclasses.replace(big.ax, swap_bit=5,
+                                                                      swap_value=1))
+                reset_launches()
+                a_losses, ns, a_walls = [], [], []
+                for i, pol in enumerate((pol_a, pol_b)):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    state, m = astep(state, batches[TM_STEPS + i],
+                                     pol.dyn_tree(big.ax.targets, device=dev))
+                    rec = records_to_host(m["ax_telemetry"])
+                    a_walls.append(time.perf_counter() - t)
+                    ns.append({tg: int(np.sum(r["n"])) for tg, r in rec.items()})
+                    a_losses.append(float(m["loss"]))
+                row.update(adaptive_losses=a_losses, adaptive_n=ns,
+                           adaptive_launches=dict(LAUNCHES),
+                           adaptive_ms=[1e3 * w for w in a_walls],
+                           policies=[pol_a.describe(), pol_b.describe()])
+            row["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+            res["layouts"][label] = row
+            del state, step, m
+            torch.cuda.empty_cache()
+    res["shapes"] = {k: sorted(v) for k, v in seen.items()}
+
+    # the reduced deepseek in f32: one sharded step against the one-card one
+    for label, shape, axes, par in _tm_layouts(remat=True):
+        mesh = make_mesh(shape, axes, device=dev.type, backend="gloo")
+        specs = D.state_specs(small, opt, mesh, par)
+        whole = init_train_state(init_params(small, seed=0, device=dev), opt)
+        new, m = make_train_step(small, par, opt, mesh=mesh)(
+            D.local_state(whole, specs, mesh), ref["small_batch"])
+        back = gather_state(new, specs, mesh)
+        res["small"][label] = dict(metrics={k: float(m[k]) for k in ("loss", "grad_norm")},
+                                   params=_tm_flat(back["params"]) if rank == 0 else None)
+
+    # the supervised restart on (a), the reduced deepseek
+    label, shape, axes, par = _tm_layouts()[0]
+    mesh = make_mesh(shape, axes, device=dev.type, backend="gloo")
+    specs = D.state_specs(small, opt, mesh, par)
+    step = make_train_step(small, par, opt, mesh=mesh)
+    n_steps, every, crash = TM_RESTART
+
+    def make_state():
+        return init_train_state(D.local_state(init_params(small, seed=0, device=dev),
+                                              specs["params"], mesh), opt)
+
+    fired = []
+
+    def chaos(i):
+        if i == crash and not fired:
+            fired.append(i)
+            raise SimulatedFailure("rank lost")
+
+    runs = {}
+    for name, hook in (("ref", None), ("chaos", chaos)):
+        stream = SyntheticStream(DataConfig(small.vocab, 32, 4, seed=1, mode="arith"))
+        t = time.perf_counter()
+        st, log = run_supervised(make_state, step, stream, n_steps,
+                                 FaultConfig(ckpt_dir=f"{ref['ckpt']}/{name}", ckpt_every=every),
+                                 chaos=hook, sharding_tree=specs, mesh=mesh)
+        runs[name] = (gather_state(st, specs, mesh)["params"], log, time.perf_counter() - t)
+    pairs = list(zip(_leaves(runs["ref"][0]), _leaves(runs["chaos"][0])))
+    res["restart"] = dict(
+        restarts=[runs[k][1]["restarts"] for k in ("ref", "chaos")],
+        worst_rel=max(((a - b).abs().max() / a.abs().max().clamp(min=1e-12)).item()
+                      for a, b in pairs),
+        bit_equal=all(torch.equal(a, b) for a, b in pairs),
+        walls=[runs[k][2] for k in ("ref", "chaos")])
+    res["nvcc"] = _build.NVCC_RUNS["count"] - nvcc0
+    return res
+
+
+def train_mesh_phase(dev, card: str, clock: float):
+    """Phase 4d (module note): the one-card reference steps in this process,
+    then two ``gloo`` ranks spawned on the card while it holds no model.
+    Returns (rows, ax_matmul shape rows, ax_matmul_grid shape rows, launches
+    by path, grid launches by path)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import transformer
+    from repro_torch.train import AdamWConfig, fresh_train_state, make_train_step
+
+    t_ref = time.perf_counter()
+    # the two ranks need the card's room: drop what earlier phases left unreferenced
+    gc.collect()
+    torch.cuda.empty_cache()
+    left_gb = torch.cuda.memory_allocated(dev) / 1e9
+    big, small = _tm_configs()
+    opt = AdamWConfig(lr=1e-4, warmup=2)
+    n_d = len(transformer.ax_projections(big))
+    # one card: step 1 of deepseek x2, and the reduced f32 step
+    state = fresh_train_state(big, opt, seed=0, device=dev)
+    b0 = _tm_batches(big, 1, DS_B, DS_S, 3)[0]
+    one_loss = float(make_train_step(big, ParallelConfig(remat="none"), opt)(state, b0)[1]["loss"])
+    del state
+    torch.cuda.empty_cache()
+    small_batch = _tm_batches(small, 1, 8, 32, 5)[0]
+    s0 = fresh_train_state(small, opt, seed=0, device=dev)
+    s1, m1 = make_train_step(small, ParallelConfig(remat="none"), opt)(s0, small_batch)
+    one_small = dict(metrics={k: float(m1[k]) for k in ("loss", "grad_norm")},
+                     params=_tm_flat(s1["params"]), start=_tm_flat(s0["params"]))
+    del s0, s1, m1
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t_ref
+    # what this process keeps on the card while the two ranks train beside it
+    held_gb = (torch.cuda.memory_allocated(dev) / 1e9, torch.cuda.memory_reserved(dev) / 1e9)
+    print(f"train mesh: earlier phases left {left_gb:.2f} GB allocated; this process holds "
+          f"{held_gb[0]:.2f} GB allocated, {held_gb[1]:.2f} GB reserved while the ranks run "
+          f"[{card}]", flush=True)
+
+    t_b = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_mesh_") as tmp:
+        res = spawn(train_mesh_rank, TM_RANKS, args=(dict(small_batch=small_batch, ckpt=tmp),),
+                    device=dev.type, backend="gloo", timeout_s=900)
+    ranks_s = time.perf_counter() - t_b
+    problems = []
+    r0 = res[0]
+    want = {"ax_matmul": n_d * TM_STEPS, "ax_matmul_grid": 0}
+    want_a = {"ax_matmul": 0, "ax_matmul_grid": n_d * TM_ADAPTIVE_STEPS}
+    for rank, r in enumerate(res):
+        if r["nvcc"]:
+            problems.append(f"rank {rank}: {r['nvcc']} nvcc runs")
+        if not all(r["probe"].values()):
+            problems.append(f"rank {rank}: gloo card collectives {r['probe']}")
+        for label, row in r["layouts"].items():
+            losses = row["losses"] + row.get("adaptive_losses", [])
+            if not all(math.isfinite(x) for x in losses):
+                problems.append(f"rank {rank} ({label}): losses {losses}")
+            if row["launches"] != want:
+                problems.append(f"rank {rank} ({label}): launches {row['launches']} (want "
+                                f"{want})")
+            gap = abs(row["losses"][0] / one_loss - 1)
+            if gap > TOL_TM_STEP1:
+                problems.append(f"rank {rank} ({label}): step 1 loss {row['losses'][0]} vs "
+                                f"one card {one_loss} ({gap:.3g} > {TOL_TM_STEP1})")
+            if row["remat"] is not None:
+                gaps = {k: abs(row["remat"][k] / row["step1"][k] - 1) for k in TM_METRICS}
+                if max(gaps.values()) > TOL_TRAIN_STEP:
+                    problems.append(f"rank {rank} ({label}): the remat='layer' step vs step 1 "
+                                    f"{gaps} (tol {TOL_TRAIN_STEP})")
+            if label == "a" and (row["adaptive_launches"] != want_a or not all(
+                    min(n.values()) > 0 for n in row["adaptive_n"])):
+                problems.append(f"rank {rank} (a) adaptive: launches "
+                                f"{row['adaptive_launches']} (want {want_a}), telemetry n "
+                                f"{row['adaptive_n']}")
+        if r["restart"]["restarts"] != [0, 1] or r["restart"]["worst_rel"] > TOL_TM_RESTART:
+            problems.append(f"rank {rank}: restart {r['restart']}")
+        if r["layouts"]["a"]["losses"] != r0["layouts"]["a"]["losses"]:
+            problems.append(f"rank {rank}: reported losses differ from rank 0's")
+    small_rows = {}
+    for label, got in r0["small"].items():
+        gaps = {k: abs(got["metrics"][k] / one_small["metrics"][k] - 1)
+                for k in ("loss", "grad_norm")}
+        upd = _update_gap_np(got["params"], one_small["params"], one_small["start"])
+        small_rows[label] = dict(gaps, update=upd)
+        if max(gaps.values()) > TOL_TRAIN_STEP or upd > TOL_TRAIN_UPDATE:
+            problems.append(f"reduced f32 step ({label}) vs one card: {gaps}, update {upd} "
+                            f"(tol {TOL_TRAIN_STEP}, {TOL_TRAIN_UPDATE})")
+    # every launched shape: the ranks' rows, reckoned from the config
+    M = DS_B * DS_S // TM_RANKS
+    dshapes = {}
+    for _, proj, K, N in transformer.ax_projections(big):
+        dshapes.setdefault((_padded(M), _padded(K), _padded(N)),
+                           f"deepseek train mesh M={M} {proj}")
+    seen = {k: set(map(tuple, v)) for k, v in r0["shapes"].items()}
+    if seen["ax_matmul"] != set(dshapes) or seen["ax_matmul_grid"] != set(dshapes):
+        problems.append(f"kernel shapes launched {seen}, reckoned {sorted(dshapes)}")
+    if problems:
+        fail("train mesh: " + "; ".join(problems))
+    shape_list = [(label,) + k for k, label in sorted(dshapes.items())]
+    ax_rows = main_shape_checks(dev, card, clock, grid_kernel=False, shapes=shape_list)
+    grid_rows = main_shape_checks(dev, card, clock, grid_kernel=True, shapes=shape_list)
+    print(f"train mesh: gloo takes card tensors for {sorted(r0['probe'])} (values checked); "
+          f"one-card step 1 of deepseek-moe-16b x2 loss {one_loss:.6f} [{card}]", flush=True)
+    rows = {"one_card_loss": one_loss, "small": small_rows, "restart": r0["restart"],
+            "ref_s": ref_s, "ranks_s": ranks_s, "parent_gb": held_gb}
+    for label, shape, axes, par in _tm_layouts():
+        per = [r["layouts"][label] for r in res]
+        row = per[0]
+        rows[label] = dict(mesh=f"{dict(zip(axes, shape))}", ms_per_step=row["ms_per_step"],
+                           first_ms=row["first_ms"], losses=row["losses"],
+                           peak_gb=[p["peak_gb"] for p in per],
+                           state_gb=[p["state_gb"] for p in per],
+                           coll_share=[p["coll_share"] for p in per],
+                           coll_ms=[1e3 * p["coll_s"] for p in per],
+                           timed_ms=[p["timed_ms"] for p in per],
+                           coll_calls=row["coll_calls"],
+                           tokens_per_s=DS_B * DS_S / row["ms_per_step"] * 1e3)
+        extra = ""
+        if row["remat"] is not None:
+            rows[label]["remat_gap"] = {k: abs(row["remat"][k] / row["step1"][k] - 1)
+                                        for k in TM_METRICS}
+            gaps = ", ".join(f"{k} {v:.3g}" for k, v in rows[label]["remat_gap"].items())
+            extra = (f"; remat='layer' from step 1's state: loss {row['remat']['loss']:.6f}, "
+                     f"gaps {gaps} (tol {TOL_TRAIN_STEP})")
+        if label == "a":
+            rows[label].update(adaptive_ms=row["adaptive_ms"], adaptive_n=row["adaptive_n"])
+            extra = (f"; 2 adaptive steps ({row['policies'][0]} then {row['policies'][1]}): "
+                     f"telemetry n {row['adaptive_n']}, ax_matmul_grid {want_a['ax_matmul_grid']} "
+                     f"a rank, {', '.join(f'{x:.0f}' for x in row['adaptive_ms'])} ms")
+        flags = "+".join(f for f in ("dp_only", "fsdp", "ep") if getattr(par, f))
+        print(f"train mesh ({label}) {dict(zip(axes, shape))} {flags}: deepseek-moe-16b x2 "
+              f"(--ax mxu, B={DS_B} x {DS_S}, {DS_B // TM_RANKS} rows a rank), {TM_STEPS} "
+              f"steps: losses {', '.join(f'{x:.5f}' for x in row['losses'])} (step 1 "
+              f"{abs(row['losses'][0] / one_loss - 1):.3g} from one card, tol {TOL_TM_STEP1}); "
+              f"ax_matmul {want['ax_matmul']} a rank (= {n_d} x {TM_STEPS}); "
+              f"{row['ms_per_step']:.1f} ms/step over steps 2-{TM_STEPS - 1} (first "
+              f"{row['first_ms']:.0f} ms), {rows[label]['tokens_per_s']:.0f} tokens/s; state "
+              f"{row['state_gb']:.2f} GB a rank, peak allocated "
+              f"{', '.join(f'{p:.1f}' for p in rows[label]['peak_gb'])} GB; collectives "
+              f"{rows[label]['coll_calls']} a step, "
+              f"{', '.join(f'{100 * c:.1f}%' for c in rows[label]['coll_share'])} of step "
+              f"{TM_STEPS}'s wall ({', '.join(f'{x:.1f}' for x in rows[label]['timed_ms'])} ms, "
+              f"a synchronise around each collective){extra} [{card}]", flush=True)
+    rs = r0["restart"]
+    print(f"train mesh: reduced deepseek (2 layers, f32, exact, no drops) sharded vs one card "
+          f"{ {k: {n: float(f'{v:.3g}') for n, v in g.items()} for k, g in small_rows.items()} } "
+          f"(tol {TOL_TRAIN_STEP}, update {TOL_TRAIN_UPDATE}); run_supervised on (a) "
+          f"({TM_RESTART[0]} steps, ckpt_every {TM_RESTART[1]}, a crash at step "
+          f"{TM_RESTART[2]}): 1 restart, within {rs['worst_rel']:.3g} relative of the "
+          f"uninterrupted run (tol {TOL_TM_RESTART}), bit-equal {rs['bit_equal']}, walls "
+          f"{rs['walls'][0]:.1f} / {rs['walls'][1]:.1f} s; the one-card references "
+          f"{ref_s:.1f} s, the ranks {ranks_s:.1f} s with the spawn [{card}]", flush=True)
+    paths = {f"train mesh ({label}, rank 0)": want["ax_matmul"] for label in ("a", "b")}
+    grid_paths = {"train mesh (a) adaptive, rank 0": want_a["ax_matmul_grid"]}
+    return rows, ax_rows, grid_rows, paths, grid_paths
+
+
+def _update_gap_np(new, ref, start) -> float:
+    """``_update_gap`` over numpy parameter dicts keyed alike."""
+    import numpy as np
+
+    gaps = []
+    for p, b in ref.items():
+        da, db = new[p] - start[p], b - start[p]
+        gaps.append(float(np.linalg.norm(da - db) / max(np.linalg.norm(db), 1e-30)))
+    return max(gaps)
+
+
 def profile_serve(run, label: str, card: str):
     """One more serve (or tuning run) under torch.profiler: device time by
     kernel and the device's busy share of the wall (``--profile``)."""
@@ -3739,17 +4203,22 @@ def main(argv):
     # the mesh phase spawns two ranks that each hold the serve's model
     m_paths, m_grid_paths, mesh_info = mesh_phase(dev, card)
     phase_done("mesh")
+    tm_rows, tm_shape_rows, tm_grid_rows, tm_paths, tm_grid_paths = \
+        train_mesh_phase(dev, card, clock)
+    phase_done("train mesh")
     profile = "--profile" in argv
     cfg, params, prompts, tokens, paths, stats = serve(dev, card, profile)
     paths.update(w_paths)
     paths.update(t_paths)
     paths.update(m_paths)
+    paths.update(tm_paths)
     phase_done("serve")
     autotune_rows = autotune_phase(dev, card, cfg, params, prompts, tokens)
     phase_done("autotune")
     grid_paths = adaptive_serve(cfg, params, prompts, tokens, stats, card, profile)
     grid_paths.update(t_grid_paths)
     grid_paths.update(m_grid_paths)
+    grid_paths.update(tm_grid_paths)
     phase_done("adapt")
     paths["per-slot graph"] = slot_serve(cfg, params, card)
     paths["token-granular graph"] = token_serve(cfg, params, card)
@@ -3816,20 +4285,22 @@ def main(argv):
                      rows, c_rows)
     grid_entry = entry("ax_matmul_grid", "src/repro/kernels/ax_matmul.py:253", grid_launches,
                        grid_paths, grid_rows, c_grid_rows)
-    for e, fam_rows, w_rows, t_rows in (
-            (ax_entry, family_shape_rows, whisper_shape_rows, train_shape_rows),
-            (grid_entry, family_grid_rows, [], train_grid_rows)):
+    for e, fam_rows, w_rows, t_rows, tm_rows_ in (
+            (ax_entry, family_shape_rows, whisper_shape_rows, train_shape_rows, tm_shape_rows),
+            (grid_entry, family_grid_rows, [], train_grid_rows, tm_grid_rows)):
         e["family_shapes"] = fam_rows
         e["whisper_shapes"] = w_rows
         e["train_shapes"] = t_rows
-        e["max_abs_err"] = max([e["max_abs_err"]] + [r["max_abs_err"]
-                                                     for r in fam_rows + w_rows + t_rows])
+        e["train_mesh_shapes"] = tm_rows_
+        e["max_abs_err"] = max([e["max_abs_err"]] + [
+            r["max_abs_err"] for r in fam_rows + w_rows + t_rows + tm_rows_])
     ax_entry["whisper"] = {k: whisper_row[k] for k in (
         "name", "layers", "enc_layers", "params_g", "ax_per_forward", "ax_per_decode",
         "launches", "decode_vs_full_rel", "graph_decode_ms_per_step")}
     ax_entry["train"] = train_rows
     ax_entry["autotune"] = autotune_rows
     ax_entry["mesh"] = mesh_info
+    ax_entry["train_mesh"] = tm_rows
     ax_entry["families"] = [{k: r[k] for k in ("name", "layers", "params_g", "ax_per_forward",
                                                "launches")} for r in family_rows]
     ax_entry["reduced_card_vs_cpu"] = {

@@ -126,13 +126,16 @@ class ParallelConfig:
       and raises;
     * ``grad_accum`` — microbatches per step, gradients summed in f32;
     * ``fsdp``, ``seq_shard``, ``ep`` and ``dp_only`` shard the train step
-      over a device mesh, ROADMAP queue 1, item 8b: set, the train step
-      raises.  The serving mesh's rules read them
-      (``launch/sharding.axis_rules``).  Their defaults are the one-card
-      values here (the JAX defaults shard);
-    * ``grad_compress`` compresses the all-reduce, which one card does not
-      run: anything but ``'none'`` raises (the optimizer's own
-      ``AdamWConfig.compress`` is ported);
+      over a device mesh (``make_train_step(mesh=)``,
+      ``train/distributed.py``) and the serving mesh's rules
+      (``launch/sharding.axis_rules``); without a mesh they do nothing, as
+      JAX's ``shard()`` does nothing outside one.  A ``"model"`` axis of
+      several ranks without ``dp_only`` (tensor parallelism) raises, ROADMAP
+      queue 1, item 8c.  Their defaults are the one-card values here (the
+      JAX defaults shard), which keeps the serving mesh's rules;
+    * ``grad_compress`` (``'none'`` or ``'bf16'``) is accepted and read
+      nowhere, as in the JAX package, which declares it and never reads it
+      (the optimizer's own ``AdamWConfig.compress`` is ported);
     * ``scan_layers`` is accepted and has no effect: the port runs its
       layers as a list either way.
 

@@ -47,7 +47,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import multipliers as M
-from repro_torch.launch.sharding import PartitionSpec as P, mesh_shape
+from repro_torch.launch.sharding import PartitionSpec as P, current_rules, mesh_shape
 from repro_torch.runtime.telemetry import (MAX_FIELDS, SAMPLE_FIELDS, SUM_FIELDS,
                                            TELEMETRY_SAMPLE, operand_summary, tile_key,
                                            tile_summary)
@@ -191,9 +191,14 @@ def make_sharded_summarizer(mult_name: str, mesh=None, target: str = "stream",
 # partition specs of the mesh-sharded decode (the JAX package's)
 # ---------------------------------------------------------------------------
 
-def batch_axis_names(mesh) -> Tuple[str, ...]:
+def batch_axis_names(mesh, rules=None) -> Tuple[str, ...]:
     """The mesh axes the batch dimension shards over: the 'batch' rule of
-    ``launch.sharding.axis_rules`` ('pod' + 'data')."""
+    ``rules`` (``launch.sharding.axis_rules``), or of the installed mesh
+    context (``("data", "model")`` with ``dp_only``), else 'pod' + 'data'."""
+    rules = rules if rules is not None else current_rules()
+    if rules is not None:
+        b = rules["batch"]
+        return b if isinstance(b, tuple) else ((b,) if b else ())
     names = mesh_shape(mesh).axis_names
     return tuple(a for a in ("pod", "data") if a in names)
 
@@ -206,18 +211,14 @@ def _n_shards(mesh, axes) -> int:
     return n
 
 
-def batch_group(mesh):
+def batch_group(mesh, rules=None):
     """(process group, this rank's shard index, shard count) of ``mesh``'s
-    batch axes.  The serving mesh is 1-D (``launch.mesh.make_fleet_mesh``);
-    a batch over several mesh axes (the multi-pod mesh) waits for ROADMAP
-    queue 1, item 8b."""
-    axes = batch_axis_names(mesh)
-    if len(axes) != 1:
-        raise NotImplementedError(
-            f"a batch sharded over the mesh axes {axes}: the serving mesh is ('data',); "
-            f"several batch axes are ROADMAP queue 1, item 8b")
-    return mesh.get_group(axes[0]), mesh.get_local_rank(axes[0]), mesh.size(
-        mesh.mesh_dim_names.index(axes[0]))
+    batch axes (:func:`batch_axis_names`); several axes are flattened into
+    one group, the index row-major over them
+    (``launch.mesh.axes_group``)."""
+    from repro_torch.launch.mesh import axes_group
+
+    return axes_group(mesh, batch_axis_names(mesh, rules))
 
 
 def cache_pspecs(cache, batch: int, axes: Tuple[str, ...]):

@@ -15,6 +15,12 @@ axes, as a JAX ``Mesh`` names its devices'.
   "model")`` and (2, 16, 16) ``("pod", "data", "model")``: built when the
   world has those ranks; their shapes (:func:`production_mesh_shape`) are
   always available to the spec functions.
+* :func:`make_mesh` — any mesh over the current world (``jax.make_mesh``'s
+  counterpart): the train meshes of ``train/distributed.py``.
+* :func:`axes_group` — the process group of several mesh axes taken
+  together (a batch over ``("pod", "data")``, or ``("data", "model")``
+  with ``dp_only``), with this rank's index over them in row-major order,
+  as a JAX dim sharded over those axes lays out its blocks.
 * :func:`param_shardings`, :func:`state_shardings`,
   :func:`batch_shardings`, :func:`cache_shardings` — partition specs
   (``launch/sharding.PartitionSpec``) over the port's param, train-state,
@@ -50,7 +56,8 @@ from repro_torch.models.layers import axes_for_path
 
 from .sharding import MeshShape, PartitionSpec, axis_size, mesh_shape, param_spec
 
-__all__ = ["make_fleet_mesh", "make_production_mesh", "production_mesh_shape",
+__all__ = ["make_fleet_mesh", "make_production_mesh", "production_mesh_shape", "make_mesh",
+           "axes_group",
            "param_shardings", "state_shardings", "batch_shardings", "cache_shardings",
            "tree_paths", "tree_unflatten", "init_world", "spawn", "default_backend"]
 
@@ -132,6 +139,55 @@ def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
                             mesh_dim_names=shape.axis_names)
 
 
+def make_mesh(shape: Sequence[int], axis_names: Sequence[str], device="cuda",
+              backend: Optional[str] = None):
+    """A ``DeviceMesh`` of ``shape`` named ``axis_names`` over the current
+    world, which must have exactly its ranks (``ValueError`` otherwise);
+    without an initialised world a one-rank mesh makes its own, as
+    :func:`make_fleet_mesh` does.  A card rank binds card ``rank % count``."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape, names = tuple(int(s) for s in shape), tuple(axis_names)
+    ms = MeshShape(names, shape)
+    if not dist.is_initialized() and ms.size == 1:
+        init_world(0, 1, os.path.join(tempfile.mkdtemp(prefix="repro_mesh_"), "store"),
+                   backend=backend or default_backend(device))
+    world = dist.get_world_size() if dist.is_initialized() else 0
+    if world != ms.size:
+        raise ValueError(f"make_mesh({shape}, {names}) needs a world of {ms.size} ranks; this "
+                         f"one has {world}")
+    _bind_device(device)
+    return init_device_mesh(torch.device(device).type, shape, mesh_dim_names=names)
+
+
+def axes_group(mesh, axes):
+    """(process group, this rank's index, count) over the mesh axes ``axes``
+    (a name or a tuple of names) taken together: the ranks that differ only
+    in those coordinates, indexed row-major over them.  One axis is the
+    mesh's own group; several are a group made once per mesh and kept on it
+    (``new_group`` runs on every rank of the world, in one order)."""
+    axes = tuple(axes) if isinstance(axes, (tuple, list)) else (axes,)
+    names = list(mesh.mesh_dim_names)
+    if len(axes) == 1:
+        a = axes[0]
+        return mesh.get_group(a), mesh.get_local_rank(a), mesh.size(names.index(a))
+    made = mesh.__dict__.setdefault("_repro_axes_groups", {})
+    if axes not in made:
+        ranks = mesh.mesh.cpu()
+        dims = [names.index(a) for a in axes]
+        rest = [d for d in range(len(names)) if d not in dims]
+        # the ranks of each group, row-major over ``axes``, one group per
+        # coordinate of the other axes
+        table = ranks.permute(rest + dims).reshape(-1, int(torch.tensor(
+            [ranks.shape[d] for d in dims]).prod()))
+        me = dist.get_rank()
+        for row in table.tolist():
+            g = dist.new_group(row)
+            if me in row:
+                made[axes] = (g, row.index(me), len(row))
+    return made[axes]
+
+
 # ---------------------------------------------------------------------------
 # the port's trees
 # ---------------------------------------------------------------------------
@@ -141,35 +197,38 @@ def tree_paths(tree):
     '/'-joined keys and list indices, in insertion order; a spec is a
     leaf."""
     paths, leaves = [], []
-
-    def walk(node, prefix):
-        if isinstance(node, dict):
-            for k, v in node.items():
-                walk(v, f"{prefix}/{k}" if prefix else str(k))
-        elif isinstance(node, (list, tuple)) and not isinstance(node, PartitionSpec):
-            for i, v in enumerate(node):
-                walk(v, f"{prefix}/{i}" if prefix else str(i))
-        else:
-            paths.append(prefix)
-            leaves.append(node)
-
-    walk(tree, "")
+    _walk(tree, "", paths, leaves)
     return paths, leaves
+
+
+# module-level recursions: a recursive closure is a reference cycle, which
+# would keep the leaves (a step's gathered parameters, its gradients) alive
+# until the garbage collector runs
+
+def _walk(node, prefix, paths, leaves):
+    if isinstance(node, dict):
+        for k, v in node.items():
+            _walk(v, f"{prefix}/{k}" if prefix else str(k), paths, leaves)
+    elif isinstance(node, (list, tuple)) and not isinstance(node, PartitionSpec):
+        for i, v in enumerate(node):
+            _walk(v, f"{prefix}/{i}" if prefix else str(i), paths, leaves)
+    else:
+        paths.append(prefix)
+        leaves.append(node)
 
 
 def tree_unflatten(like, leaves: Sequence):
     """A tree shaped like ``like`` holding ``leaves`` in :func:`tree_paths`
     order."""
-    it = iter(leaves)
+    return _build(like, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(v) for k, v in node.items()}
-        if isinstance(node, (list, tuple)) and not isinstance(node, PartitionSpec):
-            return [build(v) for v in node]
-        return next(it)
 
-    return build(like)
+def _build(node, it):
+    if isinstance(node, dict):
+        return {k: _build(v, it) for k, v in node.items()}
+    if isinstance(node, (list, tuple)) and not isinstance(node, PartitionSpec):
+        return [_build(v, it) for v in node]
+    return next(it)
 
 
 def _layer_path(path: str) -> str:

@@ -22,7 +22,9 @@ checks the logical axes against the tensor's rank and returns it as it
 is (the JAX package's ``with_sharding_constraint`` has nothing to
 constrain here).  :func:`set_mesh_ctx` installs a mesh and its rules for
 the code inside it; ``models/blocks.py`` reads them (per-shard MoE
-capacity).
+capacity).  The sharded train step also installs its collectives
+(``train/distributed.py``'s ``TrainMesh``), which the loss and the MoE
+block read through :func:`current_train`.
 """
 from __future__ import annotations
 
@@ -32,8 +34,8 @@ import threading
 from typing import Dict, Optional, Tuple
 
 __all__ = ["PartitionSpec", "MeshShape", "mesh_shape", "axis_rules", "set_mesh_ctx",
-           "current_mesh", "current_rules", "shard", "spec_for", "param_spec",
-           "axis_size"]
+           "current_mesh", "current_rules", "current_train", "recompute_context", "shard",
+           "spec_for", "param_spec", "axis_size"]
 
 _ctx = threading.local()
 
@@ -133,16 +135,31 @@ def axis_rules(mesh, par) -> dict:
 
 
 @contextlib.contextmanager
-def set_mesh_ctx(mesh, par):
+def set_mesh_ctx(mesh, par, train=None):
     """Install ``mesh`` (a ``DeviceMesh`` or a :class:`MeshShape`) and the
-    rules of ``par`` for the code inside; yields the rules."""
+    rules of ``par`` for the code inside; yields the rules.  ``train``: the
+    sharded train step's ``TrainMesh`` (module note)."""
     rules = axis_rules(mesh, par)
-    prev = getattr(_ctx, "state", None)
-    _ctx.state = (mesh, rules)
-    try:
+    with _installed((mesh, rules, train)):
         yield rules
+
+
+@contextlib.contextmanager
+def _installed(state):
+    prev = getattr(_ctx, "state", None)
+    _ctx.state = state
+    try:
+        yield
     finally:
         _ctx.state = prev
+
+
+def recompute_context():
+    """A ``torch.utils.checkpoint`` ``context_fn``: a layer recomputed in
+    the backward pass runs under the mesh context its forward ran in.  The
+    context is thread-local, and on the card autograd runs the backward,
+    recomputations included, on a device thread of its own."""
+    return contextlib.nullcontext(), _installed(getattr(_ctx, "state", None))
 
 
 def current_mesh():
@@ -153,6 +170,12 @@ def current_mesh():
 def current_rules() -> Optional[dict]:
     st = getattr(_ctx, "state", None)
     return st[1] if st else None
+
+
+def current_train():
+    """The ``TrainMesh`` of the sharded train step running now, or None."""
+    st = getattr(_ctx, "state", None)
+    return st[2] if st else None
 
 
 def _names(ax) -> Tuple[str, ...]:

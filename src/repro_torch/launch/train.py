@@ -14,7 +14,8 @@ the controller observes one step late (step i-1's records after step i was
 issued); re-tuned policies are published to ``<ckpt_dir>/policy`` (the
 fleet ``PolicyStore`` format) and a restarted job resumes the adapted
 policy from there.  ``--device`` (default ``cuda``) chooses where it runs.
-There is no mesh: the sharded step is ROADMAP queue 1, item 8b.  The
+It builds no mesh, as the JAX CLI builds none (the sharded step is
+``train.make_train_step(mesh=)``, for a caller that builds its mesh).  The
 synthetic stream holds tokens only, so the encoder-decoder (whisper-base),
 whose batches need frames, exits, as the JAX CLI cannot train it either.
 """

@@ -10,10 +10,19 @@ rank, each token shard gets its own capacity, ``C_loc = min(max(ceil(T_loc k
 dispatch and combine run on the rank's tokens alone: the JAX package's
 ``shard_map``'d dispatch, where under the port's multi-process SPMD a
 rank's ``x`` already is its token shard.  One rank, or no mesh context, keeps
-the global capacity over all T tokens.  The load-balancing term is the
-rank's own (JAX's mean runs over the global batch; serving does not read
-it).  The expert all-to-all over a ``"model"`` axis (``ParallelConfig.ep``)
-is ROADMAP queue 1, item 8b.
+the global capacity over all T tokens.  In serving the load-balancing term
+is the rank's own (serving does not read it, and a decode graph holds no
+collective).  Under the sharded train step (``train/distributed.py``) it
+is the rank's term of JAX's global term, ``E sum_e (sum_local probs[:, e]
+/ T) F_e`` with the all-reduced top-1 frequency ``F_e`` (no gradient) and
+the global token count T, so the ranks' terms sum to JAX's; and with
+``ep`` over a ``"model"`` axis of n ranks a rank holds ``E / n`` experts:
+its ``(E, C_loc, D)`` dispatch buffer goes through the expert all-to-all,
+its experts run on every rank's slots for them, and the result comes back
+for the local combine (JAX's ``expert_ffn`` resharding around its
+``shard_map``'d dispatch and combine).  Experts that do not divide over
+``"model"`` stay whole on every rank (``param_spec`` drops the
+constraint) and run locally.
 
 The SWAPPER projection reaches these blocks through ``layers.dense``: the
 RG-LRU and SSD ``in``/``gate``/``out`` projections carry the target
@@ -37,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.sharding import current_train
 from repro_torch.quant.ax import weight_cast
 
 from .layers import dense, mlp_apply, mlp_init, ninit
@@ -133,7 +143,12 @@ def moe_apply(p, x, cfg: ModelConfig):
     # per token shard under a mesh: T is this rank's T_loc (module note)
     C = capacity(T, cfg)
     buf, slots, keeps = _dispatch(flat, topi, k, E, C)
-    yflat = _expert_ffn(buf, p["experts"]).reshape(E * C, D)
+    tm = current_train()
+    if tm is not None and tm.experts is not None and p["experts"]["in"]["w"].shape[0] != E:
+        y = tm.experts_apply(buf, lambda b: _expert_ffn(b, p["experts"]))
+    else:
+        y = _expert_ffn(buf, p["experts"])
+    yflat = y.reshape(E * C, D)
     out = torch.zeros((T, D), dtype=x.dtype, device=x.device)
     for j in range(k):
         gathered = yflat.index_select(0, topi[:, j] * C + slots[:, j])
@@ -142,7 +157,13 @@ def moe_apply(p, x, cfg: ModelConfig):
     if "shared" in p:
         out = out + mlp_apply(p["shared"], flat, "silu", cfg.ax).reshape(T, D)
     top1 = (topi[:, 0, None] == torch.arange(E, device=x.device)).to(torch.float32)
-    aux = E * torch.mean(probs.mean(0) * top1.mean(0))
+    if tm is None:
+        aux = E * torch.mean(probs.mean(0) * top1.mean(0))
+    else:
+        # this rank's term of the global mean (module note)
+        stats = tm.batch_sum(torch.cat([top1.sum(0), top1.new_full((1,), T)]))
+        t_all = stats[E]
+        aux = E * torch.mean((probs.sum(0) / t_all) * (stats[:E] / t_all))
     return out.reshape(B, S, D), aux
 
 

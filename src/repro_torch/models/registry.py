@@ -8,6 +8,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.launch.sharding import current_train
 
 from . import transformer, whisper
 
@@ -36,7 +37,13 @@ def train_loss(params, batch, cfg: ModelConfig, par: Optional[ParallelConfig] = 
     masked out; the padded tail of the vocabulary is pushed out of the
     softmax.  ``par.remat == "layer"`` recomputes each decoder-only layer in
     the backward pass (the JAX whisper forward takes no remat, nor does the
-    port's)."""
+    port's).
+
+    Under the sharded train step (``train/distributed.py``) ``batch`` is
+    the rank's rows and the result is the rank's term of a loss summed over
+    ranks: ``-sum(ll * mask)`` over its rows divided by the all-reduced
+    count of real labels (JAX's global masked mean), plus ``0.01 *`` its
+    term of the global load-balancing loss (``blocks.moe_apply``)."""
     kw = {} if cfg.family == "encdec" else {"remat": par is not None and par.remat == "layer"}
     logits, _, aux = _mod(cfg).forward(params, batch, cfg, mode="train", with_aux=True, **kw)
     labels = batch["labels"].to(torch.int64)
@@ -47,7 +54,12 @@ def train_loss(params, batch, cfg: ModelConfig, par: Optional[ParallelConfig] = 
     logp = torch.log_softmax(logits, dim=-1)
     ll = torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
     mask = (labels >= 0).to(torch.float32)
-    loss = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    count = mask.sum()
+    tm = current_train()
+    if tm is not None:
+        # this rank's term of the global masked mean (``train/distributed.py``)
+        count = tm.batch_sum(count)
+    loss = -(ll * mask).sum() / torch.clamp(count, min=1.0)
     return loss + 0.01 * aux, {"ce": loss, "aux": aux}
 
 

@@ -42,7 +42,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-
+from repro_torch.launch.sharding import recompute_context
 from repro_torch.quant.ax import weight_cast
 
 from . import blocks
@@ -263,7 +263,10 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
         kw = dict(pos=pos, inv_freq=inv_freq, mode=mode, cache=lc, cache_index=ci,
                   max_cache_len=max_cache_len, prompt_lens=pl, write_mask=wm)
         if remat and mode == "train":
-            x, nc, a = checkpoint(_layer_apply, lp, x, cfg, kind, use_reentrant=False, **kw)
+            # the recompute sees the forward's mesh context (the sharded train
+            # step's collectives), also on autograd's device thread
+            x, nc, a = checkpoint(_layer_apply, lp, x, cfg, kind, use_reentrant=False,
+                                  context_fn=recompute_context, **kw)
         else:
             x, nc, a = _layer_apply(lp, x, cfg, kind, **kw)
         if a is not None:

@@ -1,8 +1,8 @@
-"""Training on one device (``repro.train``): AdamW, the train step (static
-and adaptive), synthetic and file data, checkpoints, the supervised run loop
-and the straggler watchdog.  Checkpoints restore onto a device mesh and the
-supervised loop resumes elastically; the sharded train step is ROADMAP
-queue 1, item 8b."""
+"""Training (``repro.train``): AdamW, the train step (static and adaptive,
+on one device or sharded over a mesh: ``train_step.py``,
+``distributed.py``), synthetic and file data, checkpoints, the supervised
+run loop and the straggler watchdog.  Checkpoints restore onto a device
+mesh and the supervised loop resumes elastically."""
 from .checkpoint import AsyncCheckpointer, gather_state, latest_step, load_tree, restore, save
 from .data import DataConfig, FileStream, SyntheticStream, make_batch_specs
 from .fault import FaultConfig, SimulatedFailure, StragglerWatchdog, run_supervised

@@ -179,10 +179,13 @@ def restore(ckpt_dir: str, step: int, like, device="cuda", sharding_tree=None, m
 
 def gather_state(state, sharding_tree, mesh):
     """The whole state on every rank from each rank's blocks (the inverse
-    of ``restore(sharding_tree=)``): each sharded leaf all-gathered over its
-    mesh axis (one axis per dim) and its blocks concatenated in rank
+    of ``restore(sharding_tree=)``): each sharded dim all-gathered over its
+    mesh axes (several axes as one group, row-major,
+    ``launch.mesh.axes_group``) and its blocks concatenated in rank
     order."""
     import torch.distributed as dist
+
+    from repro_torch.launch.mesh import axes_group
 
     def build(node, spec):
         if isinstance(node, dict):
@@ -194,12 +197,9 @@ def gather_state(state, sharding_tree, mesh):
         for d, ax in enumerate(spec):
             if not ax:
                 continue
-            if isinstance(ax, tuple) and len(ax) != 1:
-                raise NotImplementedError(f"a dim sharded over the mesh axes {ax} "
-                                          f"(ROADMAP queue 1, item 8b)")
-            group = mesh.get_group(ax[0] if isinstance(ax, tuple) else ax)
+            group, _, n = axes_group(mesh, ax)
             x = node.contiguous()
-            parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+            parts = [torch.empty_like(x) for _ in range(n)]
             dist.all_gather(parts, x, group=group)
             node = torch.cat(parts, dim=d)
         return node

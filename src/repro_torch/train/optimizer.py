@@ -73,25 +73,37 @@ def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), x, dtype=torch.float32, device=like.device)
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over the leaves of each leaf's f32 sum of squares."""
+def global_norm(tree, replicas=None, group=None) -> torch.Tensor:
+    """sqrt of the sum over the leaves of each leaf's f32 sum of squares.
+    Over a mesh (the sharded step) each leaf is a rank's block: ``replicas``
+    (one count per leaf: the ranks holding the same block) divides its sum,
+    and the sums are all-reduced over ``group``, so every element counts
+    once."""
     leaves = tree_leaves(tree)
     total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-    for x in leaves:
+    for i, x in enumerate(leaves):
         xf = x.to(torch.float32)
-        total = total + (xf * xf).sum()
+        sq = (xf * xf).sum()
+        total = total + (sq if replicas is None or replicas[i] == 1 else sq / replicas[i])
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(total, group=group)
     return torch.sqrt(total)
 
 
 @torch.no_grad()
-def adamw_update(grads, state, params, cfg: AdamWConfig):
+def adamw_update(grads, state, params, cfg: AdamWConfig, replicas=None, group=None):
     """One AdamW step; returns (new params, new state, {"grad_norm", "lr"})
-    (module note)."""
+    (module note).  Under the sharded step the trees hold the rank's blocks
+    (the moments and ``ef`` follow their parameter's spec; ``step`` is
+    replicated) and the grad norm runs over them (``global_norm``'s
+    ``replicas`` and ``group``); the update is element-wise."""
     step = state["step"] + 1
     stepf = step.to(torch.float32)
     lr = cfg.lr * torch.minimum(_f32(1.0, stepf), stepf / max(cfg.warmup, 1))
 
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, replicas, group)
     scale = torch.minimum(_f32(1.0, gnorm),
                           cfg.clip_norm / torch.maximum(gnorm, _f32(1e-9, gnorm)))
     grads = tree_map(lambda g: g.to(torch.float32) * scale, grads)

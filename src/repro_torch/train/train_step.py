@@ -22,10 +22,33 @@ detached in ``metrics["ax_telemetry"]``.  A policy change between steps
 changes tensor values only.  As in JAX it needs ``grad_accum == 1`` and
 ``remat == "none"``.
 
-``ParallelConfig`` (``configs/base.py``) on one device: ``remat="layer"``
-is ``torch.utils.checkpoint`` per layer of a decoder-only stack,
-``remat="dots"`` raises, and the sharded settings raise (ROADMAP queue 1,
-item 8b: the sharded train step).
+``ParallelConfig`` (``configs/base.py``): ``remat="layer"`` is
+``torch.utils.checkpoint`` per layer of a decoder-only stack and
+``remat="dots"`` raises.  ``fsdp``, ``seq_shard``, ``ep`` and ``dp_only``
+act only on a mesh, as JAX's ``shard()`` does nothing outside one;
+``grad_compress`` is accepted and read nowhere, as in JAX.
+
+**The sharded step.**  ``make_train_step(..., mesh=)``, or a step called
+inside ``launch.sharding.set_mesh_ctx(mesh, par)``, runs JAX's step under
+``set_mesh_ctx`` as multi-process SPMD (``train/distributed.py``): the
+state holds the rank's blocks under ``launch.mesh.state_shardings``
+(``distributed.local_state``), and every rank is given the **global**
+batch and takes its rows over the rules' batch axes.  With ``grad_accum
+= k`` microbatch j is rows ``[j B/k, (j+1) B/k)`` of the global batch (JAX's
+reshape) and the rank takes its block of that; ``B/k`` must divide over
+the batch shards (``ValueError``; JAX would reshard).  The parameters are
+gathered once before the first microbatch and the gradients reduced once
+after the last.  The loss is a sum over ranks of per-rank terms
+(``models/registry.py``), so each rank backpropagates its own and
+gradients sum; ``loss``, ``ce`` and ``aux`` are reported all-reduced, the
+grad norm counts every element once and AdamW updates each rank's block.
+The adaptive step aggregates its telemetry over the batch group
+(``fleet/collect.aggregate_records``), so every rank's controller sees the
+fleet's records.  Without a mesh the same body runs on the whole batch
+with nothing gathered, reduced or all-reduced.  A ``"model"`` axis over
+one rank, or one that joins the batch (``dp_only``, with ``ep`` carrying
+the experts), runs here; one that carries tensor parallelism raises
+(ROADMAP queue 1, item 8c).
 """
 from __future__ import annotations
 
@@ -35,10 +58,14 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.fleet.collect import aggregate_records
+from repro_torch.launch.mesh import tree_paths, tree_unflatten
+from repro_torch.launch.sharding import axis_size, current_mesh, mesh_shape, set_mesh_ctx
 from repro_torch.models import init_params, train_loss
 from repro_torch.runtime.scope import ax_scope
 
-from .optimizer import AdamWConfig, adamw_init, adamw_update, tree_leaves, tree_map
+from . import distributed as D
+from .optimizer import AdamWConfig, adamw_init, adamw_update
 
 __all__ = ["make_train_step", "init_train_state", "fresh_train_state", "check_parallel"]
 
@@ -53,40 +80,38 @@ def fresh_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig, *, seed: int = 0,
     return init_train_state(init_params(cfg, seed=seed, device=device), opt_cfg)
 
 
-def check_parallel(par: ParallelConfig, adaptive: bool = False) -> None:
-    """Refuse what one device cannot do (module note)."""
+def check_parallel(par: ParallelConfig, adaptive: bool = False, mesh=None) -> None:
+    """Refuse what the port cannot do (module note)."""
     if par.remat not in ("none", "layer"):
         raise ValueError(f"remat={par.remat!r}: the port recomputes whole layers "
                          f"('layer') or nothing ('none'); JAX's 'dots' policy has no "
                          f"counterpart")
-    sharded = [f for f in ("fsdp", "seq_shard", "ep", "dp_only") if getattr(par, f)]
-    if sharded or par.grad_compress != "none":
-        raise NotImplementedError(
-            f"ParallelConfig {sharded or ['grad_compress=' + par.grad_compress]}: sharded "
-            f"training is ROADMAP queue 1, item 8b (the sharded train step)")
+    if par.grad_compress not in ("none", "bf16"):
+        raise ValueError(f"grad_compress: 'none' or 'bf16', not {par.grad_compress!r}")
     if par.grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1: {par.grad_accum}")
     if adaptive and par.grad_accum > 1:
         raise ValueError("adaptive SWAPPER training requires grad_accum=1")
     if adaptive and par.remat != "none":
         raise ValueError("adaptive SWAPPER training requires remat='none'")
+    if mesh is None:
+        return
+    names = mesh_shape(mesh).axis_names
+    if not par.dp_only:
+        if "model" not in names:
+            raise ValueError(f"a train mesh {names} without dp_only needs a 'model' axis: "
+                             f"the rules put heads, ff and vocab on it (JAX's param_spec "
+                             f"raises KeyError); give it one of size 1, or set dp_only")
+        if axis_size(mesh, "model") > 1:
+            raise NotImplementedError(
+                f"a 'model' axis of {axis_size(mesh, 'model')} ranks without dp_only carries "
+                f"tensor parallelism (heads, ff, vocab{', seq' if par.seq_shard else ''}): "
+                f"ROADMAP queue 1, item 8c")
 
 
 def _to_device(batch, device):
     return {k: (v if torch.is_tensor(v) else torch.from_numpy(np.ascontiguousarray(v)))
             .to(device) for k, v in batch.items()}
-
-
-def _value_and_grad(loss_fn, params, batch):
-    """(loss, metrics, grads) of ``loss_fn(params, batch)``; a parameter
-    the loss does not reach gets a zero gradient."""
-    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    leaves = tree_leaves(live)
-    with torch.enable_grad():
-        loss, metrics = loss_fn(live, batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    it = iter([torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)])
-    return loss.detach(), metrics, tree_map(lambda _: next(it), live)
 
 
 def _detach(tree):
@@ -96,63 +121,110 @@ def _detach(tree):
 
 
 def make_train_step(cfg: ModelConfig, par: Optional[ParallelConfig], opt_cfg: AdamWConfig,
-                    adaptive: bool = False, tile_rows: int = 0):
+                    adaptive: bool = False, tile_rows: int = 0, mesh=None):
     """Returns ``step(state, batch)``, or ``step(state, batch, ax_dyn)`` with
     ``adaptive`` (module note).  With ``par.grad_accum = k`` the batch is
     split into k microbatches along its first axis, their gradients summed
     in f32 and divided by k, and the loss is their mean (``aux`` is then
-    reported as 0, as in JAX)."""
+    reported as 0, as in JAX).  ``mesh`` (or the mesh context the step is
+    called in) makes it the sharded step (module note)."""
     par = par or ParallelConfig()
-    check_parallel(par, adaptive)
+    check_parallel(par, adaptive, mesh)
 
-    def loss_fn(params, batch):
-        return train_loss(params, batch, cfg, par)
-
-    def finish(state, grads, loss, metrics):
-        new_params, new_opt, opt_metrics = adamw_update(grads, state["opt"], state["params"],
-                                                        opt_cfg)
-        metrics = dict(_detach(metrics), loss=loss, **opt_metrics)
-        return {"params": new_params, "opt": new_opt}, metrics
-
-    def step(state, batch):
+    def body(state, batch, dyn, tm):
+        """The step on one device (``tm`` None) or on a rank of the train
+        mesh ``tm`` (module note)."""
         params = state["params"]
-        batch = _to_device(batch, tree_leaves(params)[0].device)
+        paths, blocks = tree_paths(params)
+        plans = [tm.plans(cfg, opt_cfg)[p] for p in paths] if tm is not None else None
+        device = blocks[0].device
+        batch = _to_device(batch, device)
+        if dyn is not None:
+            dyn = {name: v.to(device) for name, v in dyn.items()}
         k = par.grad_accum
-        if k <= 1:
-            loss, metrics, grads = _value_and_grad(loss_fn, params, batch)
-            return finish(state, grads, loss, metrics)
-        grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                               device=p.device), params)
-        loss = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
-        for i in range(k):
-            mb = {n: v.reshape((k, v.shape[0] // k) + tuple(v.shape[1:]))[i]
-                  for n, v in batch.items()}
-            l_i, _, g = _value_and_grad(loss_fn, params, mb)
-            with torch.no_grad():
-                grads = tree_map(lambda a, b: a + b.to(torch.float32), grads, g)
-                loss = loss + l_i
+        B = next(iter(batch.values())).shape[0]
+        _, index, n = tm.batch if tm is not None else (None, 0, 1)
+        if B % k or (B // k) % n:
+            raise ValueError(f"a global batch of {B} rows in {k} microbatches of {B // k} does "
+                             f"not divide over {n} batch shards "
+                             f"{tm.batch_axes if tm is not None else ()} (JAX would reshard; "
+                             f"the port takes equal blocks)")
+        m = B // k // n
+        live = [x.detach().requires_grad_(True) for x in blocks]
+        with torch.enable_grad():
+            gathered = ([D.gather_leaf(x, plan.gather) for x, plan in zip(live, plans)]
+                        if tm is not None else live)
+        full = [g.detach().requires_grad_(True) for g in gathered]
+        full_tree = tree_unflatten(params, full)
+        acc, term_sum, metrics = None, None, {}
+        for j in range(k):
+            lo = j * (B // k) + index * m
+            mb = {name: v[lo:lo + m] for name, v in batch.items()}
+            with torch.enable_grad():
+                if dyn is None:
+                    term, metrics = train_loss(full_tree, mb, cfg, par)
+                else:
+                    # the records are made inside the differentiated forward:
+                    # they leave it through the metrics, detached
+                    with ax_scope(dyn, collect=True, tile_rows=tile_rows) as sc:
+                        term, metrics = train_loss(full_tree, mb, cfg, par)
+                    metrics = dict(metrics, ax_telemetry=sc.collected())
+                g = torch.autograd.grad(term, full, allow_unused=True)
+            # a parameter the loss does not reach gets a zero gradient
+            g = [torch.zeros_like(p) if gi is None else gi for p, gi in zip(full, g)]
+            if k > 1:
+                # microbatch gradients summed in f32, then divided by k
+                g = [gi.to(torch.float32) for gi in g]
+                acc = g if acc is None else [a + b for a, b in zip(acc, g)]
+            else:
+                acc = g
+            term_sum = term.detach() if term_sum is None else term_sum + term.detach()
+        # the gathers' backward: reduce-scatter each gathered gradient to the block
+        idx = [i for i, plan in enumerate(plans or ()) if plan.gather]
+        if idx:
+            back = torch.autograd.grad([gathered[i] for i in idx], [live[i] for i in idx],
+                                       grad_outputs=[acc[i] for i in idx])
+            for i, b in zip(idx, back):
+                acc[i] = b
+        # the update needs the room: nothing of the forward or backward outlives it
+        del live, gathered, full, full_tree, g
         with torch.no_grad():
-            grads = tree_map(lambda g: g / k, grads)
-            loss = loss / k
-        return finish(state, grads, loss, {"ce": loss, "aux": torch.zeros_like(loss)})
+            grads = tm.reduce_grads(acc, plans) if tm is not None else acc
+            del acc
+            if k > 1:
+                grads = [g / k for g in grads]
+            group = tm.batch_group if tm is not None else None
+            if k > 1:
+                # the loss is the microbatches' mean; aux is reported as 0, as in JAX
+                vals = D.all_reduce_sum(term_sum.reshape(1), group)
+                loss = vals[0] / k
+                out = {"ce": loss, "aux": torch.zeros_like(loss)}
+            else:
+                vals = D.all_reduce_sum(torch.stack([term_sum, metrics["ce"].detach(),
+                                                     metrics["aux"].detach()]), group)
+                loss = vals[0]
+                out = dict(metrics, ce=vals[1], aux=vals[2])
+            if dyn is not None and tm is not None:
+                out["ax_telemetry"] = aggregate_records(out["ax_telemetry"], group)
+        kw = {}
+        if tm is not None:
+            # every rank holds blocks: each counts its leaves once over the world
+            kw = dict(replicas=[p.replicas for p in plans], group=tm.world_group)
+        new_params, new_opt, opt_metrics = adamw_update(tree_unflatten(params, grads),
+                                                        state["opt"], params, opt_cfg, **kw)
+        return ({"params": new_params, "opt": new_opt},
+                dict(_detach(out), loss=loss, **opt_metrics))
+
+    def run(state, batch, dyn=None):
+        mesh_ = mesh if mesh is not None else current_mesh()
+        if mesh_ is None:
+            return body(state, batch, dyn, None)
+        if mesh is None:
+            check_parallel(par, adaptive, mesh_)
+        tm = D.train_mesh(mesh_, par)
+        with set_mesh_ctx(mesh_, par, train=tm):
+            return body(state, batch, dyn, tm)
 
     if not adaptive:
-        return step
-
-    def adaptive_step(state, batch, ax_dyn):
-        params = state["params"]
-        device = tree_leaves(params)[0].device
-        batch = _to_device(batch, device)
-        dyn = {n: v.to(device) for n, v in ax_dyn.items()}
-
-        def loss_fn_dyn(params, batch):
-            # the records are made inside the differentiated forward: they
-            # leave it through the metrics, detached
-            with ax_scope(dyn, collect=True, tile_rows=tile_rows) as sc:
-                loss, metrics = train_loss(params, batch, cfg, par)
-            return loss, dict(metrics, ax_telemetry=sc.collected())
-
-        loss, metrics, grads = _value_and_grad(loss_fn_dyn, params, batch)
-        return finish(state, grads, loss, metrics)
-
-    return adaptive_step
+        return lambda state, batch: run(state, batch)
+    return lambda state, batch, ax_dyn: run(state, batch, ax_dyn)

@@ -7,8 +7,9 @@ replica, a continuous-batcher drain, the telemetry aggregation, the serve
 CLI, a train step with a checkpoint, the train CLI, the schedule autotuner's
 CLI with a store, a reader and ``resolve``, the serve CLI's
 ``--autotune``, its ``--fleet 2`` over spawned ranks, a one-rank fleet mesh
-with a mesh-sharded serve and batcher, and the spec trees of the multi-pod
-mesh load neither; the examples are held so in
+with a mesh-sharded serve and batcher, the sharded train step on a
+one-rank train mesh, and the spec trees of the multi-pod mesh load
+neither; the examples are held so in
 ``tests/test_torch_examples.py``), and
 ``chip_smoke.py`` refuses to run without a CUDA device or outside a
 checkout."""
@@ -131,6 +132,16 @@ with tempfile.TemporaryDirectory() as root:
     for rid in range(3):
         mbat.submit(Request(rid, np.arange(1, 4 + rid), max_new=3))
     mesh_served = len(mbat.run())
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import distributed as TD
+    tmesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+    tpar = ParallelConfig(dp_only=True, fsdp=True, ep=True, remat="none")
+    topt = train.AdamWConfig()
+    tspecs = TD.state_specs(cfg, topt, tmesh, tpar)
+    tstate = TD.local_state(train.fresh_train_state(cfg, topt, device="cpu"), tspecs, tmesh)
+    tstate, _ = train.make_train_step(cfg, tpar, topt, mesh=tmesh)(
+        tstate, train.SyntheticStream(train.DataConfig(cfg.vocab, 8, 2)).next())
+    mesh_trained = int(train.gather_state(tstate, tspecs, tmesh)["opt"]["step"])
     dist.destroy_process_group()
     specs = param_shardings(production_mesh_shape(multi_pod=True), ParallelConfig(),
                             init_params(ARCHS["qwen2-72b"], device="meta"))
@@ -151,7 +162,7 @@ print(json.dumps({{"modules": len(names), "bad": bad, "shape": list(toks.shape),
                   "replica": replica.version, "metrics": "repro_canary_total" in text,
                   "served": served, "cli": cli.stats["requests"],
                   "mesh": [list(meshed.shape), mesh_served, fleet2["stats"]["requests"],
-                           list(specs["embed"]["w"])],
+                           list(specs["embed"]["w"]), mesh_trained],
                   "families": families, "trained": trained,
                   "autotune": [sched_reader.version, sched.backend, list(tuned.shape)]}}))
 """
@@ -178,7 +189,7 @@ def test_importing_and_running_the_port_loads_no_jax_and_no_repro():
                                                    "recurrentgemma-2b", "mamba2-370m",
                                                    "qwen2-vl-72b", "whisper-base")}
     assert res["trained"] == [1, 1]
-    assert res["mesh"] == [[2, 3], 3, 2, ["model", None]]
+    assert res["mesh"] == [[2, 3], 3, 2, ["model", None], 1]
     assert res["autotune"] == [1, "mxu", [1, 2]]
 
 

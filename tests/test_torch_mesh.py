@@ -23,7 +23,8 @@ capacity in ``models/blocks.py``, ``train/checkpoint.py``'s
   ``gather_state`` back, bit for bit; ``run_supervised`` resuming a
   one-process checkpoint on 2 ranks through a crash gives each rank its
   block of the one-process run, and its gathered checkpoints the whole.
-* The train step's sharded settings still raise (ROADMAP item 8b).
+* The train step's sharded settings, once refused (ROADMAP item 8b), are
+  accepted: without a mesh they do nothing, as in JAX.
 """
 import dataclasses
 
@@ -39,6 +40,7 @@ from repro.models import blocks as JB
 from repro_torch import train
 from repro_torch.configs.base import ParallelConfig
 from repro_torch.launch.mesh import spawn, tree_paths
+from repro_torch.launch.sharding import MeshShape
 from repro_torch.runtime.telemetry import combine_records as t_combine
 from repro_torch.train.train_step import check_parallel
 
@@ -202,6 +204,11 @@ def test_run_supervised_resumes_a_one_process_checkpoint_on_two_ranks(world2):
 
 @pytest.mark.parametrize("flag", ["fsdp", "seq_shard", "ep", "dp_only", "grad_compress"])
 def test_the_sharded_train_step_still_raises_item_8b(flag):
+    """Item 8b is done: each sharded setting passes the check without a
+    mesh (it acts only on one); tensor parallelism over a "model" axis of
+    several ranks is item 8c (``tests/test_torch_train_mesh.py``)."""
     par = ParallelConfig(**({flag: "bf16"} if flag == "grad_compress" else {flag: True}))
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        check_parallel(par)
+    check_parallel(par)
+    if flag != "dp_only":
+        with pytest.raises(NotImplementedError, match="item 8c"):
+            check_parallel(par, mesh=MeshShape(("data", "model"), (1, 2)))

@@ -365,15 +365,44 @@ def test_remat_layer_gives_the_same_step_and_the_sharded_settings_raise():
     assert _maxdiff(a["params"], r["params"]) == 0.0
     with pytest.raises(ValueError, match="dots"):
         TT.make_train_step(tc, TC.ParallelConfig(remat="dots"), opt)
+    # the sharded settings act only on a mesh (tests/test_torch_train_mesh.py):
+    # without one the step is the plain step, as JAX's shard() is a no-op
     for kw in (dict(fsdp=True), dict(seq_shard=True), dict(ep=True), dict(dp_only=True),
                dict(grad_compress="bf16")):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            TT.make_train_step(tc, TC.ParallelConfig(**kw), opt)
+        s, ms = TT.make_train_step(tc, TC.ParallelConfig(remat="none", **kw), opt)(state, b)
+        assert float(ms["loss"]) == float(ma["loss"]) and _maxdiff(a["params"], s["params"]) == 0
     with pytest.raises(ValueError, match="grad_accum=1"):
         TT.make_train_step(tc, TC.ParallelConfig(remat="none", grad_accum=2), opt,
                            adaptive=True)
     assert set(f.name for f in dataclasses.fields(TC.ParallelConfig)) == \
         set(f.name for f in dataclasses.fields(JC.ParallelConfig)) - {"donate"}
+
+
+@pytest.mark.parametrize("remat", ["none", "layer"])
+def test_a_step_frees_its_intermediates_without_the_garbage_collector(remat):
+    """With the collector off, a step leaves no tensor alive but those it
+    returns: no reference cycle holds its parameters' gathered copies or its
+    gradients past the step (on the card they would stay on the device
+    through the next step)."""
+    import gc
+
+    _, tc = _cfgs("deepseek-moe-16b", n_layers=2)
+    opt = TT.AdamWConfig(lr=LR)
+    state = TT.fresh_train_state(tc, opt, device="cpu")
+    b = _stream(tc.vocab).next()
+    step = TT.make_train_step(tc, TC.ParallelConfig(remat=remat), opt)
+    step(state, b)
+    gc.collect()
+    before = {id(o) for o in gc.get_objects() if torch.is_tensor(o)}
+    gc.disable()
+    try:
+        out = step(state, b)
+        del out
+        left = [tuple(o.shape) for o in gc.get_objects()
+                if torch.is_tensor(o) and id(o) not in before]
+    finally:
+        gc.enable()
+    assert left == []
 
 
 @pytest.mark.parametrize("step,seed,mode", [(0, 0, "hash"), (3, 1, "hash"), (7, 5, "arith"),
