@@ -101,23 +101,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
    train mesh — the sharded train step (``make_train_step(mesh=)``) on
             two ``gloo`` ranks spawned on the card while this process holds
             no model (after its one-card reference steps): the step's
-            collectives on card tensors, values checked; deepseek-moe-16b
-            at its published widths, depth 2, ``mxu``, B = 4 x 256, on (a)
-            ``("data",)`` = 2 with FSDP (4 static steps, then 2 adaptive
-            ones with the policy changed between them) and (b) ``("data",
-            "model")`` = (1, 2) with ``dp_only`` + ``ep``, 32 of the 64
-            experts a rank and the expert all-to-all (4 static steps, and
-            a ``remat="layer"`` step from step 1's state, whose recomputed
-            all-to-all runs on autograd's device thread): finite losses,
-            step 1 within 1e-2 relative of the one-card step (a MoE routing
-            flip), the remat step's loss, ce, aux and grad norm within
-            ``TOL_TRAIN_STEP`` of step 1's, ``ax_matmul`` launches a rank =
+            collectives on card tensors, values checked (all-gather,
+            reduce-scatter, all-to-all, and for tensor parallelism
+            all-reduce MAX f32, SUM int32 and an int32 reduce-scatter); the
+            SWAPPER projection split over K on the two ranks == the
+            one-card call bit for bit at qwen2-72b's ``mlp out`` (K 29568
+            -> 14784 a rank, N 8192; ``ax_dense`` and ``ax_dense_dyn``, 4
+            and 512 rows, the int32 sums all-reduced or reduce-scattered
+            over ``seq``); deepseek-moe-16b at its published widths, depth
+            2, ``mxu``, B = 4 x 256, on (a) ``("data",)`` = 2 with FSDP
+            (4 static steps, then 2 adaptive ones with the policy changed
+            between them), (b) ``("data", "model")`` = (1, 2) with
+            ``dp_only`` + ``ep``, 32 of the 64 experts a rank and the
+            expert all-to-all (4 static steps, and a ``remat="layer"``
+            step from step 1's state, whose recomputed all-to-all runs on
+            autograd's device thread), (c) the same mesh with tensor
+            parallelism + ``ep`` (heads, ``ff`` and vocab split; 4 static
+            and 2 adaptive steps) and (d) (c) with ``seq_shard`` (4 static
+            steps and a ``remat="layer"`` step): finite losses, step 1
+            within 1e-2 relative of the one-card step (a MoE routing flip,
+            or another token shard's capacity), the remat step's loss, ce,
+            aux and grad norm within ``TOL_TRAIN_STEP`` of step 1's ((d):
+            loss, ce and aux equal), ``ax_matmul`` launches a rank =
             projections x steps and ``ax_matmul_grid`` likewise in the
             adaptive steps, no nvcc, every launched shape (recorded at the
-            wrappers, reckoned from the config) held to the plain version;
-            the reduced deepseek (f32, exact, no drops) sharded on both
-            layouts, and on (b) with ``remat="layer"``, against the
-            one-card step within ``TOL_TRAIN_STEP`` / ``TOL_TRAIN_UPDATE``;
+            wrappers, reckoned from the config and, on (c) and (d), its
+            split) held to the plain version; the reduced deepseek (f32,
+            exact, no drops) sharded on every layout, and on (b) and (d)
+            with ``remat="layer"``, and the reduced qwen2 (its one kv head
+            split inside a head) on (c) and (d), against the one-card step
+            within ``TOL_TRAIN_STEP`` / ``TOL_TRAIN_UPDATE``;
             ``run_supervised`` on (a) with a crash within 1e-5 relative of
             the uninterrupted run; ms/step (steps 2-3, uninstrumented), peak
             memory and the collectives' share of step 4 (each collective
@@ -3663,35 +3676,63 @@ COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_to_all_si
                "all_reduce")
 
 
+TM_TP = ("c", "d")                       # the layouts with tensor parallelism
+TM_ADAPTIVE = ("a", "c")                 # + 2 adaptive steps, the policy changed between
+TM_REMAT = ("b", "d")                    # + a remat="layer" step from step 1's state
+
+
 def _tm_layouts(remat: bool = False):
     """(label, mesh shape, axes, ParallelConfig) of the phase: (a) FSDP over
     ``("data",)`` (JAX's rules need ``dp_only`` on a mesh without
     ``"model"``), (b) the expert all-to-all over ``("data", "model")`` =
-    (1, 2) with ``dp_only`` + ``ep`` (32 of the 64 experts a rank).
-    ``remat``: also (b) with ``remat="layer"``, whose recomputed layers run
-    the all-to-all in the backward, on autograd's device thread."""
+    (1, 2) with ``dp_only`` + ``ep`` (32 of the 64 experts a rank), (c)
+    tensor parallelism over ``("data", "model")`` = (1, 2) with ``ep`` (the
+    heads, ``ff`` and vocab split, the rank's experts sliced from the
+    replicated dispatch), (d) (c) with ``seq_shard`` (the residual on its
+    seq shard, the expert all-to-all over the token shards).  ``remat``:
+    also (b) and (d) with ``remat="layer"``, whose recomputed layers run
+    their collectives in the backward, on autograd's device thread."""
     from repro_torch.configs import ParallelConfig
 
     out = [("a", (2,), ("data",), ParallelConfig(dp_only=True, fsdp=True, remat="none")),
            ("b", (1, 2), ("data", "model"), ParallelConfig(dp_only=True, ep=True,
+                                                           remat="none")),
+           ("c", (1, 2), ("data", "model"), ParallelConfig(ep=True, remat="none")),
+           ("d", (1, 2), ("data", "model"), ParallelConfig(seq_shard=True, ep=True,
                                                            remat="none"))]
     if remat:
-        out.append(("b remat", (1, 2), ("data", "model"),
-                    ParallelConfig(dp_only=True, ep=True, remat="layer")))
+        out += [(f"{lb} remat", shape, axes, dataclasses.replace(par, remat="layer"))
+                for lb, shape, axes, par in out if lb in TM_REMAT]
     return out
 
 
 def _tm_configs():
     """deepseek-moe-16b at its published widths, depth 2, ``mxu``; the
-    reduced one in f32 on the exact path (its capacity drops nothing)."""
+    reduced deepseek and the reduced qwen2 in f32 on the exact path (the
+    deepseek's capacity drops nothing; qwen2's one kv head splits inside a
+    head over two ranks)."""
     from repro_torch.configs import ARCHS, reduced
     from repro_torch.configs.base import AxPolicy
 
     big = dataclasses.replace(ARCHS["deepseek-moe-16b"], n_layers=2,
                               ax=AxPolicy(backend="mxu"))
-    small = dataclasses.replace(reduced(ARCHS["deepseek-moe-16b"]), n_layers=2,
-                                compute_dtype="float32", ax=None)
+    small = {n: dataclasses.replace(reduced(ARCHS[n]), n_layers=2, compute_dtype="float32",
+                                    ax=None) for n in ("deepseek-moe-16b", "qwen2-72b")}
     return big, small
+
+
+def _tm_tp_shapes(cfg, M: int, n: int) -> dict:
+    """{(M, K, N): label} of the kernel launches of ``cfg``'s approximate
+    projections on a rank of ``n`` tensor-parallel ranks: the output
+    projections (``out``) split over K, the others over N."""
+    from repro_torch.models.transformer import ax_projections
+
+    shapes = {}
+    for _, proj, K, N in ax_projections(cfg):
+        K, N = (K // n, N) if proj.endswith(" out") else (K, N // n)
+        shapes.setdefault((_padded(M), _padded(K), _padded(N)),
+                          f"deepseek train TP M={M} {proj}")
+    return shapes
 
 
 def _tm_batches(cfg, n: int, b: int, s: int, seed: int):
@@ -3748,6 +3789,20 @@ def _gloo_train_probe(dev) -> dict:
     n, r = dist.get_world_size(), dist.get_rank()
     x = torch.arange(2 * n, dtype=torch.float32, device=dev) + 10 * r
     out = {}
+    # tensor parallelism: the amax all-reduce (MAX, f32), the int32 partial
+    # sums (SUM) and their reduce-scatter over seq
+    mx = torch.tensor([1.0 + r, 5.0 - r], device=dev)
+    dist.all_reduce(mx, op=dist.ReduceOp.MAX)
+    out["all_reduce MAX f32"] = mx.cpu().tolist() == [float(n), 5.0]
+    xi = torch.arange(2 * n, dtype=torch.int32, device=dev) + (1 << 28) * r
+    si = xi.clone()
+    dist.all_reduce(si)
+    want = sum(torch.arange(2 * n, dtype=torch.int64) + (1 << 28) * k for k in range(n))
+    out["all_reduce SUM int32"] = torch.equal(si.cpu().to(torch.int64), want)
+    ri = torch.empty(2, dtype=torch.int32, device=dev)
+    dist.reduce_scatter_tensor(ri, xi)
+    out["reduce_scatter_tensor int32"] = torch.equal(ri.cpu().to(torch.int64),
+                                                     want[2 * r:2 * r + 2])
     g = torch.empty(2 * n * n, device=dev)
     dist.all_gather_into_tensor(g, x)
     out["all_gather_into_tensor"] = torch.equal(g.cpu(), torch.cat(
@@ -3763,15 +3818,65 @@ def _gloo_train_probe(dev) -> dict:
     return out
 
 
+KSPLIT_K, KSPLIT_N = 29568, 8192          # qwen2-72b's mlp out
+
+
+def _ksplit_card(dev, mesh) -> dict:
+    """The SWAPPER projection split over K on the two ranks against the
+    one-card call (each rank makes both from one seed, on the card) at
+    qwen2-72b's ``mlp out`` shape, K 29568 -> 14784 a rank, N 8192, bf16,
+    ``mxu``: ``ax_dense`` and ``ax_dense_dyn`` (a triple, the grid kernel),
+    4 and 512 rows, the int32 sums all-reduced and, at 512 rows,
+    reduce-scattered over ``seq``.  {check: bit-equal}."""
+    import torch
+
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.configs.base import AxPolicy
+    from repro_torch.quant.ax import ax_dense, ax_dense_dyn
+    from repro_torch.train import distributed as D
+
+    tp = D.train_mesh(mesh, ParallelConfig(remat="none")).tp
+    tp_seq = D.TensorParallel(tp.group, tp.index, tp.n, seq=True)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    w = (torch.randn((KSPLIT_K, KSPLIT_N), generator=gen, device=dev) * 0.02).to(
+        torch.bfloat16)
+    pol = AxPolicy(backend="mxu")
+    trip = torch.tensor([1, 3, 0], dtype=torch.int32, device=dev)
+    k0, k1 = tp.block(KSPLIT_K)
+    out = {}
+    with torch.no_grad():
+        for rows in (4, 512):
+            x = torch.randn((1, rows, KSPLIT_K), generator=gen, device=dev).to(torch.bfloat16)
+            for mode in ("ax_dense", "ax_dense_dyn"):
+                def call(xa, wa, tp_=None):
+                    if mode == "ax_dense":
+                        return ax_dense(xa, wa, pol, tp=tp_)
+                    return ax_dense_dyn(xa, wa, pol, trip, tp=tp_,
+                                        tp_role="row" if tp_ is not None else None)
+
+                one = call(x, w)
+                out[f"{mode} {rows} rows"] = torch.equal(call(x[..., k0:k1], w[k0:k1], tp),
+                                                         one)
+                if rows > 4:
+                    s0, s1 = tp_seq.block(rows)
+                    out[f"{mode} {rows} rows, seq reduce-scatter"] = torch.equal(
+                        call(x[..., k0:k1], w[k0:k1], tp_seq), one[:, s0:s1])
+    del w
+    torch.cuda.empty_cache()
+    return out
+
+
 def train_mesh_rank(rank, _fleet, ref):
     """One of the two ``gloo`` ranks sharing the card (phase 4d): the
-    collectives probed; per layout 4 static steps of deepseek-moe-16b x2
+    collectives probed; the K-split projection against the one-card call
+    (:func:`_ksplit_card`); per layout 4 static steps of deepseek-moe-16b x2
     from the seeded state (the rank builds its blocks), the last of them
-    with the collectives timed, (a) also 2 adaptive steps with the policy
-    changed between them, (b) also a ``remat="layer"`` step from the same
-    state as step 1; the reduced deepseek f32 step on both layouts and on
-    (b) with ``remat="layer"``; the restart on (a).  Everything numpy or
-    plain Python."""
+    with the collectives timed, (a) and (c) also 2 adaptive steps with the
+    policy changed between them, (b) and (d) also a ``remat="layer"`` step
+    from the same state as step 1; the reduced deepseek f32 step on every
+    layout and on (b) and (d) with ``remat="layer"``, the reduced qwen2 f32
+    step on (c) and (d); the restart on (a).  Everything numpy or plain
+    Python."""
     import numpy as np
     import torch
 
@@ -3791,13 +3896,15 @@ def train_mesh_rank(rank, _fleet, ref):
     dev = (torch.device("cuda", torch.cuda.current_device()) if _fleet.device_type == "cuda"
            else torch.device("cpu"))
     nvcc0 = _build.NVCC_RUNS["count"]
-    res = {"probe": _gloo_train_probe(dev), "layouts": {}, "small": {}}
+    res = {"probe": _gloo_train_probe(dev), "layouts": {}, "small": {}, "shapes": {}}
+    res["ksplit"] = _ksplit_card(dev, make_mesh((1, 2), ("data", "model"), device=dev.type,
+                                                backend="gloo"))
     big, small = _tm_configs()
     opt = AdamWConfig(lr=1e-4, warmup=2)
     n_d = len(transformer.ax_projections(big))
     batches = _tm_batches(big, TM_STEPS + TM_ADAPTIVE_STEPS, DS_B, DS_S, 3)
-    with kernel_shapes() as seen:
-        for label, shape, axes, par in _tm_layouts():
+    for label, shape, axes, par in _tm_layouts():
+        with kernel_shapes() as seen:
             mesh = make_mesh(shape, axes, device=dev.type, backend="gloo")
             specs = D.state_specs(big, opt, mesh, par)
             torch.cuda.synchronize()
@@ -3811,10 +3918,10 @@ def train_mesh_rank(rank, _fleet, ref):
             state_gb = sum(t.numel() * t.element_size() for t in _leaves(state)) / 1e9
             torch.cuda.reset_peak_memory_stats(dev)
             remat_m = None
-            if label == "b":
+            if label in TM_REMAT:
                 # remat="layer" from the same state and batch as step 1 (its
-                # new state dropped): the recompute's all-to-all and aux
-                # all-reduce run on autograd's device thread
+                # new state dropped): the recompute's collectives run on
+                # autograd's device thread
                 out_r = make_train_step(big, dataclasses.replace(par, remat="layer"), opt,
                                         mesh=mesh)(state, batches[0])
                 remat_m = {k: float(out_r[1][k]) for k in TM_METRICS}
@@ -3841,7 +3948,7 @@ def train_mesh_rank(rank, _fleet, ref):
                        first_ms=1e3 * walls[0], timed_ms=1e3 * walls[-1], coll_s=coll["s"],
                        coll_calls=coll["calls"], coll_share=coll["s"] / walls[-1],
                        grad_norm=float(m["grad_norm"]), remat=remat_m, step1=first_m)
-            if label == "a":
+            if label in TM_ADAPTIVE:
                 astep = make_train_step(big, par, opt, adaptive=True, mesh=mesh)
                 pol_a = SwapPolicy.from_ax_policy(big.ax)
                 pol_b = SwapPolicy.from_ax_policy(dataclasses.replace(big.ax, swap_bit=5,
@@ -3865,28 +3972,33 @@ def train_mesh_rank(rank, _fleet, ref):
             res["layouts"][label] = row
             del state, step, m
             torch.cuda.empty_cache()
-    res["shapes"] = {k: sorted(v) for k, v in seen.items()}
+        res["shapes"][label] = {k: sorted(v) for k, v in seen.items()}
 
-    # the reduced deepseek in f32: one sharded step against the one-card one
+    # the reduced configs in f32: one sharded step against the one-card one
     for label, shape, axes, par in _tm_layouts(remat=True):
         mesh = make_mesh(shape, axes, device=dev.type, backend="gloo")
-        specs = D.state_specs(small, opt, mesh, par)
-        whole = init_train_state(init_params(small, seed=0, device=dev), opt)
-        new, m = make_train_step(small, par, opt, mesh=mesh)(
-            D.local_state(whole, specs, mesh), ref["small_batch"])
-        back = gather_state(new, specs, mesh)
-        res["small"][label] = dict(metrics={k: float(m[k]) for k in ("loss", "grad_norm")},
-                                   params=_tm_flat(back["params"]) if rank == 0 else None)
+        for name, cfg in small.items():
+            if name == "qwen2-72b" and label[0] not in TM_TP:
+                continue
+            specs = D.state_specs(cfg, opt, mesh, par)
+            whole = init_train_state(init_params(cfg, seed=0, device=dev), opt)
+            new, m = make_train_step(cfg, par, opt, mesh=mesh)(
+                D.local_state(whole, specs, mesh), ref["small_batch"][name])
+            back = gather_state(new, specs, mesh)
+            res["small"][f"{name} {label}"] = dict(
+                metrics={k: float(m[k]) for k in ("loss", "grad_norm")},
+                params=_tm_flat(back["params"]) if rank == 0 else None)
 
     # the supervised restart on (a), the reduced deepseek
     label, shape, axes, par = _tm_layouts()[0]
+    small_ds = small["deepseek-moe-16b"]
     mesh = make_mesh(shape, axes, device=dev.type, backend="gloo")
-    specs = D.state_specs(small, opt, mesh, par)
-    step = make_train_step(small, par, opt, mesh=mesh)
+    specs = D.state_specs(small_ds, opt, mesh, par)
+    step = make_train_step(small_ds, par, opt, mesh=mesh)
     n_steps, every, crash = TM_RESTART
 
     def make_state():
-        return init_train_state(D.local_state(init_params(small, seed=0, device=dev),
+        return init_train_state(D.local_state(init_params(small_ds, seed=0, device=dev),
                                               specs["params"], mesh), opt)
 
     fired = []
@@ -3898,7 +4010,7 @@ def train_mesh_rank(rank, _fleet, ref):
 
     runs = {}
     for name, hook in (("ref", None), ("chaos", chaos)):
-        stream = SyntheticStream(DataConfig(small.vocab, 32, 4, seed=1, mode="arith"))
+        stream = SyntheticStream(DataConfig(small_ds.vocab, 32, 4, seed=1, mode="arith"))
         t = time.perf_counter()
         st, log = run_supervised(make_state, step, stream, n_steps,
                                  FaultConfig(ckpt_dir=f"{ref['ckpt']}/{name}", ckpt_every=every),
@@ -3918,8 +4030,9 @@ def train_mesh_rank(rank, _fleet, ref):
 def train_mesh_phase(dev, card: str, clock: float):
     """Phase 4d (module note): the one-card reference steps in this process,
     then two ``gloo`` ranks spawned on the card while it holds no model.
-    Returns (rows, ax_matmul shape rows, ax_matmul_grid shape rows, launches
-    by path, grid launches by path)."""
+    Returns (rows, ax_matmul shape rows, ax_matmul_grid shape rows, the same
+    two of the tensor-parallel layouts, launches by path, grid launches by
+    path)."""
     import tempfile
 
     import torch
@@ -3937,18 +4050,20 @@ def train_mesh_phase(dev, card: str, clock: float):
     big, small = _tm_configs()
     opt = AdamWConfig(lr=1e-4, warmup=2)
     n_d = len(transformer.ax_projections(big))
-    # one card: step 1 of deepseek x2, and the reduced f32 step
+    # one card: step 1 of deepseek x2, and the reduced f32 steps
     state = fresh_train_state(big, opt, seed=0, device=dev)
     b0 = _tm_batches(big, 1, DS_B, DS_S, 3)[0]
     one_loss = float(make_train_step(big, ParallelConfig(remat="none"), opt)(state, b0)[1]["loss"])
     del state
     torch.cuda.empty_cache()
-    small_batch = _tm_batches(small, 1, 8, 32, 5)[0]
-    s0 = fresh_train_state(small, opt, seed=0, device=dev)
-    s1, m1 = make_train_step(small, ParallelConfig(remat="none"), opt)(s0, small_batch)
-    one_small = dict(metrics={k: float(m1[k]) for k in ("loss", "grad_norm")},
-                     params=_tm_flat(s1["params"]), start=_tm_flat(s0["params"]))
-    del s0, s1, m1
+    small_batch, one_small = {}, {}
+    for name, cfg in small.items():
+        small_batch[name] = _tm_batches(cfg, 1, 8, 32, 5)[0]
+        s0 = fresh_train_state(cfg, opt, seed=0, device=dev)
+        s1, m1 = make_train_step(cfg, ParallelConfig(remat="none"), opt)(s0, small_batch[name])
+        one_small[name] = dict(metrics={k: float(m1[k]) for k in ("loss", "grad_norm")},
+                               params=_tm_flat(s1["params"]), start=_tm_flat(s0["params"]))
+        del s0, s1, m1
     gc.collect()
     torch.cuda.empty_cache()
     ref_s = time.perf_counter() - t_ref
@@ -3972,6 +4087,8 @@ def train_mesh_phase(dev, card: str, clock: float):
             problems.append(f"rank {rank}: {r['nvcc']} nvcc runs")
         if not all(r["probe"].values()):
             problems.append(f"rank {rank}: gloo card collectives {r['probe']}")
+        if not all(r["ksplit"].values()):
+            problems.append(f"rank {rank}: the K-split projection vs one card {r['ksplit']}")
         for label, row in r["layouts"].items():
             losses = row["losses"] + row.get("adaptive_losses", [])
             if not all(math.isfinite(x) for x in losses):
@@ -3985,26 +4102,31 @@ def train_mesh_phase(dev, card: str, clock: float):
                                 f"one card {one_loss} ({gap:.3g} > {TOL_TM_STEP1})")
             if row["remat"] is not None:
                 gaps = {k: abs(row["remat"][k] / row["step1"][k] - 1) for k in TM_METRICS}
-                if max(gaps.values()) > TOL_TRAIN_STEP:
+                # the same forward: (d) holds loss, ce and aux equal
+                exact = [k for k in ("loss", "ce", "aux") if label in TM_TP and gaps[k]]
+                if max(gaps.values()) > TOL_TRAIN_STEP or exact:
                     problems.append(f"rank {rank} ({label}): the remat='layer' step vs step 1 "
-                                    f"{gaps} (tol {TOL_TRAIN_STEP})")
-            if label == "a" and (row["adaptive_launches"] != want_a or not all(
+                                    f"{gaps} (tol {TOL_TRAIN_STEP}; equal: {exact or 'yes'})")
+            if label in TM_ADAPTIVE and (row["adaptive_launches"] != want_a or not all(
                     min(n.values()) > 0 for n in row["adaptive_n"])):
-                problems.append(f"rank {rank} (a) adaptive: launches "
+                problems.append(f"rank {rank} ({label}) adaptive: launches "
                                 f"{row['adaptive_launches']} (want {want_a}), telemetry n "
                                 f"{row['adaptive_n']}")
         if r["restart"]["restarts"] != [0, 1] or r["restart"]["worst_rel"] > TOL_TM_RESTART:
             problems.append(f"rank {rank}: restart {r['restart']}")
-        if r["layouts"]["a"]["losses"] != r0["layouts"]["a"]["losses"]:
-            problems.append(f"rank {rank}: reported losses differ from rank 0's")
+        for label in r["layouts"]:
+            if r["layouts"][label]["losses"] != r0["layouts"][label]["losses"]:
+                problems.append(f"rank {rank} ({label}): reported losses differ from rank 0's")
     small_rows = {}
-    for label, got in r0["small"].items():
-        gaps = {k: abs(got["metrics"][k] / one_small["metrics"][k] - 1)
+    for key, got in r0["small"].items():
+        name = key.split(" ")[0]
+        want_s = one_small[name]
+        gaps = {k: abs(got["metrics"][k] / want_s["metrics"][k] - 1)
                 for k in ("loss", "grad_norm")}
-        upd = _update_gap_np(got["params"], one_small["params"], one_small["start"])
-        small_rows[label] = dict(gaps, update=upd)
+        upd = _update_gap_np(got["params"], want_s["params"], want_s["start"])
+        small_rows[key] = dict(gaps, update=upd)
         if max(gaps.values()) > TOL_TRAIN_STEP or upd > TOL_TRAIN_UPDATE:
-            problems.append(f"reduced f32 step ({label}) vs one card: {gaps}, update {upd} "
+            problems.append(f"reduced f32 step ({key}) vs one card: {gaps}, update {upd} "
                             f"(tol {TOL_TRAIN_STEP}, {TOL_TRAIN_UPDATE})")
     # every launched shape: the ranks' rows, reckoned from the config
     M = DS_B * DS_S // TM_RANKS
@@ -4012,21 +4134,34 @@ def train_mesh_phase(dev, card: str, clock: float):
     for _, proj, K, N in transformer.ax_projections(big):
         dshapes.setdefault((_padded(M), _padded(K), _padded(N)),
                            f"deepseek train mesh M={M} {proj}")
-    seen = {k: set(map(tuple, v)) for k, v in r0["shapes"].items()}
-    if seen["ax_matmul"] != set(dshapes) or seen["ax_matmul_grid"] != set(dshapes):
-        problems.append(f"kernel shapes launched {seen}, reckoned {sorted(dshapes)}")
+    tp_shapes = _tm_tp_shapes(big, DS_B * DS_S, TM_RANKS)
+    for label in r0["shapes"]:
+        seen = {k: set(map(tuple, v)) for k, v in r0["shapes"][label].items()}
+        reck = set(tp_shapes if label in TM_TP else dshapes)
+        grid_reck = reck if label in TM_ADAPTIVE else set()
+        if seen["ax_matmul"] != reck or seen["ax_matmul_grid"] != grid_reck:
+            problems.append(f"({label}) kernel shapes launched {seen}, reckoned "
+                            f"{sorted(reck)} ({sorted(grid_reck)} grid)")
     if problems:
         fail("train mesh: " + "; ".join(problems))
     shape_list = [(label,) + k for k, label in sorted(dshapes.items())]
+    tp_list = [(label,) + k for k, label in sorted(tp_shapes.items())]
     ax_rows = main_shape_checks(dev, card, clock, grid_kernel=False, shapes=shape_list)
     grid_rows = main_shape_checks(dev, card, clock, grid_kernel=True, shapes=shape_list)
+    tp_ax_rows = main_shape_checks(dev, card, clock, grid_kernel=False, shapes=tp_list)
+    tp_grid_rows = main_shape_checks(dev, card, clock, grid_kernel=True, shapes=tp_list)
     print(f"train mesh: gloo takes card tensors for {sorted(r0['probe'])} (values checked); "
           f"one-card step 1 of deepseek-moe-16b x2 loss {one_loss:.6f} [{card}]", flush=True)
+    print(f"train mesh: the K-split SWAPPER projection (K {KSPLIT_K} -> {KSPLIT_K // TM_RANKS} "
+          f"a rank, N {KSPLIT_N}, bf16, mxu) on two gloo ranks == the one-card call bit for "
+          f"bit: {', '.join(k for k, v in r0['ksplit'].items() if v)} [{card}]", flush=True)
     rows = {"one_card_loss": one_loss, "small": small_rows, "restart": r0["restart"],
-            "ref_s": ref_s, "ranks_s": ranks_s, "parent_gb": held_gb}
+            "ref_s": ref_s, "ranks_s": ranks_s, "parent_gb": held_gb,
+            "ksplit": r0["ksplit"]}
     for label, shape, axes, par in _tm_layouts():
         per = [r["layouts"][label] for r in res]
         row = per[0]
+        tokens = DS_B * DS_S if label in TM_TP else DS_B * DS_S // TM_RANKS
         rows[label] = dict(mesh=f"{dict(zip(axes, shape))}", ms_per_step=row["ms_per_step"],
                            first_ms=row["first_ms"], losses=row["losses"],
                            peak_gb=[p["peak_gb"] for p in per],
@@ -4043,14 +4178,14 @@ def train_mesh_phase(dev, card: str, clock: float):
             gaps = ", ".join(f"{k} {v:.3g}" for k, v in rows[label]["remat_gap"].items())
             extra = (f"; remat='layer' from step 1's state: loss {row['remat']['loss']:.6f}, "
                      f"gaps {gaps} (tol {TOL_TRAIN_STEP})")
-        if label == "a":
+        if label in TM_ADAPTIVE:
             rows[label].update(adaptive_ms=row["adaptive_ms"], adaptive_n=row["adaptive_n"])
             extra = (f"; 2 adaptive steps ({row['policies'][0]} then {row['policies'][1]}): "
                      f"telemetry n {row['adaptive_n']}, ax_matmul_grid {want_a['ax_matmul_grid']} "
                      f"a rank, {', '.join(f'{x:.0f}' for x in row['adaptive_ms'])} ms")
-        flags = "+".join(f for f in ("dp_only", "fsdp", "ep") if getattr(par, f))
+        flags = "+".join(f for f in ("dp_only", "fsdp", "seq_shard", "ep") if getattr(par, f))
         print(f"train mesh ({label}) {dict(zip(axes, shape))} {flags}: deepseek-moe-16b x2 "
-              f"(--ax mxu, B={DS_B} x {DS_S}, {DS_B // TM_RANKS} rows a rank), {TM_STEPS} "
+              f"(--ax mxu, B={DS_B} x {DS_S}, {tokens} tokens a rank), {TM_STEPS} "
               f"steps: losses {', '.join(f'{x:.5f}' for x in row['losses'])} (step 1 "
               f"{abs(row['losses'][0] / one_loss - 1):.3g} from one card, tol {TOL_TM_STEP1}); "
               f"ax_matmul {want['ax_matmul']} a rank (= {n_d} x {TM_STEPS}); "
@@ -4063,7 +4198,7 @@ def train_mesh_phase(dev, card: str, clock: float):
               f"{TM_STEPS}'s wall ({', '.join(f'{x:.1f}' for x in rows[label]['timed_ms'])} ms, "
               f"a synchronise around each collective){extra} [{card}]", flush=True)
     rs = r0["restart"]
-    print(f"train mesh: reduced deepseek (2 layers, f32, exact, no drops) sharded vs one card "
+    print(f"train mesh: reduced configs (2 layers, f32, exact) sharded vs one card "
           f"{ {k: {n: float(f'{v:.3g}') for n, v in g.items()} for k, g in small_rows.items()} } "
           f"(tol {TOL_TRAIN_STEP}, update {TOL_TRAIN_UPDATE}); run_supervised on (a) "
           f"({TM_RESTART[0]} steps, ckpt_every {TM_RESTART[1]}, a crash at step "
@@ -4071,9 +4206,10 @@ def train_mesh_phase(dev, card: str, clock: float):
           f"uninterrupted run (tol {TOL_TM_RESTART}), bit-equal {rs['bit_equal']}, walls "
           f"{rs['walls'][0]:.1f} / {rs['walls'][1]:.1f} s; the one-card references "
           f"{ref_s:.1f} s, the ranks {ranks_s:.1f} s with the spawn [{card}]", flush=True)
-    paths = {f"train mesh ({label}, rank 0)": want["ax_matmul"] for label in ("a", "b")}
-    grid_paths = {"train mesh (a) adaptive, rank 0": want_a["ax_matmul_grid"]}
-    return rows, ax_rows, grid_rows, paths, grid_paths
+    paths = {f"train mesh ({label}, rank 0)": want["ax_matmul"] for label in "abcd"}
+    grid_paths = {f"train mesh ({label}) adaptive, rank 0": want_a["ax_matmul_grid"]
+                  for label in TM_ADAPTIVE}
+    return rows, ax_rows, grid_rows, tp_ax_rows, tp_grid_rows, paths, grid_paths
 
 
 def _update_gap_np(new, ref, start) -> float:
@@ -4203,8 +4339,8 @@ def main(argv):
     # the mesh phase spawns two ranks that each hold the serve's model
     m_paths, m_grid_paths, mesh_info = mesh_phase(dev, card)
     phase_done("mesh")
-    tm_rows, tm_shape_rows, tm_grid_rows, tm_paths, tm_grid_paths = \
-        train_mesh_phase(dev, card, clock)
+    tm_rows, tm_shape_rows, tm_grid_rows, tp_shape_rows, tp_grid_rows, tm_paths, \
+        tm_grid_paths = train_mesh_phase(dev, card, clock)
     phase_done("train mesh")
     profile = "--profile" in argv
     cfg, params, prompts, tokens, paths, stats = serve(dev, card, profile)
@@ -4285,15 +4421,17 @@ def main(argv):
                      rows, c_rows)
     grid_entry = entry("ax_matmul_grid", "src/repro/kernels/ax_matmul.py:253", grid_launches,
                        grid_paths, grid_rows, c_grid_rows)
-    for e, fam_rows, w_rows, t_rows, tm_rows_ in (
-            (ax_entry, family_shape_rows, whisper_shape_rows, train_shape_rows, tm_shape_rows),
-            (grid_entry, family_grid_rows, [], train_grid_rows, tm_grid_rows)):
+    for e, fam_rows, w_rows, t_rows, tm_rows_, tp_rows_ in (
+            (ax_entry, family_shape_rows, whisper_shape_rows, train_shape_rows, tm_shape_rows,
+             tp_shape_rows),
+            (grid_entry, family_grid_rows, [], train_grid_rows, tm_grid_rows, tp_grid_rows)):
         e["family_shapes"] = fam_rows
         e["whisper_shapes"] = w_rows
         e["train_shapes"] = t_rows
         e["train_mesh_shapes"] = tm_rows_
+        e["train_tp_shapes"] = tp_rows_
         e["max_abs_err"] = max([e["max_abs_err"]] + [
-            r["max_abs_err"] for r in fam_rows + w_rows + t_rows + tm_rows_])
+            r["max_abs_err"] for r in fam_rows + w_rows + t_rows + tm_rows_ + tp_rows_])
     ax_entry["whisper"] = {k: whisper_row[k] for k in (
         "name", "layers", "enc_layers", "params_g", "ax_per_forward", "ax_per_decode",
         "launches", "decode_vs_full_rel", "graph_decode_ms_per_step")}

@@ -130,8 +130,9 @@ class ParallelConfig:
       ``train/distributed.py``) and the serving mesh's rules
       (``launch/sharding.axis_rules``); without a mesh they do nothing, as
       JAX's ``shard()`` does nothing outside one.  A ``"model"`` axis of
-      several ranks without ``dp_only`` (tensor parallelism) raises, ROADMAP
-      queue 1, item 8c.  Their defaults are the one-card values here (the
+      several ranks without ``dp_only`` carries tensor parallelism, and
+      sequence parallelism with ``seq_shard`` (``train/distributed.py``).
+      Their defaults are the one-card values here (the
       JAX defaults shard), which keeps the serving mesh's rules;
     * ``grad_compress`` (``'none'`` or ``'bf16'``) is accepted and read
       nowhere, as in the JAX package, which declares it and never reads it

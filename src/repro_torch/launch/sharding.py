@@ -24,7 +24,14 @@ constrain here).  :func:`set_mesh_ctx` installs a mesh and its rules for
 the code inside it; ``models/blocks.py`` reads them (per-shard MoE
 capacity).  The sharded train step also installs its collectives
 (``train/distributed.py``'s ``TrainMesh``), which the loss and the MoE
-block read through :func:`current_train`.
+block read through :func:`current_train`; with tensor parallelism over
+``"model"`` the models take its ``TensorParallel`` through
+:func:`current_tp`: the model group, this rank's index and offsets into
+``heads``, ``ff``, ``vocab`` and ``seq`` (``TensorParallel.block``), and
+the collectives of a block's entry and exit.  All of it travels in one
+installed state, which :func:`recompute_context` re-installs for a layer
+recomputed in the backward, so the recomputation repeats its collectives
+in order.
 """
 from __future__ import annotations
 
@@ -34,8 +41,8 @@ import threading
 from typing import Dict, Optional, Tuple
 
 __all__ = ["PartitionSpec", "MeshShape", "mesh_shape", "axis_rules", "set_mesh_ctx",
-           "current_mesh", "current_rules", "current_train", "recompute_context", "shard",
-           "spec_for", "param_spec", "axis_size"]
+           "current_mesh", "current_rules", "current_train", "current_tp", "recompute_context",
+           "shard", "spec_for", "param_spec", "axis_size"]
 
 _ctx = threading.local()
 
@@ -176,6 +183,14 @@ def current_train():
     """The ``TrainMesh`` of the sharded train step running now, or None."""
     st = getattr(_ctx, "state", None)
     return st[2] if st else None
+
+
+def current_tp():
+    """The ``train.distributed.TensorParallel`` of the sharded train step
+    running now: None outside one, and on a mesh whose ``"model"`` axis
+    carries no tensor parallelism (one rank, or ``dp_only``)."""
+    tm = current_train()
+    return tm.tp if tm is not None else None
 
 
 def _names(ax) -> Tuple[str, ...]:

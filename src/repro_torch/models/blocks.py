@@ -24,6 +24,31 @@ for the local combine (JAX's ``expert_ffn`` resharding around its
 ``"model"`` stay whole on every rank (``param_spec`` drops the
 constraint) and run locally.
 
+**Tensor parallelism** (the sharded train step with a ``"model"`` axis of
+several ranks, ``launch.sharding.current_tp``): each block takes its input
+whole over ``seq`` and returns its output in the residual's layout
+(``models/layers.py``).  MoE follows JAX's dispatch: its token shards are
+the batch shards, and under ``seq_shard`` also the model ranks (rank m
+takes block m of its batch shard's flattened tokens, as JAX's
+``(batch, seq)`` sharding of the flattened T dim lays them out, and its
+routed output is summed back into the seq shards); without ``seq_shard``
+the model ranks hold the same tokens and the same dispatch.  With ``ep``
+a rank's experts run on every token shard's slots for them: the expert
+all-to-all when the token shards span ``"model"``, else a slice of the
+replicated dispatch buffer, the outputs all-gathered over ``"model"``.
+Without ``ep`` the experts' ``ff`` is split over ``"model"``: column- then
+row-parallel, the partial sums all-reduced (all-gathered over the token
+shards' slots first and reduce-scattered back under ``seq_shard``).  The
+shared experts are the MLP's case.  RG-LRU is channel-parallel over
+``d_rnn``: ``in``/``gate`` column-parallel, ``conv/w`` and ``lam`` the
+rank's channels, the row-split ``wa``/``wx`` products reduce-scattered
+over their output channels, the scan per channel, ``out`` row-parallel.
+SSD is parallel over its heads: ``in``/``gate`` column-parallel over
+``din``, ``a_log``/``d_skip``/``dt_bias`` the rank's heads, ``wb``/``wc``/
+``wdt`` replicated (``dt`` computed whole and sliced), the gathered
+``conv/w``'s columns of the rank's ``din`` block and of B and C, ``out``
+row-parallel.
+
 The SWAPPER projection reaches these blocks through ``layers.dense``: the
 RG-LRU and SSD ``in``/``gate``/``out`` projections carry the target
 ``mlp``, as do MoE's shared experts.  The routed experts are three plain
@@ -46,10 +71,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.sharding import current_train
+from repro_torch.launch.sharding import current_tp, current_train
 from repro_torch.quant.ax import weight_cast
 
-from .layers import dense, mlp_apply, mlp_init, ninit
+from .layers import _col, _tp_out, dense, mlp_apply, mlp_init, ninit
 
 __all__ = ["moe_init", "moe_apply", "rglru_init", "rglru_apply", "ssd_init", "ssd_apply"]
 
@@ -135,6 +160,9 @@ def moe_apply(p, x, cfg: ModelConfig):
     ``E * mean(mean(probs) * mean(one_hot(top-1)))``.  Under a mesh whose
     ``batch`` rule spans several ranks, ``x`` is this rank's token shard and
     the capacity is its own (module note)."""
+    tm = current_train()
+    if tm is not None and tm.tp is not None:
+        return _moe_tp(p, x, cfg, tm, tm.tp)
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     T = B * S
@@ -143,17 +171,11 @@ def moe_apply(p, x, cfg: ModelConfig):
     # per token shard under a mesh: T is this rank's T_loc (module note)
     C = capacity(T, cfg)
     buf, slots, keeps = _dispatch(flat, topi, k, E, C)
-    tm = current_train()
     if tm is not None and tm.experts is not None and p["experts"]["in"]["w"].shape[0] != E:
         y = tm.experts_apply(buf, lambda b: _expert_ffn(b, p["experts"]))
     else:
         y = _expert_ffn(buf, p["experts"])
-    yflat = y.reshape(E * C, D)
-    out = torch.zeros((T, D), dtype=x.dtype, device=x.device)
-    for j in range(k):
-        gathered = yflat.index_select(0, topi[:, j] * C + slots[:, j])
-        w = (topv[:, j] * keeps[:, j].to(torch.float32)).to(x.dtype)
-        out = out + gathered * w[:, None]
+    out = _combine(y, topi, topv, slots, keeps, x.dtype)
     if "shared" in p:
         out = out + mlp_apply(p["shared"], flat, "silu", cfg.ax).reshape(T, D)
     top1 = (topi[:, 0, None] == torch.arange(E, device=x.device)).to(torch.float32)
@@ -165,6 +187,67 @@ def moe_apply(p, x, cfg: ModelConfig):
         t_all = stats[E]
         aux = E * torch.mean((probs.sum(0) / t_all) * (stats[:E] / t_all))
     return out.reshape(B, S, D), aux
+
+
+def _combine(y, topi, topv, slots, keeps, dtype):
+    """(T, D): each token's kept choices' expert outputs, weighted."""
+    E, C, D = y.shape
+    yflat = y.reshape(E * C, D)
+    out = torch.zeros((topi.shape[0], D), dtype=dtype, device=y.device)
+    for j in range(topi.shape[1]):
+        gathered = yflat.index_select(0, topi[:, j] * C + slots[:, j])
+        w = (topv[:, j] * keeps[:, j].to(torch.float32)).to(dtype)
+        out = out + gathered * w[:, None]
+    return out
+
+
+def _moe_tp(p, x, cfg: ModelConfig, tm, tp):
+    """``moe_apply`` under tensor parallelism (module note): ``x`` is the
+    batch shard's (B, S, D), whole over ``seq``; the output comes in the
+    residual's layout, the load-balancing term is this rank's share of the
+    global one (``1 / model`` of it where the model ranks hold the same
+    tokens)."""
+    B, S, D = x.shape
+    E, k, Fd = cfg.n_experts, cfg.top_k, cfg.moe_d_ff
+    T_all = B * S
+    flat = x.reshape(T_all, D)
+    lo, hi = tp.block(T_all) if tp.seq else (0, T_all)
+    flat = flat[lo:hi]
+    T = hi - lo
+    probs, topv, topi = _route(flat, p["router"]["w"], k)
+    C = capacity(T, cfg)
+    buf, slots, keeps = _dispatch(flat, topi, k, E, C)
+    ex = p["experts"]
+    ffn = lambda b: _expert_ffn(b, ex)                    # noqa: E731
+    if tp.split(ex["in"]["w"].shape[0], E):               # ep: the rank's experts
+        if tp.seq:
+            y = tm.experts_apply(buf, ffn)
+        else:
+            e0, e1 = tp.block(E)
+            y = tp.gather(ffn(buf[e0:e1]), 0)
+    elif tp.split(ex["in"]["w"].shape[-1], Fd):           # the experts' ff split
+        if tp.seq:
+            y = tp.reduce_scatter(ffn(tp.gather(buf, 1)), 1)
+        else:
+            y = tp.reduce(ffn(buf))
+    else:
+        y = ffn(buf)
+    out = _combine(y, topi, topv, slots, keeps, x.dtype)
+    if tp.seq:
+        # the token block back into the seq shards: zeros elsewhere, summed
+        routed = torch.zeros((T_all, D), dtype=x.dtype, device=x.device)
+        routed = routed.index_copy(0, torch.arange(lo, hi, device=x.device), out)
+        y_out = tp.exit(routed.reshape(B, S, D), partial=True)
+    else:
+        y_out = out.reshape(B, S, D)
+    if "shared" in p:
+        y_out = y_out + mlp_apply(p["shared"], x, "silu", cfg.ax,
+                                  d_ff=cfg.n_shared_experts * Fd)
+    top1 = (topi[:, 0, None] == torch.arange(E, device=x.device)).to(torch.float32)
+    stats = tm.token_sum(torch.cat([top1.sum(0), top1.new_full((1,), T)]))
+    t_all = stats[E]
+    aux = E * torch.mean((probs.sum(0) / t_all) * (stats[:E] / t_all))
+    return y_out, aux if tp.seq else aux / tp.n
 
 
 # ===========================================================================
@@ -243,16 +326,27 @@ def _write_state(cache, new):
 
 
 def rglru_apply(p, x, cfg: ModelConfig, cache: Optional[dict] = None):
-    """Returns (y, new_cache).  cache = {'h': (B, R) f32, 'conv': (B, 3, R)}."""
+    """Returns (y, new_cache).  cache = {'h': (B, R) f32, 'conv': (B, 3, R)}.
+    Under tensor parallelism (a train forward, no cache) channel-parallel
+    over ``d_rnn`` (module note)."""
     B, S, D = x.shape
-    xr = dense(x, p["in"], cfg.ax, "mlp")
-    gate = dense(x, p["gate"], cfg.ax, "mlp")
+    tp = current_tp() if cache is None else None
+    role = _col(tp, p["in"]["w"], cfg.d_rnn)
+    split = role is not None
+    xr = dense(x, p["in"], cfg.ax, "mlp", tp, role)
+    gate = dense(x, p["gate"], cfg.ax, "mlp", tp, role)
     conv_state = cache["conv"] if cache is not None else None
     xc, new_conv = _causal_conv(xr, weight_cast(p["conv"]["w"], xr.dtype), conv_state)
 
     xf = xc.to(torch.float32)
-    r = torch.sigmoid(xf @ p["wa"]["w"].to(torch.float32))
-    i = torch.sigmoid(xf @ p["wx"]["w"].to(torch.float32))
+    if split:
+        # wa/wx hold the rank's rows (input channels): partial sums over
+        # every output channel, reduce-scattered to the rank's channels
+        r = torch.sigmoid(tp.reduce_scatter(xf @ p["wa"]["w"].to(torch.float32), -1))
+        i = torch.sigmoid(tp.reduce_scatter(xf @ p["wx"]["w"].to(torch.float32), -1))
+    else:
+        r = torch.sigmoid(xf @ p["wa"]["w"].to(torch.float32))
+        i = torch.sigmoid(xf @ p["wx"]["w"].to(torch.float32))
     log_a = -_LRU_C * _softplus(p["lam"]) * r                    # (B,S,R)
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-9)) * (i * xf)
@@ -266,6 +360,8 @@ def rglru_apply(p, x, cfg: ModelConfig, cache: Optional[dict] = None):
         h_last = h[:, 0]
 
     y = h.to(x.dtype) * F.gelu(gate, approximate="tanh")
+    if tp is not None:
+        return _tp_out(y, p["out"], cfg.ax, "mlp", tp, split), None
     out = dense(y, p["out"], cfg.ax, "mlp")
     if cache is None:
         return out, None
@@ -299,7 +395,9 @@ def ssd_init(cfg: ModelConfig, dtype, generator, device):
 
 def ssd_apply(p, x, cfg: ModelConfig, cache: Optional[dict] = None):
     """Chunked SSD.  cache = {'h': (B, H, hd, N) f32, 'conv': (B, 3, Ch)}.
-    A prompt longer than ``ssm_chunk`` must be a multiple of it."""
+    A prompt longer than ``ssm_chunk`` must be a multiple of it.  Under
+    tensor parallelism (a train forward, no cache) parallel over the heads
+    (module note)."""
     B, S, D = x.shape
     hd = cfg.ssm_head_dim
     din = cfg.ssm_expand * D
@@ -307,30 +405,45 @@ def ssd_apply(p, x, cfg: ModelConfig, cache: Optional[dict] = None):
     N = cfg.ssm_state
     ax = cfg.ax
     f32 = torch.float32
+    tp = current_tp() if cache is None else None
+    role = _col(tp, p["in"]["w"], din)
+    split = role is not None
 
-    xin = dense(x, p["in"], ax, "mlp")
-    z = dense(x, p["gate"], ax, "mlp")
+    xin = dense(x, p["in"], ax, "mlp", tp, role)
+    z = dense(x, p["gate"], ax, "mlp", tp, role)
     Bc = dense(x, p["wb"], None, "")
     Cc = dense(x, p["wc"], None, "")
-    dt = _softplus((x @ weight_cast(p["wdt"]["w"], x.dtype)).to(f32) + p["dt_bias"])  # (B,S,H)
+    dt = (x @ weight_cast(p["wdt"]["w"], x.dtype)).to(f32)
+    conv_w = weight_cast(p["conv"]["w"], x.dtype)
+    heads = {n: p[n] for n in ("dt_bias", "a_log", "d_skip")}
+    if split:
+        # the rank's heads of dt and of the per-head leaves the rules leave
+        # whole (``dt_bias`` is a "bias": replicated); the gathered conv/w's
+        # columns of its din block and of B and C
+        h0, h1 = tp.block(H)
+        dt = dt[..., h0:h1]
+        heads = {n: t if tp.split(t.shape[0], H) else t[h0:h1] for n, t in heads.items()}
+        c0, c1 = tp.block(din)
+        conv_w = torch.cat([conv_w[:, c0:c1], conv_w[:, din:]], dim=1)
+        din, H = c1 - c0, h1 - h0
+    dt = _softplus(dt + heads["dt_bias"])                       # (B,S,H)
 
     conv_in = torch.cat([xin, Bc, Cc], dim=-1)
     conv_state = cache["conv"] if cache is not None else None
-    conv_out, new_conv = _causal_conv(conv_in, weight_cast(p["conv"]["w"], x.dtype),
-                                      conv_state)
+    conv_out, new_conv = _causal_conv(conv_in, conv_w, conv_state)
     conv_out = F.silu(conv_out)
     xin = conv_out[..., :din]
     Bc = conv_out[..., din:din + N].to(f32)
     Cc = conv_out[..., din + N:].to(f32)
 
-    a = torch.exp(-torch.exp(p["a_log"]) * dt)                  # (B,S,H) in (0,1)
+    a = torch.exp(-torch.exp(heads["a_log"]) * dt)              # (B,S,H) in (0,1)
     xh = xin.reshape(B, S, H, hd).to(f32)
     dx = dt[..., None] * xh                                      # (B,S,H,hd)
 
     if cache is not None and S == 1:
         h = a[:, 0, :, None, None] * cache["h"] + dx[:, 0, :, :, None] * Bc[:, 0, None, None, :]
         y = torch.einsum("bhdn,bn->bhd", h, Cc[:, 0])
-        y = y + p["d_skip"][None, :, None] * xh[:, 0]
+        y = y + heads["d_skip"][None, :, None] * xh[:, 0]
         y = y.reshape(B, 1, din)
         out = dense(y.to(x.dtype) * F.silu(z), p["out"], ax, "mlp")
         return out, _write_state(cache, {"h": h, "conv": new_conv})
@@ -377,7 +490,9 @@ def ssd_apply(p, x, cfg: ModelConfig, cache: Optional[dict] = None):
     y_inter = torch.einsum("bnls,bnlh,bnhds->bnlhd", C_c, torch.exp(la), h_prev)
 
     y = (y_intra + y_inter).reshape(B, S, H, hd)
-    y = y + p["d_skip"][None, None, :, None] * xh
+    y = y + heads["d_skip"][None, None, :, None] * xh
     y = y.reshape(B, S, din).to(x.dtype) * F.silu(z)
+    if tp is not None:
+        return _tp_out(y, p["out"], ax, "mlp", tp, split), None
     out = dense(y, p["out"], ax, "mlp")
     return out, ({"h": h, "conv": new_conv} if cache is not None else None)

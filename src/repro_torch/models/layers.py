@@ -12,6 +12,17 @@ package's rule; ``launch/sharding.py`` maps them onto mesh axes), and
 without allocating it.  Every op keeps the
 JAX package's dtype sequence (where bf16 is rounded, where f32 is used), so
 the two packages agree to within bf16 rounding.
+
+**Tensor parallelism.**  Inside the sharded train step with a ``"model"``
+axis of several ranks (``launch.sharding.current_tp``) a layer's weights
+are the rank's blocks (``train/distributed.py``): a dim smaller than the
+config's is this rank's block of it.  The projections into ``heads`` and
+``ff`` (q/k/v, in/gate) are column-parallel and need no collective; the
+ones out of them (``o``, ``out``) are row-parallel and reduce their partial
+sums into the residual's layout (:func:`dense`'s ``role="row"``).  A block
+takes its input whole over ``seq`` and gives its output back in the
+residual's layout (``TensorParallel.enter``/``exit``), so the attention
+and the MLP run on the whole sequence with RoPE at global positions.
 """
 from __future__ import annotations
 
@@ -22,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import AxPolicy, ModelConfig
+from repro_torch.launch.sharding import current_tp
 from repro_torch.quant.ax import ax_dense, ax_dense_dyn, weight_cast, weight_codes
 from repro_torch.runtime.scope import active_scope
 
@@ -112,7 +124,8 @@ def axes_for_path(path: str, ndim: int):
 # projections — exact or SWAPPER-approximate per policy
 # ---------------------------------------------------------------------------
 
-def dense(x, p, ax: Optional[AxPolicy] = None, target: str = ""):
+def dense(x, p, ax: Optional[AxPolicy] = None, target: str = "", tp=None,
+          role: Optional[str] = None):
     """y = x @ w (+ b), through the SWAPPER approximate path when the policy
     covers this projection target.  Under an open adaptive-runtime scope
     that holds a triple for the target, the swap decision is that int32
@@ -120,23 +133,48 @@ def dense(x, p, ax: Optional[AxPolicy] = None, target: str = ""):
     weight is cast to the activation dtype first, as in the JAX package, so
     it is quantized from bf16.  Without gradients the cast and the int8
     codes come from the weight cache (``quant.ax.weight_codes``): each
-    weight is quantized once, with the same bits."""
+    weight is quantized once, with the same bits.
+
+    ``tp`` (a ``train.distributed.TensorParallel``) with ``role``:
+    ``"row"``, K is split over the model ranks (``x`` and ``w`` hold this
+    rank's block): the partial sums are reduced into the residual's layout
+    (``TensorParallel.exit``; the approximate path reduces its int32
+    accumulator, ``quant.ax``) before the bias; ``"col"``, the output
+    columns are split (K whole: only the adaptive records gather their
+    samples)."""
+    row = tp if role == "row" else None
     if ax is not None and target in ax.targets:
+        # the split's arguments only where there is one
+        tp_kw = {"tp": row} if row is not None else {}
         if torch.is_grad_enabled():
             w, codes = p["w"].to(x.dtype), None
         else:
-            w, codes = p["w"], weight_codes(p["w"], x.dtype)
+            w, codes = p["w"], weight_codes(p["w"], x.dtype, **tp_kw)
         scope = active_scope()
         dyn = scope.triple_for(target) if scope is not None else None
         if dyn is not None:
-            y = ax_dense_dyn(x, w, ax, dyn, scope=scope, target=target, wcodes=codes)
+            y = ax_dense_dyn(x, w, ax, dyn, scope=scope, target=target, wcodes=codes,
+                             **({"tp": tp, "tp_role": role} if role else {}))
         else:
-            y = ax_dense(x, w, ax, wcodes=codes)
+            y = ax_dense(x, w, ax, wcodes=codes, **tp_kw)
     else:
         y = x @ weight_cast(p["w"], x.dtype)
+        if row is not None:
+            y = row.exit(y, partial=True)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
+
+
+def _tp_out(x, p, ax, target, tp, split: bool):
+    """A block's output projection into the residual's layout: row-parallel
+    when its K is split, else a complete product taken to the residual's
+    layout (its seq shard under ``seq_shard``)."""
+    if tp is None:
+        return dense(x, p, ax, target)
+    if split:
+        return dense(x, p, ax, target, tp=tp, role="row")
+    return tp.exit(dense(x, p, ax, target), partial=False)
 
 
 def rmsnorm(x, p, eps):
@@ -364,7 +402,10 @@ def attn_apply(p, x, cfg: ModelConfig, *, pos, inv_freq, causal=True, window=0,
     ``cross_kv`` — ``(k, v)``, each (B, S_enc, KV, hd), precomputed from an
     encoder (whisper's cross-attention): only q is projected, the keys have
     their own positions ``0 .. S_enc - 1``, attention is over all of them,
-    and no cache is written or returned in any mode.
+    and no cache is written or returned in any mode.  Under tensor
+    parallelism (module note) each is instead this rank's (B, S_enc,
+    columns) block of the k/v projection, and train mode returns the output
+    in the residual's layout.
 
     ``cache_index`` is an int64 (B,) tensor of per-slot positions on the
     activations' device (``transformer.forward`` makes one from a scalar):
@@ -378,15 +419,27 @@ def attn_apply(p, x, cfg: ModelConfig, *, pos, inv_freq, causal=True, window=0,
     B, S, _ = x.shape
     hd = cfg.head_dim_
     ax = cfg.ax
-    q = dense(x, p["q"], ax, "attn_qkv").reshape(B, S, cfg.n_heads, hd)
+    tp = current_tp() if mode == "train" else None
+    H, KVH = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    q = dense(x, p["q"], ax, "attn_qkv", tp, _col(tp, p["q"]["w"], H))
     if cross_kv is None:
-        k = dense(x, p["k"], ax, "attn_qkv").reshape(B, S, cfg.n_kv_heads, hd)
-        v = dense(x, p["v"], ax, "attn_qkv").reshape(B, S, cfg.n_kv_heads, hd)
-        if inv_freq is not None:
-            q = apply_rope(q, pos, inv_freq)
-            k = apply_rope(k, pos, inv_freq)
+        k = dense(x, p["k"], ax, "attn_qkv", tp, _col(tp, p["k"]["w"], KVH))
+        v = dense(x, p["v"], ax, "attn_qkv", tp, _col(tp, p["v"]["w"], KVH))
     else:
         k, v = cross_kv
+    out_cols = None
+    if tp is not None:
+        # tensor parallelism (module note): this rank's heads, and the kv
+        # heads they read; ``cross_kv`` then holds the rank's k/v columns
+        q, k, v, out_cols = _tp_heads(tp, q, k, v, cfg)
+    else:
+        q = q.reshape(B, S, cfg.n_heads, hd)
+        if cross_kv is None:
+            k = k.reshape(B, S, cfg.n_kv_heads, hd)
+            v = v.reshape(B, S, cfg.n_kv_heads, hd)
+    if cross_kv is None and inv_freq is not None:
+        q = apply_rope(q, pos, inv_freq)
+        k = apply_rope(k, pos, inv_freq)
 
     cdtype = getattr(torch, cfg.compute_dtype)
     new_cache = None
@@ -449,8 +502,65 @@ def attn_apply(p, x, cfg: ModelConfig, *, pos, inv_freq, causal=True, window=0,
                                                            device=x.device)], 1)
                 for nm, t in (("k", k), ("v", v))
             }
-    out = out.reshape(B, S, cfg.n_heads * hd)
+    out = out.reshape(B, S, -1)
+    if tp is not None:
+        if out_cols is not None:
+            out = out[..., out_cols[0]:out_cols[1]]
+        return _tp_out(out, p["o"], ax, "attn_out", tp, tp.split(p["o"]["w"].shape[0], H)), None
     return dense(out, p["o"], ax, "attn_out"), new_cache
+
+
+def _col(tp, w, full: int) -> Optional[str]:
+    """``"col"`` when the projection ``w``'s ``full`` output columns are
+    split over the model ranks of ``tp``, else None (no tensor parallelism,
+    or a replicated weight)."""
+    return "col" if tp is not None and tp.split(w.shape[-1], full) else None
+
+
+def _tp_heads(tp, q, k, v, cfg: ModelConfig):
+    """(q, k, v, out_cols) under tensor parallelism: q (B, S, Hl, hd) for
+    this rank's query heads and k/v (B, Sk, KVl, hd) for the kv heads they
+    read.  q/k/v come as the projections' columns, this rank's block of
+    them when split.  A q block of whole heads is this rank's heads; q
+    split inside a head is all-gathered and every head computed, and
+    ``out_cols`` is then the (lo, hi) of the attention output columns that
+    this rank's ``o`` rows take.  k/v columns are split regardless of head
+    boundaries (``axes_for_path`` names them ``heads``): a block that is
+    exactly the kv heads of this rank's query heads is used as it is,
+    otherwise the **k/v activations** are all-gathered over the model ranks
+    (their backward a reduce-scatter) and the needed kv heads taken; the
+    weights stay the rank's blocks.  A query block that does not start and
+    end on a GQA group boundary reads each query head's kv head
+    (``index_select``, one kv head per query head)."""
+    hd, H, KV = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
+    G = H // KV
+    out_cols = None
+    if tp.split(q.shape[-1], H * hd) and H % tp.n == 0:
+        h0, h1 = tp.block(H)
+    else:
+        if tp.split(q.shape[-1], H * hd):
+            out_cols = tp.block(H * hd)
+            q = tp.gather(q, -1)
+        h0, h1 = 0, H
+    k0, k1 = h0 // G, (h1 - 1) // G + 1
+
+    def kv_heads(t):
+        if tp.split(t.shape[-1], KV * hd):
+            if tp.block(KV * hd) == (k0 * hd, k1 * hd):
+                return t
+            t = tp.gather(t, -1)
+        return t[..., k0 * hd:k1 * hd]
+
+    k, v = kv_heads(k), kv_heads(v)
+    B, S = q.shape[:2]
+    Sk = k.shape[1]
+    q = q.reshape(B, S, h1 - h0, hd)
+    k = k.reshape(B, Sk, k1 - k0, hd)
+    v = v.reshape(B, Sk, k1 - k0, hd)
+    if h0 % G or h1 % G:
+        idx = torch.tensor([h // G - k0 for h in range(h0, h1)], device=k.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    return q, k, v, out_cols
 
 
 # ---------------------------------------------------------------------------
@@ -468,10 +578,16 @@ def mlp_init(d_model, d_ff, act, dtype, generator, device, bias=False):
     return p
 
 
-def mlp_apply(p, x, act, ax: Optional[AxPolicy] = None):
-    h = dense(x, p["in"], ax, "mlp")
+def mlp_apply(p, x, act, ax: Optional[AxPolicy] = None, d_ff: int = 0):
+    """The MLP (SwiGLU for ``act="silu"``, else gelu).  Under tensor
+    parallelism (``d_ff``: the config's whole width) ``in``/``gate`` are
+    column-parallel and ``out`` row-parallel, and the output comes in the
+    residual's layout (module note)."""
+    tp = current_tp() if d_ff else None
+    role = _col(tp, p["in"]["w"], d_ff)
+    h = dense(x, p["in"], ax, "mlp", tp, role)
     if act == "silu":
-        h = torch.nn.functional.silu(dense(x, p["gate"], ax, "mlp")) * h
+        h = torch.nn.functional.silu(dense(x, p["gate"], ax, "mlp", tp, role)) * h
     else:
         h = torch.nn.functional.gelu(h, approximate="tanh")
-    return dense(h, p["out"], ax, "mlp")
+    return _tp_out(h, p["out"], ax, "mlp", tp, role is not None)

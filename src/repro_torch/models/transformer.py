@@ -35,6 +35,17 @@ cache index on all three streams).
 Decode positions never reach the host: a scalar ``cache_index`` becomes a
 (B,) device vector here, so one step reads nothing back from the card and
 can be captured in a CUDA graph (``serve/graph.py``).
+
+**Tensor and sequence parallelism** (a train forward inside the sharded
+step with a ``"model"`` axis of several ranks, ``launch.sharding.current_tp``;
+``models/layers.py``): the embedding lookup is vocab-parallel (the tokens
+outside the rank's rows masked, the rows all-reduced); under ``seq_shard``
+the residual lives on its seq shard between blocks (the lookup's sum
+reduce-scattered over ``seq``, vlm ``embeds`` sliced), the norms run on
+the shard, and each block takes its input all-gathered over ``seq`` and
+reduce-scatters its output; the head gives this rank's vocab columns of
+the logits (``models/registry.train_loss`` is vocab-parallel), from the
+final norm all-gathered over ``seq``.
 """
 from __future__ import annotations
 
@@ -42,7 +53,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.sharding import recompute_context
+from repro_torch.launch.sharding import current_tp, recompute_context
 from repro_torch.quant.ax import weight_cast
 
 from . import blocks
@@ -95,11 +106,18 @@ def _empty_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtype, d
             "v": torch.zeros(shp, dtype=dtype, device=device)}
 
 
+def _identity(t):
+    return t
+
+
 def _layer_apply(p, x, cfg: ModelConfig, kind: str, *, pos, inv_freq, mode, cache=None,
                  cache_index=None, max_cache_len=0, prompt_lens=None, write_mask=None):
     """Returns (x, new_cache, aux): ``aux`` is a MoE layer's load-balancing
-    term, else None."""
-    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    term, else None.  Under tensor parallelism each block's input is
+    entered and its output comes in the residual's layout (module note)."""
+    tp = current_tp() if mode == "train" else None
+    enter = tp.enter if tp is not None else _identity
+    h = enter(rmsnorm(x, p["ln1"], cfg.norm_eps))
     if kind in ("global", "local", "dense_ffn"):
         a, new_cache = attn_apply(p["attn"], h, cfg, pos=pos, inv_freq=inv_freq,
                                   window=cfg.local_window if kind == "local" else 0,
@@ -117,12 +135,12 @@ def _layer_apply(p, x, cfg: ModelConfig, kind: str, *, pos, inv_freq, mode, cach
         if kind == "ssm":
             return x + a, new_cache, None
     x = x + a
-    h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    h = enter(rmsnorm(x, p["ln2"], cfg.norm_eps))
     aux = None
     if "moe" in p:
         m, aux = blocks.moe_apply(p["moe"], h, cfg)
     else:
-        m = mlp_apply(p["mlp"], h, cfg.act, cfg.ax)
+        m = mlp_apply(p["mlp"], h, cfg.act, cfg.ax, d_ff=cfg.d_ff)
     return x + m, new_cache, aux
 
 
@@ -195,17 +213,36 @@ def _positions(cache_index, B: int, device) -> torch.Tensor:
     return torch.full((B,), int(cache_index), dtype=torch.int64, device=device)
 
 
-def _embed_in(params, batch, cfg: ModelConfig, dtype):
+def embed_lookup(w, tok, dtype, vocab: int, tp=None):
+    """``w[tok]`` cast to ``dtype``; under tensor parallelism (``tp``) ``w``
+    may be this rank's block of the ``vocab`` rows: the tokens outside it
+    are masked and the rows all-reduced (reduce-scattered over ``seq``
+    under ``seq_shard``), giving the residual's layout."""
+    tok = tok.to(torch.int64)
+    if tp is None:
+        return w[tok].to(dtype)
+    if not tp.split(w.shape[0], vocab):
+        return tp.exit(w[tok].to(dtype), partial=False)
+    lo, hi = tp.block(vocab)
+    inside = (tok >= lo) & (tok < hi)
+    x = w[(tok - lo).clamp(0, hi - lo - 1)] * inside[..., None].to(w.dtype)
+    return tp.exit(x.to(dtype), partial=True)
+
+
+def _embed_in(params, batch, cfg: ModelConfig, dtype, tp=None):
     """(x, pos): token embeddings (scaled by sqrt(d_model) when tied, but not
     for ssm) or the vlm's precomputed ``embeds``; ``pos`` from the batch or
-    arange, broadcast to three streams under M-RoPE."""
+    arange, broadcast to three streams under M-RoPE.  Under tensor
+    parallelism ``x`` is in the residual's layout (module note)."""
     if "embeds" in batch:
         x = batch["embeds"].to(dtype)
         B, S = x.shape[:2]
+        if tp is not None:
+            x = tp.exit(x, partial=False)
     else:
         tok = batch["tokens"]
         B, S = tok.shape
-        x = params["embed"]["w"][tok.to(torch.int64)].to(dtype)
+        x = embed_lookup(params["embed"]["w"], tok, dtype, cfg.padded_vocab, tp)
         if cfg.family != "ssm" and cfg.tie_embeddings:
             x = x * torch.tensor(cfg.d_model, dtype=dtype) ** 0.5
     if "pos" in batch:
@@ -240,7 +277,8 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
         raise ValueError(f"pad-mask prefill needs a full-attention stack; {cfg.name} has "
                          f"kinds {sorted(set(cfg.layer_kinds()))}")
     dtype = getattr(torch, cfg.compute_dtype)
-    x, pos = _embed_in(params, batch, cfg, dtype)
+    tp = current_tp() if mode == "train" else None
+    x, pos = _embed_in(params, batch, cfg, dtype, tp)
     B = x.shape[0]
     ci = None
     if mode == "decode":
@@ -274,6 +312,8 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
         new_cache.append(nc)
 
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    if tp is not None:
+        x = tp.enter(x)
     head_w = params["embed"]["w"] if cfg.tie_embeddings else params["lm_head"]["w"]
     logits = torch.einsum("bsd,vd->bsv", x, weight_cast(head_w, x.dtype))
     out = (logits, new_cache if mode != "train" else None)

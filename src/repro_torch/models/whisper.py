@@ -22,17 +22,25 @@ Modes: ``train`` (logits), ``prefill`` (logits and the cache padded to
 ``max_cache_len``) and ``decode`` (one token per row at ``cache_index``,
 a scalar or a (B,) vector).  A prompt batch is ``{"frames", "tokens"}``;
 decode takes ``{"tokens"}``.
+
+Under tensor parallelism (a train forward in the sharded step,
+``launch.sharding.current_tp``; ``models/transformer.py``'s note) both
+stacks run on the rank's heads and ``ff`` block, the residuals on their seq
+shards under ``seq_shard`` (the frames' and the tokens'), the encoder's
+output gathered whole for the cross K/V, the token lookup and the tied
+head vocab-parallel.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.sharding import current_tp
 from repro_torch.quant.ax import weight_cast
 
-from .layers import attn_apply, attn_init, dense, layernorm, mlp_apply, mlp_init, ninit, \
-    generator, sinusoid_pos
-from .transformer import _positions
+from .layers import _col, attn_apply, attn_init, dense, layernorm, mlp_apply, mlp_init, \
+    ninit, generator, sinusoid_pos
+from .transformer import _identity, _positions, embed_lookup
 
 __all__ = ["init_params", "init_cache", "forward", "ax_projections", "MAX_DEC_POS"]
 
@@ -85,44 +93,55 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int, device=
             for _ in range(cfg.n_layers)]
 
 
-def _encode(params, frames, cfg: ModelConfig):
+def _encode(params, frames, cfg: ModelConfig, tp=None):
+    """The encoder's output; under tensor parallelism (module note) whole
+    over the frames."""
     dtype = getattr(torch, cfg.compute_dtype)
     B, S = frames.shape[:2]
     x = frames.to(dtype) + sinusoid_pos(S, cfg.d_model, dtype, frames.device)[None]
+    enter = _identity
+    if tp is not None:
+        x, enter = tp.exit(x, partial=False), tp.enter
     pos = torch.arange(S, device=frames.device)[None].expand(B, S)
     for p in params["layers_enc"]:
-        h = layernorm(x, p["ln1"], cfg.norm_eps)
+        h = enter(layernorm(x, p["ln1"], cfg.norm_eps))
         a, _ = attn_apply(p["attn"], h, cfg, pos=pos, inv_freq=None, causal=False,
                           mode="train")
         x = x + a
-        h = layernorm(x, p["ln2"], cfg.norm_eps)
-        x = x + mlp_apply(p["mlp"], h, "gelu", cfg.ax)
-    return layernorm(x, params["ln_enc"], cfg.norm_eps)
+        h = enter(layernorm(x, p["ln2"], cfg.norm_eps))
+        x = x + mlp_apply(p["mlp"], h, "gelu", cfg.ax, d_ff=cfg.d_ff)
+    return enter(layernorm(x, params["ln_enc"], cfg.norm_eps))
 
 
-def _cross_kv(p, enc_out, cfg: ModelConfig):
+def _cross_kv(p, enc_out, cfg: ModelConfig, tp=None):
     """A decoder layer's cross-attention K/V from the encoder states (the
-    projections are approximate only where ``attn_qkv`` is a target)."""
+    projections are approximate only where ``attn_qkv`` is a target); under
+    tensor parallelism the rank's (B, S_enc, columns) blocks, which
+    ``attn_apply`` takes to its heads."""
     B, S, _ = enc_out.shape
     hd = cfg.head_dim_
+    if tp is not None:
+        role = _col(tp, p["xattn"]["k"]["w"], cfg.n_kv_heads * hd)
+        return tuple(dense(enc_out, p["xattn"][n], cfg.ax, "attn_qkv", tp, role)
+                     for n in ("k", "v"))
     k = dense(enc_out, p["xattn"]["k"], cfg.ax, "attn_qkv").reshape(B, S, cfg.n_kv_heads, hd)
     v = dense(enc_out, p["xattn"]["v"], cfg.ax, "attn_qkv").reshape(B, S, cfg.n_kv_heads, hd)
     return k, v
 
 
 def _dec_layer(p, x, cfg: ModelConfig, *, pos, enc_kv, mode, cache, cache_index,
-               max_cache_len):
-    h = layernorm(x, p["ln1"], cfg.norm_eps)
+               max_cache_len, enter=_identity):
+    h = enter(layernorm(x, p["ln1"], cfg.norm_eps))
     a, new_self = attn_apply(p["attn"], h, cfg, pos=pos, inv_freq=None, causal=True,
                              mode=mode, cache=cache, cache_index=cache_index,
                              max_cache_len=max_cache_len)
     x = x + a
-    h = layernorm(x, p["ln_x"], cfg.norm_eps)
+    h = enter(layernorm(x, p["ln_x"], cfg.norm_eps))
     a, _ = attn_apply(p["xattn"], h, cfg, pos=pos, inv_freq=None, causal=False,
                       mode="decode" if mode == "decode" else "train", cross_kv=enc_kv)
     x = x + a
-    h = layernorm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h, "gelu", cfg.ax), new_self
+    h = enter(layernorm(x, p["ln2"], cfg.norm_eps))
+    return x + mlp_apply(p["mlp"], h, "gelu", cfg.ax, d_ff=cfg.d_ff), new_self
 
 
 def ax_projections(cfg: ModelConfig, mode: str = "prefill"):
@@ -166,30 +185,33 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train", cache=None,
     dtype = getattr(torch, cfg.compute_dtype)
     tok = batch["tokens"].to(torch.int64)
     B, S = tok.shape
+    tp = current_tp() if mode == "train" else None
     if mode == "decode":
         enc_kv = [(c["xk"], c["xv"]) for c in cache]
         ci = _positions(cache_index, B, tok.device)
         pos = ci[:, None]
     else:
-        enc_out = _encode(params, batch["frames"], cfg)
-        enc_kv = [_cross_kv(p, enc_out, cfg) for p in params["layers_dec"]]
+        enc_out = _encode(params, batch["frames"], cfg, tp)
+        enc_kv = [_cross_kv(p, enc_out, cfg, tp) for p in params["layers_dec"]]
         ci = None
         pos = torch.arange(S, device=tok.device)[None].expand(B, S)
-    x = params["embed"]["w"][tok].to(dtype)
-    x = x + params["pos_embed"]["w"][pos].to(dtype)
+    x = embed_lookup(params["embed"]["w"], tok, dtype, cfg.padded_vocab, tp)
+    pe = params["pos_embed"]["w"][pos].to(dtype)
+    x = x + (tp.exit(pe, partial=False) if tp is not None else pe)
+    enter = tp.enter if tp is not None else _identity
 
     new_cache = []
     for i, p in enumerate(params["layers_dec"]):
         x, new_self = _dec_layer(p, x, cfg, pos=pos, enc_kv=enc_kv[i], mode=mode,
                                  cache=cache[i] if mode == "decode" else None,
-                                 cache_index=ci, max_cache_len=max_cache_len)
+                                 cache_index=ci, max_cache_len=max_cache_len, enter=enter)
         if mode == "decode":
             new_cache.append(cache[i])
         elif mode == "prefill":
             xk, xv = (t.to(dtype) for t in enc_kv[i])
             new_cache.append(dict(new_self, xk=xk, xv=xv))
 
-    x = layernorm(x, params["ln_f"], cfg.norm_eps)
+    x = enter(layernorm(x, params["ln_f"], cfg.norm_eps))
     logits = torch.einsum("bsd,vd->bsv", x, weight_cast(params["embed"]["w"], x.dtype))
     out = (logits, new_cache if mode != "train" else None)
     return out + (torch.zeros((), dtype=torch.float32, device=x.device),) if with_aux else out

@@ -40,6 +40,22 @@ changed in place under ``inference_mode`` has no readable version, so the
 cache treats such weights as immutable, as the JAX package's functional
 parameters are.  With gradients enabled nothing is cached: the
 straight-through backward needs the cast of the live weight.
+
+**Split over K (tensor parallelism, ``tp=``).**  In a row-parallel
+projection of the sharded train step (attention's ``o``, the FFN's ``out``:
+``train/distributed.py``) a rank holds a block of K of both ``x`` and
+``w``.  The row scale of ``x`` and the column scale of ``w`` are maxima
+over the whole K, so each ``amax`` is all-reduced (MAX) over ``"model"``
+before quantizing, and the codes are the one-rank codes.  The product of
+any multiplier, its swap bit read per pair, is a sum over K, so the int32
+partial sums all-reduced (SUM), or reduce-scattered over ``seq`` under
+``seq_shard``, are the one-rank accumulator, and the f32 output, dequantized
+after the sum, equals the one-rank projection bit for bit (every backend,
+static and ``dyn``).  The straight-through backward takes the all-reduced
+(or all-gathered) output gradient.  A column-parallel projection (q/k/v,
+in/gate) holds K whole and needs no collective; under an observing scope
+both kinds gather the few sampled operand elements their records read
+(``runtime.telemetry.tp_operands``), so a record equals the one-rank one.
 """
 from __future__ import annotations
 
@@ -50,6 +66,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import AxPolicy
@@ -78,11 +95,13 @@ __all__ = ["ax_dense", "ax_dense_dyn", "quantize_rows", "separable_transforms",
 _INV_127 = float(np.float32(1.0) / np.float32(127.0))
 
 
-def quantize_rows(x: torch.Tensor, axis: int = -1):
+def quantize_rows(x: torch.Tensor, axis: int = -1, amax: Optional[torch.Tensor] = None):
     """Symmetric per-row int8 quantization along ``axis`` (round half to
     even, as ``jnp.round``), bit-identical to the jit-compiled
-    ``repro.quant.ax.quantize_rows``."""
-    amax = x.abs().amax(dim=axis, keepdim=True)
+    ``repro.quant.ax.quantize_rows``.  ``amax``: the rows' absolute maxima
+    when the caller has them (over a K split across ranks, module note)."""
+    if amax is None:
+        amax = x.abs().amax(dim=axis, keepdim=True)
     scale = torch.clamp(amax, min=1e-8) * _INV_127
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale.to(torch.float32)
@@ -542,10 +561,16 @@ def weight_cast(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return _cached(w, ("cast", dtype), lambda: w.to(dtype))
 
 
-def weight_codes(w: torch.Tensor, dtype: torch.dtype):
+def weight_codes(w: torch.Tensor, dtype: torch.dtype, tp=None):
     """``quantize_rows(w.to(dtype).float(), axis=0)`` -> (int8 codes,
     f32 column scales): the weight quantized as ``dense`` feeds it to the
-    approximate matmul, made once per weight under no-grad."""
+    approximate matmul, made once per weight under no-grad.  ``tp``: ``w``
+    is a block of K split over those model ranks, and its column scales are
+    the whole K's (module note; every rank builds and hits its entry in the
+    same calls, so the collective runs on all of them)."""
+    if tp is not None:
+        return _cached(w, ("codes", dtype, "k-split"),
+                       lambda: _quantize_split(w.to(dtype), 0, tp))
     return _cached(w, ("codes", dtype),
                    lambda: quantize_rows(w.to(dtype).to(torch.float32), axis=0))
 
@@ -576,16 +601,52 @@ def weight_cache(enabled: bool):
         WEIGHT_CACHE["enabled"] = prev
 
 
-def _ax_dense_fwd_impl(x, w, policy: AxPolicy, wcodes=None):
-    xq, sx = quantize_rows(x.to(torch.float32), axis=-1)
-    wq, sw = wcodes if wcodes is not None else quantize_rows(w.to(torch.float32), axis=0)
-    acc = ax_matmul_int(xq, wq, policy)
-    return (acc.to(torch.float32) * sx * sw).to(x.dtype)
+def _quantize_split(t: torch.Tensor, axis: int, tp):
+    """``quantize_rows(t.float(), axis)`` of a block of K: the absolute
+    maxima all-reduced (MAX) over the model ranks first (module note)."""
+    tf = t.to(torch.float32)
+    amax = tp.all_reduce_(tf.abs().amax(dim=axis, keepdim=True), dist.ReduceOp.MAX)
+    return quantize_rows(tf, axis=axis, amax=amax)
+
+
+def _operands(x, w, wcodes, tp):
+    """(xq, sx, wq, sw): the quantized operands, over the whole K when
+    ``tp`` says K is split."""
+    if tp is None:
+        xq, sx = quantize_rows(x.to(torch.float32), axis=-1)
+        wq, sw = wcodes if wcodes is not None else quantize_rows(w.to(torch.float32), axis=0)
+    else:
+        xq, sx = _quantize_split(x, -1, tp)
+        wq, sw = wcodes if wcodes is not None else _quantize_split(w, 0, tp)
+    return xq, sx, wq, sw
+
+
+def _dequant(acc, sx, sw, dtype, tp):
+    """``acc * sx * sw`` in f32, cast to ``dtype``; over a K split the int32
+    partial sums reduced first (module note)."""
+    if tp is not None:
+        if tp.seq:
+            acc = tp.reduce_scatter_(acc, 1)
+            lo, hi = tp.block(sx.shape[1])
+            sx = sx[:, lo:hi]
+        else:
+            acc = tp.all_reduce_(acc)
+    return (acc.to(torch.float32) * sx * sw).to(dtype)
+
+
+def _ax_dense_fwd_impl(x, w, policy: AxPolicy, wcodes=None, tp=None):
+    xq, sx, wq, sw = _operands(x, w, wcodes, tp)
+    return _dequant(ax_matmul_int(xq, wq, policy), sx, sw, x.dtype, tp)
 
 
 def _ste_grads(ctx, gy):
-    """The exact matmul's gradients of ``x @ w`` (straight-through)."""
+    """The exact matmul's gradients of ``x @ w`` (straight-through); over a
+    K split (``ctx.tp``) the output gradient is first the adjoint of the
+    forward's reduction: all-reduced, or all-gathered over ``seq``."""
     x, w = ctx.saved_tensors
+    tp = ctx.tp
+    if tp is not None:
+        gy = tp.all_gather_(gy, 1) if tp.seq else tp.all_reduce_(gy)
     gy32 = gy.to(torch.float32)
     gx = (gy32 @ w.to(torch.float32).T).to(x.dtype)
     xf = x.to(torch.float32).reshape(-1, x.shape[-1])
@@ -598,21 +659,24 @@ class _AxDense(torch.autograd.Function):
     matmul gradients (straight-through estimator)."""
 
     @staticmethod
-    def forward(ctx, x, w, policy, wcodes):
+    def forward(ctx, x, w, policy, wcodes, tp):
         ctx.save_for_backward(x, w)
-        return _ax_dense_fwd_impl(x, w, policy, wcodes)
+        ctx.tp = tp
+        return _ax_dense_fwd_impl(x, w, policy, wcodes, tp)
 
     @staticmethod
     def backward(ctx, gy):
-        return (*_ste_grads(ctx, gy), None, None)
+        return (*_ste_grads(ctx, gy), None, None, None)
 
 
-def ax_dense(x, w, policy: AxPolicy, wcodes=None):
+def ax_dense(x, w, policy: AxPolicy, wcodes=None, tp=None):
     """y = x @ w through the SWAPPER approximate path (quantize -> ax matmul
     -> dequantize); straight-through exact gradients.  ``wcodes`` — the
     weight's ``quantize_rows(w.float(), axis=0)`` when the caller has it
-    (:func:`weight_codes`)."""
-    return _AxDense.apply(x, w, policy, wcodes)
+    (:func:`weight_codes`).  ``tp``: K is split over its model ranks (the
+    ``train.distributed.TensorParallel``), ``x`` and ``w`` hold this rank's
+    block, and the result is the whole sum, or its seq shard (module note)."""
+    return _AxDense.apply(x, w, policy, wcodes, tp)
 
 
 class _DynCore(torch.autograd.Function):
@@ -621,14 +685,14 @@ class _DynCore(torch.autograd.Function):
     straight-through gradient, the other inputs get none."""
 
     @staticmethod
-    def forward(ctx, x, w, policy, dyn, xq, sx, wq, sw):
+    def forward(ctx, x, w, policy, dyn, xq, sx, wq, sw, tp):
         ctx.save_for_backward(x, w)
-        acc = ax_matmul_int_dyn(xq, wq, policy, dyn)
-        return (acc.to(torch.float32) * sx * sw).to(x.dtype)
+        ctx.tp = tp
+        return _dequant(ax_matmul_int_dyn(xq, wq, policy, dyn), sx, sw, x.dtype, tp)
 
     @staticmethod
     def backward(ctx, gy):
-        return (*_ste_grads(ctx, gy), None, None, None, None, None, None)
+        return (*_ste_grads(ctx, gy), None, None, None, None, None, None, None)
 
 
 class _DynHistCore(torch.autograd.Function):
@@ -637,19 +701,24 @@ class _DynHistCore(torch.autograd.Function):
     statistic is observational and takes no gradient."""
 
     @staticmethod
-    def forward(ctx, x, w, policy, dyn, xq, sx, wq, sw):
+    def forward(ctx, x, w, policy, dyn, xq, sx, wq, sw, tp):
         ctx.save_for_backward(x, w)
-        acc, (kb, kn, kc) = ax_matmul_int_dyn_hist(xq, wq, policy, dyn)
+        ctx.tp = tp
+        acc, hist = ax_matmul_int_dyn_hist(xq, wq, policy, dyn)
+        if tp is not None:
+            # the counts of each K block add up to the whole K's
+            hist = [tp.all_reduce_(h) for h in hist]
+        kb, kn, kc = hist
         ctx.mark_non_differentiable(kb, kn, kc)
-        return (acc.to(torch.float32) * sx * sw).to(x.dtype), kb, kn, kc
+        return _dequant(acc, sx, sw, x.dtype, tp), kb, kn, kc
 
     @staticmethod
     def backward(ctx, gy, *_):
-        return (*_ste_grads(ctx, gy), None, None, None, None, None, None)
+        return (*_ste_grads(ctx, gy), None, None, None, None, None, None, None)
 
 
 def ax_dense_dyn(x, w, policy: AxPolicy, dyn, scope=None, target: str = "",
-                 wcodes=None):
+                 wcodes=None, tp=None, tp_role: Optional[str] = None):
     """``ax_dense`` with the swap decision as a run-time int32 tensor (the
     adaptive runtime's path): ``dyn`` is a (3,) triple, or a (gm, 1, 3)
     per-row-tile grid when the scope runs in tile mode.
@@ -663,23 +732,30 @@ def ax_dense_dyn(x, w, policy: AxPolicy, dyn, scope=None, target: str = "",
     ``tile_key(target)``.  With ``scope.kernel_hist``, the kernel backend
     and a grid ``dyn``, the tile bit counts come out of the matmul kernel
     itself (``_DynHistCore``) instead of a sampled pass.  A step the scope
-    does not observe computes no summary at all."""
-    xq, sx = quantize_rows(x.to(torch.float32), axis=-1)
-    wq, sw = wcodes if wcodes is not None else quantize_rows(w.to(torch.float32), axis=0)
+    does not observe computes no summary at all.
+
+    ``tp`` with ``tp_role``: ``"row"``, K split over the model ranks (as
+    :func:`ax_dense`); ``"col"``, the output columns split (K whole: only the
+    records gather their samples)."""
+    row = tp if tp_role == "row" else None
+    xq, sx, wq, sw = _operands(x, w, wcodes, row)
     dyn = _as_dyn(dyn, x.device)
     if scope is not None and scope.observing:
-        from repro_torch.runtime.telemetry import operand_summary, tile_key, tile_summary
+        from repro_torch.runtime.telemetry import (operand_summary, tile_key, tile_summary,
+                                                   tp_operands)
 
         mult = M.get(policy.mult_name)
+        xs, ws = (xq, wq) if tp is None else tp_operands(xq, wq, tp, tp_role == "row",
+                                                          scope.tile_rows)
         dyn_rep = dyn if dyn.dim() == 1 else dyn[0, 0]
-        scope.record(target, operand_summary(xq, wq, mult, dyn_rep))
+        scope.record(target, operand_summary(xs, ws, mult, dyn_rep))
         if scope.tile_rows > 0:
             if scope.kernel_hist and policy.backend == "kernel" and dyn.dim() == 3:
-                y, *hist = _DynHistCore.apply(x, w, policy, dyn, xq, sx, wq, sw)
+                y, *hist = _DynHistCore.apply(x, w, policy, dyn, xq, sx, wq, sw, row)
                 scope.record(tile_key(target),
-                             tile_summary(xq, wq, mult, scope.tile_rows, dyn=dyn,
+                             tile_summary(xs, ws, mult, scope.tile_rows, dyn=dyn,
                                           bits_from=tuple(hist)))
                 return y
             scope.record(tile_key(target),
-                         tile_summary(xq, wq, mult, scope.tile_rows, dyn=dyn))
-    return _DynCore.apply(x, w, policy, dyn, xq, sx, wq, sw)
+                         tile_summary(xs, ws, mult, scope.tile_rows, dyn=dyn))
+    return _DynCore.apply(x, w, policy, dyn, xq, sx, wq, sw, row)

@@ -50,6 +50,7 @@ __all__ = [
     "base_target",
     "operand_summary",
     "tile_summary",
+    "tp_operands",
     "records_to_host",
     "start_host_copy",
     "finish_host_copy",
@@ -211,6 +212,48 @@ def tile_summary(xq, wq, mult: AxMult, gm: int, dyn=None, bits_from=None) -> dic
         tile_a_smp=smp.T,                                            # (S, g)
         tile_b_smp=b_smp[:, None].expand(TILE_RETUNE_SAMPLE, g),     # (S, g)
     )
+
+
+def _head_rows(q2d: torch.Tensor, n: int, tp, split_dim: int) -> torch.Tensor:
+    """The first rows of the whole (R, C) operand whose blocks the model
+    ranks hold (split along ``split_dim``), enough that its flattened head
+    of ``n`` elements is the whole operand's: all-gathered, the few rows
+    only."""
+    R, C = q2d.shape
+    if split_dim == 1:
+        need = min(R, -(-n // (C * tp.n)))
+        return tp.all_gather_(q2d[:need], 1)
+    need = min(R * tp.n, -(-n // C))
+    return tp.all_gather_(q2d[:min(R, need)], 0)[:need]
+
+
+def tp_operands(xq, wq, tp, k_split: bool, tile_rows: int = 0):
+    """The operands of a projection whose K (``k_split``) or output columns
+    are split over the model ranks (``train.distributed.TensorParallel``),
+    as :func:`operand_summary` and :func:`tile_summary` read them: their
+    samples equal those of the one-rank operands.  Only the sampled heads
+    cross the ranks, never the operands.
+
+    ``wq`` comes back as the head rows of the whole (K, N) weight.  Over a
+    K split ``xq`` comes back as the whole-K (..., K) codes with the rows
+    the summaries sample filled (the head of the flattened operand, and of
+    each of the ``tile_rows`` row tiles) and zeros elsewhere; with the
+    columns split it is ``xq`` itself (K whole)."""
+    n_w = max(TELEMETRY_SAMPLE, TILE_TELEMETRY_SAMPLE)
+    if not k_split:
+        return xq, _head_rows(wq, n_w, tp, 1)
+    x2d = xq.reshape(-1, xq.shape[-1])
+    M, K = x2d.shape[0], x2d.shape[1] * tp.n
+    rows = set(range(min(M, -(-TELEMETRY_SAMPLE // K))))
+    if tile_rows > 0:
+        span = rowtile_span(M, tile_rows)
+        per = min(span, -(-TILE_TELEMETRY_SAMPLE // K))
+        for t in range(rowtile_count(M, tile_rows)):
+            rows.update(range(t * span, t * span + per))
+    idx = torch.tensor(sorted(rows), dtype=torch.int64, device=xq.device)
+    view = torch.zeros((M, K), dtype=xq.dtype, device=xq.device)
+    view[idx] = tp.all_gather_(x2d.index_select(0, idx), 1)
+    return view.reshape(*xq.shape[:-1], K), _head_rows(wq, n_w, tp, 0)
 
 
 def start_host_copy(records: Dict[str, Dict[str, torch.Tensor]]):

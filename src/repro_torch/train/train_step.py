@@ -45,10 +45,15 @@ grad norm counts every element once and AdamW updates each rank's block.
 The adaptive step aggregates its telemetry over the batch group
 (``fleet/collect.aggregate_records``), so every rank's controller sees the
 fleet's records.  Without a mesh the same body runs on the whole batch
-with nothing gathered, reduced or all-reduced.  A ``"model"`` axis over
-one rank, or one that joins the batch (``dp_only``, with ``ep`` carrying
-the experts), runs here; one that carries tensor parallelism raises
-(ROADMAP queue 1, item 8c).
+with nothing gathered, reduced or all-reduced.  A ``"model"`` axis of
+several ranks without ``dp_only`` carries tensor parallelism (``heads``,
+``ff``, ``vocab``; ``seq`` with ``seq_shard``; ``train/distributed.py``):
+the model ranks of a batch shard take the same rows, compute with their
+blocks, and each backpropagates its share of the loss, so ``loss``,
+``ce`` and ``aux`` are all-reduced over every rank; the adaptive records
+of those ranks are the same, the one-rank records of their rows.  JAX's
+default ``ParallelConfig()`` (``fsdp``, ``seq_shard``, ``remat="layer"``,
+``ep``) trains on a ``("data", "model")`` mesh.
 """
 from __future__ import annotations
 
@@ -60,7 +65,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.fleet.collect import aggregate_records
 from repro_torch.launch.mesh import tree_paths, tree_unflatten
-from repro_torch.launch.sharding import axis_size, current_mesh, mesh_shape, set_mesh_ctx
+from repro_torch.launch.sharding import current_mesh, mesh_shape, set_mesh_ctx
 from repro_torch.models import init_params, train_loss
 from repro_torch.runtime.scope import ax_scope
 
@@ -81,7 +86,18 @@ def fresh_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig, *, seed: int = 0,
 
 
 def check_parallel(par: ParallelConfig, adaptive: bool = False, mesh=None) -> None:
-    """Refuse what the port cannot do (module note)."""
+    """Refuse what the port cannot do (``ValueError``).  Beside the knobs'
+    own values and the adaptive step's limits, on a mesh: one without a
+    ``"model"`` axis needs ``dp_only`` (JAX's ``param_spec`` raises
+    ``KeyError`` there).  At step time (:func:`make_train_step`'s body): a
+    global batch whose microbatches do not divide over the batch shards
+    (JAX would reshard; the port takes equal blocks), and under
+    ``seq_shard`` with tensor parallelism a sequence (and, for the
+    encoder-decoder, a frame count) that does not divide over the model
+    ranks (JAX would pad the shards; the port's seq shards are equal), and
+    an SSD whose ``din`` splits over the model ranks while its heads do not
+    (JAX would split a head's channels; the port's SSD is parallel over
+    whole heads)."""
     if par.remat not in ("none", "layer"):
         raise ValueError(f"remat={par.remat!r}: the port recomputes whole layers "
                          f"('layer') or nothing ('none'); JAX's 'dots' policy has no "
@@ -97,16 +113,26 @@ def check_parallel(par: ParallelConfig, adaptive: bool = False, mesh=None) -> No
     if mesh is None:
         return
     names = mesh_shape(mesh).axis_names
-    if not par.dp_only:
-        if "model" not in names:
-            raise ValueError(f"a train mesh {names} without dp_only needs a 'model' axis: "
-                             f"the rules put heads, ff and vocab on it (JAX's param_spec "
-                             f"raises KeyError); give it one of size 1, or set dp_only")
-        if axis_size(mesh, "model") > 1:
-            raise NotImplementedError(
-                f"a 'model' axis of {axis_size(mesh, 'model')} ranks without dp_only carries "
-                f"tensor parallelism (heads, ff, vocab{', seq' if par.seq_shard else ''}): "
-                f"ROADMAP queue 1, item 8c")
+    if not par.dp_only and "model" not in names:
+        raise ValueError(f"a train mesh {names} without dp_only needs a 'model' axis: "
+                         f"the rules put heads, ff and vocab on it (JAX's param_spec "
+                         f"raises KeyError); give it one of size 1, or set dp_only")
+
+
+def _check_tp(cfg: ModelConfig, batch, tp) -> None:
+    """The step-time refusals of tensor parallelism (``check_parallel``)."""
+    if tp.seq:
+        for key in ("tokens", "frames", "embeds"):
+            if key in batch and batch[key].shape[1] % tp.n:
+                raise ValueError(f"seq_shard: a {key} length of {batch[key].shape[1]} does "
+                                 f"not divide over {tp.n} model ranks (JAX would pad the "
+                                 f"shards; the port takes equal ones)")
+    if cfg.family == "ssm":
+        din = cfg.ssm_expand * cfg.d_model
+        if din % tp.n == 0 and (din // cfg.ssm_head_dim) % tp.n:
+            raise ValueError(f"SSD: din {din} splits over {tp.n} model ranks but its "
+                             f"{din // cfg.ssm_head_dim} heads do not (the port's SSD is "
+                             f"parallel over whole heads)")
 
 
 def _to_device(batch, device):
@@ -150,6 +176,8 @@ def make_train_step(cfg: ModelConfig, par: Optional[ParallelConfig], opt_cfg: Ad
                              f"{tm.batch_axes if tm is not None else ()} (JAX would reshard; "
                              f"the port takes equal blocks)")
         m = B // k // n
+        if tm is not None and tm.tp is not None:
+            _check_tp(cfg, batch, tm.tp)
         live = [x.detach().requires_grad_(True) for x in blocks]
         with torch.enable_grad():
             gathered = ([D.gather_leaf(x, plan.gather) for x, plan in zip(live, plans)]
@@ -193,7 +221,8 @@ def make_train_step(cfg: ModelConfig, par: Optional[ParallelConfig], opt_cfg: Ad
             del acc
             if k > 1:
                 grads = [g / k for g in grads]
-            group = tm.batch_group if tm is not None else None
+            # every rank's terms sum to the loss (``models/registry.py``)
+            group = tm.world_group if tm is not None else None
             if k > 1:
                 # the loss is the microbatches' mean; aux is reported as 0, as in JAX
                 vals = D.all_reduce_sum(term_sum.reshape(1), group)
@@ -205,7 +234,7 @@ def make_train_step(cfg: ModelConfig, par: Optional[ParallelConfig], opt_cfg: Ad
                 loss = vals[0]
                 out = dict(metrics, ce=vals[1], aux=vals[2])
             if dyn is not None and tm is not None:
-                out["ax_telemetry"] = aggregate_records(out["ax_telemetry"], group)
+                out["ax_telemetry"] = aggregate_records(out["ax_telemetry"], tm.batch_group)
         kw = {}
         if tm is not None:
             # every rank holds blocks: each counts its leaves once over the world

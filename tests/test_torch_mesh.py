@@ -204,11 +204,10 @@ def test_run_supervised_resumes_a_one_process_checkpoint_on_two_ranks(world2):
 
 @pytest.mark.parametrize("flag", ["fsdp", "seq_shard", "ep", "dp_only", "grad_compress"])
 def test_the_sharded_train_step_still_raises_item_8b(flag):
-    """Item 8b is done: each sharded setting passes the check without a
-    mesh (it acts only on one); tensor parallelism over a "model" axis of
-    several ranks is item 8c (``tests/test_torch_train_mesh.py``)."""
+    """Items 8b and 8c are done: each sharded setting passes the check
+    without a mesh (it acts only on one) and on a ``"model"`` axis of
+    several ranks, which carries tensor parallelism without ``dp_only``
+    (``tests/test_torch_train_tp.py``)."""
     par = ParallelConfig(**({flag: "bf16"} if flag == "grad_compress" else {flag: True}))
     check_parallel(par)
-    if flag != "dp_only":
-        with pytest.raises(NotImplementedError, match="item 8c"):
-            check_parallel(par, mesh=MeshShape(("data", "model"), (1, 2)))
+    check_parallel(par, mesh=MeshShape(("data", "model"), (1, 2)))

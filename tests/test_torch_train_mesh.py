@@ -42,12 +42,8 @@ step, whose aggregated records equal ``combine_records`` of the ranks'
 solo records bit for bit and whose controllers agree; ``run_supervised``
 with a crash, within 1e-5 of the uninterrupted sharded run.
 """
-import json
 import os
-import subprocess
-import sys
 import tempfile
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -55,16 +51,13 @@ import pytest
 import _torch_train_mesh_ranks as RK
 from repro.runtime.telemetry import combine_records as j_combine
 from repro_torch.configs.base import ParallelConfig
-from repro_torch.convert import train_state_from_jax
 from repro_torch.launch.mesh import spawn
 from repro_torch.launch.sharding import MeshShape
 from repro_torch.runtime.telemetry import combine_records as t_combine
-from repro_torch.train import load_tree
 from repro_torch.train.train_step import check_parallel
 
-ROOT = Path(__file__).resolve().parents[1]
-TIMEOUT = 300
-TOL_REL, TOL_UPDATE, TOL_RESTART = 1e-4, 0.1, 1e-5
+TIMEOUT = RK.TIMEOUT
+TOL_RESTART = 1e-5
 
 JOBS = [
     {"label": "whisper2", "arch": "whisper-base", "shape": [2], "axes": ["data"],
@@ -97,25 +90,18 @@ def runs():
     whisper job waits for JAX's files), then a 4-rank world."""
     tmp = tempfile.mkdtemp(prefix="train_mesh_")
     jax_root = os.path.join(tmp, "jax")
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               PYTHONPATH=os.pathsep.join([str(ROOT / "src")] + [
-                   p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
-    log = open(os.path.join(tmp, "jax.log"), "w")
-    proc = subprocess.Popen([sys.executable, str(ROOT / "tests" / "_torch_jax_gspmd.py"),
-                            jax_root, json.dumps(JOBS)], env=env, stdout=log,
-                           stderr=subprocess.STDOUT)
+    proc, log = RK.start_jax(jax_root, JOBS, tmp)
     try:
         two = _world(2, [("jax_rank", (jax_root, TWO)),
                          ("family_rank", (list(RK.FAMILY_MESHES),)),
                          ("adaptive_rank", (0,)), ("adaptive_rank", (2,)),
                          ("supervised_rank", (os.path.join(tmp, "ckpt"),)),
                          ("refusal_rank", ()), ("remat_rank", ())])
-        assert proc.wait(timeout=TIMEOUT) == 0, open(os.path.join(tmp, "jax.log")).read()[-3000:]
+        assert proc.wait(timeout=TIMEOUT) == 0, open(log).read()[-3000:]
         four = _world(4, [("gspmd_rank", (jax_root, FOUR))])
     finally:
         if proc.poll() is None:
             proc.kill()
-        log.close()
     gspmd = {}
     for rank_results in (two, four):
         for label in rank_results[0][0]:
@@ -129,31 +115,6 @@ def _job(label):
     return next(j for j in JOBS if j["label"] == label)
 
 
-def _rel(a, b):
-    return abs(a - b) / abs(b) if b else abs(a)
-
-
-def _update_gaps(new, ref, start):
-    """|(new - start) - (ref - start)| / |ref - start| per parameter leaf."""
-    gaps = {}
-    for p, v in ref.items():
-        da, db = new[p] - start[p], v - start[p]
-        gaps[p] = float(np.linalg.norm(da - db) / max(np.linalg.norm(db), 1e-30))
-    return gaps
-
-
-def _within(metrics, ref_metrics, params, ref_params, start):
-    """(metric gaps, worst update gap) and whether both meet the bounds."""
-    gaps = {k: _rel(metrics[k], ref_metrics[k]) for k in ("loss", "ce", "aux", "grad_norm")}
-    upd = max(_update_gaps(params, ref_params, start).values())
-    return gaps, upd, max(gaps.values()) <= TOL_REL and upd <= TOL_UPDATE
-
-
-def _jax_params(d, step, cfg):
-    tree, _ = load_tree(d, step)
-    return RK.flat(train_state_from_jax(tree, cfg, device="cpu")["params"])
-
-
 @pytest.mark.parametrize("label", LABELS)
 def test_sharded_step_equals_jax_gspmd(runs, label):
     """Each step's loss, ``ce``, global ``aux``, grad norm and every leaf's
@@ -161,27 +122,7 @@ def test_sharded_step_equals_jax_gspmd(runs, label):
     JAX's global load-balancing term (deepseek) and the updated state is
     ``gather_state`` of the port's blocks."""
     job = _job(label)
-    cfg = RK.config(job["arch"], job.get("cfg", {}))
-    d = os.path.join(runs["jax_root"], label)
-    jm = json.load(open(os.path.join(d, "metrics.json")))
-    r0 = runs["gspmd"][label][0]
-    assert len(r0["steps"]) == job["steps"]
-    for i, (m, params, start) in enumerate(r0["steps"]):
-        new = {p[len("params/"):]: v for p, v in params.items() if p.startswith("params/")}
-        if job["arch"] == "deepseek-moe-16b":
-            assert m["aux"] > 0.1
-        gaps, upd, ok = _within(m, jm[i], new, _jax_params(d, i + 1, cfg), start)
-        if ok:
-            continue
-        # JAX's own sharding tipped a code: its one-device step disagrees with
-        # its sharded step, and the port's agrees with the one-device step
-        assert job.get("one"), (i, gaps, upd)
-        j1 = json.load(open(os.path.join(d, "one_metrics.json")))[i]
-        _, _, jax_ok = _within(jm[i], j1, _jax_params(d, i + 1, cfg),
-                               _jax_params(os.path.join(d, "one"), i + 1, cfg), start)
-        gaps1, upd1, ok1 = _within(m, j1, new, _jax_params(os.path.join(d, "one"), i + 1, cfg),
-                                   start)
-        assert not jax_ok and ok1, (i, gaps, upd, gaps1, upd1)
+    RK.hold_to_jax(job, os.path.join(runs["jax_root"], label), runs["gspmd"][label][0])
 
 
 @pytest.mark.parametrize("label", ["ds_14", "ds_22"])
@@ -198,44 +139,15 @@ def test_rank_blocks_are_jax_device_shards(runs, label):
     layer's leaf against JAX's stacked leaf without its layer axis), and
     ``gather_state`` of the blocks of JAX's state is JAX's state bit for
     bit."""
-    shards = json.load(open(os.path.join(runs["jax_root"], label, "shards.json")))
-    ranks = runs["gspmd"][label]
-    assert all(r["roundtrip"] for r in ranks)
-    checked = 0
-    for jpath, per_dev in shards.items():
-        parts = jpath.split("/")
-        stacks = [i for i, s in enumerate(parts) if s in ("layers", "layers_enc", "layers_dec")]
-        drop = 0
-        if stacks:
-            k = stacks[0]
-            suffix = parts[k + 2:] if parts[k] == "layers" else parts[k + 1:]
-            prefix, drop = parts[:k + 1], 1
-        elif any(s.startswith(("lead", "rest")) for s in parts):
-            k = next(i for i, s in enumerate(parts) if s.startswith(("lead", "rest")))
-            prefix, suffix = parts[:k] + ["layers"], parts[k + 1:]
-        else:
-            prefix, suffix = parts, []
-        for rank, r in enumerate(ranks):
-            want = per_dev[rank][drop:]
-            matches = [p for p in r["blocks"] if p.split("/")[:len(prefix)] == prefix and
-                       p.split("/")[len(prefix) + (1 if suffix else 0):] == suffix]
-            assert matches, jpath
-            for p in matches:
-                whole = r["whole_shapes"][p]
-                got = r["blocks"][p]
-                assert len(got) == len(want), (jpath, p)
-                for (a, b), (ja, jb), n in zip(got, want, whole):
-                    assert (a, b) == (ja, n if jb is None else jb), (jpath, p, rank, got, want)
-                checked += 1
-    assert checked >= len(shards)
+    RK.check_shards(os.path.join(runs["jax_root"], label), runs["gspmd"][label])
 
 
 @pytest.mark.parametrize("name", list(RK.FAMILY_MESHES))
 def test_other_families_sharded_equal_the_one_device_step(runs, name):
     m, m1, new, one, start = runs["families"][name]
     for k in ("loss", "ce", "aux", "grad_norm"):
-        assert _rel(m[k], m1[k]) <= TOL_REL, (k, m[k], m1[k])
-    assert max(_update_gaps(new, one, start).values()) <= TOL_UPDATE
+        assert RK.rel(m[k], m1[k]) <= RK.TOL_REL, (k, m[k], m1[k])
+    assert max(RK.update_gaps(new, one, start).values()) <= RK.TOL_UPDATE
 
 
 @pytest.mark.parametrize("tile_rows", [0, 2])
@@ -284,13 +196,13 @@ def test_run_supervised_restarts_the_sharded_step(runs):
 
 
 def test_refusals(runs):
-    """A ``"model"`` axis with tensor parallelism raises citing item 8c; a
-    microbatch that does not divide over the batch shards raises; a mesh
-    without ``"model"`` needs ``dp_only``; the sharded flags are accepted
-    without a mesh (``grad_compress`` read nowhere, as in JAX)."""
+    """A ``"model"`` axis with tensor parallelism passes the check (item 8c
+    is done: ``tests/test_torch_train_tp.py``); a microbatch that does not
+    divide over the batch shards raises; a mesh without ``"model"`` needs
+    ``dp_only``; the sharded flags are accepted without a mesh
+    (``grad_compress`` read nowhere, as in JAX)."""
     for par in (ParallelConfig(), ParallelConfig(seq_shard=True, fsdp=True)):
-        with pytest.raises(NotImplementedError, match="item 8c"):
-            check_parallel(par, mesh=MeshShape(("data", "model"), (2, 2)))
+        check_parallel(par, mesh=MeshShape(("data", "model"), (2, 2)))
     with pytest.raises(ValueError, match="model"):
         check_parallel(ParallelConfig(), mesh=MeshShape(("data",), (2,)))
     check_parallel(ParallelConfig(dp_only=True), mesh=MeshShape(("data", "model"), (2, 2)))
