@@ -135,6 +135,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
             the uninterrupted run; ms/step (steps 2-3, uninstrumented), peak
             memory and the collectives' share of step 4 (each collective
             between two synchronises) per rank printed;
+   tp serve — the model-sharded prefill and decode step
+            (``generate(par=)`` under ``set_mesh_ctx``) on two ``gloo`` ranks
+            sharing the card, ``("data", "model")`` = (1, 2), JAX's default
+            ``ParallelConfig`` (``seq_shard``, ``ep``): qwen2-72b, then
+            deepseek-moe-16b (capacity 16: no choice drops), each at its
+            published widths, depth 2, ``mxu``, bf16, B = 4 x 32, 8 greedy
+            tokens, a cache of ``TPS_LEN`` rows split on its sequence; the
+            same weights served on one card in this process first, plainly
+            and with its plain q/k/v GEMMs over the ranks' column blocks
+            (``tps_witness``).  Hard: the first prefill's and each
+            teacher-forced decode step's logits in f32 on exact projections
+            (the families' card check) within ``TOL_TPS_F32`` of the
+            largest one-card logit and the cache gathered from both ranks
+            within it of the one-card cache; the bf16 serve's logits, its
+            gathered cache and its tokens equal to the witness's
+            (``TOL_TPS_WITNESS``), its tokens the same twice, the
+            ranks agreeing, executed ``ax_matmul`` launches a rank =
+            projections a forward x 8 (the loop and the serve), the
+            launched shapes == those reckoned from the config and its
+            split (N halved for the column-parallel projections, K for the
+            row-parallel ones), each held to the plain version, no nvcc;
+            the bf16 gaps against the plain one card (a GEMM over half the
+            columns rounds apart from the whole one), the decode ms/step,
+            the collectives' share of a serve (each between two
+            synchronises) and the peak a rank printed;
 5. serve  — qwen2-72b at its published widths, depth cut to 2 layers,
             random weights from a seed: the per-forward weight work that
             the weight cache removes, timed against its bytes; B=4 prompts
@@ -287,8 +312,12 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
-INT8_TENSOR_OPS_PER_S = 1979e12  # H100 SXM data sheet, dense int8
+try:                             # the H100 SXM's data-sheet rates, one copy in the port
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.roofline import HBM_BW as HBM_BYTES_PER_S
+    from repro_torch.launch.roofline import INT8_OPS as INT8_TENSOR_OPS_PER_S
+except ImportError:              # outside a checkout: main() refuses to run
+    HBM_BYTES_PER_S = INT8_TENSOR_OPS_PER_S = None
 INT32_LANES_PER_SM = 64          # int32 CUDA-core lanes per SM per clock
 FP32_LANES_PER_SM = 128          # float32 CUDA-core lanes per SM per clock
 TABLE_BYTES = 65536 * 2
@@ -3721,7 +3750,7 @@ def _tm_configs():
     return big, small
 
 
-def _tm_tp_shapes(cfg, M: int, n: int) -> dict:
+def _tm_tp_shapes(cfg, M: int, n: int, who: str = "deepseek train TP") -> dict:
     """{(M, K, N): label} of the kernel launches of ``cfg``'s approximate
     projections on a rank of ``n`` tensor-parallel ranks: the output
     projections (``out``) split over K, the others over N."""
@@ -3730,8 +3759,7 @@ def _tm_tp_shapes(cfg, M: int, n: int) -> dict:
     shapes = {}
     for _, proj, K, N in ax_projections(cfg):
         K, N = (K // n, N) if proj.endswith(" out") else (K, N // n)
-        shapes.setdefault((_padded(M), _padded(K), _padded(N)),
-                          f"deepseek train TP M={M} {proj}")
+        shapes.setdefault((_padded(M), _padded(K), _padded(N)), f"{who} M={M} {proj}")
     return shapes
 
 
@@ -4212,6 +4240,326 @@ def train_mesh_phase(dev, card: str, clock: float):
     return rows, ax_rows, grid_rows, tp_ax_rows, tp_grid_rows, paths, grid_paths
 
 
+TPS_RANKS = 2
+TPS_LEN = 42                             # S + T + 1 = 41 rows, even for the 2-row split
+TOL_TPS_F32 = TOL_CONSIST_F32            # of the largest one-card value, f32 exact
+# the bf16 serve against one card whose plain q/k/v GEMMs are the ranks' column
+# blocks (``tps_witness``): the same kernels on the same operands, the same bits
+TOL_TPS_WITNESS = 0.0
+
+
+@contextlib.contextmanager
+def tps_witness(n: int):
+    """One card, in this process, computing the plain (not SWAPPER) q/k/v
+    projections as ``n`` column blocks, each a GEMM of the shape and layout
+    that a rank of the tp serve's ``n`` model ranks runs; everything else as
+    one card computes it.  The witness of the cause of the ranks' bf16 gap
+    against the plain one-card serve: a GEMM over half the columns may round
+    its f32 sums to bf16 apart from the whole GEMM.  The sharded serve runs
+    unpatched in the ranks' processes."""
+    import torch
+
+    from repro_torch.models import layers
+    from repro_torch.quant.ax import weight_cast
+
+    dense0 = layers.dense
+
+    def dense(x, p, ax=None, target="", tp=None, role=None):
+        if target != "attn_qkv" or tp is not None or (ax is not None and target in ax.targets):
+            return dense0(x, p, ax, target, tp, role)
+        w = weight_cast(p["w"], x.dtype)
+        y = torch.cat([x @ c.contiguous() for c in w.chunk(n, dim=-1)], dim=-1)
+        return y + p["b"].to(x.dtype) if "b" in p else y
+
+    layers.dense = dense
+    try:
+        yield
+    finally:
+        layers.dense = dense0
+
+
+def _tps_configs():
+    """qwen2-72b and deepseek-moe-16b at their published widths, depth 2,
+    ``mxu``, bf16 compute; deepseek at capacity 16, so that neither its
+    per-rank capacity nor one card's drops a choice."""
+    from repro_torch.configs import ARCHS, qwen2_72b
+    from repro_torch.configs.base import AxPolicy
+
+    ax = AxPolicy(backend="mxu")
+    return [dataclasses.replace(qwen2_72b, n_layers=L, ax=ax),
+            dataclasses.replace(ARCHS["deepseek-moe-16b"], n_layers=L, ax=ax,
+                                moe_capacity=16.0)]
+
+
+def _tps_exact(cfg):
+    """The forward check's config: f32 compute on exact projections."""
+    return dataclasses.replace(cfg, compute_dtype="float32", ax=None)
+
+
+def _tps_loop(params, cfg, prompts, teacher, par=None):
+    """The first prefill and T - 1 decode steps fed ``teacher``'s tokens, on
+    the host: ([the prefill's logits (B, S, V), then each step's (B, V)],
+    cache), in f32 (a bf16 value converts exactly)."""
+    import torch
+
+    from repro_torch.models import decode_step, prefill
+
+    with torch.inference_mode():
+        lg, cache = prefill(params, {"tokens": prompts}, cfg, par, max_cache_len=TPS_LEN)
+        steps = [lg]
+        for i in range(T - 1):
+            sl, cache = decode_step(params, cache, teacher[:, i:i + 1], S + i, cfg, par)
+            steps.append(sl[:, -1])
+    return ([x.float().cpu() for x in steps],
+            [{k: v.float().cpu() for k, v in c.items()} for c in cache])
+
+
+def _tps_np(res):
+    """A ``_tps_loop`` result as numpy (a spawned rank's travels pickled)."""
+    return ([x.numpy() for x in res[0]], [{k: v.numpy() for k, v in c.items()} for c in res[1]])
+
+
+def _tps_gaps(got, want):
+    """(max |diff| of the prefill's and each step's logits, the largest
+    reference logit of each) between a rank's ``_tps_np`` result and one
+    card's ``_tps_loop`` result."""
+    import torch
+
+    pairs = [(torch.from_numpy(a), b) for a, b in zip(got[0], want[0])]
+    return ([float((a - b).abs().max()) for a, b in pairs],
+            [float(b.abs().max()) for _, b in pairs])
+
+
+def tp_serve_rank(rank, _fleet, ref_path):
+    """One of the two ``gloo`` ranks of the tp serve phase: per config the
+    rank's blocks of the seeded weights (``serve_params``); under
+    ``set_mesh_ctx`` the teacher-forced loop and two ``generate(par=)``
+    serves (the second with its collectives timed) in bf16 through
+    ``mxu``, and the loop again in f32 on exact projections, fed the
+    one-card tokens of ``ref_path``.  The loops' logits and cache blocks,
+    the tokens and the numbers come back (numpy)."""
+    import torch
+
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ax_matmul import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.parallel import serve_params
+    from repro_torch.launch.sharding import set_mesh_ctx
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeConfig, generate
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = (torch.device("cuda", torch.cuda.current_device()) if _fleet.device_type == "cuda"
+           else torch.device("cpu"))
+    nvcc0 = _build.NVCC_RUNS["count"]
+    refs = torch.load(ref_path)
+    mesh = make_mesh((1, TPS_RANKS), ("data", "model"), device=dev.type, backend="gloo")
+    par = ParallelConfig(fsdp=True, seq_shard=True, ep=True)     # JAX's default layout
+    out = {}
+    for cfg in _tps_configs():
+        ref = refs[cfg.name]
+        whole = init_params(cfg, seed=0, device=dev)
+        params = serve_params(whole, mesh, par)
+        del whole
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        prompts, teacher = ref["prompts"].to(dev), ref["tokens"].to(dev)
+        row = {}
+        with set_mesh_ctx(mesh, par), kernel_shapes() as seen:
+            reset_launches()
+            row["bf16"] = _tps_np(_tps_loop(params, cfg, prompts, teacher, par))
+            row["loop_launches"] = dict(LAUNCHES)
+            serve_cfg = ServeConfig(max_new_tokens=T, cuda_graphs=False)
+            stats = {}
+            reset_launches()
+            toks = generate(params, {"tokens": prompts}, cfg, serve_cfg, par=par,
+                            max_cache_len=TPS_LEN, stats=stats)
+            row["serve_launches"] = dict(LAUNCHES)
+            row["tokens"] = toks.cpu().numpy()
+            row["stats"] = stats
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with _collective_timer() as coll:
+                again = generate(params, {"tokens": prompts}, cfg, serve_cfg, par=par,
+                                 max_cache_len=TPS_LEN)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            row.update(coll_s=coll["s"], coll_calls=coll["calls"], timed_s=wall,
+                       again_equal=bool(torch.equal(again.cpu(), toks.cpu())))
+            row["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+            row["f32"] = _tps_np(_tps_loop(params, _tps_exact(cfg), prompts, teacher, par))
+        row["params_gb"] = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+        row["shapes"] = {k: sorted(v) for k, v in seen.items()}
+        out[cfg.name] = row
+        del params, toks, again
+        torch.cuda.empty_cache()
+    out["nvcc"] = _build.NVCC_RUNS["count"] - nvcc0
+    return out
+
+
+def _tps_cache_gaps(per, ref_cache, key, problems, name):
+    """[(layer, leaf, max |diff|, largest)] of the cache gathered on its
+    sequence from the ranks (``per[r][key][1]``) against one card's."""
+    import torch
+
+    gaps = []
+    for layer, c_one in enumerate(ref_cache):
+        for k, v in c_one.items():
+            got = torch.cat([torch.from_numpy(row[key][1][layer][k]) for row in per], dim=1)
+            if got.shape != v.shape:
+                problems.append(f"{name}: cache layer {layer} {k} gathered "
+                                f"{tuple(got.shape)} vs {tuple(v.shape)}")
+                continue
+            gaps.append((layer, k, float((got - v).abs().max()), float(v.abs().max())))
+    return gaps
+
+
+def _tps_worst(gaps, largest):
+    return max(g / m for g, m in zip(gaps, largest))
+
+
+def tp_serve_phase(dev, card: str, clock: float):
+    """Phase 4e (module note): each config served on one card in this
+    process, plainly and with the ranks' q/k/v GEMMs (``tps_witness``), then
+    the two ``gloo`` ranks spawned on the card while this process holds no
+    model.  Returns (rows, ``ax_matmul`` shape rows, launches by path)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import init_params, transformer
+    from repro_torch.serve import ServeConfig, generate
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    refs = {}
+    serve_cfg = ServeConfig(max_new_tokens=T, cuda_graphs=False)
+    for cfg in _tps_configs():
+        params = init_params(cfg, seed=0, device=dev)
+        prompts = torch.randint(0, cfg.vocab, (B, S), generator=torch.Generator().manual_seed(1))
+        batch = {"tokens": prompts}
+        toks = generate(params, batch, cfg, serve_cfg, max_cache_len=TPS_LEN)
+        ref = dict(prompts=prompts, tokens=toks.cpu(),
+                   one=_tps_loop(params, cfg, prompts.to(dev), toks),
+                   f32=_tps_loop(params, _tps_exact(cfg), prompts.to(dev), toks))
+        with tps_witness(TPS_RANKS):
+            ref["witness"] = _tps_loop(params, cfg, prompts.to(dev), toks)
+            ref["witness_tokens"] = generate(params, batch, cfg, serve_cfg,
+                                             max_cache_len=TPS_LEN).cpu()
+        refs[cfg.name] = ref
+        del params, toks
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_serve_") as tmp:
+        path = os.path.join(tmp, "ref.pt")
+        torch.save({k: dict(prompts=v["prompts"], tokens=v["tokens"]) for k, v in refs.items()},
+                   path)
+        res = spawn(tp_serve_rank, TPS_RANKS, args=(path,), device=dev.type, backend="gloo",
+                    timeout_s=600)
+    ranks_s = time.perf_counter() - t1
+    problems, rows, shape_list, paths = [], {}, [], {}
+    for rank, r in enumerate(res):
+        if r["nvcc"]:
+            problems.append(f"rank {rank}: {r['nvcc']} nvcc runs")
+    for cfg in _tps_configs():
+        name = cfg.name
+        ref = refs[name]
+        witness = ref["witness"]
+        per = [r[name] for r in res]
+        r0 = per[0]
+        n_ax = len(transformer.ax_projections(cfg))
+        want = {"ax_matmul": n_ax * T, "ax_matmul_grid": 0}
+        for rank, row in enumerate(per):
+            for k in ("loop_launches", "serve_launches"):
+                if row[k] != want:
+                    problems.append(f"{name} rank {rank}: {k} {row[k]} (want {want})")
+            f32_gaps, f32_largest = _tps_gaps(row["f32"], ref["f32"])
+            if _tps_worst(f32_gaps, f32_largest) > TOL_TPS_F32:
+                problems.append(f"{name} rank {rank}: f32 exact logits vs one card {f32_gaps} "
+                                f"of largest {f32_largest} (tol {TOL_TPS_F32})")
+            gaps, largest = _tps_gaps(row["bf16"], witness)
+            if not all(math.isfinite(g) for g in gaps) or \
+                    any(g > TOL_TPS_WITNESS * m for g, m in zip(gaps, largest)):
+                problems.append(f"{name} rank {rank}: bf16 logits vs one card with the ranks' "
+                                f"q/k/v {gaps} of largest {largest} (tol {TOL_TPS_WITNESS})")
+            if not row["again_equal"]:
+                problems.append(f"{name} rank {rank}: a second serve's tokens differ")
+            if not np.array_equal(row["tokens"], ref["witness_tokens"].numpy()):
+                problems.append(f"{name} rank {rank}: tokens {row['tokens'].tolist()} vs one "
+                                f"card's with the ranks' q/k/v "
+                                f"{ref['witness_tokens'].tolist()}")
+            if not np.array_equal(row["tokens"], r0["tokens"]) or any(
+                    not np.array_equal(a, b) for a, b in zip(row["bf16"][0], r0["bf16"][0])):
+                problems.append(f"{name} rank {rank}: tokens or logits differ from rank 0's")
+        f32_cache = _tps_cache_gaps(per, ref["f32"][1], "f32", problems, name)
+        if any(g > TOL_TPS_F32 * m for _, _, g, m in f32_cache):
+            problems.append(f"{name}: gathered f32 cache vs one card {f32_cache} (tol "
+                            f"{TOL_TPS_F32})")
+        w_cache = _tps_cache_gaps(per, witness[1], "bf16", problems, name)
+        if any(g > TOL_TPS_WITNESS * m for _, _, g, m in w_cache):
+            problems.append(f"{name}: gathered bf16 cache vs one card with the ranks' q/k/v "
+                            f"{w_cache} (tol {TOL_TPS_WITNESS})")
+        # the plain one card: reported
+        gaps, largest = _tps_gaps(r0["bf16"], ref["one"])
+        plain_cache = _tps_cache_gaps(per, ref["one"][1], "bf16", problems, name)
+        # every launched shape: reckoned from the config and its split
+        reck = {}
+        for M in (B * S, B):
+            reck.update(_tm_tp_shapes(cfg, M, TPS_RANKS, f"{name} tp serve"))
+        for rank, row in enumerate(per):
+            seen = {k: set(map(tuple, v)) for k, v in row["shapes"].items()}
+            if seen["ax_matmul"] != set(reck) or seen["ax_matmul_grid"]:
+                problems.append(f"{name} rank {rank}: kernel shapes {seen}, reckoned "
+                                f"{sorted(reck)}")
+        shape_list += [(label,) + k for k, label in sorted(reck.items())]
+        st = r0["stats"]
+        f32_gaps, f32_largest = _tps_gaps(r0["f32"], ref["f32"])
+        rows[name] = dict(
+            f32_worst=_tps_worst(f32_gaps, f32_largest),
+            f32_cache=max(g / m for _, _, g, m in f32_cache),
+            plain=_tps_worst(gaps, largest), plain_largest=max(largest),
+            plain_cache=[(ly, k, g / m) for ly, k, g, m in plain_cache],
+            tokens_equal_plain=bool(np.array_equal(r0["tokens"], ref["tokens"].numpy())),
+            prefill_ms=1e3 * st["prefill_s"], decode_ms=1e3 * st["decode_s"] / (T - 1),
+            coll_share=[row["coll_s"] / row["timed_s"] for row in per],
+            coll_calls=r0["coll_calls"], peak_gb=[row["peak_gb"] for row in per],
+            params_gb=[row["params_gb"] for row in per], launches=n_ax * T)
+        paths[f"tp serve {name} (rank 0)"] = r0["serve_launches"]["ax_matmul"]
+    for name, row in rows.items():
+        cache = ", ".join(f"{ly}{k} {g:.3g}" for ly, k, g in row["plain_cache"])
+        print(f"tp serve {name} x{L} on two gloo ranks (('data', 'model') = (1, "
+              f"{TPS_RANKS}), fsdp + seq_shard + ep, B={B} x {S}, {T} tokens, cache "
+              f"{TPS_LEN} rows split on its sequence): f32 exact forward vs one card, "
+              f"prefill and {T - 1} decode steps, worst {row['f32_worst']:.3g} of the largest "
+              f"logit (tol {TOL_TPS_F32}), gathered cache within {row['f32_cache']:.3g}; bf16 "
+              f"mxu serve: logits, cache and tokens held to one card whose q/k/v GEMMs are "
+              f"the ranks' column blocks (tol {TOL_TPS_WITNESS}); against the plain one card "
+              f"(reported): logits within {row['plain']:.3g} of the largest "
+              f"({row['plain_largest']:.4g}), cache leaves {cache} of theirs, tokens equal "
+              f"{row['tokens_equal_plain']}; ax_matmul {row['launches']} a rank (loop and "
+              f"serve); prefill {row['prefill_ms']:.1f} ms, decode {row['decode_ms']:.1f} "
+              f"ms/step; collectives {row['coll_calls']} a serve, "
+              f"{', '.join(f'{100 * c:.1f}%' for c in row['coll_share'])} of its wall (a "
+              f"synchronise around each); weights "
+              f"{', '.join(f'{x:.2f}' for x in row['params_gb'])} GB, peak allocated "
+              f"{', '.join(f'{x:.2f}' for x in row['peak_gb'])} GB a rank [{card}]",
+              flush=True)
+    if problems:
+        fail("tp serve: " + "; ".join(problems))
+    shape_rows = main_shape_checks(dev, card, clock, grid_kernel=False, shapes=shape_list)
+    print(f"tp serve: the one-card references {ref_s:.1f} s, the ranks {ranks_s:.1f} s with "
+          f"the spawn [{card}]", flush=True)
+    rows.update(ref_s=ref_s, ranks_s=ranks_s)
+    return rows, shape_rows, paths
+
+
 def _update_gap_np(new, ref, start) -> float:
     """``_update_gap`` over numpy parameter dicts keyed alike."""
     import numpy as np
@@ -4342,12 +4690,15 @@ def main(argv):
     tm_rows, tm_shape_rows, tm_grid_rows, tp_shape_rows, tp_grid_rows, tm_paths, \
         tm_grid_paths = train_mesh_phase(dev, card, clock)
     phase_done("train mesh")
+    tps_rows, tps_shape_rows, tps_paths = tp_serve_phase(dev, card, clock)
+    phase_done("tp serve")
     profile = "--profile" in argv
     cfg, params, prompts, tokens, paths, stats = serve(dev, card, profile)
     paths.update(w_paths)
     paths.update(t_paths)
     paths.update(m_paths)
     paths.update(tm_paths)
+    paths.update(tps_paths)
     phase_done("serve")
     autotune_rows = autotune_phase(dev, card, cfg, params, prompts, tokens)
     phase_done("autotune")
@@ -4421,17 +4772,20 @@ def main(argv):
                      rows, c_rows)
     grid_entry = entry("ax_matmul_grid", "src/repro/kernels/ax_matmul.py:253", grid_launches,
                        grid_paths, grid_rows, c_grid_rows)
-    for e, fam_rows, w_rows, t_rows, tm_rows_, tp_rows_ in (
+    for e, fam_rows, w_rows, t_rows, tm_rows_, tp_rows_, tps_rows_ in (
             (ax_entry, family_shape_rows, whisper_shape_rows, train_shape_rows, tm_shape_rows,
-             tp_shape_rows),
-            (grid_entry, family_grid_rows, [], train_grid_rows, tm_grid_rows, tp_grid_rows)):
+             tp_shape_rows, tps_shape_rows),
+            (grid_entry, family_grid_rows, [], train_grid_rows, tm_grid_rows, tp_grid_rows,
+             [])):
         e["family_shapes"] = fam_rows
         e["whisper_shapes"] = w_rows
         e["train_shapes"] = t_rows
         e["train_mesh_shapes"] = tm_rows_
         e["train_tp_shapes"] = tp_rows_
+        e["tp_serve_shapes"] = tps_rows_
         e["max_abs_err"] = max([e["max_abs_err"]] + [
-            r["max_abs_err"] for r in fam_rows + w_rows + t_rows + tm_rows_ + tp_rows_])
+            r["max_abs_err"] for r in fam_rows + w_rows + t_rows + tm_rows_ + tp_rows_
+            + tps_rows_])
     ax_entry["whisper"] = {k: whisper_row[k] for k in (
         "name", "layers", "enc_layers", "params_g", "ax_per_forward", "ax_per_decode",
         "launches", "decode_vs_full_rel", "graph_decode_ms_per_step")}
@@ -4439,6 +4793,7 @@ def main(argv):
     ax_entry["autotune"] = autotune_rows
     ax_entry["mesh"] = mesh_info
     ax_entry["train_mesh"] = tm_rows
+    ax_entry["tp_serve"] = tps_rows
     ax_entry["families"] = [{k: r[k] for k in ("name", "layers", "params_g", "ax_per_forward",
                                                "launches")} for r in family_rows]
     ax_entry["reduced_card_vs_cpu"] = {

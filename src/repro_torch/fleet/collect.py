@@ -19,7 +19,7 @@ the uint32 arithmetic ``combine_records`` does on the host.  Below the
 trees in one process (simulated shards, and the oracle the collective path
 is tested against).
 
-**Partition specs of the mesh-sharded serve** (``batch_axis_names``,
+**Partition specs of the mesh-sharded serve** (``launch.mesh.batch_axis_names``,
 ``cache_pspecs``, ``shard_decode_specs``, ``token_step_specs``: the JAX
 package's, as ``launch/sharding.PartitionSpec``).  Under the port's
 multi-process SPMD a rank holds the global host vectors and only its own
@@ -47,7 +47,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import multipliers as M
-from repro_torch.launch.sharding import PartitionSpec as P, current_rules, mesh_shape
+from repro_torch.launch.mesh import batch_axis_names, batch_group
+from repro_torch.launch.sharding import PartitionSpec as P, mesh_shape
 from repro_torch.runtime.telemetry import (MAX_FIELDS, SAMPLE_FIELDS, SUM_FIELDS,
                                            TELEMETRY_SAMPLE, operand_summary, tile_key,
                                            tile_summary)
@@ -191,34 +192,12 @@ def make_sharded_summarizer(mult_name: str, mesh=None, target: str = "stream",
 # partition specs of the mesh-sharded decode (the JAX package's)
 # ---------------------------------------------------------------------------
 
-def batch_axis_names(mesh, rules=None) -> Tuple[str, ...]:
-    """The mesh axes the batch dimension shards over: the 'batch' rule of
-    ``rules`` (``launch.sharding.axis_rules``), or of the installed mesh
-    context (``("data", "model")`` with ``dp_only``), else 'pod' + 'data'."""
-    rules = rules if rules is not None else current_rules()
-    if rules is not None:
-        b = rules["batch"]
-        return b if isinstance(b, tuple) else ((b,) if b else ())
-    names = mesh_shape(mesh).axis_names
-    return tuple(a for a in ("pod", "data") if a in names)
-
-
 def _n_shards(mesh, axes) -> int:
     shape = mesh_shape(mesh).shape
     n = 1
     for a in axes:
         n *= shape[a]
     return n
-
-
-def batch_group(mesh, rules=None):
-    """(process group, this rank's shard index, shard count) of ``mesh``'s
-    batch axes (:func:`batch_axis_names`); several axes are flattened into
-    one group, the index row-major over them
-    (``launch.mesh.axes_group``)."""
-    from repro_torch.launch.mesh import axes_group
-
-    return axes_group(mesh, batch_axis_names(mesh, rules))
 
 
 def cache_pspecs(cache, batch: int, axes: Tuple[str, ...]):

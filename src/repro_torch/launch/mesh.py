@@ -13,14 +13,19 @@ axes, as a JAX ``Mesh`` names its devices'.
   card: ``nccl`` refuses that).
 * :func:`make_production_mesh` — the dry-run meshes, (16, 16) ``("data",
   "model")`` and (2, 16, 16) ``("pod", "data", "model")``: built when the
-  world has those ranks; their shapes (:func:`production_mesh_shape`) are
+  world has those ranks (a fake world of one process in a dry run,
+  ``launch/dryrun.py``); their shapes (:func:`production_mesh_shape`) are
   always available to the spec functions.
 * :func:`make_mesh` — any mesh over the current world (``jax.make_mesh``'s
   counterpart): the train meshes of ``train/distributed.py``.
 * :func:`axes_group` — the process group of several mesh axes taken
   together (a batch over ``("pod", "data")``, or ``("data", "model")``
   with ``dp_only``), with this rank's index over them in row-major order,
-  as a JAX dim sharded over those axes lays out its blocks.
+  as a JAX dim sharded over those axes lays out its blocks;
+  :func:`batch_axis_names` and :func:`batch_group` — a mesh's batch axes
+  under its rules, and their group.
+* :func:`block_index`, :func:`local_blocks` — this rank's block of a leaf,
+  and of every leaf of a tree, under a spec tree.
 * :func:`param_shardings`, :func:`state_shardings`,
   :func:`batch_shardings`, :func:`cache_shardings` — partition specs
   (``launch/sharding.PartitionSpec``) over the port's param, train-state,
@@ -40,24 +45,27 @@ axes, as a JAX ``Mesh`` names its devices'.
 from __future__ import annotations
 
 import datetime
+import math
 import os
 import queue as queue_lib
 import shutil
 import tempfile
 import time
 import traceback
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import axes_for_path
 
-from .sharding import MeshShape, PartitionSpec, axis_size, mesh_shape, param_spec
+from .sharding import MeshShape, PartitionSpec, axis_size, current_rules, mesh_shape, \
+    param_spec
 
 __all__ = ["make_fleet_mesh", "make_production_mesh", "production_mesh_shape", "make_mesh",
-           "axes_group",
+           "axes_group", "batch_axis_names", "batch_group", "block_index", "local_blocks",
            "param_shardings", "state_shardings", "batch_shardings", "cache_shardings",
            "tree_paths", "tree_unflatten", "init_world", "spawn", "default_backend"]
 
@@ -125,7 +133,9 @@ def production_mesh_shape(*, multi_pod: bool = False) -> MeshShape:
 
 def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
     """The production ``DeviceMesh`` (:func:`production_mesh_shape`) over a
-    world of exactly its ranks; ``ValueError`` otherwise."""
+    world of exactly its ranks; ``ValueError`` otherwise.  A dry run builds
+    it on the CPU over a fake world of 256 or 512 ranks in one process
+    (``launch/dryrun.py``: ``fake_world``)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     shape = production_mesh_shape(multi_pod=multi_pod)
@@ -166,26 +176,53 @@ def axes_group(mesh, axes):
     in those coordinates, indexed row-major over them.  One axis is the
     mesh's own group; several are a group made once per mesh and kept on it
     (``new_group`` runs on every rank of the world, in one order)."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
     axes = tuple(axes) if isinstance(axes, (tuple, list)) else (axes,)
     names = list(mesh.mesh_dim_names)
-    if len(axes) == 1:
-        a = axes[0]
-        return mesh.get_group(a), mesh.get_local_rank(a), mesh.size(names.index(a))
     made = mesh.__dict__.setdefault("_repro_axes_groups", {})
-    if axes not in made:
-        ranks = mesh.mesh.cpu()
-        dims = [names.index(a) for a in axes]
-        rest = [d for d in range(len(names)) if d not in dims]
-        # the ranks of each group, row-major over ``axes``, one group per
-        # coordinate of the other axes
-        table = ranks.permute(rest + dims).reshape(-1, int(torch.tensor(
-            [ranks.shape[d] for d in dims]).prod()))
-        me = dist.get_rank()
-        for row in table.tolist():
-            g = dist.new_group(row)
-            if me in row:
-                made[axes] = (g, row.index(me), len(row))
+    if axes in made:
+        return made[axes]
+    # the mesh's rank table is a host tensor: read it (and the mesh's own
+    # coordinates) outside any fake-tensor mode, so a dry run on fake
+    # tensors (``launch/dryrun.py``) builds its groups as a real run does
+    with unset_fake_temporarily():
+        if len(axes) == 1:
+            a = axes[0]
+            made[axes] = (mesh.get_group(a), mesh.get_local_rank(a), mesh.size(names.index(a)))
+            return made[axes]
+        ranks = np.asarray(mesh.mesh.tolist())
+    dims = [names.index(a) for a in axes]
+    rest = [d for d in range(len(names)) if d not in dims]
+    # the ranks of each group, row-major over ``axes``, one group per
+    # coordinate of the other axes
+    table = ranks.transpose(rest + dims).reshape(-1, math.prod(ranks.shape[d] for d in dims))
+    me = dist.get_rank()
+    for row in table.tolist():
+        g = dist.new_group(row)
+        if me in row:
+            made[axes] = (g, row.index(me), len(row))
     return made[axes]
+
+
+def batch_axis_names(mesh, rules=None) -> Tuple[str, ...]:
+    """The mesh axes the batch dimension shards over: the 'batch' rule of
+    ``rules`` (``launch.sharding.axis_rules``), or of the installed mesh
+    context (``("data", "model")`` with ``dp_only``), else 'pod' + 'data'."""
+    rules = rules if rules is not None else current_rules()
+    if rules is not None:
+        b = rules["batch"]
+        return b if isinstance(b, tuple) else ((b,) if b else ())
+    names = mesh_shape(mesh).axis_names
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+def batch_group(mesh, rules=None):
+    """(process group, this rank's shard index, shard count) of ``mesh``'s
+    batch axes (:func:`batch_axis_names`); several axes are flattened into
+    one group, the index row-major over them
+    (:func:`axes_group`)."""
+    return axes_group(mesh, batch_axis_names(mesh, rules))
 
 
 # ---------------------------------------------------------------------------
@@ -229,6 +266,42 @@ def _build(node, it):
     if isinstance(node, (list, tuple)) and not isinstance(node, PartitionSpec):
         return [_build(v, it) for v in node]
     return next(it)
+
+
+def block_index(mesh, spec, shape):
+    """The index of this rank's block of a leaf of ``shape`` under ``spec``
+    on ``mesh`` (a tuple of slices): along each sharded dim the rank's
+    coordinate over the dim's mesh axes, in row-major order."""
+    names = list(mesh.mesh_dim_names)
+    index = []
+    for d, ax in enumerate(tuple(spec) + (None,) * (len(shape) - len(spec))):
+        axes = ax if isinstance(ax, tuple) else ((ax,) if ax else ())
+        coord, size = 0, 1
+        for a in axes:
+            n = mesh.size(names.index(a))
+            coord, size = coord * n + mesh.get_local_rank(a), size * n
+        if shape[d] % size:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not divide over {size} ranks "
+                             f"({spec})")
+        k = shape[d] // size
+        index.append(slice(coord * k, (coord + 1) * k))
+    return tuple(index)
+
+
+def local_blocks(tree, specs, mesh):
+    """This rank's block of each leaf of a whole ``tree`` under the spec
+    tree ``specs`` (matched by key; :func:`block_index`), each a copy; a
+    leaf whose spec shards nothing is kept as it is."""
+    def build(node, spec):
+        if isinstance(node, dict):
+            return {k: build(v, spec[k]) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [build(v, spec[i]) for i, v in enumerate(node)]
+        if not any(spec):
+            return node
+        return node[block_index(mesh, spec, tuple(node.shape))].clone()
+
+    return build(tree, specs)
 
 
 def _layer_path(path: str) -> str:

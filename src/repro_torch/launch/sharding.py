@@ -22,27 +22,41 @@ checks the logical axes against the tensor's rank and returns it as it
 is (the JAX package's ``with_sharding_constraint`` has nothing to
 constrain here).  :func:`set_mesh_ctx` installs a mesh and its rules for
 the code inside it; ``models/blocks.py`` reads them (per-shard MoE
-capacity).  The sharded train step also installs its collectives
-(``train/distributed.py``'s ``TrainMesh``), which the loss and the MoE
-block read through :func:`current_train`; with tensor parallelism over
-``"model"`` the models take its ``TensorParallel`` through
-:func:`current_tp`: the model group, this rank's index and offsets into
+capacity).  A mesh's groups (``launch/parallel.py``'s ``MeshGroups``; the
+sharded train step's ``TrainMesh`` adds its per-leaf plans to them) travel
+with it, and the loss and the MoE block read them through
+:func:`current_groups`; with tensor parallelism over ``"model"`` the models
+take their ``TensorParallel`` through :func:`current_tp`: the model group,
+this rank's index and offsets into
 ``heads``, ``ff``, ``vocab`` and ``seq`` (``TensorParallel.block``), and
 the collectives of a block's entry and exit.  All of it travels in one
 installed state, which :func:`recompute_context` re-installs for a layer
 recomputed in the backward, so the recomputation repeats its collectives
 in order.
+
+**The model-sharded prefill and decode step.**  Outside the train step,
+:func:`set_mesh_ctx` of a ``DeviceMesh`` whose ``"model"`` axis has several
+ranks (and no ``dp_only``) installs the mesh's groups
+(``launch.parallel.mesh_groups``, made once per mesh and ``par``), so
+:func:`current_tp` gives the models the same ``TensorParallel`` in
+``models.registry.prefill`` and ``decode_step``.
+Those entry points narrow the installed state for the call
+(:func:`serving`): a decode step's residual is whole over ``seq`` (one
+token does not split), and :func:`current_kv` names the group that holds
+a K/V cache's sequence, as ``launch.mesh.cache_shardings`` places it.  A
+1-D ``("data",)`` fleet mesh (``launch.mesh.make_fleet_mesh``) and a
+:class:`MeshShape` install no collectives.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 __all__ = ["PartitionSpec", "MeshShape", "mesh_shape", "axis_rules", "set_mesh_ctx",
-           "current_mesh", "current_rules", "current_train", "current_tp", "recompute_context",
-           "shard", "spec_for", "param_spec", "axis_size"]
+           "current_mesh", "current_rules", "current_groups", "current_tp", "current_kv",
+           "serving", "recompute_context", "shard", "spec_for", "param_spec", "axis_size"]
 
 _ctx = threading.local()
 
@@ -141,14 +155,48 @@ def axis_rules(mesh, par) -> dict:
     }
 
 
+class _State(NamedTuple):
+    mesh: object
+    rules: dict
+    groups: object           # the mesh's MeshGroups (a TrainMesh in a train step), or None
+    tp: object               # the models' TensorParallel, or None
+    kv: object               # (group, index, n) of a K/V cache's sequence, or None
+
+
+def _model_sharded(mesh, par) -> bool:
+    """A ``DeviceMesh`` whose ``"model"`` axis carries tensor parallelism."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    return (names is not None and "model" in names and not par.dp_only
+            and axis_size(mesh, "model") > 1)
+
+
 @contextlib.contextmanager
-def set_mesh_ctx(mesh, par, train=None):
+def set_mesh_ctx(mesh, par, groups=None):
     """Install ``mesh`` (a ``DeviceMesh`` or a :class:`MeshShape`) and the
-    rules of ``par`` for the code inside; yields the rules.  ``train``: the
-    sharded train step's ``TrainMesh`` (module note)."""
+    rules of ``par`` for the code inside; yields the rules.  ``groups``: the
+    sharded train step's ``TrainMesh``; without it, a model-sharded
+    ``DeviceMesh`` installs its own groups for the prefill and decode step
+    (module note)."""
     rules = axis_rules(mesh, par)
-    with _installed((mesh, rules, train)):
+    if groups is None and _model_sharded(mesh, par):
+        from repro_torch.launch.parallel import mesh_groups
+
+        groups = mesh_groups(mesh, par)
+    with _installed(_State(mesh, rules, groups, groups.tp if groups is not None else None,
+                           None)):
         yield rules
+
+
+@contextlib.contextmanager
+def serving(tp, kv):
+    """The installed state with ``tp`` (the models' ``TensorParallel`` for
+    this call) and ``kv`` (the K/V cache's sequence group) for the code
+    inside: ``models.registry``'s model-sharded prefill and decode step."""
+    st = getattr(_ctx, "state", None)
+    if st is None:
+        raise ValueError("serving() needs an installed mesh context (set_mesh_ctx)")
+    with _installed(st._replace(tp=tp, kv=kv)):
+        yield
 
 
 @contextlib.contextmanager
@@ -171,26 +219,38 @@ def recompute_context():
 
 def current_mesh():
     st = getattr(_ctx, "state", None)
-    return st[0] if st else None
+    return st.mesh if st else None
 
 
 def current_rules() -> Optional[dict]:
     st = getattr(_ctx, "state", None)
-    return st[1] if st else None
+    return st.rules if st else None
 
 
-def current_train():
-    """The ``TrainMesh`` of the sharded train step running now, or None."""
+def current_groups():
+    """The installed mesh's groups (``launch.parallel.MeshGroups``): the
+    sharded train step's ``TrainMesh``, or a model-sharded mesh's own
+    (module note); None otherwise."""
     st = getattr(_ctx, "state", None)
-    return st[2] if st else None
+    return st.groups if st else None
 
 
 def current_tp():
-    """The ``train.distributed.TensorParallel`` of the sharded train step
-    running now: None outside one, and on a mesh whose ``"model"`` axis
-    carries no tensor parallelism (one rank, or ``dp_only``)."""
-    tm = current_train()
-    return tm.tp if tm is not None else None
+    """The ``launch.parallel.TensorParallel`` the models compute with: the
+    sharded train step's, or the installed model-sharded mesh's (a decode
+    step's without ``seq``, module note).  None outside a mesh context and
+    on a mesh whose ``"model"`` axis carries no tensor parallelism (one
+    rank, or ``dp_only``)."""
+    st = getattr(_ctx, "state", None)
+    return st.tp if st else None
+
+
+def current_kv():
+    """(group, index, n) of the ranks that hold a K/V cache's sequence in the
+    model-sharded prefill or decode step running now (:func:`serving`), or
+    None."""
+    st = getattr(_ctx, "state", None)
+    return st.kv if st else None
 
 
 def _names(ax) -> Tuple[str, ...]:

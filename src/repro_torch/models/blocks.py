@@ -55,6 +55,17 @@ RG-LRU and SSD ``in``/``gate``/``out`` projections carry the target
 batched products, as in the JAX package (not approximated there either);
 their weights are cast once through the weight cache.
 
+The model-sharded prefill and decode step (``models.registry``) run the
+same tensor-parallel blocks.  The RG-LRU and SSD states follow
+``launch.mesh.cache_shardings``: whole over ``"model"`` on every rank.  A
+rank reads its channels (heads) of them, and each new state is gathered
+whole again.  A decode step's MoE splits its tokens over ``"model"`` under
+``seq_shard`` where they divide (JAX's dispatch over the flattened batch
+and seq shards), else each model rank routes the batch shard's tokens; the
+residual is whole over ``seq`` either way.  Where the tokens do not
+divide, JAX falls back to one capacity over the global batch, and the port
+keeps each batch shard's own (the two differ only where choices drop).
+
 In decode (a cache given and one token) the RG-LRU and SSD blocks write
 their new ``h``/``conv`` state into the cache tensors they were given, so
 a decode step keeps its cache's addresses and stays capturable as a CUDA
@@ -71,7 +82,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.sharding import current_tp, current_train
+from repro_torch.launch.sharding import current_groups, current_tp
 from repro_torch.quant.ax import weight_cast
 
 from .layers import _col, _tp_out, dense, mlp_apply, mlp_init, ninit
@@ -160,9 +171,9 @@ def moe_apply(p, x, cfg: ModelConfig):
     ``E * mean(mean(probs) * mean(one_hot(top-1)))``.  Under a mesh whose
     ``batch`` rule spans several ranks, ``x`` is this rank's token shard and
     the capacity is its own (module note)."""
-    tm = current_train()
-    if tm is not None and tm.tp is not None:
-        return _moe_tp(p, x, cfg, tm, tm.tp)
+    tm, tp = current_groups(), current_tp()
+    if tm is not None and tp is not None:
+        return _moe_tp(p, x, cfg, tm, tp)
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     T = B * S
@@ -211,7 +222,10 @@ def _moe_tp(p, x, cfg: ModelConfig, tm, tp):
     E, k, Fd = cfg.n_experts, cfg.top_k, cfg.moe_d_ff
     T_all = B * S
     flat = x.reshape(T_all, D)
-    lo, hi = tp.block(T_all) if tp.seq else (0, T_all)
+    # the token shards span "model" under seq_shard; a decode step's
+    # residual is whole over seq, its tokens split where they divide
+    split = tm.tp.seq and (tp.seq or T_all % tp.n == 0)
+    lo, hi = tp.block(T_all) if split else (0, T_all)
     flat = flat[lo:hi]
     T = hi - lo
     probs, topv, topi = _route(flat, p["router"]["w"], k)
@@ -220,20 +234,20 @@ def _moe_tp(p, x, cfg: ModelConfig, tm, tp):
     ex = p["experts"]
     ffn = lambda b: _expert_ffn(b, ex)                    # noqa: E731
     if tp.split(ex["in"]["w"].shape[0], E):               # ep: the rank's experts
-        if tp.seq:
+        if split:
             y = tm.experts_apply(buf, ffn)
         else:
             e0, e1 = tp.block(E)
             y = tp.gather(ffn(buf[e0:e1]), 0)
     elif tp.split(ex["in"]["w"].shape[-1], Fd):           # the experts' ff split
-        if tp.seq:
+        if split:
             y = tp.reduce_scatter(ffn(tp.gather(buf, 1)), 1)
         else:
             y = tp.reduce(ffn(buf))
     else:
         y = ffn(buf)
     out = _combine(y, topi, topv, slots, keeps, x.dtype)
-    if tp.seq:
+    if split:
         # the token block back into the seq shards: zeros elsewhere, summed
         routed = torch.zeros((T_all, D), dtype=x.dtype, device=x.device)
         routed = routed.index_copy(0, torch.arange(lo, hi, device=x.device), out)
@@ -244,10 +258,11 @@ def _moe_tp(p, x, cfg: ModelConfig, tm, tp):
         y_out = y_out + mlp_apply(p["shared"], x, "silu", cfg.ax,
                                   d_ff=cfg.n_shared_experts * Fd)
     top1 = (topi[:, 0, None] == torch.arange(E, device=x.device)).to(torch.float32)
-    stats = tm.token_sum(torch.cat([top1.sum(0), top1.new_full((1,), T)]))
+    total = tm.token_sum if split else tm.batch_sum
+    stats = total(torch.cat([top1.sum(0), top1.new_full((1,), T)]))
     t_all = stats[E]
     aux = E * torch.mean((probs.sum(0) / t_all) * (stats[:E] / t_all))
-    return y_out, aux if tp.seq else aux / tp.n
+    return y_out, aux if split else aux / tp.n
 
 
 # ===========================================================================
@@ -327,15 +342,20 @@ def _write_state(cache, new):
 
 def rglru_apply(p, x, cfg: ModelConfig, cache: Optional[dict] = None):
     """Returns (y, new_cache).  cache = {'h': (B, R) f32, 'conv': (B, 3, R)}.
-    Under tensor parallelism (a train forward, no cache) channel-parallel
-    over ``d_rnn`` (module note)."""
+    Under tensor parallelism channel-parallel over ``d_rnn``, a cache's
+    states whole (module note)."""
     B, S, D = x.shape
-    tp = current_tp() if cache is None else None
+    tp = current_tp()
     role = _col(tp, p["in"]["w"], cfg.d_rnn)
     split = role is not None
     xr = dense(x, p["in"], cfg.ax, "mlp", tp, role)
     gate = dense(x, p["gate"], cfg.ax, "mlp", tp, role)
-    conv_state = cache["conv"] if cache is not None else None
+    h0 = conv_state = None
+    if cache is not None:
+        h0, conv_state = cache["h"], cache["conv"]
+        if split:                                 # the rank's channels of the states
+            c0, c1 = tp.block(cfg.d_rnn)
+            h0, conv_state = h0[:, c0:c1], conv_state[..., c0:c1]
     xc, new_conv = _causal_conv(xr, weight_cast(p["conv"]["w"], xr.dtype), conv_state)
 
     xf = xc.to(torch.float32)
@@ -353,18 +373,21 @@ def rglru_apply(p, x, cfg: ModelConfig, cache: Optional[dict] = None):
 
     if cache is None or S > 1:
         aa, bb = _scan(a, b)
-        h = bb if cache is None else bb + aa * cache["h"][:, None, :]
+        h = bb if cache is None else bb + aa * h0[:, None, :]
         h_last = h[:, -1, :]
     else:
-        h = (a[:, 0] * cache["h"] + b[:, 0])[:, None, :]
+        h = (a[:, 0] * h0 + b[:, 0])[:, None, :]
         h_last = h[:, 0]
 
     y = h.to(x.dtype) * F.gelu(gate, approximate="tanh")
     if tp is not None:
-        return _tp_out(y, p["out"], cfg.ax, "mlp", tp, split), None
-    out = dense(y, p["out"], cfg.ax, "mlp")
+        out = _tp_out(y, p["out"], cfg.ax, "mlp", tp, split)
+    else:
+        out = dense(y, p["out"], cfg.ax, "mlp")
     if cache is None:
         return out, None
+    if split:                                     # the states whole again
+        h_last, new_conv = tp.all_gather_(h_last, -1), tp.all_gather_(new_conv, -1)
     new = {"h": h_last, "conv": new_conv}
     return out, (_write_state(cache, new) if S == 1 else new)
 
@@ -396,7 +419,7 @@ def ssd_init(cfg: ModelConfig, dtype, generator, device):
 def ssd_apply(p, x, cfg: ModelConfig, cache: Optional[dict] = None):
     """Chunked SSD.  cache = {'h': (B, H, hd, N) f32, 'conv': (B, 3, Ch)}.
     A prompt longer than ``ssm_chunk`` must be a multiple of it.  Under
-    tensor parallelism (a train forward, no cache) parallel over the heads
+    tensor parallelism parallel over the heads, a cache's states whole
     (module note)."""
     B, S, D = x.shape
     hd = cfg.ssm_head_dim
@@ -405,9 +428,12 @@ def ssd_apply(p, x, cfg: ModelConfig, cache: Optional[dict] = None):
     N = cfg.ssm_state
     ax = cfg.ax
     f32 = torch.float32
-    tp = current_tp() if cache is None else None
+    tp = current_tp()
     role = _col(tp, p["in"]["w"], din)
     split = role is not None
+    h_prev0 = conv_state = None
+    if cache is not None:
+        h_prev0, conv_state = cache["h"], cache["conv"]
 
     xin = dense(x, p["in"], ax, "mlp", tp, role)
     z = dense(x, p["gate"], ax, "mlp", tp, role)
@@ -425,11 +451,13 @@ def ssd_apply(p, x, cfg: ModelConfig, cache: Optional[dict] = None):
         heads = {n: t if tp.split(t.shape[0], H) else t[h0:h1] for n, t in heads.items()}
         c0, c1 = tp.block(din)
         conv_w = torch.cat([conv_w[:, c0:c1], conv_w[:, din:]], dim=1)
+        if cache is not None:                     # the rank's heads of the states
+            h_prev0 = h_prev0[:, h0:h1]
+            conv_state = torch.cat([conv_state[..., c0:c1], conv_state[..., din:]], dim=-1)
         din, H = c1 - c0, h1 - h0
     dt = _softplus(dt + heads["dt_bias"])                       # (B,S,H)
 
     conv_in = torch.cat([xin, Bc, Cc], dim=-1)
-    conv_state = cache["conv"] if cache is not None else None
     conv_out, new_conv = _causal_conv(conv_in, conv_w, conv_state)
     conv_out = F.silu(conv_out)
     xin = conv_out[..., :din]
@@ -441,12 +469,13 @@ def ssd_apply(p, x, cfg: ModelConfig, cache: Optional[dict] = None):
     dx = dt[..., None] * xh                                      # (B,S,H,hd)
 
     if cache is not None and S == 1:
-        h = a[:, 0, :, None, None] * cache["h"] + dx[:, 0, :, :, None] * Bc[:, 0, None, None, :]
+        h = a[:, 0, :, None, None] * h_prev0 + dx[:, 0, :, :, None] * Bc[:, 0, None, None, :]
         y = torch.einsum("bhdn,bn->bhd", h, Cc[:, 0])
         y = y + heads["d_skip"][None, :, None] * xh[:, 0]
-        y = y.reshape(B, 1, din)
-        out = dense(y.to(x.dtype) * F.silu(z), p["out"], ax, "mlp")
-        return out, _write_state(cache, {"h": h, "conv": new_conv})
+        y = y.reshape(B, 1, din).to(x.dtype) * F.silu(z)
+        out = (_tp_out(y, p["out"], ax, "mlp", tp, split) if tp is not None
+               else dense(y, p["out"], ax, "mlp"))
+        return out, _write_state(cache, _ssd_whole(h, new_conv, din, tp, split))
 
     # ---- chunked scan over the sequence ----------------------------------
     L = min(cfg.ssm_chunk, S)
@@ -478,8 +507,8 @@ def ssd_apply(p, x, cfg: ModelConfig, cache: Optional[dict] = None):
     A_n = torch.exp(la[:, :, -1, :])                             # (B,nc,H)
 
     # cross-chunk scan: the state before each chunk
-    h = cache["h"] if cache is not None else torch.zeros((B, H, hd, N), dtype=f32,
-                                                          device=x.device)
+    h = h_prev0 if cache is not None else torch.zeros((B, H, hd, N), dtype=f32,
+                                                       device=x.device)
     h_prev = []
     for n in range(nc):
         h_prev.append(h)
@@ -493,6 +522,17 @@ def ssd_apply(p, x, cfg: ModelConfig, cache: Optional[dict] = None):
     y = y + heads["d_skip"][None, None, :, None] * xh
     y = y.reshape(B, S, din).to(x.dtype) * F.silu(z)
     if tp is not None:
-        return _tp_out(y, p["out"], ax, "mlp", tp, split), None
-    out = dense(y, p["out"], ax, "mlp")
-    return out, ({"h": h, "conv": new_conv} if cache is not None else None)
+        out = _tp_out(y, p["out"], ax, "mlp", tp, split)
+    else:
+        out = dense(y, p["out"], ax, "mlp")
+    return out, (_ssd_whole(h, new_conv, din, tp, split) if cache is not None else None)
+
+
+def _ssd_whole(h, conv, din: int, tp, split: bool) -> dict:
+    """A new SSD state whole on every rank (module note): under a head split
+    the rank's heads of ``h`` and its ``din`` channels of ``conv``
+    all-gathered, B and C's channels (the same on every rank) kept."""
+    if not split:
+        return {"h": h, "conv": conv}
+    return {"h": tp.all_gather_(h, 1),
+            "conv": torch.cat([tp.all_gather_(conv[..., :din], -1), conv[..., din:]], dim=-1)}

@@ -23,6 +23,19 @@ sums into the residual's layout (:func:`dense`'s ``role="row"``).  A block
 takes its input whole over ``seq`` and gives its output back in the
 residual's layout (``TensorParallel.enter``/``exit``), so the attention
 and the MLP run on the whole sequence with RoPE at global positions.
+
+**The model-sharded prefill and decode step** (``models.registry`` under a
+mesh with several ``"model"`` ranks, ``launch.sharding.serving``): the
+projections split as in training, and the K/V cache holds every kv head of
+this rank's block of the cache's sequence (``launch.mesh.cache_shardings``:
+the group of ``launch.sharding.current_kv``).  Prefill attends over the
+whole prompt on the rank's heads, gathers the k/v columns to keep its
+block of the padded cache (a windowed layer's ring split the same way).
+A decode step gathers the query's and this step's k/v columns (one
+token's), the rank that owns the position's row writes it, and
+:func:`decode_attention_split` attends over the rank's block and combines
+the partial softmax statistics across the group; the rank's heads of the
+result go into the row-parallel ``o``.
 """
 from __future__ import annotations
 
@@ -31,14 +44,16 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import AxPolicy, ModelConfig
-from repro_torch.launch.sharding import current_tp
+from repro_torch.launch.sharding import current_kv, current_tp
 from repro_torch.quant.ax import ax_dense, ax_dense_dyn, weight_cast, weight_codes
 from repro_torch.runtime.scope import active_scope
 
 __all__ = ["ninit", "generator", "axes_for_path", "dense", "rmsnorm", "layernorm", "make_rope", "apply_rope", "sinusoid_pos",
-           "chunked_attention", "decode_attention", "attn_init", "attn_apply",
+           "chunked_attention", "decode_attention", "decode_attention_split", "attn_init",
+           "attn_apply",
            "mlp_init", "mlp_apply"]
 
 
@@ -135,7 +150,7 @@ def dense(x, p, ax: Optional[AxPolicy] = None, target: str = "", tp=None,
     codes come from the weight cache (``quant.ax.weight_codes``): each
     weight is quantized once, with the same bits.
 
-    ``tp`` (a ``train.distributed.TensorParallel``) with ``role``:
+    ``tp`` (a ``launch.parallel.TensorParallel``) with ``role``:
     ``"row"``, K is split over the model ranks (``x`` and ``w`` hold this
     rank's block): the partial sums are reduced into the residual's layout
     (``TensorParallel.exit``; the approximate path reduces its int32
@@ -351,6 +366,40 @@ def decode_attention(q, k_cache, v_cache, q_pos, kv_len, *, window=0):
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
+def decode_attention_split(q, k_blk, v_blk, q_pos, kv_len, *, group, lo: int = 0):
+    """:func:`decode_attention` over a cache whose sequence is split over the
+    ranks of ``group``: ``k_blk``/``v_blk`` (B, L, KV, hd) hold its rows
+    ``lo .. lo + L - 1`` (global indices for the masks; a ring cache's
+    positions come as one device's ring call gives them, ``q_pos`` at the
+    last row).  Each rank keeps the partial maximum of its scores, the sum
+    of their exponentials and the weighted sum of its values; the partials
+    are combined with an all-reduce MAX of the maxima, then all-reduce SUMs
+    of the sums (f32).  The weights are normalised and cast to the values'
+    dtype before the weighted sum, as one device's softmax is, and the f32
+    sums are cast once: the only step of the sharded decode that adds in
+    another order than one device.  The combine holds wherever every key is
+    held by the same number of ranks of ``group`` (a block on each, or a
+    cache whole on each: the sums then scale alike)."""
+    B, _, H, hd = q.shape
+    L, KV = k_blk.shape[1], k_blk.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, KV, G, hd)
+    s = torch.einsum("bkgh,bckh->bkgc", qg, k_blk).to(torch.float32) * scale
+    idx = lo + torch.arange(L, device=q.device)[None, :]
+    valid = (idx < kv_len[:, None]) & (idx <= q_pos[:, None])
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, -1e30))
+    m = s.amax(dim=-1, keepdim=True)                            # (B, KV, G, 1)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    e = torch.exp(s - m)
+    l = e.sum(dim=-1, keepdim=True)
+    dist.all_reduce(l, group=group)
+    p = (e / l).to(v_blk.dtype).to(torch.float32)
+    out = torch.einsum("bkgc,bckh->bkgh", p, v_blk.to(torch.float32))
+    dist.all_reduce(out, group=group)
+    return out.to(v_blk.dtype).reshape(B, 1, H, hd).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # attention block
 # ---------------------------------------------------------------------------
@@ -406,6 +455,9 @@ def attn_apply(p, x, cfg: ModelConfig, *, pos, inv_freq, causal=True, window=0,
     parallelism (module note) each is instead this rank's (B, S_enc,
     columns) block of the k/v projection, and train mode returns the output
     in the residual's layout.
+    In the model-sharded prefill and decode step (module note) ``cache``
+    holds this rank's block of every K/V cache's sequence, and a whisper
+    decode's ``cross_kv`` is the cross K/V of its cache.
 
     ``cache_index`` is an int64 (B,) tensor of per-slot positions on the
     activations' device (``transformer.forward`` makes one from a scalar):
@@ -419,7 +471,7 @@ def attn_apply(p, x, cfg: ModelConfig, *, pos, inv_freq, causal=True, window=0,
     B, S, _ = x.shape
     hd = cfg.head_dim_
     ax = cfg.ax
-    tp = current_tp() if mode == "train" else None
+    tp = current_tp()
     H, KVH = cfg.n_heads * hd, cfg.n_kv_heads * hd
     q = dense(x, p["q"], ax, "attn_qkv", tp, _col(tp, p["q"]["w"], H))
     if cross_kv is None:
@@ -427,8 +479,27 @@ def attn_apply(p, x, cfg: ModelConfig, *, pos, inv_freq, causal=True, window=0,
         v = dense(x, p["v"], ax, "attn_qkv", tp, _col(tp, p["v"]["w"], KVH))
     else:
         k, v = cross_kv
+    if tp is not None and mode == "decode":
+        return _decode_sharded(p, q, k, v, cfg, tp, pos=pos, inv_freq=inv_freq,
+                               window=window, cache=cache, cache_index=cache_index,
+                               cross=cross_kv is not None, write_mask=write_mask)
+    prefill = mode == "prefill" and cross_kv is None
+    if prefill and window and prompt_lens is not None:
+        raise ValueError("pad-mask prefill: ring (sliding-window) caches hold "
+                         "the last `window` positions including pads; per-slot "
+                         "serving takes full-attention cache layouts only")
+    new_cache = None
     out_cols = None
     if tp is not None:
+        if prefill:
+            # the cache holds every kv head of the rank's block of its
+            # sequence (module note): the k/v columns gathered, rotated whole
+            k, v = _whole(tp, k, KVH), _whole(tp, v, KVH)
+            kc = k.reshape(B, S, cfg.n_kv_heads, hd)
+            if inv_freq is not None:
+                kc = apply_rope(kc, pos, inv_freq)
+            new_cache = {nm: _cache_block(t, cfg, window, max_cache_len, tp)
+                         for nm, t in (("k", kc), ("v", v.reshape(kc.shape)))}
         # tensor parallelism (module note): this rank's heads, and the kv
         # heads they read; ``cross_kv`` then holds the rank's k/v columns
         q, k, v, out_cols = _tp_heads(tp, q, k, v, cfg)
@@ -441,8 +512,6 @@ def attn_apply(p, x, cfg: ModelConfig, *, pos, inv_freq, causal=True, window=0,
         q = apply_rope(q, pos, inv_freq)
         k = apply_rope(k, pos, inv_freq)
 
-    cdtype = getattr(torch, cfg.compute_dtype)
-    new_cache = None
     if mode == "decode" and cross_kv is not None:
         Se = k.shape[1]
         out = decode_attention(q, k, v, q_pos=torch.full((B,), Se - 1, device=x.device),
@@ -479,35 +548,104 @@ def attn_apply(p, x, cfg: ModelConfig, *, pos, inv_freq, causal=True, window=0,
                                torch.full_like(qpos, 2 ** 30))
         out = chunked_attention(q, k, v, qpos, kpos, causal=causal, window=window,
                                 q_chunk=q_chunk, kv_chunk=kv_chunk)
-        prefill = mode == "prefill" and cross_kv is None
-        if prefill and window:
-            if prompt_lens is not None:
-                raise ValueError("pad-mask prefill: ring (sliding-window) caches hold "
-                                 "the last `window` positions including pads; per-slot "
-                                 "serving takes full-attention cache layouts only")
-            ring = min(window, max_cache_len)
-            take = min(ring, S)
-            slots = torch.arange(S - take, S, device=x.device) % ring
-            new_cache = {}
-            for nm, t in (("k", k), ("v", v)):
-                buf = torch.zeros((B, ring, cfg.n_kv_heads, hd), dtype=cdtype,
-                                  device=x.device)
-                buf[:, slots] = t[:, S - take:].to(cdtype)
-                new_cache[nm] = buf
-        elif prefill:
-            pad = max_cache_len - S
-            shp = (B, pad, cfg.n_kv_heads, hd)
-            new_cache = {
-                nm: torch.cat([t.to(cdtype), torch.zeros(shp, dtype=cdtype,
-                                                           device=x.device)], 1)
-                for nm, t in (("k", k), ("v", v))
-            }
+        if prefill and tp is None:
+            new_cache = {nm: _cache_block(t, cfg, window, max_cache_len, None)
+                         for nm, t in (("k", k), ("v", v))}
     out = out.reshape(B, S, -1)
     if tp is not None:
         if out_cols is not None:
             out = out[..., out_cols[0]:out_cols[1]]
-        return _tp_out(out, p["o"], ax, "attn_out", tp, tp.split(p["o"]["w"].shape[0], H)), None
+        return (_tp_out(out, p["o"], ax, "attn_out", tp, tp.split(p["o"]["w"].shape[0], H)),
+                new_cache)
     return dense(out, p["o"], ax, "attn_out"), new_cache
+
+
+def _whole(tp, t, full: int):
+    """A projection's output columns whole: all-gathered over the model
+    ranks when ``t`` holds this rank's block of ``full``."""
+    return tp.gather(t, -1) if tp.split(t.shape[-1], full) else t
+
+
+def _seq_block(full: int, tp, kv, strict: bool):
+    """(lo, hi) of this rank's block of a cache sequence of ``full`` rows as
+    ``launch.mesh.cache_shardings`` places it: over the group ``kv``
+    (``launch.sharding.current_kv``), else over ``"model"``, else whole;
+    ``strict`` (a self-attention cache, whose decode writes by position):
+    over ``kv`` only, ``ValueError`` otherwise (JAX would leave it whole)."""
+    group, index, n = kv
+    if full % n == 0:
+        return index * (full // n), (index + 1) * (full // n)
+    if strict:
+        raise ValueError(f"a K/V cache of {full} rows does not split over the {n} ranks that "
+                         f"hold its sequence")
+    if n != tp.n and full % tp.n == 0:
+        return tp.block(full)
+    return 0, full
+
+
+def _cache_block(t, cfg: ModelConfig, window: int, max_cache_len: int, tp):
+    """A prefill's decode cache of ``t`` (B, S, KV, hd) in the compute dtype:
+    padded to ``max_cache_len`` rows, or a ring of ``min(window,
+    max_cache_len)`` rows for a windowed layer (position p at row ``p %
+    ring``); under tensor parallelism (``tp``) this rank's block of it
+    (:func:`_seq_block`), built alone."""
+    B, S = t.shape[:2]
+    cdtype = getattr(torch, cfg.compute_dtype)
+    full = min(window, max_cache_len) if window else max_cache_len
+    lo, hi = (0, full) if tp is None else _seq_block(full, tp, current_kv(), strict=True)
+    if window:
+        take = min(full, S)
+        slots = torch.arange(S - take, S, device=t.device) % full
+        buf = torch.zeros((B, full) + tuple(t.shape[2:]), dtype=cdtype, device=t.device)
+        buf[:, slots] = t[:, S - take:].to(cdtype)
+        return buf[:, lo:hi].contiguous() if (lo, hi) != (0, full) else buf
+    real = max(0, min(S, hi) - lo)
+    pad = torch.zeros((B, hi - lo - real) + tuple(t.shape[2:]), dtype=cdtype, device=t.device)
+    return torch.cat([t[:, lo:lo + real].to(cdtype), pad], 1)
+
+
+def _decode_sharded(p, q, k, v, cfg: ModelConfig, tp, *, pos, inv_freq, window, cache,
+                    cache_index, cross: bool, write_mask):
+    """A decode step's attention under tensor parallelism (module note): the
+    query's and this step's k/v columns gathered to every head, this step's
+    row written by the rank whose block of the cache holds it, attention
+    over the block combined across the cache's group
+    (:func:`decode_attention_split`), the rank's heads of the result into
+    the row-parallel ``o``.  ``cross``: ``k``/``v`` are the cross K/V from
+    the cache, every key valid."""
+    B = q.shape[0]
+    hd, H, KV = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
+    group, index, n = current_kv()
+    q = _whole(tp, q, H * hd).reshape(B, 1, H, hd)
+    if cross:
+        far = torch.full((B,), 2 ** 30, dtype=torch.int64, device=q.device)
+        out = decode_attention_split(q, k, v, far, far, group=group)
+    else:
+        k = _whole(tp, k, KV * hd).reshape(B, 1, KV, hd)
+        v = _whole(tp, v, KV * hd).reshape(B, 1, KV, hd)
+        if inv_freq is not None:
+            q = apply_rope(q, pos, inv_freq)
+            k = apply_rope(k, pos, inv_freq)
+        L = cache["k"].shape[1]
+        lo, full = index * L, L * n
+        ci = cache_index
+        slot = ci % full if window else ci
+        ok = (slot >= lo) & (slot < lo + L)       # this rank's row; past the cache drops
+        if write_mask is not None:
+            ok = ok & write_mask
+        rows = torch.arange(B, device=q.device)
+        _write_rows(cache["k"], rows, slot - lo, k[:, 0], ok)
+        _write_rows(cache["v"], rows, slot - lo, v[:, 0], ok)
+        qp = pos[:, 0] if pos.dim() == 2 else pos[:, 0, 0]
+        out = decode_attention_split(q, cache["k"], cache["v"],
+                                     torch.full_like(ci, full - 1) if window else qp,
+                                     torch.clamp(ci + 1, max=full), lo=lo, group=group)
+    out = out.reshape(B, 1, H * hd)
+    split = tp.split(p["o"]["w"].shape[0], H * hd)
+    if split:
+        c0, c1 = tp.block(H * hd)
+        out = out[..., c0:c1]
+    return _tp_out(out, p["o"], cfg.ax, "attn_out", tp, split), (None if cross else cache)
 
 
 def _col(tp, w, full: int) -> Optional[str]:

@@ -1,19 +1,40 @@
 """Model entry points (``repro.models.registry``): init / loss / prefill /
 decode for every family, dispatched on ``cfg.family``: the encoder-decoder
-(``encdec``) is ``whisper``, every other family ``transformer``."""
+(``encdec``) is ``whisper``, every other family ``transformer``.
+
+**The model-sharded prefill and decode step.**  :func:`prefill` and
+:func:`decode_step` take ``par`` as JAX's do, and the model is sharded
+when the call runs under ``launch.sharding.set_mesh_ctx`` of a mesh with
+several ``"model"`` ranks (JAX's convention: outside a mesh nothing is
+sharded).  The port is multi-process SPMD, so every rank makes the same
+call: the global batch (prompts, tokens, per-slot positions, prompt
+lengths and write mask) on every rank, and each rank's own blocks of the
+params (``launch.parallel.serve_params``: heads, ``ff`` and vocab over
+``"model"``) and of the cache (``launch.mesh.cache_shardings``: the batch
+over the batch axes, a K/V cache's sequence over ``"model"``, or over the
+batch axes and ``"model"`` for a batch that does not divide).  A rank
+computes its rows of the batch (all of them where the batch does not
+divide) and returns their logits whole over the vocabulary and its block
+of the new cache.  ``ValueError`` where a cache's sequence, a prompt under
+``seq_shard`` or the SSD heads do not split over the ranks (JAX would pad
+or reshard).  With ``par.dp_only``, a 1-D ``("data",)`` fleet mesh or no
+mesh, nothing here changes.
+"""
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs.base import ModelConfig, ParallelConfig
-from repro_torch.launch.sharding import current_train
+from repro_torch.configs.base import ModelConfig, ParallelConfig, ShapeConfig
+from repro_torch.launch.sharding import current_groups, current_tp, serving
 
 from . import transformer, whisper
 
-__all__ = ["init_params", "init_cache", "train_loss", "prefill", "decode_step"]
+__all__ = ["init_params", "init_cache", "train_loss", "prefill", "decode_step",
+           "input_specs"]
 
 
 def _mod(cfg: ModelConfig):
@@ -54,7 +75,7 @@ def train_loss(params, batch, cfg: ModelConfig, par: Optional[ParallelConfig] = 
     logits, _, aux = _mod(cfg).forward(params, batch, cfg, mode="train", with_aux=True, **kw)
     labels = batch["labels"].to(torch.int64)
     logits = logits.to(torch.float32)
-    tm = current_train()
+    tm = current_groups()
     tp = tm.tp if tm is not None else None
     if tp is not None and tp.split(logits.shape[-1], cfg.padded_vocab):
         ll = _vocab_parallel_ll(logits, labels, cfg, tp)
@@ -94,35 +115,103 @@ def _vocab_parallel_ll(logits, labels, cfg: ModelConfig, tp):
     return pick - (mx[..., 0] + torch.log(sumexp))
 
 
-def prefill(params, batch, cfg: ModelConfig, *, max_cache_len: int, prompt_lens=None):
+def _serve_shard(B: int, decode: bool):
+    """(context, (lo, hi)) of a prefill or decode step over a global batch
+    of ``B`` (module note): under a model-sharded mesh the call's
+    ``launch.sharding.serving`` state (a decode step's residual whole over
+    ``seq``) and this rank's rows; else a null context and every row."""
+    tm, tp = current_groups(), current_tp()
+    if tp is None:
+        return contextlib.nullcontext(), (0, B)
+    return serving(tp.unseq() if decode else tp, tm.kv_group(B)), tm.rows(B)
+
+
+def _rows(t, lo: int, hi: int, B: int):
+    """Rows lo..hi of ``t`` when it is per row ((B, ...), a tensor or an
+    array), else ``t`` (a scalar position, None)."""
+    if (lo, hi) == (0, B) or t is None or isinstance(t, int):
+        return t
+    t = torch.as_tensor(t)
+    return t[lo:hi] if t.dim() >= 1 and t.shape[0] == B else t
+
+
+def prefill(params, batch, cfg: ModelConfig, par: Optional[ParallelConfig] = None, *,
+            max_cache_len: int, prompt_lens=None):
     """Logits for the prompt (``{"tokens"}``, ``{"embeds", "pos"}`` for the
     vlm family, ``{"frames", "tokens"}`` for the encoder-decoder) and a
     decode cache of ``max_cache_len``.  ``prompt_lens`` — optional (B,) real
     prompt lengths: the pad-mask prefill (right-padded prompts attend only to
     real tokens; decoder-only full-attention stacks only, ``ValueError``
-    otherwise, where JAX asserts)."""
-    if cfg.family == "encdec":
-        if prompt_lens is not None:
-            raise ValueError("pad-mask prefill: the encoder-decoder family has none "
-                             "(repro.models.registry asserts the same)")
-        return whisper.forward(params, batch, cfg, mode="prefill", max_cache_len=max_cache_len)
-    return transformer.forward(params, batch, cfg, mode="prefill",
-                               max_cache_len=max_cache_len, prompt_lens=prompt_lens)
+    otherwise, where JAX asserts).  ``par``: as JAX's; under a model-sharded
+    mesh this rank's rows and cache block (module note)."""
+    if cfg.family == "encdec" and prompt_lens is not None:
+        raise ValueError("pad-mask prefill: the encoder-decoder family has none "
+                         "(repro.models.registry asserts the same)")
+    B = next(iter(batch.values())).shape[0]
+    ctx, (lo, hi) = _serve_shard(B, decode=False)
+    batch = {k: _rows(v, lo, hi, B) for k, v in batch.items()}
+    prompt_lens = _rows(prompt_lens, lo, hi, B)
+    with ctx:
+        if cfg.family == "encdec":
+            return whisper.forward(params, batch, cfg, mode="prefill",
+                                   max_cache_len=max_cache_len)
+        return transformer.forward(params, batch, cfg, mode="prefill",
+                                   max_cache_len=max_cache_len, prompt_lens=prompt_lens)
 
 
-def decode_step(params, cache, tokens, cache_index, cfg: ModelConfig, write_mask=None):
+def decode_step(params, cache, tokens, cache_index, cfg: ModelConfig,
+                par: Optional[ParallelConfig] = None, write_mask=None):
     """One serving step: tokens (B, 1) at ``cache_index``, a scalar (the
     whole batch) or an int (B,) vector of per-slot positions; ``write_mask``
     (B,) bool gates each slot's attention-cache write (recurrent and SSM
     state advances regardless, as in JAX; the encoder-decoder takes none and
     raises, where JAX asserts).  The cache is updated in place and
-    returned."""
-    if cfg.family == "encdec":
-        if write_mask is not None:
-            raise ValueError("per-slot decode: the encoder-decoder family has no write "
-                             "mask (repro.models.registry asserts the same)")
-        return whisper.forward(params, {"tokens": tokens}, cfg, mode="decode", cache=cache,
-                               cache_index=cache_index)
-    return transformer.forward(params, {"tokens": tokens}, cfg, mode="decode",
-                               cache=cache, cache_index=cache_index,
-                               write_mask=write_mask)
+    returned.  ``par``: as JAX's; under a model-sharded mesh this rank's
+    rows and cache block (module note)."""
+    if cfg.family == "encdec" and write_mask is not None:
+        raise ValueError("per-slot decode: the encoder-decoder family has no write "
+                         "mask (repro.models.registry asserts the same)")
+    B = tokens.shape[0]
+    ctx, (lo, hi) = _serve_shard(B, decode=True)
+    tokens = _rows(tokens, lo, hi, B)
+    cache_index = _rows(cache_index, lo, hi, B)
+    write_mask = _rows(write_mask, lo, hi, B)
+    with ctx:
+        if cfg.family == "encdec":
+            return whisper.forward(params, {"tokens": tokens}, cfg, mode="decode",
+                                   cache=cache, cache_index=cache_index)
+        return transformer.forward(params, {"tokens": tokens}, cfg, mode="decode",
+                                   cache=cache, cache_index=cache_index,
+                                   write_mask=write_mask)
+
+
+# ---------------------------------------------------------------------------
+# dry-run input specs (meta tensors only)
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """The abstract inputs of an (architecture x shape) cell: JAX's tree
+    (``repro.models.registry.input_specs``) as ``meta`` tensors, its token
+    and position leaves int32 as there.  Nothing is allocated; the decode
+    cache is ``init_cache(..., device="meta")``, the port's per-layer list."""
+    B, S = shape.global_batch, shape.seq_len
+    act = getattr(torch, cfg.compute_dtype)
+
+    def t(shp, dtype=torch.int32):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "encdec":
+            # audio: precomputed frame embeddings (stub frontend) + text
+            out = {"frames": t((B, S, cfg.d_model), act), "tokens": t((B, min(S, 448)))}
+        elif cfg.family == "vlm":
+            out = {"embeds": t((B, S, cfg.d_model), act), "pos": t((B, S, 3))}
+        else:
+            out = {"tokens": t((B, S))}
+        if shape.kind == "train":
+            out["labels"] = t(tuple(out["tokens" if "tokens" in out else "pos"].shape[:2]))
+        return out
+    # decode: one token against a cache of size S
+    return {"tokens": t((B, 1)),
+            "cache": init_cache(cfg, B, S, device="meta",
+                                enc_len=min(S, 1500) if cfg.family == "encdec" else 0)}

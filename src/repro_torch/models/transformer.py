@@ -45,7 +45,11 @@ reduce-scattered over ``seq``, vlm ``embeds`` sliced), the norms run on
 the shard, and each block takes its input all-gathered over ``seq`` and
 reduce-scatters its output; the head gives this rank's vocab columns of
 the logits (``models/registry.train_loss`` is vocab-parallel), from the
-final norm all-gathered over ``seq``.
+final norm all-gathered over ``seq``.  The model-sharded prefill and
+decode step (``models.registry``) run the same layers, with each layer's
+cache the rank's block (``models/layers.py``, ``models/blocks.py``), and
+return the logits whole over the vocabulary (the rank's columns
+all-gathered), so sampling is unchanged.
 """
 from __future__ import annotations
 
@@ -115,7 +119,7 @@ def _layer_apply(p, x, cfg: ModelConfig, kind: str, *, pos, inv_freq, mode, cach
     """Returns (x, new_cache, aux): ``aux`` is a MoE layer's load-balancing
     term, else None.  Under tensor parallelism each block's input is
     entered and its output comes in the residual's layout (module note)."""
-    tp = current_tp() if mode == "train" else None
+    tp = current_tp()
     enter = tp.enter if tp is not None else _identity
     h = enter(rmsnorm(x, p["ln1"], cfg.norm_eps))
     if kind in ("global", "local", "dense_ffn"):
@@ -229,6 +233,12 @@ def embed_lookup(w, tok, dtype, vocab: int, tp=None):
     return tp.exit(x.to(dtype), partial=True)
 
 
+def _whole_vocab(logits, tp, cfg: ModelConfig):
+    """Serving logits whole over the vocabulary: this rank's vocab columns
+    all-gathered over the model ranks (a head left whole gives them all)."""
+    return tp.gather(logits, -1) if tp.split(logits.shape[-1], cfg.padded_vocab) else logits
+
+
 def _embed_in(params, batch, cfg: ModelConfig, dtype, tp=None):
     """(x, pos): token embeddings (scaled by sqrt(d_model) when tied, but not
     for ssm) or the vlm's precomputed ``embeds``; ``pos`` from the batch or
@@ -277,7 +287,7 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
         raise ValueError(f"pad-mask prefill needs a full-attention stack; {cfg.name} has "
                          f"kinds {sorted(set(cfg.layer_kinds()))}")
     dtype = getattr(torch, cfg.compute_dtype)
-    tp = current_tp() if mode == "train" else None
+    tp = current_tp()
     x, pos = _embed_in(params, batch, cfg, dtype, tp)
     B = x.shape[0]
     ci = None
@@ -316,5 +326,7 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
         x = tp.enter(x)
     head_w = params["embed"]["w"] if cfg.tie_embeddings else params["lm_head"]["w"]
     logits = torch.einsum("bsd,vd->bsv", x, weight_cast(head_w, x.dtype))
+    if tp is not None and mode != "train":
+        logits = _whole_vocab(logits, tp, cfg)
     out = (logits, new_cache if mode != "train" else None)
     return out + (aux,) if with_aux else out

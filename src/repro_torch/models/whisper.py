@@ -28,19 +28,27 @@ Under tensor parallelism (a train forward in the sharded step,
 stacks run on the rank's heads and ``ff`` block, the residuals on their seq
 shards under ``seq_shard`` (the frames' and the tokens'), the encoder's
 output gathered whole for the cross K/V, the token lookup and the tied
-head vocab-parallel.
+head vocab-parallel.  In the model-sharded prefill and decode step
+(``models.registry``) the self-attention cache is the rank's block of its
+sequence, as in ``models/transformer.py``; the cross K/V gathered to every
+head keep the rank's block of the frames where they divide over the
+cache's group (or over ``"model"``), else whole, as
+``launch.mesh.cache_shardings`` places them; a decode step's cross
+attention combines its partials across the group either way
+(``layers.decode_attention_split``).  The logits come whole over the
+vocabulary.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.sharding import current_tp
+from repro_torch.launch.sharding import current_kv, current_tp
 from repro_torch.quant.ax import weight_cast
 
-from .layers import _col, attn_apply, attn_init, dense, layernorm, mlp_apply, mlp_init, \
-    ninit, generator, sinusoid_pos
-from .transformer import _identity, _positions, embed_lookup
+from .layers import _col, _seq_block, _whole, attn_apply, attn_init, dense, layernorm, \
+    mlp_apply, mlp_init, ninit, generator, sinusoid_pos
+from .transformer import _identity, _positions, _whole_vocab, embed_lookup
 
 __all__ = ["init_params", "init_cache", "forward", "ax_projections", "MAX_DEC_POS"]
 
@@ -129,6 +137,17 @@ def _cross_kv(p, enc_out, cfg: ModelConfig, tp=None):
     return k, v
 
 
+def _cross_block(t, cfg: ModelConfig, tp):
+    """A prefill's cross K/V for the model-sharded cache (module note): the
+    rank's columns gathered to every kv head, then its block of the
+    frames."""
+    B, Se = t.shape[:2]
+    t = _whole(tp, t, cfg.n_kv_heads * cfg.head_dim_).reshape(B, Se, cfg.n_kv_heads,
+                                                              cfg.head_dim_)
+    lo, hi = _seq_block(Se, tp, current_kv(), strict=False)
+    return t[:, lo:hi].contiguous() if (lo, hi) != (0, Se) else t
+
+
 def _dec_layer(p, x, cfg: ModelConfig, *, pos, enc_kv, mode, cache, cache_index,
                max_cache_len, enter=_identity):
     h = enter(layernorm(x, p["ln1"], cfg.norm_eps))
@@ -185,7 +204,7 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train", cache=None,
     dtype = getattr(torch, cfg.compute_dtype)
     tok = batch["tokens"].to(torch.int64)
     B, S = tok.shape
-    tp = current_tp() if mode == "train" else None
+    tp = current_tp()
     if mode == "decode":
         enc_kv = [(c["xk"], c["xv"]) for c in cache]
         ci = _positions(cache_index, B, tok.device)
@@ -209,9 +228,13 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train", cache=None,
             new_cache.append(cache[i])
         elif mode == "prefill":
             xk, xv = (t.to(dtype) for t in enc_kv[i])
+            if tp is not None:
+                xk, xv = (_cross_block(t, cfg, tp) for t in (xk, xv))
             new_cache.append(dict(new_self, xk=xk, xv=xv))
 
     x = enter(layernorm(x, params["ln_f"], cfg.norm_eps))
     logits = torch.einsum("bsd,vd->bsv", x, weight_cast(params["embed"]["w"], x.dtype))
+    if tp is not None and mode != "train":
+        logits = _whole_vocab(logits, tp, cfg)
     out = (logits, new_cache if mode != "train" else None)
     return out + (torch.zeros((), dtype=torch.float32, device=x.device),) if with_aux else out

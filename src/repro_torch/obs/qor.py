@@ -11,8 +11,8 @@ them on the host:
   step-weighted *exposure*) and, at retirement, summarises per-target mean
   step MAE, each target's share, and the top-k contributing targets with
   their worst tile.  A request with no observed decode step falls back to
-  the fleet profile (``basis="fleet"``).  The continuous batcher that
-  calls it is not ported yet (ROADMAP queue 1).
+  the fleet profile (``basis="fleet"``).  The continuous batcher
+  (``fleet/scheduler.py``) calls it as each request retires.
 
 Plain numpy over records already copied to the host; the field names mirror
 ``runtime.telemetry``'s record schema (``err_lo``/``err_hi``/``n``,

@@ -674,7 +674,7 @@ def ax_dense(x, w, policy: AxPolicy, wcodes=None, tp=None):
     -> dequantize); straight-through exact gradients.  ``wcodes`` — the
     weight's ``quantize_rows(w.float(), axis=0)`` when the caller has it
     (:func:`weight_codes`).  ``tp``: K is split over its model ranks (the
-    ``train.distributed.TensorParallel``), ``x`` and ``w`` hold this rank's
+    ``launch.parallel.TensorParallel``), ``x`` and ``w`` hold this rank's
     block, and the result is the whole sum, or its seq shard (module note)."""
     return _AxDense.apply(x, w, policy, wcodes, tp)
 

@@ -229,7 +229,7 @@ def _head_rows(q2d: torch.Tensor, n: int, tp, split_dim: int) -> torch.Tensor:
 
 def tp_operands(xq, wq, tp, k_split: bool, tile_rows: int = 0):
     """The operands of a projection whose K (``k_split``) or output columns
-    are split over the model ranks (``train.distributed.TensorParallel``),
+    are split over the model ranks (``launch.parallel.TensorParallel``),
     as :func:`operand_summary` and :func:`tile_summary` read them: their
     samples equal those of the one-rank operands.  Only the sampled heads
     cross the ranks, never the operands.

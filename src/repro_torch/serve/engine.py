@@ -89,6 +89,18 @@ gate reads the global budget maximum, so it is the same on every rank.
 ``param_hook`` and ``fused=True`` (``ValueError``, where JAX asserts).
 :func:`token_step` under a mesh takes the global per-slot vectors and the
 rank's own cache rows.
+
+**The model-sharded serve** (``par=``, under ``launch.sharding.set_mesh_ctx``
+of a mesh with several ``"model"`` ranks; ``models.registry``'s note).
+Every rank calls :func:`generate` with the same global prompts and its own
+blocks of the weights (``launch.parallel.serve_params``); the prefill and
+each decode step run on the rank's rows with the model split over
+``"model"`` and the cache split on its sequence, and the sampled tokens are
+all-gathered over the batch axes, so every rank holds the global tokens and
+returns them.  The model-sharded serve is the static eager serve:
+``adaptive=``, ``mesh=`` and a decode step captured as a CUDA graph (whose
+collectives would run through ``gloo``, which a graph cannot capture) raise
+``ValueError``, and so do :func:`token_step` and :func:`prefill_one`.
 """
 from __future__ import annotations
 
@@ -101,7 +113,8 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.launch.sharding import current_groups, current_tp
 from repro_torch.models import decode_step, prefill
 from repro_torch.runtime.scope import ax_scope
 from repro_torch.runtime.telemetry import finish_host_copy, start_host_copy
@@ -211,20 +224,21 @@ class _State:
 
 
 def _decode(params, st: _State, cfg, *, temperature, eos_id, dyn=None, gate=False,
-            tile_rows=0):
+            tile_rows=0, par=None, rows=None):
     """One decode step: done-flags, the model step with gated cache writes,
     sampling and freeze; the state advances in place (no host read).
     Returns the step's stacked telemetry records when an adaptive scope
-    observes it, else None."""
+    observes it, else None.  ``rows`` (the model-sharded serve): this
+    rank's (lo, hi) of the batch and the gather of its sampled tokens."""
     active = st.i < st.budget
     if eos_id is not None:
         active = active & (st.tok != eos_id)
     scope = (ax_scope(dyn, collect=True, gate=gate, tile_rows=tile_rows)
              if dyn is not None else contextlib.nullcontext())
     with scope as sc:
-        logits, _ = decode_step(params, st.cache, st.tok[:, None], st.pos, cfg,
+        logits, _ = decode_step(params, st.cache, st.tok[:, None], st.pos, cfg, par,
                                 write_mask=None if cfg.family == "encdec" else active)
-    nxt = slot_sample(logits[:, -1], st.seeds, st.nt, temperature)
+    nxt = _sample_rows(logits[:, -1], st.seeds, st.nt, temperature, rows)
     tok = torch.where(active, nxt, st.tok)
     inc = active.to(torch.int64)
     st.tok.copy_(tok)
@@ -233,6 +247,23 @@ def _decode(params, st: _State, cfg, *, temperature, eos_id, dyn=None, gate=Fals
     st.i.add_(1)
     st.out.index_copy_(1, st.i, tok[:, None])
     return sc.collected() if (dyn is not None and gate) else None
+
+
+def _sample_rows(last_logits, seeds, nt, temperature, rows):
+    """:func:`slot_sample` of the whole batch; ``rows`` (lo, hi, gather):
+    the logits are the rank's rows, and their samples come back gathered."""
+    if rows is None:
+        return slot_sample(last_logits, seeds, nt, temperature)
+    lo, hi, gather = rows
+    return gather(slot_sample(last_logits, seeds[lo:hi], nt[lo:hi], temperature))
+
+
+def _refuse_model_sharded(what: str):
+    """``ValueError`` for a serving path that does not run under a
+    model-sharded mesh (module note)."""
+    if current_tp() is not None:
+        raise ValueError(f"{what} under a model-sharded mesh is not supported: the "
+                         f"model-sharded serve is generate()'s static eager path")
 
 
 def _state_like(st: _State) -> _State:
@@ -312,7 +343,8 @@ def _dyn_sig(dyn):
 # ---------------------------------------------------------------------------
 
 def generate(params, prompt_batch, cfg: ModelConfig, scfg: ServeConfig, *,
-             adaptive=None, param_hook: Optional[Callable] = None,
+             par: Optional[ParallelConfig] = None, adaptive=None,
+             param_hook: Optional[Callable] = None,
              prompt_lens=None, slot_new_tokens=None, slot_seeds=None,
              max_cache_len: Optional[int] = None, stats: Optional[dict] = None,
              mesh=None):
@@ -337,12 +369,18 @@ def generate(params, prompt_batch, cfg: ModelConfig, scfg: ServeConfig, *,
     synchronise, and ``path`` (``"graph"`` or ``"eager"``).
     ``mesh`` — a fleet mesh: this rank serves its block of the batch and
     every rank returns the global tokens (module note).
+    ``par`` — as JAX's, passed to ``prefill`` and ``decode_step``; under
+    ``set_mesh_ctx`` of a model-sharded mesh the weights are this rank's
+    blocks and every rank returns the global tokens (module note).
     """
     _check_encdec(cfg, adaptive, prompt_lens, slot_new_tokens, slot_seeds, scfg.eos_id)
     if mesh is not None and (adaptive is None or param_hook is not None or not scfg.fused):
         raise ValueError("mesh= requires the adaptive fused path (an adaptive controller, "
                          "fused=True and no param_hook)")
     device = params["embed"]["w"].device
+    shard_rows = None
+    if current_tp() is not None:
+        _check_model_sharded(device, scfg, adaptive, mesh)
     batch = {k: torch.as_tensor(v, device=device) for k, v in prompt_batch.items()}
     B, S = (batch["tokens"] if "tokens" in batch else batch["embeds"]).shape[:2]
     max_len = max_cache_len or (S + scfg.max_new_tokens + 1)
@@ -367,6 +405,10 @@ def generate(params, prompt_batch, cfg: ModelConfig, scfg: ServeConfig, *,
              .reshape(B))
     # the observe gate reads the global budget maximum (shard-invariant)
     bmax = int(budget_host.max()) if B else 0
+    if current_tp() is not None:
+        tm = current_groups()
+        lo, hi = tm.rows(B)
+        shard_rows = (lo, hi, lambda t: tm.gather_rows(t, B))
     group = None
     if mesh is not None:
         from repro_torch.fleet import collect
@@ -383,12 +425,16 @@ def generate(params, prompt_batch, cfg: ModelConfig, scfg: ServeConfig, *,
     with torch.inference_mode():
         t0 = time.perf_counter()
         with obs.span("prefill", cat="engine", batch=B, seq=S):
-            logits, cache = prefill(params, batch, cfg, max_cache_len=max_len,
+            logits, cache = prefill(params, batch, cfg, par, max_cache_len=max_len,
                                     prompt_lens=pl)
-            rows = torch.arange(B, device=device)
-            last = logits[:, -1] if pl is None else logits[rows, pl - 1]
+            if pl is None:
+                last = logits[:, -1]
+            else:
+                lo = shard_rows[0] if shard_rows is not None else 0
+                pl_rows = pl[lo:lo + logits.shape[0]]
+                last = logits[torch.arange(logits.shape[0], device=device), pl_rows - 1]
             zeros = torch.zeros(B, dtype=torch.int64, device=device)
-            tok = slot_sample(last, seeds, zeros, scfg.temperature)
+            tok = _sample_rows(last, seeds, zeros, scfg.temperature, shard_rows)
             if stats is not None:
                 _sync(device)
                 stats["prefill_s"] = time.perf_counter() - t0
@@ -420,7 +466,7 @@ def generate(params, prompt_batch, cfg: ModelConfig, scfg: ServeConfig, *,
                 dyn = _dyn_on(adaptive, device) if adaptive is not None else None
                 tile_rows = adaptive.tile_rows if adaptive is not None else 0
                 kw = dict(temperature=scfg.temperature, eos_id=scfg.eos_id,
-                          tile_rows=tile_rows)
+                          tile_rows=tile_rows, par=par, rows=shard_rows)
                 if graphs:
                     path = "graph"
                     st = _fused_graph(params, st, cfg, dyn, gates, kw, max_len, adaptive,
@@ -434,7 +480,8 @@ def generate(params, prompt_batch, cfg: ModelConfig, scfg: ServeConfig, *,
                     for copy in copies:
                         adaptive.observe(finish_host_copy(copy))
             elif n_steps > 0:
-                _decode_stepwise(params, st, cfg, scfg, adaptive, param_hook, gates)
+                _decode_stepwise(params, st, cfg, scfg, adaptive, param_hook, gates,
+                                 par=par, rows=shard_rows)
             result = st.out.to(torch.int32)
             if mesh is not None:      # (steps, B) tokens, as JAX's spec reads them
                 result = collect.gather_outputs((result.T,), out_specs[:1], mesh)[0].T
@@ -445,6 +492,20 @@ def generate(params, prompt_batch, cfg: ModelConfig, scfg: ServeConfig, *,
         _DECODE_WALL.observe(time.perf_counter() - t0, path=kind)
         _DECODE_TOKENS.inc(B * scfg.max_new_tokens)
     return result
+
+
+def _check_model_sharded(device, scfg: ServeConfig, adaptive, mesh) -> None:
+    """The refusals of the model-sharded serve (module note)."""
+    if mesh is not None:
+        raise ValueError("mesh= (the fleet mesh) and a model-sharded mesh context do not "
+                         "combine")
+    if adaptive is not None:
+        raise ValueError("adaptive serving under a model-sharded mesh is not supported: the "
+                         "model-sharded serve is the static path")
+    if _use_graphs(device, scfg.cuda_graphs) and scfg.fused:
+        raise ValueError("a model-sharded decode step runs collectives (gloo between ranks "
+                         "sharing a card), which a CUDA graph cannot capture: pass "
+                         "ServeConfig(cuda_graphs=False)")
 
 
 def _fleet(rec, group):
@@ -492,12 +553,13 @@ def _fused_graph(params, st: _State, cfg, dyn, gates, kw, max_len, adaptive, gro
     return prog.buf["state"]
 
 
-def _decode_stepwise(params, st: _State, cfg, scfg, adaptive, param_hook, gates):
+def _decode_stepwise(params, st: _State, cfg, scfg, adaptive, param_hook, gates, par=None,
+                     rows=None):
     """One eager step at a time (``engine.py:558``): the params hook and
     the per-step policy read come before each step; step i-1's records are
     observed after step i was issued, while it runs."""
     kw = dict(temperature=scfg.temperature, eos_id=scfg.eos_id,
-              tile_rows=adaptive.tile_rows if adaptive is not None else 0)
+              tile_rows=adaptive.tile_rows if adaptive is not None else 0, par=par, rows=rows)
     pending = None
     for i, gate in enumerate(gates):
         if param_hook is not None:
@@ -557,6 +619,7 @@ def token_step(params, cache, tok, pos, active, cfg: ModelConfig, *,
     block, its records come back aggregated over the mesh and ``tok'``
     all-gathered (module note)."""
     device = params["embed"]["w"].device
+    _refuse_model_sharded("token_step")
     if (seeds is None) != (nt is None):
         raise ValueError("seeds and nt come together")
     if mesh is not None:
@@ -648,6 +711,7 @@ def prefill_one(params, tokens, length: int, cfg: ModelConfig, *, max_cache_len:
     count, so a continuous batcher passes its slot count: the request then
     gets the bits of a wave's batched prefill at the same bucket."""
     device = params["embed"]["w"].device
+    _refuse_model_sharded("prefill_one")
     if temperature > 0 and seed is None:
         raise ValueError("prefill_one samples at temperature > 0 from the request's "
                          "stream: pass seed")

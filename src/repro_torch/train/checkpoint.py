@@ -32,6 +32,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.launch.mesh import block_index as _block
+
 __all__ = ["save", "restore", "gather_state", "latest_step", "load_tree", "AsyncCheckpointer"]
 
 
@@ -119,26 +121,6 @@ def load_tree(ckpt_dir: str, step: int):
             a = np.ascontiguousarray(a).view(np.uint16)
         node[leaf] = a
     return tree, manifest["extra"]
-
-
-def _block(mesh, spec, shape):
-    """The index of this rank's block of a leaf of ``shape`` under ``spec``
-    on ``mesh`` (a tuple of slices): along each sharded dim the rank's
-    coordinate over the dim's mesh axes, in row-major order."""
-    names = list(mesh.mesh_dim_names)
-    index = []
-    for d, ax in enumerate(tuple(spec) + (None,) * (len(shape) - len(spec))):
-        axes = ax if isinstance(ax, tuple) else ((ax,) if ax else ())
-        coord, size = 0, 1
-        for a in axes:
-            n = mesh.size(names.index(a))
-            coord, size = coord * n + mesh.get_local_rank(a), size * n
-        if shape[d] % size:
-            raise ValueError(f"dim {d} of {tuple(shape)} does not divide over {size} ranks "
-                             f"({spec})")
-        k = shape[d] // size
-        index.append(slice(coord * k, (coord + 1) * k))
-    return tuple(index)
 
 
 def restore(ckpt_dir: str, step: int, like, device="cuda", sharding_tree=None, mesh=None):

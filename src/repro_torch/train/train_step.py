@@ -251,7 +251,7 @@ def make_train_step(cfg: ModelConfig, par: Optional[ParallelConfig], opt_cfg: Ad
         if mesh is None:
             check_parallel(par, adaptive, mesh_)
         tm = D.train_mesh(mesh_, par)
-        with set_mesh_ctx(mesh_, par, train=tm):
+        with set_mesh_ctx(mesh_, par, groups=tm):
             return body(state, batch, dyn, tm)
 
     if not adaptive:

@@ -8,8 +8,9 @@ CLI, a train step with a checkpoint, the train CLI, the schedule autotuner's
 CLI with a store, a reader and ``resolve``, the serve CLI's
 ``--autotune``, its ``--fleet 2`` over spawned ranks, a one-rank fleet mesh
 with a mesh-sharded serve and batcher, the sharded train step on a
-one-rank train mesh, and the spec trees of the multi-pod mesh load
-neither; the examples are held so in
+one-rank train mesh, the spec trees of the multi-pod mesh, and a dry-run
+cell of the model-sharded decode step on a fake world with its op tables
+load neither; the examples are held so in
 ``tests/test_torch_examples.py``), and
 ``chip_smoke.py`` refuses to run without a CUDA device or outside a
 checkout."""
@@ -145,6 +146,18 @@ with tempfile.TemporaryDirectory() as root:
     dist.destroy_process_group()
     specs = param_shardings(production_mesh_shape(multi_pod=True), ParallelConfig(),
                             init_params(ARCHS["qwen2-72b"], device="meta"))
+    import io
+    from repro_torch.launch import dryrun, hlo_analyze
+    from repro_torch.launch.sharding import MeshShape
+    drow = dryrun.run_cell("qwen2-72b", "decode_32k", False,
+                           ParallelConfig(seq_shard=True, ep=True, remat="none"),
+                           verbose=False, mesh=MeshShape(("data", "model"), (1, 2)),
+                           cfg_patch=dict(n_layers=2, d_model=256, d_ff=512, n_heads=4,
+                                          n_kv_heads=2, head_dim=64, vocab=1024),
+                           keep_recorder=True)
+    tables = io.StringIO()
+    hlo_analyze.report(drow["recorder"], 3, out=tables)
+    dry = [drow["status"], drow["mesh"], "largest individual ops" in tables.getvalue()]
 from repro_torch.kernels import autotune as TA, clear_table, resolve
 with tempfile.TemporaryDirectory() as root:
     TA.main(["--device", "cpu", "--quick", "--shapes", "4x64x48", "--store", root])
@@ -163,7 +176,7 @@ print(json.dumps({{"modules": len(names), "bad": bad, "shape": list(toks.shape),
                   "served": served, "cli": cli.stats["requests"],
                   "mesh": [list(meshed.shape), mesh_served, fleet2["stats"]["requests"],
                            list(specs["embed"]["w"]), mesh_trained],
-                  "families": families, "trained": trained,
+                  "families": families, "trained": trained, "dry": dry,
                   "autotune": [sched_reader.version, sched.backend, list(tuned.shape)]}}))
 """
 
@@ -191,6 +204,7 @@ def test_importing_and_running_the_port_loads_no_jax_and_no_repro():
     assert res["trained"] == [1, 1]
     assert res["mesh"] == [[2, 3], 3, 2, ["model", None], 1]
     assert res["autotune"] == [1, "mxu", [1, 2]]
+    assert res["dry"] == ["ok", "1x2", True]
 
 
 def _imported_roots(path: Path):
@@ -272,6 +286,17 @@ def _entry_points():
             "component_sweep_kernel": ops.component_sweep_kernel,
             "tune_app": apps.tune_app, "evaluate": apps.evaluate,
             "is_commutative": mults.is_commutative}
+
+
+@pytest.mark.parametrize("module", ["dryrun", "hlo_analyze"])
+def test_the_dry_run_tools_take_no_device(module):
+    """The analysis CLIs run a cell on fake tensors over a fake world: they
+    allocate nothing, touch no device and take no ``--device``."""
+    import importlib
+
+    parser = importlib.import_module(f"repro_torch.launch.{module}")._parser()
+    args = parser.parse_args(["--arch", "qwen2-72b", "--shape", "decode_32k"])
+    assert not hasattr(args, "device")
 
 
 @pytest.mark.parametrize("name", sorted(_entry_points()))
