@@ -160,6 +160,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
             columns rounds apart from the whole one), the decode ms/step,
             the collectives' share of a serve (each between two
             synchronises) and the peak a rank printed;
+   tp adapt — adaptive serving of the model-sharded model on the same two
+            ranks and configs (``TPA_*``): ``generate(par=, adaptive=,
+            param_hook=drift_hook(3, 0.05))`` of B = 4 x 32 and 12 tokens in
+            scalar mode and in tile mode (2 row tiles), then two token-mode
+            ``ContinuousBatcher(adaptive=, par=)`` drains of 8 requests on 4
+            slots with one controller, the second of the drifted weights,
+            every decode step eager (``cuda_graphs=False``); the same on one
+            card in this process with the ranks' q/k/v GEMMs
+            (``tps_witness``) and plainly.  Hard: the tokens, every observed
+            record (field by field), the re-tunes, the tile re-tunes' grids
+            and the policy JSON equal to the witness's and on both ranks,
+            the drift serve re-tuning; executed launches a rank =
+            projections x (2 prefills + 16 admissions) ``ax_matmul`` and x
+            (2 x 11 + the drains' steps) ``ax_matmul_grid``; the launched
+            shapes == those reckoned from the config and its split (the
+            grid kernel's in tile mode unpadded along N), the new ones held
+            to the plain version; no graph capture, no nvcc.  Printed: the
+            plain one card's agreement, prefill and decode ms/step, the
+            collectives' share of a tile serve and the records' gathers
+            (``runtime.telemetry.tp_operands``; a synchronise around each);
 5. serve  — qwen2-72b at its published widths, depth cut to 2 layers,
             random weights from a seed: the per-forward weight work that
             the weight cache removes, timed against its bytes; B=4 prompts
@@ -4249,20 +4269,24 @@ TOL_TPS_WITNESS = 0.0
 
 
 @contextlib.contextmanager
-def tps_witness(n: int):
+def tps_witness(n: int, attention: bool = False):
     """One card, in this process, computing the plain (not SWAPPER) q/k/v
     projections as ``n`` column blocks, each a GEMM of the shape and layout
     that a rank of the tp serve's ``n`` model ranks runs; everything else as
     one card computes it.  The witness of the cause of the ranks' bf16 gap
     against the plain one-card serve: a GEMM over half the columns may round
-    its f32 sums to bf16 apart from the whole GEMM.  The sharded serve runs
-    unpatched in the ranks' processes."""
+    its f32 sums to bf16 apart from the whole GEMM.  ``attention``: each
+    decode step's attention also in the ranks' order
+    (``layers.decode_attention_split``'s partial softmax statistics over
+    ``n`` blocks of the cache's sequence, combined in rank order), for a
+    full-attention cache.  The sharded serve runs unpatched in the ranks'
+    processes."""
     import torch
 
     from repro_torch.models import layers
     from repro_torch.quant.ax import weight_cast
 
-    dense0 = layers.dense
+    dense0, attend0 = layers.dense, layers.decode_attention
 
     def dense(x, p, ax=None, target="", tp=None, role=None):
         if target != "attn_qkv" or tp is not None or (ax is not None and target in ax.targets):
@@ -4271,11 +4295,42 @@ def tps_witness(n: int):
         y = torch.cat([x @ c.contiguous() for c in w.chunk(n, dim=-1)], dim=-1)
         return y + p["b"].to(x.dtype) if "b" in p else y
 
+    def attend(q, k_cache, v_cache, q_pos, kv_len, *, window=0):
+        if window or k_cache.shape[1] % n:
+            return attend0(q, k_cache, v_cache, q_pos, kv_len, window=window)
+        B, _, H, hd = q.shape
+        L, KV = k_cache.shape[1] // n, k_cache.shape[2]
+        qg = q.reshape(B, KV, H // KV, hd)
+        scale = 1.0 / math.sqrt(hd)
+        scores, values = [], []
+        for r in range(n):
+            kb = k_cache[:, r * L:(r + 1) * L].contiguous()
+            s = torch.einsum("bkgh,bckh->bkgc", qg, kb).to(torch.float32) * scale
+            idx = r * L + torch.arange(L, device=q.device)[None, :]
+            valid = (idx < kv_len[:, None]) & (idx <= q_pos[:, None])
+            scores.append(torch.where(valid[:, None, None, :], s, torch.full_like(s, -1e30)))
+            values.append(v_cache[:, r * L:(r + 1) * L].contiguous())
+        m = scores[0].amax(dim=-1, keepdim=True)
+        for s in scores[1:]:
+            m = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        es = [torch.exp(s - m) for s in scores]
+        lsum = es[0].sum(dim=-1, keepdim=True)
+        for e in es[1:]:
+            lsum = lsum + e.sum(dim=-1, keepdim=True)
+        out = None
+        for e, vb in zip(es, values):
+            p = (e / lsum).to(vb.dtype).to(torch.float32)
+            o = torch.einsum("bkgc,bckh->bkgh", p, vb.to(torch.float32))
+            out = o if out is None else out + o
+        return out.to(v_cache.dtype).reshape(B, 1, H, hd).to(q.dtype)
+
     layers.dense = dense
+    if attention:
+        layers.decode_attention = attend
     try:
         yield
     finally:
-        layers.dense = dense0
+        layers.dense, layers.decode_attention = dense0, attend0
 
 
 def _tps_configs():
@@ -4560,6 +4615,352 @@ def tp_serve_phase(dev, card: str, clock: float):
     return rows, shape_rows, paths
 
 
+TPA_T = 12                               # tokens of each adaptive serve
+TPA_LEN = 46                             # S + T + 1 = 45 rows, even for the 2-row split
+TPA_DRIFT = (3, 0.05)                    # drift_hook(step, scale)
+TPA_CTRL = dict(min_observe_steps=2, cooldown_steps=2, drift_threshold=0.01)
+TPA_TILES = 2                            # tile mode's row tiles
+TPA_SLOTS, TPA_BUCKET, TPA_NEW, TPA_REQS = 4, 32, 11, 8   # the batcher: a 44-row cache
+
+
+def _tpa_controller(cfg, tile_rows: int, dev):
+    """An adaptive controller whose observed host records are kept."""
+    import numpy as np
+
+    import repro_torch.runtime as TR
+
+    ctrl = TR.AdaptiveController(TR.SwapPolicy.from_ax_policy(cfg.ax), cfg.ax.targets,
+                                 TR.AdaptiveConfig(tile_rows=tile_rows, **TPA_CTRL),
+                                 device=dev)
+    seen = []
+    observe = ctrl.observe
+
+    def recording(records):
+        seen.append({t: {k: np.array(v) for k, v in r.items()} for t, r in records.items()})
+        return observe(records)
+
+    ctrl.observe = recording
+    return ctrl, seen
+
+
+def _tpa_result(ctrl, seen, tokens) -> dict:
+    """Tokens, every observed record, the re-tunes (step, target, old and
+    new triples), the tile re-tunes (step, target, grid) and the policy."""
+    import numpy as np
+
+    short = (lambda c: None if c is None else c.short())
+    return dict(tokens=np.asarray(tokens), records=seen,
+                retunes=[(e.step, e.target, short(e.old), short(e.new)) for e in ctrl.retunes],
+                tile_retunes=[(e.step, e.target, np.asarray(e.grid).tolist())
+                              for e in ctrl.tile_retunes],
+                policy=ctrl.policy.to_json())
+
+
+def _tpa_requests(cfg):
+    """The batcher's seeded requests: (prompt, budget) pairs."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    return [(rng.integers(0, cfg.vocab, int(rng.integers(8, TPA_BUCKET + 1))).astype(np.int32),
+             int(rng.integers(2, TPA_NEW + 1))) for _ in range(TPA_REQS)]
+
+
+def _tpa_serves(params, cfg, prompts, dev, par=None, timing=None):
+    """The adaptive drift serves (scalar and tile mode) and two token-mode
+    batcher drains with one controller, the second of the drift hook's
+    drifted weights, under whatever mesh context is installed; every decode
+    step eager.  ``timing`` (a dict): each serve's ``stats`` kept there."""
+    import torch
+
+    from repro_torch.fleet import BatcherConfig, ContinuousBatcher, Request
+    from repro_torch.launch.serve import drift_hook
+    from repro_torch.serve import ServeConfig, generate
+
+    out = {}
+    scfg = ServeConfig(max_new_tokens=TPA_T, cuda_graphs=False)
+    for tr in (0, TPA_TILES):
+        ctrl, seen = _tpa_controller(cfg, tr, dev)
+        stats = {}
+        toks = generate(params, {"tokens": prompts}, cfg, scfg, par=par, adaptive=ctrl,
+                        param_hook=drift_hook(*TPA_DRIFT), max_cache_len=TPA_LEN, stats=stats)
+        out[f"gen{tr}"] = _tpa_result(ctrl, seen, toks.cpu())
+        if timing is not None:
+            timing[f"gen{tr}"] = stats
+    ctrl, seen = _tpa_controller(cfg, 0, dev)
+    tokens, steps = {}, 0
+    for j, p in enumerate((params, drift_hook(0, TPA_DRIFT[1])(0, params))):
+        bat = ContinuousBatcher(p, cfg, BatcherConfig(
+            n_slots=TPA_SLOTS, prompt_buckets=(TPA_BUCKET,), new_token_bucket=TPA_NEW,
+            token_granular=True), adaptive=ctrl, par=par)
+        for i, (prompt, budget) in enumerate(_tpa_requests(cfg)):
+            bat.submit(Request(100 * j + i, prompt.copy(), budget))
+        tokens.update({c.rid: [int(t) for t in c.tokens] for c in bat.run()})
+        steps += bat.stats["decode_steps"]
+    torch.cuda.synchronize()
+    out["batcher"] = dict(_tpa_result(ctrl, seen, []), tokens=tokens, steps=steps)
+    return out
+
+
+def tp_adapt_rank(rank, _fleet, ref_path):
+    """One of the two ``gloo`` ranks of the tp adapt phase: per config the
+    rank's blocks of the seeded weights under ``set_mesh_ctx``, the serves
+    and drains of ``_tpa_serves``, with their launches, launched shapes and
+    graph captures; then the drift serve again with its collectives and
+    its records' gathers timed.  Results as numpy and plain values."""
+    import torch
+
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ax_matmul import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.parallel import serve_params
+    from repro_torch.launch.sharding import set_mesh_ctx
+    from repro_torch.models import init_params
+    from repro_torch.serve import graph as G
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = (torch.device("cuda", torch.cuda.current_device()) if _fleet.device_type == "cuda"
+           else torch.device("cpu"))
+    nvcc0 = _build.NVCC_RUNS["count"]
+    refs = torch.load(ref_path)
+    mesh = make_mesh((1, TPS_RANKS), ("data", "model"), device=dev.type, backend="gloo")
+    par = ParallelConfig(fsdp=True, seq_shard=True, ep=True)     # JAX's default layout
+    out = {}
+    for cfg in _tps_configs():
+        whole = init_params(cfg, seed=0, device=dev)
+        params = serve_params(whole, mesh, par)
+        del whole
+        torch.cuda.empty_cache()
+        prompts = refs[cfg.name].to(dev)
+        captures = sum(G.captures_by_kind().values())
+        timing = {}
+        with set_mesh_ctx(mesh, par), kernel_shapes() as seen:
+            reset_launches()
+            row = _tpa_serves(params, cfg, prompts, dev, par, timing)
+            row["launches"] = dict(LAUNCHES)
+        row["captures"] = sum(G.captures_by_kind().values()) - captures
+        row["shapes"] = {k: sorted(v) for k, v in seen.items()}
+        row["timing"] = {k: dict(v) for k, v in timing.items()}
+        # the tile-mode drift serve again, warm: plain (its step times), then
+        # with the collectives, then with the records' gathers
+        # (``runtime.telemetry.tp_operands``) each between synchronises
+        from repro_torch.launch.serve import drift_hook
+        from repro_torch.runtime import telemetry
+        from repro_torch.serve import ServeConfig, generate
+
+        def again(timer):
+            ctrl, _ = _tpa_controller(cfg, TPA_TILES, dev)
+            stats = {}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with set_mesh_ctx(mesh, par), timer as acc:
+                generate(params, {"tokens": prompts}, cfg,
+                         ServeConfig(max_new_tokens=TPA_T, cuda_graphs=False), par=par,
+                         adaptive=ctrl, param_hook=drift_hook(*TPA_DRIFT),
+                         max_cache_len=TPA_LEN, stats=stats)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t, acc, stats
+
+        row["timing"]["warm"] = again(contextlib.nullcontext({}))[2]
+        wall, coll, _ = again(_collective_timer())
+        row.update(coll_s=coll["s"], coll_calls=coll["calls"], timed_s=wall)
+        wall, gath, _ = again(_timed_call(telemetry, "tp_operands"))
+        row.update(gather_s=gath["s"], gather_calls=gath["calls"], gather_timed_s=wall)
+        out[cfg.name] = row
+        del params
+        torch.cuda.empty_cache()
+    out["nvcc"] = _build.NVCC_RUNS["count"] - nvcc0
+    return out
+
+
+@contextlib.contextmanager
+def _timed_call(module, name: str):
+    """Host wall of each call of ``module.name``, the card synchronised
+    before and after it."""
+    import torch
+
+    acc = {"s": 0.0, "calls": 0}
+    real = getattr(module, name)
+
+    def call(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = real(*a, **kw)
+        torch.cuda.synchronize()
+        acc["s"] += time.perf_counter() - t
+        acc["calls"] += 1
+        return res
+
+    setattr(module, name, call)
+    try:
+        yield acc
+    finally:
+        setattr(module, name, real)
+
+
+def _tpa_same(a: dict, b: dict) -> list:
+    """The ways two ``_tpa_result``s differ: tokens, each record (field by
+    field, shapes and dtypes included), re-tunes, tile grids, policy."""
+    import numpy as np
+
+    out = []
+    ta, tb = a["tokens"], b["tokens"]
+    if not (ta == tb if isinstance(ta, dict) else np.array_equal(ta, tb)):
+        out.append("tokens")
+    if len(a["records"]) != len(b["records"]):
+        out.append(f"{len(a['records'])} vs {len(b['records'])} records")
+    for i, (ra, rb) in enumerate(zip(a["records"], b["records"])):
+        for t in sorted(set(ra) | set(rb)):
+            fa, fb = ra.get(t, {}), rb.get(t, {})
+            bad = [k for k in sorted(set(fa) | set(fb))
+                   if k not in fa or k not in fb or fa[k].shape != fb[k].shape
+                   or fa[k].dtype != fb[k].dtype or not np.array_equal(fa[k], fb[k])]
+            if bad:
+                out.append(f"record {i} {t} {bad}")
+    for key in ("retunes", "tile_retunes", "policy"):
+        if a[key] != b[key]:
+            out.append(key)
+    return out
+
+
+def tp_adapt_phase(dev, card: str, clock: float, held=()):
+    """Phase 4f (module note): each config's adaptive serves and drains on
+    one card in this process, plainly and with the ranks' q/k/v GEMMs
+    (``tps_witness``), then the two ``gloo`` ranks spawned on the card.
+    ``held``: the (M, K, N) of ``ax_matmul`` already held to the plain
+    version in this run (the tp serve phase's), not timed again.  Returns
+    (rows, ``ax_matmul`` shape rows, ``ax_matmul_grid`` shape rows,
+    launches by path, grid launches by path)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import init_params, transformer
+    from repro_torch.serve import engine
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    refs, prompts = {}, {}
+    for cfg in _tps_configs():
+        params = init_params(cfg, seed=0, device=dev)
+        prompts[cfg.name] = torch.randint(0, cfg.vocab, (B, S),
+                                          generator=torch.Generator().manual_seed(2))
+        use = engine._use_graphs
+        engine._use_graphs = lambda device, enabled: False     # the drains eager, as the ranks'
+        try:
+            plain = _tpa_serves(params, cfg, prompts[cfg.name].to(dev), dev)
+            with tps_witness(TPS_RANKS, attention=True):
+                witness = _tpa_serves(params, cfg, prompts[cfg.name].to(dev), dev)
+        finally:
+            engine._use_graphs = use
+        refs[cfg.name] = dict(plain=plain, witness=witness)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_adapt_") as tmp:
+        path = os.path.join(tmp, "prompts.pt")
+        torch.save(prompts, path)
+        res = spawn(tp_adapt_rank, TPS_RANKS, args=(path,), device=dev.type, backend="gloo",
+                    timeout_s=600)
+    ranks_s = time.perf_counter() - t1
+    problems, rows, shape_list, grid_list, paths, grid_paths = [], {}, [], [], {}, {}
+    for rank, r in enumerate(res):
+        if r["nvcc"]:
+            problems.append(f"rank {rank}: {r['nvcc']} nvcc runs")
+    for cfg in _tps_configs():
+        name = cfg.name
+        witness, plain = refs[name]["witness"], refs[name]["plain"]
+        per = [r[name] for r in res]
+        n_ax = len(transformer.ax_projections(cfg))
+        steps = per[0]["batcher"]["steps"]
+        admissions = 2 * TPA_REQS
+        want = {"ax_matmul": n_ax * (2 + admissions),
+                "ax_matmul_grid": n_ax * (2 * (TPA_T - 1) + steps)}
+        for rank, row in enumerate(per):
+            if row["launches"] != want:
+                problems.append(f"{name} rank {rank}: launches {row['launches']} (want {want}: "
+                                f"{n_ax} projections x (2 prefills + {admissions} admissions), "
+                                f"x (2 x {TPA_T - 1} + {steps} steps))")
+            if row["captures"]:
+                problems.append(f"{name} rank {rank}: {row['captures']} graph captures")
+            for key in ("gen0", f"gen{TPA_TILES}", "batcher"):
+                diff = _tpa_same(row[key], witness[key])
+                if diff:
+                    problems.append(f"{name} rank {rank} {key}: differs from one card with the "
+                                    f"ranks' q/k/v in {diff[:6]}")
+                if _tpa_same(row[key], per[0][key]):
+                    problems.append(f"{name} rank {rank} {key}: differs from rank 0's")
+        if not per[0]["gen0"]["retunes"]:
+            problems.append(f"{name}: the drift serve re-tuned nothing")
+        # every launched shape: reckoned from the config and its split
+        reck = _tm_tp_shapes(cfg, B * S, TPS_RANKS, f"{name} tp adapt prefill")
+        reck_grid = _tm_tp_shapes(cfg, B, TPS_RANKS, f"{name} tp adapt decode")
+        for _, proj, K, N in transformer.ax_projections(cfg):
+            K, N = (K // TPS_RANKS, N) if proj.endswith(" out") else (K, N // TPS_RANKS)
+            reck_grid.setdefault((B, _padded(K), N), f"{name} tp adapt decode tiles {proj}")
+        for rank, row in enumerate(per):
+            seen = {k: set(map(tuple, v)) for k, v in row["shapes"].items()}
+            if seen["ax_matmul"] != set(reck) or seen["ax_matmul_grid"] != set(reck_grid):
+                problems.append(f"{name} rank {rank}: kernel shapes {seen}, reckoned "
+                                f"{sorted(reck)} and {sorted(reck_grid)}")
+        shape_list += [(label,) + k for k, label in sorted(reck.items())]
+        grid_list += [(label,) + k for k, label in sorted(reck_grid.items())]
+        r0 = per[0]
+        st = r0["timing"]
+        rows[name] = dict(
+            plain_equal={k: not _tpa_same(r0[k], plain[k]) for k in r0 if k in plain},
+            plain_diff={k: _tpa_same(r0[k], plain[k])[:3] for k in r0 if k in plain},
+            retunes=len(r0["gen0"]["retunes"]),
+            tile_retunes=len(r0[f"gen{TPA_TILES}"]["tile_retunes"]),
+            batcher_retunes=len(r0["batcher"]["retunes"]), steps=steps,
+            prefill_ms=1e3 * st["warm"]["prefill_s"],
+            decode_ms={k: 1e3 * v["decode_s"] / (TPA_T - 1) for k, v in st.items()},
+            coll_share=[row["coll_s"] / row["timed_s"] for row in per],
+            coll_calls=r0["coll_calls"],
+            gather_ms=[1e3 * row["gather_s"] for row in per],
+            gather_share=[row["gather_s"] / row["gather_timed_s"] for row in per],
+            gather_calls=r0["gather_calls"], launches=want)
+        paths[f"tp adapt {name} (rank 0)"] = r0["launches"]["ax_matmul"]
+        grid_paths[f"tp adapt {name} (rank 0)"] = r0["launches"]["ax_matmul_grid"]
+    for name, row in rows.items():
+        print(f"tp adapt {name} x{L} on two gloo ranks (('data', 'model') = (1, {TPS_RANKS}), "
+              f"fsdp + seq_shard + ep, bf16 mxu, B={B} x {S}, {TPA_T} tokens, drift_hook"
+              f"{TPA_DRIFT}, cache {TPA_LEN} rows): the drift serve in scalar and tile mode "
+              f"({TPA_TILES} row tiles) and two token-mode drains ({TPA_REQS} requests each on "
+              f"{TPA_SLOTS} slots, {row['steps']} steps, the second of the drifted weights) "
+              f"bit-equal to one card with the ranks' q/k/v GEMMs: tokens, every observed "
+              f"record, re-tunes ({row['retunes']} scalar, {row['tile_retunes']} tile, "
+              f"{row['batcher_retunes']} in the drains), policy; the ranks agreeing; "
+              f"launches a rank {row['launches']}; 0 graph captures, 0 nvcc; against the plain "
+              f"one card (reported): equal {row['plain_equal']} {row['plain_diff']}; the "
+              f"warm tile serve: prefill {row['prefill_ms']:.1f} ms, decode ms/step "
+              f"{ {k: round(v, 1) for k, v in row['decode_ms'].items()} } (gen: the first "
+              f"serves); collectives "
+              f"{row['coll_calls']} a tile serve, "
+              f"{', '.join(f'{100 * c:.1f}%' for c in row['coll_share'])} of its wall; the "
+              f"records' gathers {row['gather_calls']} calls, "
+              f"{', '.join(f'{g:.1f} ms' for g in row['gather_ms'])} "
+              f"({', '.join(f'{100 * g:.1f}%' for g in row['gather_share'])} of the wall; a "
+              f"synchronise around each) [{card}]", flush=True)
+    if problems:
+        fail("tp adapt: " + "; ".join(problems))
+    held = set(held)
+    new = [sh for sh in shape_list if tuple(sh[1:]) not in held]
+    print(f"tp adapt: {len(shape_list) - len(new)} of {len(shape_list)} ax_matmul shapes held to "
+          f"the plain version in the tp serve phase of this run", flush=True)
+    shape_rows = main_shape_checks(dev, card, clock, grid_kernel=False, shapes=new)
+    grid_rows = main_shape_checks(dev, card, clock, grid_kernel=True, shapes=grid_list)
+    print(f"tp adapt: the one-card references {ref_s:.1f} s, the ranks {ranks_s:.1f} s with "
+          f"the spawn [{card}]", flush=True)
+    rows.update(ref_s=ref_s, ranks_s=ranks_s)
+    return rows, shape_rows, grid_rows, paths, grid_paths
+
+
 def _update_gap_np(new, ref, start) -> float:
     """``_update_gap`` over numpy parameter dicts keyed alike."""
     import numpy as np
@@ -4692,6 +5093,9 @@ def main(argv):
     phase_done("train mesh")
     tps_rows, tps_shape_rows, tps_paths = tp_serve_phase(dev, card, clock)
     phase_done("tp serve")
+    tpa_rows, tpa_shape_rows, tpa_grid_rows, tpa_paths, tpa_grid_paths = tp_adapt_phase(
+        dev, card, clock, held=[(r["M"], r["K"], r["N"]) for r in tps_shape_rows])
+    phase_done("tp adapt")
     profile = "--profile" in argv
     cfg, params, prompts, tokens, paths, stats = serve(dev, card, profile)
     paths.update(w_paths)
@@ -4699,6 +5103,7 @@ def main(argv):
     paths.update(m_paths)
     paths.update(tm_paths)
     paths.update(tps_paths)
+    paths.update(tpa_paths)
     phase_done("serve")
     autotune_rows = autotune_phase(dev, card, cfg, params, prompts, tokens)
     phase_done("autotune")
@@ -4706,6 +5111,7 @@ def main(argv):
     grid_paths.update(t_grid_paths)
     grid_paths.update(m_grid_paths)
     grid_paths.update(tm_grid_paths)
+    grid_paths.update(tpa_grid_paths)
     phase_done("adapt")
     paths["per-slot graph"] = slot_serve(cfg, params, card)
     paths["token-granular graph"] = token_serve(cfg, params, card)
@@ -4772,20 +5178,21 @@ def main(argv):
                      rows, c_rows)
     grid_entry = entry("ax_matmul_grid", "src/repro/kernels/ax_matmul.py:253", grid_launches,
                        grid_paths, grid_rows, c_grid_rows)
-    for e, fam_rows, w_rows, t_rows, tm_rows_, tp_rows_, tps_rows_ in (
+    for e, fam_rows, w_rows, t_rows, tm_rows_, tp_rows_, tps_rows_, tpa_rows_ in (
             (ax_entry, family_shape_rows, whisper_shape_rows, train_shape_rows, tm_shape_rows,
-             tp_shape_rows, tps_shape_rows),
+             tp_shape_rows, tps_shape_rows, tpa_shape_rows),
             (grid_entry, family_grid_rows, [], train_grid_rows, tm_grid_rows, tp_grid_rows,
-             [])):
+             [], tpa_grid_rows)):
         e["family_shapes"] = fam_rows
         e["whisper_shapes"] = w_rows
         e["train_shapes"] = t_rows
         e["train_mesh_shapes"] = tm_rows_
         e["train_tp_shapes"] = tp_rows_
         e["tp_serve_shapes"] = tps_rows_
+        e["tp_adapt_shapes"] = tpa_rows_
         e["max_abs_err"] = max([e["max_abs_err"]] + [
             r["max_abs_err"] for r in fam_rows + w_rows + t_rows + tm_rows_ + tp_rows_
-            + tps_rows_])
+            + tps_rows_ + tpa_rows_])
     ax_entry["whisper"] = {k: whisper_row[k] for k in (
         "name", "layers", "enc_layers", "params_g", "ax_per_forward", "ax_per_decode",
         "launches", "decode_vs_full_rel", "graph_decode_ms_per_step")}
@@ -4794,6 +5201,7 @@ def main(argv):
     ax_entry["mesh"] = mesh_info
     ax_entry["train_mesh"] = tm_rows
     ax_entry["tp_serve"] = tps_rows
+    ax_entry["tp_adapt"] = tpa_rows
     ax_entry["families"] = [{k: r[k] for k in ("name", "layers", "params_g", "ax_per_forward",
                                                "launches")} for r in family_rows]
     ax_entry["reduced_card_vs_cpu"] = {

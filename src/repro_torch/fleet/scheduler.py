@@ -73,6 +73,20 @@ own clock.  A ``PolicyReader`` polls the store on every rank, and the
 ranks then serve the newest version any of them saw
 (``PolicyReader.pin``).  ``par`` gives the mesh context's rules (MoE
 capacity per token shard, ``models/blocks.py``).
+
+**A model-sharded model** (made under ``launch.sharding.set_mesh_ctx`` of a
+mesh with several ``"model"`` ranks, with ``par``; no fleet mesh).  Every
+rank runs a batcher over the same submits with its blocks of the weights
+(``launch.parallel.serve_params``), and the engine calls run under that
+context with ``par``: a wave is one ``generate(par=)``, a token step one
+``token_step(par=)``, both eager (``cuda_graphs=False``), whose tokens and
+records come back whole on every rank (``serve/engine.py``'s note).  The
+slot cache is the rank's block (``launch.mesh.cache_shardings``); every
+rank prefills an admission (the prefill is split over the ranks too), and
+its first token comes back gathered from the rank that holds row 0; the
+rank that holds the slot's row splices it.  Decisions read a clock agreed
+over every rank, as on the fleet mesh.  A fleet mesh under a model-sharded
+context raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -89,7 +103,8 @@ import torch.distributed as dist
 
 from repro_torch import obs
 from repro_torch.configs.base import ModelConfig, ParallelConfig
-from repro_torch.launch.sharding import set_mesh_ctx
+from repro_torch.launch.mesh import block_index, cache_shardings, tree_paths, tree_unflatten
+from repro_torch.launch.sharding import current_groups, current_mesh, current_tp, set_mesh_ctx
 from repro_torch.models import init_cache
 from repro_torch.runtime.telemetry import finish_host_copy, start_host_copy
 from repro_torch.serve.engine import (ServeConfig, generate, prefill_one, splice_slot,
@@ -225,6 +240,14 @@ class ContinuousBatcher:
         if mesh is not None and adaptive is None:
             raise ValueError("ContinuousBatcher: mesh= requires an adaptive controller or "
                              "reader (the sharded decode is the adaptive one)")
+        # a model-sharded model: the installed context, reinstalled for every
+        # engine call (module note)
+        self._tp_ctx = None
+        if current_tp() is not None:
+            if mesh is not None:
+                raise ValueError("ContinuousBatcher: mesh= (the fleet mesh) and a "
+                                 "model-sharded mesh context do not combine")
+            self._tp_ctx = (current_mesh(), current_groups().par)
         self.params = params
         self.cfg = cfg
         self.bcfg = bcfg or BatcherConfig()
@@ -251,6 +274,10 @@ class ContinuousBatcher:
             collect.shard_decode_specs(None, self.bcfg.n_slots, mesh)  # divisibility, bound
             self.group, self.shard, self.n_shards = collect.batch_group(mesh)
         self.rows = self.bcfg.n_slots // self.n_shards   # this rank's slots
+        self._row0 = self.shard * self.rows              # its first slot
+        if self._tp_ctx is not None:
+            self._row0, hi = current_groups().rows(self.bcfg.n_slots)
+            self.rows = hi - self._row0
         self._epoch = time.perf_counter()
         self.queues: Dict[int, collections.deque] = {
             b: collections.deque() for b in sorted(self.bcfg.prompt_buckets)
@@ -283,26 +310,63 @@ class ContinuousBatcher:
 
     # -- the mesh's agreement ------------------------------------------
     def _agree(self, x: float, op) -> float:
-        """``x`` reduced over the mesh's ranks (one all-reduce on the
-        slot cache's device)."""
+        """``x`` reduced over the mesh's ranks, or over every rank of a
+        model-sharded model's world (one all-reduce on the slot cache's
+        device)."""
         t = torch.tensor([x], dtype=torch.float64, device=self.device)
         dist.all_reduce(t, op=op, group=self.group)
         return float(t.item())
 
+    @property
+    def _sharded(self) -> bool:
+        """Whether host decisions must agree over ranks (module note)."""
+        return self.mesh is not None or self._tp_ctx is not None
+
     def clock(self) -> float:
         """Seconds since this batcher was made, on a clock every rank of a
-        mesh agrees on (the ranks' largest reading); the local clock
-        without a mesh.  Deadlines and arrivals read it (module note)."""
+        mesh or of a model-sharded model agrees on (the ranks' largest
+        reading); the local clock otherwise.  Deadlines and arrivals read
+        it (module note)."""
         t = time.perf_counter() - self._epoch
-        return t if self.mesh is None else self._agree(t, dist.ReduceOp.MAX)
+        return self._agree(t, dist.ReduceOp.MAX) if self._sharded else t
 
     def _mesh_ctx(self):
+        if self._tp_ctx is not None:
+            return set_mesh_ctx(*self._tp_ctx)
         if self.mesh is None:
             return contextlib.nullcontext()
         return set_mesh_ctx(self.mesh, self.par or ParallelConfig())
 
+    def _engine_kw(self) -> dict:
+        """``par`` where the caller gave one, and the eager decode of a
+        model-sharded model (module note)."""
+        kw = {} if self.par is None else {"par": self.par}
+        if self._tp_ctx is not None:
+            kw["cuda_graphs"] = False
+        return kw
+
     def _owns(self, slot: int) -> bool:
-        return slot // self.rows == self.shard
+        """Whether this rank prefills ``slot``'s admission: on a fleet mesh
+        the slot's owner, on a model-sharded model every rank."""
+        return self._tp_ctx is not None or slot // self.rows == self.shard
+
+    def _holds_row(self, slot: int) -> bool:
+        """Whether this rank's block of the slot cache holds ``slot``'s row."""
+        return self._row0 <= slot < self._row0 + self.rows
+
+    def _slot_cache(self):
+        """This rank's block of an empty slot cache: under a model-sharded
+        model as ``launch.mesh.cache_shardings`` places it, else its rows."""
+        if self._tp_ctx is None:
+            return init_cache(self.cfg, self.rows, self.max_cache_len(), device=self.device)
+        mesh, par = self._tp_ctx
+        whole = init_cache(self.cfg, self.bcfg.n_slots, self.max_cache_len(), device="meta")
+        specs = tree_paths(cache_shardings(mesh, par, whole, self.cfg))[1]
+        blocks = []
+        for spec, leaf in zip(specs, tree_paths(whole)[1]):
+            shape = [s.stop - s.start for s in block_index(mesh, spec, tuple(leaf.shape))]
+            blocks.append(torch.zeros(shape, dtype=leaf.dtype, device=self.device))
+        return tree_unflatten(whole, blocks)
 
     def _update_queue_gauges(self) -> None:
         for b, q in self.queues.items():
@@ -461,7 +525,7 @@ class ContinuousBatcher:
     def _poll_policy(self) -> None:
         if self.adaptive is not None and hasattr(self.adaptive, "poll"):
             self.adaptive.poll()             # replica: adopt a newer policy
-            if self.mesh is not None:        # every rank serves one version
+            if self._sharded:                # every rank serves one version
                 v = int(self._agree(self.adaptive.version, dist.ReduceOp.MAX))
                 if v != self.adaptive.version:
                     self.adaptive.pin(v)
@@ -511,7 +575,8 @@ class ContinuousBatcher:
         scfg = ServeConfig(max_new_tokens=bc.new_token_bucket,
                            temperature=bc.temperature, seed=bc.seed,
                            fused=True, observe_every=bc.observe_every,
-                           eos_id=bc.eos_id if self.padmask else None)
+                           eos_id=bc.eos_id if self.padmask else None,
+                           cuda_graphs=self._tp_ctx is None)
         padmask_kw = (dict(prompt_lens=lens, slot_new_tokens=budgets,
                            max_cache_len=self.max_cache_len())
                       if self.padmask else {})
@@ -521,6 +586,8 @@ class ContinuousBatcher:
         self._update_queue_gauges()
         if self.mesh is not None:
             padmask_kw["mesh"] = self.mesh
+        if self.par is not None:
+            padmask_kw["par"] = self.par
         with obs.span("wave", cat="scheduler", wave=self.wave, bucket=bucket,
                       admitted=len(admitted), backfilled=n_backfilled), self._mesh_ctx():
             out = generate(self.params, {"tokens": torch.from_numpy(batch)}, self.cfg,
@@ -597,13 +664,15 @@ class ContinuousBatcher:
         seed_kw = (dict(seed=self._request_seed(req)) if self.bcfg.temperature > 0
                    else {})
         first = fresh = None
-        if self._owns(slot):
+        if self._owns(slot):                 # a model-sharded model: every rank
+            par_kw = {} if self.par is None else {"par": self.par}
             with obs.span("admit_dispatch", cat="scheduler", rid=req.rid,
                           slot=slot, bucket=bucket), self._mesh_ctx():
                 first, fresh = prefill_one(
                     self.params, padded[None], L, self.cfg,
                     max_cache_len=self.max_cache_len(),
-                    temperature=self.bcfg.temperature, rows=self.bcfg.n_slots, **seed_kw)
+                    temperature=self.bcfg.temperature, rows=self.bcfg.n_slots, **seed_kw,
+                    **par_kw)
         queue_delay = t_dispatch - self._submit_t.get(req.rid, t_dispatch)
         return dict(req=req, slot=slot, first=first, fresh=fresh,
                     queue_delay=queue_delay), expired
@@ -618,9 +687,10 @@ class ContinuousBatcher:
         req, slot = pend["req"], pend["slot"]
         done: List[Completion] = []
         with obs.span("admit", cat="scheduler", rid=req.rid, slot=slot):
-            if self._owns(slot):
-                self._cache = splice_slot(self._cache, pend["fresh"],
-                                          slot - self.shard * self.rows)
+            if self._holds_row(slot):
+                with self._mesh_ctx():
+                    self._cache = splice_slot(self._cache, pend["fresh"],
+                                              slot - self._row0)
             first = self._first_token(pend["first"], slot)   # sync: token on host
         obs.instant("splice", cat="scheduler", rid=req.rid, slot=slot)
         ttft = time.perf_counter() - self._submit_t.get(
@@ -706,8 +776,7 @@ class ContinuousBatcher:
         bc = self.bcfg
         B = bc.n_slots
         if self._cache is None:        # this rank's rows of the slot cache
-            self._cache = init_cache(self.cfg, self.rows, self.max_cache_len(),
-                                     device=self.device)
+            self._cache = self._slot_cache()
         state: list = [None] * B
         pending_admits: list = [None] * B    # async: launched, not spliced
         pos = np.zeros(B, np.int64)
@@ -808,7 +877,7 @@ class ContinuousBatcher:
                     eos_id=eos,
                     seeds=torch.from_numpy(seeds) if seeded else None,
                     nt=torch.from_numpy(nt) if seeded else None,
-                    **({} if self.mesh is None else {"mesh": self.mesh}))
+                    **({} if self.mesh is None else {"mesh": self.mesh}), **self._engine_kw())
             step_wall = time.perf_counter() - t_step
             if graph_gate in gates_run:
                 post += int(obs.retrace_total("token_step") - captures)

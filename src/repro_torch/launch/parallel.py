@@ -31,7 +31,10 @@ shards, and for serving a global batch's rows and the K/V cache's sequence
 group.  :func:`mesh_groups` makes it once per mesh; ``set_mesh_ctx``
 installs it for a model-sharded mesh, and the train step's ``TrainMesh``
 adds its per-leaf plans to it.  :func:`serve_params` takes a rank's blocks
-of a whole param tree for serving.
+of a whole param tree for serving and notes on the mesh's groups where
+each block starts in its leaf (:meth:`MeshGroups.block_starts`), which a
+transform of the whole weights by their global indices reads
+(``launch.serve.drift_hook``).
 
 **Backends.**  ``nccl`` and ``gloo`` both run these collectives natively
 on card tensors (``all_gather_into_tensor``, ``reduce_scatter_tensor``,
@@ -41,11 +44,14 @@ composed, and an unsupported call raises.
 """
 from __future__ import annotations
 
+import weakref
+from typing import Optional, Sequence, Tuple
+
 import torch
 import torch.distributed as dist
 
-from repro_torch.launch.mesh import axes_group, batch_axis_names, batch_group, local_blocks, \
-    param_shardings, tree_paths, tree_unflatten
+from repro_torch.launch.mesh import axes_group, batch_axis_names, batch_group, block_index, \
+    local_blocks, param_shardings, tree_paths, tree_unflatten
 from repro_torch.launch.sharding import PartitionSpec, _names, axis_rules, axis_size, mesh_shape
 
 __all__ = ["TensorParallel", "MeshGroups", "mesh_groups", "expert_all_to_all",
@@ -281,6 +287,22 @@ class MeshGroups:
         token_axes = self.batch_axes + (("model",) if self.tp is not None and self.tp.seq
                                         else ())
         self.tokens = _group_of(mesh, token_axes)
+        self._starts = {}          # tensor id -> (weak reference, its block's starts)
+
+    def note_block(self, t: torch.Tensor, starts: Sequence[int]) -> None:
+        """Note that ``t`` is the block of a whole leaf that starts at
+        ``starts`` (one index per dim); the note goes with the tensor."""
+        key, starts = id(t), tuple(int(i) for i in starts)
+        self._starts[key] = (weakref.ref(t, lambda _r, k=key: self._starts.pop(k, None)),
+                             starts)
+
+    def block_starts(self, t: torch.Tensor) -> Optional[Tuple[int, ...]]:
+        """Where ``t``'s block starts in its whole leaf, as :func:`serve_params`
+        (or :meth:`note_block`) noted it; None for a tensor with no note."""
+        entry = self._starts.get(id(t))
+        if entry is None or entry[0]() is not t:
+            return None
+        return entry[1]
 
     def rows(self, B: int):
         """(lo, hi) of this rank's rows of a global batch of ``B``: its block
@@ -367,5 +389,13 @@ def serve_param_specs(mesh, par, params_shape):
 
 def serve_params(params, mesh, par):
     """This rank's blocks of a whole param tree for the model-sharded
-    prefill and decode step (:func:`serve_param_specs`)."""
-    return local_blocks(params, serve_param_specs(mesh, par, params), mesh)
+    prefill and decode step (:func:`serve_param_specs`); each block's
+    offsets into its leaf are noted on the mesh's groups
+    (:meth:`MeshGroups.block_starts`)."""
+    specs = serve_param_specs(mesh, par, params)
+    local = local_blocks(params, specs, mesh)
+    groups = mesh_groups(mesh, par)
+    for spec, whole, blk in zip(tree_paths(specs)[1], tree_paths(params)[1],
+                                tree_paths(local)[1]):
+        groups.note_block(blk, [s.start for s in block_index(mesh, spec, tuple(whole.shape))])
+    return local

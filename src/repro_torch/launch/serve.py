@@ -79,6 +79,7 @@ import torch.distributed as dist
 from repro_torch import obs
 from repro_torch.configs import ARCHS, reduced
 from repro_torch.configs.base import AxPolicy
+from repro_torch.launch.sharding import current_groups, current_tp
 from repro_torch.models import init_params
 from repro_torch.serve import ServeConfig, generate
 
@@ -101,20 +102,37 @@ def drift_hook(at_step: int, scale: float):
     column shifts the int8 code distribution of the quantized weights; a
     uniform scale would be quantization invariant.  The input params are
     left as they are (the JAX package's ``jax.tree.map`` is functional too),
-    so for one step both copies are alive."""
+    so for one step both copies are alive.
+
+    Under a model-sharded mesh context the params are the rank's blocks
+    (``launch.parallel.serve_params``) and the rows are marked by their
+    index in the whole weight (``MeshGroups.block_starts``), so the result
+    is the blocks of the hook's result on the whole weights; a block with
+    no noted offsets raises ``ValueError``."""
     done = {"fired": False}
 
-    def perturb(w):
+    def perturb(w, groups):
         if w.dim() < 2:
             return w
-        mask = (torch.arange(w.shape[-2], device=w.device) % 2 == 0)[:, None]
-        return torch.where(mask, w * scale, w)
+        starts = None
+        if groups is not None:
+            starts = groups.block_starts(w)
+            if starts is None:
+                raise ValueError("drift_hook under a model-sharded mesh needs the rank's "
+                                 "blocks from launch.parallel.serve_params")
+        row0 = starts[-2] if starts else 0
+        mask = ((torch.arange(w.shape[-2], device=w.device) + row0) % 2 == 0)[:, None]
+        out = torch.where(mask, w * scale, w)
+        if starts is not None:
+            groups.note_block(out, starts)
+        return out
 
     def hook(step, params):
         if step != at_step or done["fired"]:
             return params
         done["fired"] = True
-        return _tree_map(perturb, params)
+        groups = current_groups() if current_tp() is not None else None
+        return _tree_map(lambda w: perturb(w, groups), params)
 
     return hook
 

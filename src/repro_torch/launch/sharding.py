@@ -56,7 +56,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 __all__ = ["PartitionSpec", "MeshShape", "mesh_shape", "axis_rules", "set_mesh_ctx",
            "current_mesh", "current_rules", "current_groups", "current_tp", "current_kv",
-           "serving", "recompute_context", "shard", "spec_for", "param_spec", "axis_size"]
+           "current_rows", "serving", "recompute_context", "shard", "spec_for", "param_spec",
+           "axis_size"]
 
 _ctx = threading.local()
 
@@ -161,6 +162,7 @@ class _State(NamedTuple):
     groups: object           # the mesh's MeshGroups (a TrainMesh in a train step), or None
     tp: object               # the models' TensorParallel, or None
     kv: object               # (group, index, n) of a K/V cache's sequence, or None
+    rows: object = None      # (lo, hi, B, group) of a global batch split over the batch axes
 
 
 def _model_sharded(mesh, par) -> bool:
@@ -188,14 +190,17 @@ def set_mesh_ctx(mesh, par, groups=None):
 
 
 @contextlib.contextmanager
-def serving(tp, kv):
+def serving(tp, kv, rows=None):
     """The installed state with ``tp`` (the models' ``TensorParallel`` for
-    this call) and ``kv`` (the K/V cache's sequence group) for the code
-    inside: ``models.registry``'s model-sharded prefill and decode step."""
+    this call), ``kv`` (the K/V cache's sequence group) and ``rows`` for
+    the code inside: ``models.registry``'s model-sharded prefill and decode
+    step.  ``rows`` = ``(lo, hi, B, group)``: the call computes rows lo..hi
+    of a global batch of ``B`` split over the batch axes' ``group`` (None:
+    every row)."""
     st = getattr(_ctx, "state", None)
     if st is None:
         raise ValueError("serving() needs an installed mesh context (set_mesh_ctx)")
-    with _installed(st._replace(tp=tp, kv=kv)):
+    with _installed(st._replace(tp=tp, kv=kv, rows=rows)):
         yield
 
 
@@ -251,6 +256,17 @@ def current_kv():
     None."""
     st = getattr(_ctx, "state", None)
     return st.kv if st else None
+
+
+def current_rows():
+    """``(lo, hi, B, group)`` of the global batch whose rows lo..hi the
+    model-sharded prefill or decode step running now computes, when its
+    batch is split over the batch axes (:func:`serving`); else None.  The
+    adaptive records read the whole batch's sampled rows through it
+    (``runtime.telemetry.tp_operands``), and a tile grid indexes the whole
+    batch's row tiles (``quant.ax``)."""
+    st = getattr(_ctx, "state", None)
+    return st.rows if st else None
 
 
 def _names(ax) -> Tuple[str, ...]:

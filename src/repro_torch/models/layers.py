@@ -47,7 +47,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import AxPolicy, ModelConfig
-from repro_torch.launch.sharding import current_kv, current_tp
+from repro_torch.launch.sharding import current_kv, current_rows, current_tp
 from repro_torch.quant.ax import ax_dense, ax_dense_dyn, weight_cast, weight_codes
 from repro_torch.runtime.scope import active_scope
 
@@ -156,7 +156,9 @@ def dense(x, p, ax: Optional[AxPolicy] = None, target: str = "", tp=None,
     (``TensorParallel.exit``; the approximate path reduces its int32
     accumulator, ``quant.ax``) before the bias; ``"col"``, the output
     columns are split (K whole: only the adaptive records gather their
-    samples)."""
+    samples).  In the model-sharded serve over a batch split across the
+    batch axes (``launch.sharding.current_rows``) the dynamic path reads the
+    whole batch's row tiles and records (``quant.ax.ax_dense_dyn``)."""
     row = tp if role == "row" else None
     if ax is not None and target in ax.targets:
         # the split's arguments only where there is one
@@ -168,8 +170,11 @@ def dense(x, p, ax: Optional[AxPolicy] = None, target: str = "", tp=None,
         scope = active_scope()
         dyn = scope.triple_for(target) if scope is not None else None
         if dyn is not None:
-            y = ax_dense_dyn(x, w, ax, dyn, scope=scope, target=target, wcodes=codes,
-                             **({"tp": tp, "tp_role": role} if role else {}))
+            kw = {"tp": tp, "tp_role": role} if role else {}
+            rows = current_rows()
+            if rows is not None:
+                kw["rows"] = rows
+            y = ax_dense_dyn(x, w, ax, dyn, scope=scope, target=target, wcodes=codes, **kw)
         else:
             y = ax_dense(x, w, ax, wcodes=codes, **tp_kw)
     else:

@@ -119,11 +119,14 @@ def _serve_shard(B: int, decode: bool):
     """(context, (lo, hi)) of a prefill or decode step over a global batch
     of ``B`` (module note): under a model-sharded mesh the call's
     ``launch.sharding.serving`` state (a decode step's residual whole over
-    ``seq``) and this rank's rows; else a null context and every row."""
+    ``seq``, the rows of a batch split over the batch axes) and this rank's
+    rows; else a null context and every row."""
     tm, tp = current_groups(), current_tp()
     if tp is None:
         return contextlib.nullcontext(), (0, B)
-    return serving(tp.unseq() if decode else tp, tm.kv_group(B)), tm.rows(B)
+    lo, hi = tm.rows(B)
+    rows = None if hi - lo == B else (lo, hi, B, tm.batch_group)
+    return serving(tp.unseq() if decode else tp, tm.kv_group(B), rows), (lo, hi)
 
 
 def _rows(t, lo: int, hi: int, B: int):

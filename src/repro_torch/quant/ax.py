@@ -61,6 +61,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import weakref
 from typing import Dict, Optional
 
@@ -353,8 +354,17 @@ def _block_of(span: int, cap: int = 128) -> int:
     return largest_divisor_leq(span, cap)
 
 
+def _row_tiles(m: int, gm: int, row_span, device) -> torch.Tensor:
+    """(m,) int64: the row tile of each of ``m`` rows that are rows
+    ``lo..lo + m`` of ``M`` (``row_span = (lo, M)``; ``(0, m)`` when None),
+    in the whole operand's ``rowtile_*`` partition."""
+    lo, M = row_span or (0, m)
+    return torch.clamp((torch.arange(m, device=device) + lo) // rowtile_span(M, gm),
+                       max=rowtile_count(M, gm) - 1)
+
+
 def _kernel_grid_tiled(a_i8, b_i8, mult, dyn, sched: KernelSchedule,
-                       tile_hist: bool = False):
+                       tile_hist: bool = False, row_span=None):
     """Grid-kernel dispatch of a logical (gm, gn, 3) config grid.
 
     The kernel applies one triple per *physical* (bm, bn) block, so the
@@ -362,6 +372,10 @@ def _kernel_grid_tiled(a_i8, b_i8, mult, dyn, sched: KernelSchedule,
     schedule's caps: each block lies inside one logical tile) and the
     logical grid is gathered onto the block grid with indices made on the
     device — per-tile semantics at any granularity, and no host read.
+    ``row_span = (lo, M)``: ``a_i8``'s rows are rows ``lo..`` of an operand
+    of ``M`` rows split over ranks, and the grid's row tiles are the whole
+    operand's: the row blocks also divide ``lo``, so a tile that straddles
+    two ranks' rows still takes its one triple on each.
 
     ``tile_hist=True`` also returns the kernel's in-reduction bit counts
     aggregated to the LOGICAL row tiles: ``(tile_bits (g, bits) f32,
@@ -369,22 +383,25 @@ def _kernel_grid_tiled(a_i8, b_i8, mult, dyn, sched: KernelSchedule,
     (padding adds no counts and is left out of ``tile_n``).  Physical row
     blocks are tile-aligned, so the aggregation is an integer segment sum
     (``index_add_``); it equals the JAX package's f32 ``assign @ a_rows``
-    because every count stays below 2^24."""
+    because every count stays below 2^24.  Under ``row_span`` the counts
+    are this rank's part of each tile's."""
     lead = a_i8.shape[:-1]
     a2d = a_i8.reshape(-1, a_i8.shape[-1])
     m0, k0 = a2d.shape
     n0 = b_i8.shape[-1]
-    g_m = rowtile_count(m0, int(dyn.shape[0]))
+    lo, M = row_span or (0, m0)
+    g_m = rowtile_count(M, int(dyn.shape[0]))
     g_n = rowtile_count(n0, int(dyn.shape[1]))
-    rows_per = rowtile_span(m0, int(dyn.shape[0]))
+    rows_per = rowtile_span(M, int(dyn.shape[0]))
     cols_per = rowtile_span(n0, int(dyn.shape[1]))
-    bm, bn = _block_of(rows_per, sched.bm), _block_of(cols_per, sched.bn)
+    bm = _block_of(math.gcd(rows_per, lo), sched.bm)
+    bn = _block_of(cols_per, sched.bn)
     bk = min(sched.bk, k0)
     a2d = _pad_to_multiple(_pad_to_multiple(a2d, bm, 0), bk, 1).contiguous()
     bp = _pad_to_multiple(_pad_to_multiple(b_i8, bk, 0), bn, 1).contiguous()
     gmk, gnk = a2d.shape[0] // bm, bp.shape[1] // bn
     dev = a2d.device
-    ri = torch.clamp((torch.arange(gmk, device=dev) * bm) // rows_per, max=g_m - 1)
+    ri = torch.clamp((torch.arange(gmk, device=dev) * bm + lo) // rows_per, max=g_m - 1)
     ci = torch.clamp((torch.arange(gnk, device=dev) * bn) // cols_per, max=g_n - 1)
     grid = dyn.index_select(0, ri).index_select(1, ci).contiguous()
     res = ax_matmul_grid(a2d, bp, mult, grid, tile_hist=tile_hist,
@@ -397,14 +414,18 @@ def _kernel_grid_tiled(a_i8, b_i8, mult, dyn, sched: KernelSchedule,
     a_rows = hist[:, 0, 0, :].to(torch.int64)                 # (gmk, bits+1)
     agg = torch.zeros((g_m, bits + 1), dtype=torch.int64, device=dev)
     agg = agg.index_add_(0, ri, a_rows).to(torch.float32)
-    tile_n = torch.full((g_m,), rows_per * k0, dtype=torch.int32, device=dev)
-    tile_n[-1] = (m0 - (g_m - 1) * rows_per) * k0             # absorbed remainder
+    # each block's real rows (padding counts nothing), summed per tile: the
+    # last tile absorbs the remainder
+    real = torch.clamp(m0 - torch.arange(gmk, device=dev) * bm, 0, bm) * k0
+    tile_n = torch.zeros((g_m,), dtype=torch.int64, device=dev).index_add_(0, ri, real)
+    tile_n = tile_n.to(torch.int32)
     return (out[:m0, :n0].reshape(*lead, n0),
             (agg[:, :bits], agg[:, bits], tile_n))
 
 
 def ax_matmul_int_dyn(a_i8, b_i8, policy: AxPolicy, dyn,
-                      schedule: Optional[KernelSchedule] = None) -> torch.Tensor:
+                      schedule: Optional[KernelSchedule] = None,
+                      row_span=None) -> torch.Tensor:
     """``ax_matmul_int`` with the swap decision as a run-time int32 tensor:
     a (3,) ``(op_is_a, bit, value)`` triple (value 2 = NoSwap) for the whole
     projection, or a (gm, gn, 3) per-tile grid over the flattened token rows
@@ -416,7 +437,12 @@ def ax_matmul_int_dyn(a_i8, b_i8, policy: AxPolicy, dyn,
     (gn must be 1): on the CPU the stacked limbs (2K deep for a triple, 4K
     for a grid), on the card route T of the grid kernel.  The schedule
     resolves under op "matmul_grid" (``kernel``) or "int_dyn" (``mxu``),
-    with the default caps (``_resolve``)."""
+    with the default caps (``_resolve``).
+
+    ``row_span = (lo, M)``: the rows of ``a_i8`` are rows ``lo..`` of an
+    operand of ``M`` rows split over ranks (the model-sharded serve's batch
+    split, ``launch.sharding.current_rows``), and a grid's row tiles are
+    the whole operand's (``core.tiling.rowtile_*`` over ``M``)."""
     mult = M.get(policy.mult_name)
     dyn = _as_dyn(dyn, a_i8.device)
     tiled = dyn.dim() == 3
@@ -428,14 +454,14 @@ def ax_matmul_int_dyn(a_i8, b_i8, policy: AxPolicy, dyn,
         if a_i8.device.type == "cuda":
             return _kernel_grid(a_i8, b_i8, mult, _mxu_row_grid(dyn) if tiled else dyn,
                                 _resolve(a_i8, b_i8, "mxu", policy.mult_name, "int_dyn",
-                                         schedule, caps=False))
+                                         schedule, caps=False), row_span)
         ai, bi = a_i8.to(torch.int32), b_i8.to(torch.int32)
         if not tiled:
             _resolve(a_i8, b_i8, "mxu", policy.mult_name, "int_dyn", schedule, caps=False)
             return _mxu_dyn_scalar(ai, bi, f, g, dyn)
         lead = a_i8.shape[:-1]
         a2 = ai.reshape(-1, ai.shape[-1])
-        idx = torch.from_numpy(rowtile_index(a2.shape[0], dyn.shape[0])).to(dyn.device)
+        idx = _row_tiles(a2.shape[0], int(dyn.shape[0]), row_span, dyn.device)
         row_triples = dyn[:, 0, :].index_select(0, idx)
         out = _stacked_mm(*_mxu_limbs_rowtile(a2, bi, f, g, row_triples,
                                               _bside_representative(dyn[:, 0, :])))
@@ -443,13 +469,13 @@ def ax_matmul_int_dyn(a_i8, b_i8, policy: AxPolicy, dyn,
     if policy.backend == "kernel":
         return _kernel_grid(a_i8, b_i8, mult, dyn,
                             _resolve(a_i8, b_i8, "kernel", policy.mult_name, "matmul_grid",
-                                     schedule, caps=False))
+                                     schedule, caps=False), row_span)
     if policy.backend == "emul":
         lead = a_i8.shape[:-1]
         a2d = a_i8.reshape(-1, a_i8.shape[-1])
         M_, N = a2d.shape[0], b_i8.shape[-1]
         if tiled:
-            rows = torch.from_numpy(rowtile_index(M_, dyn.shape[0]))
+            rows = _row_tiles(M_, int(dyn.shape[0]), row_span, torch.device("cpu"))
             cols = torch.from_numpy(rowtile_index(N, dyn.shape[1]))
         else:
             dyn = dyn.reshape(1, 1, 3)
@@ -460,11 +486,11 @@ def ax_matmul_int_dyn(a_i8, b_i8, policy: AxPolicy, dyn,
     raise ValueError(f"unknown backend {policy.backend!r}")
 
 
-def _kernel_grid(a_i8, b_i8, mult, dyn, sched: KernelSchedule):
+def _kernel_grid(a_i8, b_i8, mult, dyn, sched: KernelSchedule, row_span=None):
     """The grid kernel for a (3,) triple (broadcast to every block) or a
     (gm, gn, 3) grid (gathered onto tile-aligned blocks)."""
     if dyn.dim() == 3:
-        return _kernel_grid_tiled(a_i8, b_i8, mult, dyn, sched)
+        return _kernel_grid_tiled(a_i8, b_i8, mult, dyn, sched, row_span=row_span)
     a2d, bp, lead, m0, n0, (bm, bn, bk) = _pad_for_kernel(a_i8, b_i8, sched)
     grid = dyn.expand(a2d.shape[0] // bm, bp.shape[1] // bn, 3).contiguous()
     out = ax_matmul_grid(a2d, bp, mult, grid,
@@ -485,12 +511,13 @@ def ax_matmul_int_dyn_2mm(a_i8, b_i8, policy: AxPolicy, dyn) -> torch.Tensor:
 
 
 def ax_matmul_int_dyn_hist(a_i8, b_i8, policy: AxPolicy, dyn,
-                           schedule: Optional[KernelSchedule] = None):
+                           schedule: Optional[KernelSchedule] = None, row_span=None):
     """:func:`ax_matmul_int_dyn` (kernel backend, grid ``dyn``) that also
     returns the kernel's in-reduction per-row-tile operand statistic, the
     ``(tile_bits, tile_neg, tile_n)`` triple ``runtime.telemetry.tile_summary``
     takes as ``bits_from=``: one launch applies the per-tile policy and
-    counts what the controller needs for the next one."""
+    counts what the controller needs for the next one.  Under ``row_span``
+    the counts are this rank's part of each tile's."""
     dyn = _as_dyn(dyn, a_i8.device)
     if policy.backend != "kernel" or dyn.dim() != 3:
         raise ValueError(f"the kernel tile histogram needs backend='kernel' and a "
@@ -498,7 +525,7 @@ def ax_matmul_int_dyn_hist(a_i8, b_i8, policy: AxPolicy, dyn,
     sched = _resolve(a_i8, b_i8, "kernel", policy.mult_name, "matmul_grid", schedule,
                      caps=False)
     return _kernel_grid_tiled(a_i8, b_i8, M.get(policy.mult_name), dyn, sched,
-                              tile_hist=True)
+                              tile_hist=True, row_span=row_span)
 
 
 # ---------------------------------------------------------------------------
@@ -685,40 +712,58 @@ class _DynCore(torch.autograd.Function):
     straight-through gradient, the other inputs get none."""
 
     @staticmethod
-    def forward(ctx, x, w, policy, dyn, xq, sx, wq, sw, tp):
+    def forward(ctx, x, w, policy, dyn, xq, sx, wq, sw, tp, row_span):
         ctx.save_for_backward(x, w)
         ctx.tp = tp
-        return _dequant(ax_matmul_int_dyn(xq, wq, policy, dyn), sx, sw, x.dtype, tp)
+        acc = ax_matmul_int_dyn(xq, wq, policy, dyn, row_span=row_span)
+        return _dequant(acc, sx, sw, x.dtype, tp)
 
     @staticmethod
     def backward(ctx, gy):
-        return (*_ste_grads(ctx, gy), None, None, None, None, None, None, None)
+        return (*_ste_grads(ctx, gy),) + (None,) * 8
 
 
 class _DynHistCore(torch.autograd.Function):
     """:class:`_DynCore` whose kernel launch also returns the per-row-tile
     bit statistic (``repro.quant.ax._ax_dense_dyn_hist_core``); the
-    statistic is observational and takes no gradient."""
+    statistic is observational and takes no gradient.  ``rows``: the
+    batch split's tuple, whose ranks' counts add up to each tile's."""
 
     @staticmethod
-    def forward(ctx, x, w, policy, dyn, xq, sx, wq, sw, tp):
+    def forward(ctx, x, w, policy, dyn, xq, sx, wq, sw, tp, row_span, rows):
         ctx.save_for_backward(x, w)
         ctx.tp = tp
-        acc, hist = ax_matmul_int_dyn_hist(xq, wq, policy, dyn)
+        acc, hist = ax_matmul_int_dyn_hist(xq, wq, policy, dyn, row_span=row_span)
         if tp is not None:
             # the counts of each K block add up to the whole K's
             hist = [tp.all_reduce_(h) for h in hist]
+        if rows is not None:
+            # and those of each rank's rows to the whole tile's
+            from repro_torch.launch.parallel import all_reduce_sum
+
+            hist = [all_reduce_sum(h, rows[3]) for h in hist]
         kb, kn, kc = hist
         ctx.mark_non_differentiable(kb, kn, kc)
         return _dequant(acc, sx, sw, x.dtype, tp), kb, kn, kc
 
     @staticmethod
     def backward(ctx, gy, *_):
-        return (*_ste_grads(ctx, gy), None, None, None, None, None, None, None)
+        return (*_ste_grads(ctx, gy),) + (None,) * 9
+
+
+def _row_span(x: torch.Tensor, rows):
+    """``(lo, M)`` of ``x``'s flattened rows in the whole batch's operand,
+    for a batch split ``rows = (b0, b1, B, group)``
+    (``launch.sharding.current_rows``); None without one."""
+    if rows is None:
+        return None
+    b0, b1, B, _ = rows
+    per = (x.numel() // x.shape[-1]) // (b1 - b0)          # rows per batch row
+    return b0 * per, B * per
 
 
 def ax_dense_dyn(x, w, policy: AxPolicy, dyn, scope=None, target: str = "",
-                 wcodes=None, tp=None, tp_role: Optional[str] = None):
+                 wcodes=None, tp=None, tp_role: Optional[str] = None, rows=None):
     """``ax_dense`` with the swap decision as a run-time int32 tensor (the
     adaptive runtime's path): ``dyn`` is a (3,) triple, or a (gm, 1, 3)
     per-row-tile grid when the scope runs in tile mode.
@@ -736,26 +781,35 @@ def ax_dense_dyn(x, w, policy: AxPolicy, dyn, scope=None, target: str = "",
 
     ``tp`` with ``tp_role``: ``"row"``, K split over the model ranks (as
     :func:`ax_dense`); ``"col"``, the output columns split (K whole: only the
-    records gather their samples)."""
+    records gather their samples).
+
+    ``rows`` = ``(lo, hi, B, group)`` (``launch.sharding.current_rows``):
+    ``x`` holds rows lo..hi of a batch of ``B`` split over the batch axes'
+    ``group``.  A grid's row tiles are then the whole batch's, and the
+    records are the whole batch's, their sampled rows gathered from the
+    ranks that hold them (``runtime.telemetry.tp_operands``)."""
     row = tp if tp_role == "row" else None
     xq, sx, wq, sw = _operands(x, w, wcodes, row)
     dyn = _as_dyn(dyn, x.device)
+    span = _row_span(x, rows)
     if scope is not None and scope.observing:
         from repro_torch.runtime.telemetry import (operand_summary, tile_key, tile_summary,
                                                    tp_operands)
 
         mult = M.get(policy.mult_name)
-        xs, ws = (xq, wq) if tp is None else tp_operands(xq, wq, tp, tp_role == "row",
-                                                          scope.tile_rows)
+        xs, ws = ((xq, wq) if tp is None and rows is None else
+                  tp_operands(xq, wq, tp, tp_role == "row", scope.tile_rows, span,
+                              rows and rows[3]))
         dyn_rep = dyn if dyn.dim() == 1 else dyn[0, 0]
         scope.record(target, operand_summary(xs, ws, mult, dyn_rep))
         if scope.tile_rows > 0:
             if scope.kernel_hist and policy.backend == "kernel" and dyn.dim() == 3:
-                y, *hist = _DynHistCore.apply(x, w, policy, dyn, xq, sx, wq, sw, row)
+                y, *hist = _DynHistCore.apply(x, w, policy, dyn, xq, sx, wq, sw, row, span,
+                                              rows)
                 scope.record(tile_key(target),
                              tile_summary(xs, ws, mult, scope.tile_rows, dyn=dyn,
                                           bits_from=tuple(hist)))
                 return y
             scope.record(tile_key(target),
                          tile_summary(xs, ws, mult, scope.tile_rows, dyn=dyn))
-    return _DynCore.apply(x, w, policy, dyn, xq, sx, wq, sw, row)
+    return _DynCore.apply(x, w, policy, dyn, xq, sx, wq, sw, row, span)

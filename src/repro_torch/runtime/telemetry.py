@@ -29,6 +29,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs
 from repro_torch.core.metrics import ErrorStats, abs_err
@@ -227,33 +228,62 @@ def _head_rows(q2d: torch.Tensor, n: int, tp, split_dim: int) -> torch.Tensor:
     return tp.all_gather_(q2d[:min(R, need)], 0)[:need]
 
 
-def tp_operands(xq, wq, tp, k_split: bool, tile_rows: int = 0):
-    """The operands of a projection whose K (``k_split``) or output columns
-    are split over the model ranks (``launch.parallel.TensorParallel``),
-    as :func:`operand_summary` and :func:`tile_summary` read them: their
-    samples equal those of the one-rank operands.  Only the sampled heads
-    cross the ranks, never the operands.
-
-    ``wq`` comes back as the head rows of the whole (K, N) weight.  Over a
-    K split ``xq`` comes back as the whole-K (..., K) codes with the rows
-    the summaries sample filled (the head of the flattened operand, and of
-    each of the ``tile_rows`` row tiles) and zeros elsewhere; with the
-    columns split it is ``xq`` itself (K whole)."""
-    n_w = max(TELEMETRY_SAMPLE, TILE_TELEMETRY_SAMPLE)
-    if not k_split:
-        return xq, _head_rows(wq, n_w, tp, 1)
-    x2d = xq.reshape(-1, xq.shape[-1])
-    M, K = x2d.shape[0], x2d.shape[1] * tp.n
+def _sampled_rows(M: int, K: int, tile_rows: int) -> List[int]:
+    """The rows of an (M, K) operand whose elements :func:`operand_summary`
+    and :func:`tile_summary` read: the head of the flattened operand, and
+    of each of the ``tile_rows`` row tiles."""
     rows = set(range(min(M, -(-TELEMETRY_SAMPLE // K))))
     if tile_rows > 0:
         span = rowtile_span(M, tile_rows)
         per = min(span, -(-TILE_TELEMETRY_SAMPLE // K))
         for t in range(rowtile_count(M, tile_rows)):
             rows.update(range(t * span, t * span + per))
-    idx = torch.tensor(sorted(rows), dtype=torch.int64, device=xq.device)
-    view = torch.zeros((M, K), dtype=xq.dtype, device=xq.device)
-    view[idx] = tp.all_gather_(x2d.index_select(0, idx), 1)
-    return view.reshape(*xq.shape[:-1], K), _head_rows(wq, n_w, tp, 0)
+    return sorted(rows)
+
+
+def tp_operands(xq, wq, tp, k_split: bool, tile_rows: int = 0, row_span=None, group=None):
+    """The operands of a projection whose K (``k_split``) or output columns
+    are split over the model ranks (``launch.parallel.TensorParallel``),
+    or whose rows are this rank's block of a batch split over the batch
+    axes (``row_span``), as :func:`operand_summary` and :func:`tile_summary`
+    read them: their samples equal those of the one-rank operands of the
+    whole batch.  Only the sampled heads cross the ranks, never the
+    operands.
+
+    ``wq`` comes back as the head rows of the whole (K, N) weight (as it is
+    without ``tp``).  Over a K split or a row split ``xq`` comes back as the
+    whole (..., K) codes of the whole batch with the rows the summaries
+    sample filled (the head of the flattened operand, and of each of the
+    ``tile_rows`` row tiles of the whole batch's rows) and zeros elsewhere,
+    each row gathered from the rank that holds it; otherwise it is ``xq``
+    itself.  ``row_span = (lo, M)``: ``xq``'s flattened rows are rows
+    ``lo..`` of the whole batch's ``M``, split over the batch axes'
+    ``group``."""
+    n_w = max(TELEMETRY_SAMPLE, TILE_TELEMETRY_SAMPLE)
+    ws = wq if tp is None else _head_rows(wq, n_w, tp, 0 if k_split else 1)
+    if not k_split and row_span is None:
+        return xq, ws
+    x2d = xq.reshape(-1, xq.shape[-1])
+    m = x2d.shape[0]
+    K = x2d.shape[1] * (tp.n if k_split else 1)
+    lo, M = row_span or (0, m)
+    idx = _sampled_rows(M, K, tile_rows)
+    dev = xq.device
+    mine = [i for i, r in enumerate(idx) if lo <= r < lo + m]
+    part = torch.zeros((len(idx), x2d.shape[1]), dtype=xq.dtype, device=dev)
+    if mine:
+        src = torch.tensor([idx[i] - lo for i in mine], dtype=torch.int64, device=dev)
+        part[torch.tensor(mine, dtype=torch.int64, device=dev)] = x2d.index_select(0, src)
+    if k_split:
+        part = tp.all_gather_(part, 1)
+    if row_span is not None:
+        # each sampled row is nonzero on the one rank that holds it
+        part32 = part.to(torch.int32)
+        dist.all_reduce(part32, group=group)
+        part = part32.to(xq.dtype)
+    view = torch.zeros((M, K), dtype=xq.dtype, device=dev)
+    view[torch.tensor(idx, dtype=torch.int64, device=dev)] = part
+    return (view if row_span is not None else view.reshape(*xq.shape[:-1], K)), ws
 
 
 def start_host_copy(records: Dict[str, Dict[str, torch.Tensor]]):

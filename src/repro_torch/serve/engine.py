@@ -92,15 +92,27 @@ rank's own cache rows.
 
 **The model-sharded serve** (``par=``, under ``launch.sharding.set_mesh_ctx``
 of a mesh with several ``"model"`` ranks; ``models.registry``'s note).
-Every rank calls :func:`generate` with the same global prompts and its own
-blocks of the weights (``launch.parallel.serve_params``); the prefill and
-each decode step run on the rank's rows with the model split over
-``"model"`` and the cache split on its sequence, and the sampled tokens are
+Every rank calls :func:`generate`, :func:`token_step`, :func:`prefill_one`
+and :func:`splice_slot` with the same global arguments (prompts, per-slot
+vectors, slot indices) and its own blocks of the weights
+(``launch.parallel.serve_params``) and of the cache; the prefill and each
+decode step run on the rank's rows with the model split over ``"model"``
+and the cache split on its sequence, and the sampled tokens are
 all-gathered over the batch axes, so every rank holds the global tokens and
-returns them.  The model-sharded serve is the static eager serve:
-``adaptive=``, ``mesh=`` and a decode step captured as a CUDA graph (whose
-collectives would run through ``gloo``, which a graph cannot capture) raise
-``ValueError``, and so do :func:`token_step` and :func:`prefill_one`.
+returns them.  With an adaptive controller every rank's records are the
+whole batch's (``quant.ax.ax_dense_dyn``: the sampled rows gathered from
+the ranks that hold them, a tile grid over the whole batch's row tiles), so
+every rank's controller observes the same records and takes the same
+decisions, those of JAX's GSPMD serve's one controller.  The decode step
+runs eagerly: a step captured as a
+CUDA graph (whose collectives would run through ``gloo``, which a graph
+cannot capture) raises ``ValueError`` (pass ``ServeConfig(cuda_graphs=False)``
+or ``token_step(cuda_graphs=False)`` on the card), and so does ``mesh=``
+(the fleet mesh) under a model-sharded context.  :func:`prefill_one` then
+prefills its ``rows`` copies of the request over the ranks' rows, its first
+token gathered from the rank that holds row 0, and its cache is the rank's
+block of a slot cache of ``rows`` slots, which :func:`splice_slot` writes
+on the rank that holds the slot's row.
 """
 from __future__ import annotations
 
@@ -258,12 +270,15 @@ def _sample_rows(last_logits, seeds, nt, temperature, rows):
     return gather(slot_sample(last_logits, seeds[lo:hi], nt[lo:hi], temperature))
 
 
-def _refuse_model_sharded(what: str):
-    """``ValueError`` for a serving path that does not run under a
-    model-sharded mesh (module note)."""
-    if current_tp() is not None:
-        raise ValueError(f"{what} under a model-sharded mesh is not supported: the "
-                         f"model-sharded serve is generate()'s static eager path")
+def _shard_rows(B: int):
+    """``(lo, hi, gather)`` of a global batch of ``B`` under a model-sharded
+    mesh: this rank's rows and the all-gather of a per-row result to the
+    whole batch (module note); None otherwise."""
+    if current_tp() is None:
+        return None
+    tm = current_groups()
+    lo, hi = tm.rows(B)
+    return lo, hi, lambda t: tm.gather_rows(t, B)
 
 
 def _state_like(st: _State) -> _State:
@@ -378,9 +393,9 @@ def generate(params, prompt_batch, cfg: ModelConfig, scfg: ServeConfig, *,
         raise ValueError("mesh= requires the adaptive fused path (an adaptive controller, "
                          "fused=True and no param_hook)")
     device = params["embed"]["w"].device
-    shard_rows = None
     if current_tp() is not None:
-        _check_model_sharded(device, scfg, adaptive, mesh)
+        _check_model_sharded(device, scfg.cuda_graphs and scfg.fused and param_hook is None,
+                             mesh)
     batch = {k: torch.as_tensor(v, device=device) for k, v in prompt_batch.items()}
     B, S = (batch["tokens"] if "tokens" in batch else batch["embeds"]).shape[:2]
     max_len = max_cache_len or (S + scfg.max_new_tokens + 1)
@@ -405,10 +420,7 @@ def generate(params, prompt_batch, cfg: ModelConfig, scfg: ServeConfig, *,
              .reshape(B))
     # the observe gate reads the global budget maximum (shard-invariant)
     bmax = int(budget_host.max()) if B else 0
-    if current_tp() is not None:
-        tm = current_groups()
-        lo, hi = tm.rows(B)
-        shard_rows = (lo, hi, lambda t: tm.gather_rows(t, B))
+    shard_rows = _shard_rows(B)
     group = None
     if mesh is not None:
         from repro_torch.fleet import collect
@@ -494,18 +506,17 @@ def generate(params, prompt_batch, cfg: ModelConfig, scfg: ServeConfig, *,
     return result
 
 
-def _check_model_sharded(device, scfg: ServeConfig, adaptive, mesh) -> None:
-    """The refusals of the model-sharded serve (module note)."""
+def _check_model_sharded(device, graphs: bool, mesh) -> None:
+    """The refusals of the model-sharded serve (module note): the fleet mesh,
+    and a decode step that would be captured as a CUDA graph."""
     if mesh is not None:
         raise ValueError("mesh= (the fleet mesh) and a model-sharded mesh context do not "
                          "combine")
-    if adaptive is not None:
-        raise ValueError("adaptive serving under a model-sharded mesh is not supported: the "
-                         "model-sharded serve is the static path")
-    if _use_graphs(device, scfg.cuda_graphs) and scfg.fused:
+    if _use_graphs(device, graphs):
         raise ValueError("a model-sharded decode step runs collectives (gloo between ranks "
                          "sharing a card), which a CUDA graph cannot capture: pass "
-                         "ServeConfig(cuda_graphs=False)")
+                         "ServeConfig(cuda_graphs=False) to generate, cuda_graphs=False to "
+                         "token_step")
 
 
 def _fleet(rec, group):
@@ -578,9 +589,11 @@ def _decode_stepwise(params, st: _State, cfg, scfg, adaptive, param_hook, gates,
 # token-granular serving: one decode step, a single-request prefill, a splice
 # ---------------------------------------------------------------------------
 
-def _token_decode(params, buf, cfg, *, temperature, eos_id, tile_rows, gate):
+def _token_decode(params, buf, cfg, *, temperature, eos_id, tile_rows, gate, par=None,
+                  rows=None):
     """The token step on its buffers: ``active & (tok != eos)`` gates the
-    cache write and the sample; pos and nt stay the caller's."""
+    cache write and the sample; pos and nt stay the caller's.  ``rows``:
+    as :func:`_decode`'s."""
     active = buf["active"]
     if eos_id is not None:
         active = active & (buf["tok"] != eos_id)
@@ -589,13 +602,14 @@ def _token_decode(params, buf, cfg, *, temperature, eos_id, tile_rows, gate):
              if dyn is not None else contextlib.nullcontext())
     with scope as sc:
         logits, _ = decode_step(params, buf["cache"], buf["tok"][:, None], buf["pos"], cfg,
-                                write_mask=active)
-    nxt = slot_sample(logits[:, -1], buf["seeds"], buf["nt"], temperature)
+                                par, write_mask=active)
+    nxt = _sample_rows(logits[:, -1], buf["seeds"], buf["nt"], temperature, rows)
     buf["tok_out"].copy_(torch.where(active, nxt, buf["tok"]))
     return sc.collected() if (dyn is not None and gate) else None
 
 
-def token_step(params, cache, tok, pos, active, cfg: ModelConfig, *,
+def token_step(params, cache, tok, pos, active, cfg: ModelConfig,
+               par: Optional[ParallelConfig] = None, *,
                temperature: float = 0.0, adaptive=None, gate: bool = True,
                eos_id: Optional[int] = None, seeds=None, nt=None,
                cuda_graphs: bool = True, mesh=None):
@@ -617,9 +631,19 @@ def token_step(params, cache, tok, pos, active, cfg: ModelConfig, *,
     ``mesh`` (with ``adaptive``): the per-slot vectors are the global
     batch's, ``cache`` holds this rank's rows; the step runs on the rank's
     block, its records come back aggregated over the mesh and ``tok'``
-    all-gathered (module note)."""
+    all-gathered (module note).
+
+    ``par``: as JAX's, passed to ``decode_step``.  Under a model-sharded
+    mesh the per-slot vectors are the global batch's and ``cache`` is this
+    rank's block of the slot cache (``launch.mesh.cache_shardings``); the
+    step runs eagerly (``cuda_graphs=True`` on the card raises
+    ``ValueError``), its records are the whole batch's and ``tok'`` the
+    global tokens on every rank (module note)."""
     device = params["embed"]["w"].device
-    _refuse_model_sharded("token_step")
+    shard_rows = None
+    if current_tp() is not None:
+        _check_model_sharded(device, cuda_graphs, mesh)
+        shard_rows = _shard_rows(int(tok.shape[0]))
     if (seeds is None) != (nt is None):
         raise ValueError("seeds and nt come together")
     if mesh is not None:
@@ -639,7 +663,7 @@ def token_step(params, cache, tok, pos, active, cfg: ModelConfig, *,
         if rows != {int(tok.shape[0])}:
             raise ValueError(f"token_step(mesh=): the cache holds {sorted(rows)} rows, this "
                              f"rank's block of the batch is {int(tok.shape[0])}")
-        tok_new, cache, rec = token_step(params, cache, tok, pos, active, cfg,
+        tok_new, cache, rec = token_step(params, cache, tok, pos, active, cfg, par,
                                          temperature=temperature, adaptive=adaptive,
                                          gate=gate, eos_id=eos_id, seeds=seeds, nt=nt,
                                          cuda_graphs=cuda_graphs)
@@ -658,6 +682,8 @@ def token_step(params, cache, tok, pos, active, cfg: ModelConfig, *,
     dtypes = dict(tok=torch.int64, pos=torch.int64, active=torch.bool, seeds=torch.int64,
                   nt=torch.int64)
     kw = dict(temperature=temperature, eos_id=eos_id, tile_rows=tile_rows)
+    if par is not None or shard_rows is not None:
+        kw.update(par=par, rows=shard_rows)
     with torch.inference_mode():
         if _use_graphs(device, cuda_graphs):
             key = ("token_step", cfg, B, _cache_sig(cache), temperature, eos_id,
@@ -697,7 +723,8 @@ def token_step(params, cache, tok, pos, active, cfg: ModelConfig, *,
     return tok_new, cache, rec
 
 
-def prefill_one(params, tokens, length: int, cfg: ModelConfig, *, max_cache_len: int,
+def prefill_one(params, tokens, length: int, cfg: ModelConfig,
+                par: Optional[ParallelConfig] = None, *, max_cache_len: int,
                 temperature: float = 0.0, seed: Optional[int] = None, rows: int = 1):
     """Prefill ONE right-padded request ``tokens`` (1, bucket) of real
     length ``length`` (``repro.serve.engine.prefill_one``): the pad-mask
@@ -709,21 +736,34 @@ def prefill_one(params, tokens, length: int, cfg: ModelConfig, *, max_cache_len:
     ``rows`` runs the forward over that many copies of the request and
     keeps the first.  On the card a GEMM's rounding depends on its row
     count, so a continuous batcher passes its slot count: the request then
-    gets the bits of a wave's batched prefill at the same bucket."""
+    gets the bits of a wave's batched prefill at the same bucket.
+
+    ``par``: as JAX's, passed to ``prefill``.  Under a model-sharded mesh
+    the ``rows`` copies are split over the ranks as a batch of ``rows``
+    slots is, the first token is gathered from the rank that holds row 0
+    (the same on every rank), and the cache is the rank's block of its
+    first row: the layout of a slot cache of ``rows`` slots, which
+    :func:`splice_slot` writes into (module note)."""
     device = params["embed"]["w"].device
-    _refuse_model_sharded("prefill_one")
     if temperature > 0 and seed is None:
         raise ValueError("prefill_one samples at temperature > 0 from the request's "
                          "stream: pass seed")
     toks = _upload(tokens, device).reshape(1, -1).expand(rows, -1)
     lens = torch.full((rows,), int(length), dtype=torch.int64, device=device)
+    shard_rows = _shard_rows(rows)
     with torch.inference_mode():
-        logits, cache = prefill(params, {"tokens": toks}, cfg, max_cache_len=max_cache_len,
-                                prompt_lens=lens)
-        zero = torch.zeros(1, dtype=torch.int64, device=device)
-        s = zero if seed is None else torch.full((1,), int(seed), dtype=torch.int64,
-                                                 device=device)
-        first = slot_sample(logits[:1, int(length) - 1], s, zero, temperature)
+        logits, cache = prefill(params, {"tokens": toks}, cfg, par,
+                                max_cache_len=max_cache_len, prompt_lens=lens)
+        n = logits.shape[0]                      # this rank's rows of the copies
+        zeros = torch.zeros(n, dtype=torch.int64, device=device)
+        s = zeros if seed is None else torch.full((n,), int(seed), dtype=torch.int64,
+                                                  device=device)
+        if shard_rows is None:
+            first = slot_sample(logits[:1, int(length) - 1], s[:1], zeros[:1], temperature)
+        else:
+            gather = shard_rows[2]
+            first = gather(slot_sample(logits[:, int(length) - 1], s, zeros,
+                                       temperature))[:1]
     return first, [{k: v[:1] for k, v in c.items()} for c in cache]
 
 
@@ -732,7 +772,16 @@ def splice_slot(cache, fresh, slot):
     of the slot-batched ``cache``, in place (the mid-flight admission
     splice); ``slot`` is an int or a device tensor, so nothing is read
     back.  Returns ``cache``: its tensors keep their addresses, so a
-    captured token step stays valid."""
+    captured token step stays valid.
+
+    Under a model-sharded mesh ``cache`` and ``fresh`` are this rank's
+    blocks (``fresh`` from :func:`prefill_one` with ``rows`` the slot
+    count, whose sequence block is the slot cache's, ``ValueError``
+    otherwise) and ``slot`` the row in the rank's block: where the batch
+    axes split the slots, the rank that holds the slot's row calls it, as
+    on the fleet mesh (module note)."""
+    if current_tp() is not None:
+        _check_fresh(cache, fresh)
     with torch.inference_mode():
         for big, small in zip(cache, fresh):
             for name, t in big.items():
@@ -742,3 +791,15 @@ def splice_slot(cache, fresh, slot):
                 else:
                     t[int(slot)].copy_(src[0])
     return cache
+
+
+def _check_fresh(cache, fresh) -> None:
+    """Under a model-sharded mesh: ``fresh``'s blocks are rows of the slot
+    cache's (:func:`splice_slot`)."""
+    for big, small in zip(cache, fresh):
+        for name, t in big.items():
+            if tuple(small[name].shape[1:]) != tuple(t.shape[1:]):
+                raise ValueError(
+                    f"splice_slot: the fresh cache's {name} block {tuple(small[name].shape)} "
+                    f"is not a row of the slot cache's {tuple(t.shape)}: prefill_one(rows=) "
+                    f"must be the slot count under a model-sharded mesh")

@@ -991,3 +991,66 @@ def test_mesh_serve_on_two_gloo_ranks_sharing_the_card(cuda):
             assert (r["tokens"][RK.block(rank, 2)] == s).all()
         for i, got in enumerate(r["records"]):
             _same_records(got, combine_records([q["solo_records"][i] for q in res]))
+
+
+# ---------------------------------------------------------------------------
+# adaptive serving of a model-sharded model on the card
+# ---------------------------------------------------------------------------
+
+def test_tp_adapt_on_two_gloo_ranks_equals_one_card_with_their_qkv_split(cuda):
+    """``chip_smoke.py``'s tp adapt phase at its smallest: the reduced
+    qwen2 (bf16, ``mxu``) on two ``gloo`` ranks sharing the card over
+    ``("data", "model")`` = (1, 2), the drift serves in scalar and tile mode
+    and two token drains, against the same on one card whose plain q/k/v
+    GEMMs are the ranks' column blocks and whose decode attention runs in
+    the ranks' order (``chip_smoke.tps_witness(2, attention=True)``):
+    tokens, every observed record, re-tunes and policy equal, on both
+    ranks."""
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    import _torch_serve_tp_ranks as RK
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.serve import engine
+
+    cfg = RK.card_adapt_config()
+    prompts = torch.randint(0, cfg.vocab, (chip_smoke.B, chip_smoke.S),
+                            generator=torch.Generator().manual_seed(2))
+    params = init_params(cfg, seed=0, device=cuda)
+    use = engine._use_graphs
+    engine._use_graphs = lambda device, enabled: False        # eager, as the ranks
+    try:
+        with chip_smoke.tps_witness(2, attention=True):
+            want = chip_smoke._tpa_serves(params, cfg, prompts.to(cuda), cuda)
+    finally:
+        engine._use_graphs = use
+    del params
+    res = spawn(RK.card_adapt_rank, 2, args=(prompts,), device="cuda", backend="gloo",
+                timeout_s=600)
+    for r in res:
+        for key in want:
+            assert not chip_smoke._tpa_same(r[key], want[key]), (key, chip_smoke._tpa_same(
+                r[key], want[key]))
+    assert want["gen0"]["retunes"]
+
+
+@pytest.mark.parametrize("backend", ["kernel", "mxu"])
+def test_projection_of_a_batch_split_on_the_card_equals_the_whole_batch(cuda, backend):
+    """The batch split of the model-sharded adaptive serve on the card, which
+    ``chip_smoke.py``'s tp adapt phase ((1, 2): no batch split) never runs:
+    ``ax_dense_dyn(rows=)`` of each of two ``gloo`` ranks' halves of a
+    batch of 6 (18 rows in 4 row tiles, one straddling the ranks) in an
+    observed tile-mode scope launches the grid kernel at its rows' span
+    (with its tile histogram for ``kernel``), and equals the whole batch on
+    one card: the rank's output rows, and the records gathered and summed
+    over the ranks, field by field."""
+    import _torch_serve_tp_ranks as RK
+    from repro_torch.launch.mesh import spawn
+
+    (case,) = [c for c in RK.ROW_SPLIT if c[0] == backend]
+    res = spawn(RK.row_split_rank, 2, args=([case],), device="cuda", backend="gloo",
+                timeout_s=300)
+    for (got,) in res:
+        assert got["rows"] and got["records"], got
+        assert got["targets"] == ["attn_qkv", "attn_qkv@tiles"] and got["launches"] >= 1, got

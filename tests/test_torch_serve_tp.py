@@ -105,10 +105,12 @@ COMBINE = [(2, 32, 2, 4, 16, 0, 1), (3, 8, 1, 4, 16, 8, 2)]
 REFUSALS = {"cache sequence": "does not split over the 4 ranks",
             "prompt under seq_shard": "does not split over 4 model ranks",
             "SSD heads": "does not split over 4 model ranks",
-            "adaptive": "adaptive serving under a model-sharded mesh",
             "fleet mesh": "do not combine",
-            "token_step": "token_step under a model-sharded mesh",
-            "prefill_one": "prefill_one under a model-sharded mesh"}
+            "batcher on a fleet mesh": "do not combine",
+            "generate as a CUDA graph": "a CUDA graph cannot capture",
+            "token_step as a CUDA graph": "a CUDA graph cannot capture",
+            "adaptive whisper": "adaptive serving of the encoder-decoder is refused",
+            "splice of another layout": "prefill_one(rows=) must be the slot count"}
 
 
 def _start_jax(jax_root, jobs, tmp, name):
@@ -310,9 +312,11 @@ def test_decode_combine_equals_decode_attention_on_the_whole_cache(runs, case):
 @pytest.mark.parametrize("name", sorted(REFUSALS))
 def test_model_sharded_refusals(runs, name):
     """A cache sequence or a prompt under ``seq_shard`` that does not split
-    over the ranks, SSD heads that do not, adaptive serving, the fleet mesh,
-    ``token_step`` and ``prefill_one`` under a model-sharded mesh raise
-    ``ValueError`` on every rank."""
+    over the ranks, SSD heads that do not, the fleet mesh (``generate`` and
+    the batcher), a decode step captured as a CUDA graph (``generate``'s
+    fused serve, ``token_step``: the card's case, its graph switch forced
+    here), adaptive whisper and a splice of a fresh cache of another layout
+    under a model-sharded mesh raise ``ValueError`` on every rank."""
     for r in runs["refusal"]:
         assert r[name] is not None and REFUSALS[name] in r[name], (name, r[name])
 
