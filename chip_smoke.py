@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port of SWAPPER on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --tp-graph      # the build and the tp graph phase alone
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -180,6 +181,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
             plain one card's agreement, prefill and decode ms/step, the
             collectives' share of a tile serve and the records' gathers
             (``runtime.telemetry.tp_operands``; a synchronise around each);
+            with four cards or more the ``gloo`` ranks of these phases and
+            of the mesh and train-mesh phases bind cards 0 and 1;
+   tp graph — with four cards or more (else one line says it did not run):
+            the same configs on four ``nccl`` ranks, one card each, over
+            ``("data", "model")`` = (1, 4) and (2, 2) (``TPG_*``), their
+            decode steps captured as CUDA graphs: the static serve twice, 3
+            fused adaptive generations in scalar and in tile mode (2 row
+            tiles; the drifted weights of ``drift_hook(0, 0.05)`` from the
+            second), two token-mode drains of 8 requests on 4 slots on one
+            batcher; each eager on the same ranks; each on one card in this
+            process with the ranks' q/k/v GEMMs and decode attention
+            (``tps_witness``).  Hard: graph == eager bit for bit on every
+            rank (tokens, every observed record, re-tunes, tile grids,
+            policy); the ranks agreeing; at (1, 4) the witness's bits; at
+            (2, 2) each row's tokens of the static serve and of each mode's
+            last generation, and each drained request's, the witness's or
+            apart from a gap on whose top-2 margin is below ``TOL_BATCH``,
+            and the observed records the witness's in count, targets,
+            fields, shapes and dtypes and in their weight-side fields
+            (``TPG_WEIGHT_FIELDS``); one capture per program and gate,
+            none on a second serve, after a re-tune or in a second drain;
+            executed launches a rank (``serve.graph.executed_launches``)
+            == those reckoned from the config, eager and graph; the
+            launched shapes == reckoned, the new ones held to the plain
+            version; no nvcc.  Printed: prefill and decode ms/step graph and
+            eager, the NCCL kernels' share of a graph decode step
+            (``torch.profiler``), the peak a rank, one card's graph step of
+            the whole weights, each card's name and power limit;
 5. serve  — qwen2-72b at its published widths, depth cut to 2 layers,
             random weights from a seed: the per-forward weight work that
             the weight cache removes, timed against its bytes; B=4 prompts
@@ -348,12 +377,18 @@ def fail(msg: str):
     sys.exit(1)
 
 
-def smi(query: str) -> str:
+def smi_all(query: str) -> list:
+    """``nvidia-smi``'s line of ``query`` for every card."""
     out = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     if out.returncode != 0:
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
+    return out.stdout.strip().splitlines()
+
+
+def smi(query: str) -> str:
+    """``nvidia-smi``'s line of ``query`` for card 0."""
+    return smi_all(query)[0]
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -4838,7 +4873,6 @@ def tp_adapt_phase(dev, card: str, clock: float, held=()):
 
     from repro_torch.launch.mesh import spawn
     from repro_torch.models import init_params, transformer
-    from repro_torch.serve import engine
 
     t0 = time.perf_counter()
     gc.collect()
@@ -4848,14 +4882,10 @@ def tp_adapt_phase(dev, card: str, clock: float, held=()):
         params = init_params(cfg, seed=0, device=dev)
         prompts[cfg.name] = torch.randint(0, cfg.vocab, (B, S),
                                           generator=torch.Generator().manual_seed(2))
-        use = engine._use_graphs
-        engine._use_graphs = lambda device, enabled: False     # the drains eager, as the ranks'
-        try:
+        with _eager_engine():                     # the drains eager, as the ranks'
             plain = _tpa_serves(params, cfg, prompts[cfg.name].to(dev), dev)
             with tps_witness(TPS_RANKS, attention=True):
                 witness = _tpa_serves(params, cfg, prompts[cfg.name].to(dev), dev)
-        finally:
-            engine._use_graphs = use
         refs[cfg.name] = dict(plain=plain, witness=witness)
         del params
         gc.collect()
@@ -4961,6 +4991,472 @@ def tp_adapt_phase(dev, card: str, clock: float, held=()):
     return rows, shape_rows, grid_rows, paths, grid_paths
 
 
+TPG_RANKS = 4                            # one nccl rank per card
+TPG_LAYOUTS = ((1, 4), (2, 2))           # ("data", "model")
+TPG_LEN = 48                             # S + T + 1 = 45 rows, split over 4 ranks
+TPG_GENS = 3                             # fused adaptive generations: the drift after the first
+TPG_TIMEOUT = 600                        # seconds for the four ranks
+
+
+@contextlib.contextmanager
+def _eager_engine(eager: bool = True):
+    """Every decode step of the engine eager (``serve.engine._use_graphs``
+    off: the batcher's too), or as the engine decides."""
+    from repro_torch.serve import engine
+
+    use = engine._use_graphs
+    if eager:
+        engine._use_graphs = lambda device, enabled: False
+    try:
+        yield
+    finally:
+        engine._use_graphs = use
+
+
+def _captures() -> int:
+    from repro_torch.serve import graph as G
+
+    return sum(G.captures_by_kind().values())
+
+
+def _tpg_serves(params, cfg, prompts, dev, par=None, timing=None):
+    """The tp graph phase's program under whatever mesh context is installed
+    (the engine decides graph or eager): the static serve twice; per mode
+    (scalar, tile mode at ``TPA_TILES`` row tiles) ``TPG_GENS`` fused
+    adaptive generations with one controller, the first of ``params``, the
+    others of ``drift_hook(0, TPA_DRIFT[1])``'s drifted weights (the drift
+    arrives between generations, the captured counterpart of the tp adapt
+    phase's drift serve); and two token-mode drains of ``TPA_REQS``
+    requests on ``TPA_SLOTS`` slots on one batcher.  Each part's graph
+    captures come back beside its results; ``timing`` (a dict) keeps the
+    static serves' stats."""
+    import torch
+
+    from repro_torch.fleet import BatcherConfig, ContinuousBatcher, Request
+    from repro_torch.launch.serve import drift_hook
+    from repro_torch.serve import ServeConfig, generate
+
+    out = {}
+    scfg = ServeConfig(max_new_tokens=TPA_T)
+    caps, toks = [], []
+    for i in range(2):
+        c0, stats = _captures(), {}
+        toks.append(generate(params, {"tokens": prompts}, cfg, scfg, par=par,
+                             max_cache_len=TPG_LEN, stats=stats).cpu().numpy())
+        caps.append(_captures() - c0)
+        if timing is not None:
+            timing[f"static{i}"] = stats
+    out["static"] = dict(tokens=toks[0], again_equal=bool((toks[0] == toks[1]).all()),
+                         captures=caps)
+    moved = drift_hook(0, TPA_DRIFT[1])(0, params)
+    for tr in (0, TPA_TILES):
+        ctrl, seen = _tpa_controller(cfg, tr, dev)
+        caps, policies = [], []
+        for g in range(TPG_GENS):
+            c0 = _captures()
+            tokens = generate(params if g == 0 else moved, {"tokens": prompts}, cfg, scfg,
+                              par=par, adaptive=ctrl, max_cache_len=TPG_LEN).cpu()
+            caps.append(_captures() - c0)
+            policies.append(ctrl.policy.to_json())
+        out[f"gen{tr}"] = dict(_tpa_result(ctrl, seen, tokens), captures=caps,
+                               policy_moved=policies[-2] != policies[-1])
+    ctrl, seen = _tpa_controller(cfg, 0, dev)
+    bat = ContinuousBatcher(params, cfg, BatcherConfig(
+        n_slots=TPA_SLOTS, prompt_buckets=(TPA_BUCKET,), new_token_bucket=TPA_NEW,
+        token_granular=True), adaptive=ctrl, par=par)
+    tokens, caps = {}, []
+    for j in range(2):
+        c0 = _captures()
+        for i, (prompt, budget) in enumerate(_tpa_requests(cfg)):
+            bat.submit(Request(100 * j + i, prompt.copy(), budget))
+        tokens.update({c.rid: [int(t) for t in c.tokens] for c in bat.run()})
+        caps.append(_captures() - c0)
+    torch.cuda.synchronize()
+    out["batcher"] = dict(_tpa_result(ctrl, seen, []), tokens=tokens, captures=caps,
+                          steps=bat.stats["decode_steps"],
+                          retraces=bat.stats["decode_retraces_post_warmup"])
+    return out
+
+
+def _tpg_reckoned(cfg, steps: int) -> dict:
+    """The kernel launches of ``_tpg_serves`` a rank, reckoned from the
+    config: per approximate projection, a prefill each (2 static serves,
+    ``2 x TPG_GENS`` adaptive ones, ``2 x TPA_REQS`` admissions) and a
+    decode step each (``ax_matmul`` for the static serves, the grid kernel
+    for the adaptive ones and the drains' ``steps``)."""
+    from repro_torch.models import transformer
+
+    n_ax = len(transformer.ax_projections(cfg))
+    gens = 2 * TPG_GENS
+    return {"ax_matmul": n_ax * (2 * TPA_T + gens + 2 * TPA_REQS),
+            "ax_matmul_grid": n_ax * (gens * (TPA_T - 1) + steps)}
+
+
+def _tpg_shapes(cfg, shape, label: str):
+    """({(M, K, N): label} of ``ax_matmul``, of ``ax_matmul_grid``) a rank of
+    the ``("data", "model")`` layout ``shape`` launches: its rows of B x S
+    (a prefill over B rows, an admission over the slot count) and of B (a
+    decode step), K or N split over the model ranks."""
+    from repro_torch.models import transformer
+
+    dp, n = shape
+    pre, dec = B * S // dp, B // dp
+    reck = dict(_tm_tp_shapes(cfg, pre, n, f"{label} prefill"))
+    reck.update(_tm_tp_shapes(cfg, dec, n, f"{label} decode"))
+    grid = _tm_tp_shapes(cfg, dec, n, f"{label} decode")
+    for _, proj, K, N in transformer.ax_projections(cfg):
+        K, N = (K // n, N) if proj.endswith(" out") else (K, N // n)
+        grid.setdefault((dec, _padded(K), N), f"{label} decode tiles {proj}")
+    return reck, grid
+
+
+def _nccl_share(prof, steps: int):
+    """(NCCL kernels' device ms a decode step, their share of the decode's
+    kernel time, kernels' device ms a decode step) of a profiled graph
+    serve: the kernels from the first graph launch on (the decode's
+    replays); None where the profiler saw no device kernel."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    starts = [e.time_range.start for e in events if "cudaGraphLaunch" in e.name]
+    if not starts:
+        return None
+    t0 = min(starts)
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.time_range.start >= t0]
+    total = sum(e.time_range.elapsed_us() for e in kernels)
+    if not total:
+        return None
+    nccl = sum(e.time_range.elapsed_us() for e in kernels if "nccl" in e.name.lower())
+    return 1e-3 * nccl / steps, nccl / total, 1e-3 * total / steps
+
+
+def tp_graph_rank(rank, _fleet, ref_path, backend):
+    """One of the four ranks of the tp graph phase, one card each: per
+    layout and config the rank's blocks of the seeded weights under
+    ``set_mesh_ctx``, ``_tpg_serves`` eager and then as CUDA graphs, each
+    with its executed launches (``serve.graph.executed_launches``) and
+    launched shapes; then one more static graph serve under
+    ``torch.profiler`` (the NCCL kernels' share of its decode).  Results as
+    numpy and plain values."""
+    import torch
+
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ax_matmul import LAUNCHES
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.parallel import serve_params
+    from repro_torch.launch.sharding import set_mesh_ctx
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeConfig, generate
+    from repro_torch.serve import graph as G
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = (torch.device("cuda", torch.cuda.current_device()) if _fleet.device_type == "cuda"
+           else torch.device("cpu"))
+    nvcc0 = _build.NVCC_RUNS["count"]
+    prompts = torch.load(ref_path)
+    par = ParallelConfig(fsdp=True, seq_shard=True, ep=True)     # JAX's default layout
+    out = {"device": str(dev)}
+    for shape in TPG_LAYOUTS:
+        mesh = make_mesh(shape, ("data", "model"), device=dev.type, backend=backend)
+        for cfg in _tps_configs():
+            whole = init_params(cfg, seed=0, device=dev)
+            params = serve_params(whole, mesh, par)
+            del whole
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            pr = prompts[cfg.name].to(dev)
+            row = {}
+            for mode in ("eager", "graph"):
+                timing = {}
+                l0, c0 = dict(LAUNCHES), G.counts()
+                with set_mesh_ctx(mesh, par), kernel_shapes() as seen, \
+                        _eager_engine(mode == "eager"):
+                    res = _tpg_serves(params, cfg, pr, dev, par, timing)
+                delta = {k: LAUNCHES[k] - l0[k] for k in LAUNCHES}
+                res.update(launches=G.executed_launches(c0, delta),
+                           shapes={k: sorted(v) for k, v in seen.items()},
+                           timing={k: dict(v) for k, v in timing.items()})
+                row[mode] = res
+            steps = TPA_T - 1
+            with set_mesh_ctx(mesh, par), torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                generate(params, {"tokens": pr}, cfg, ServeConfig(max_new_tokens=TPA_T),
+                         par=par, max_cache_len=TPG_LEN)
+                torch.cuda.synchronize()
+            row["nccl"] = _nccl_share(prof, steps) if dev.type == "cuda" else None
+            row["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+            out[(shape, cfg.name)] = row
+            G.clear_programs()
+            del params
+            torch.cuda.empty_cache()
+    out["nvcc"] = _build.NVCC_RUNS["count"] - nvcc0
+    torch.cuda.synchronize()
+    return out
+
+
+# the record fields that read only the weights' codes and the shapes: at
+# (2, 2) the same as one card's, however the activations round
+TPG_WEIGHT_FIELDS = ("n", "tile_n", "bits_b", "neg_b", "b_smp", "tile_b_smp")
+
+
+def _tpg_batch_gaps(got, want, params, cfg, prompts, n: int, dev):
+    """A (2, 2) run's ``_tpg_serves`` (``got``) against the witness's
+    (``want``): (margins, problems).  Tokens per row of the static serve and
+    of each mode's last adaptive generation, and per request of the drains:
+    where a row is apart from the witness's, the top-2 margin at its first
+    gap (``_margin`` of the weights that serve ran, the drifted ones for
+    the generations, under ``tps_witness(n, attention=True)``), a problem
+    above ``TOL_BATCH``.  Observed records: the same count, targets,
+    fields, shapes and dtypes, and ``TPG_WEIGHT_FIELDS`` equal.  Re-tunes
+    and policy are not held: the controller reads the products' errors,
+    which follow the activations' codes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import drift_hook
+
+    reqs = _tpa_requests(cfg)
+    rows = [("static", b, prompts[b], got["static"]["tokens"][b].tolist(),
+             want["static"]["tokens"][b].tolist(), False) for b in range(len(prompts))]
+    for part in ("gen0", f"gen{TPA_TILES}"):
+        rows += [(part, b, prompts[b], got[part]["tokens"][b].tolist(),
+                  want[part]["tokens"][b].tolist(), True) for b in range(len(prompts))]
+    rows += [("batcher", rid, torch.from_numpy(reqs[rid % 100][0]), got["batcher"]["tokens"][rid],
+              want["batcher"]["tokens"][rid], False) for rid in sorted(want["batcher"]["tokens"])]
+    margins, problems, moved = [], [], None
+    for part, row, prompt, a, b, drifted in rows:
+        j = _first_gap(a, b)
+        if j is None:
+            continue
+        if drifted and moved is None:
+            moved = drift_hook(0, TPA_DRIFT[1])(0, params)
+        seq = torch.cat([prompt.long(), torch.tensor(b[:j], dtype=torch.long)]).to(dev)
+        with tps_witness(n, attention=True):
+            m = _margin(moved if drifted else params, cfg, seq)
+        margins.append((part, row, j, round(m, 3)))
+        if m > TOL_BATCH:
+            problems.append(f"{part} row {row} apart from the witness at token {j}, top-2 "
+                            f"margin {m:.3f} > {TOL_BATCH}")
+    for part in ("gen0", f"gen{TPA_TILES}", "batcher"):
+        ra, rb = got[part]["records"], want[part]["records"]
+        if len(ra) != len(rb):
+            problems.append(f"{part}: {len(ra)} records, the witness {len(rb)}")
+        for i, (x, y) in enumerate(zip(ra, rb)):
+            bad = [t for t in sorted(set(x) | set(y)) if t not in x or t not in y
+                   or set(x[t]) != set(y[t])
+                   or any(x[t][k].shape != y[t][k].shape or x[t][k].dtype != y[t][k].dtype
+                          for k in y[t])
+                   or any(not np.array_equal(x[t][k], y[t][k])
+                          for k in TPG_WEIGHT_FIELDS if k in y[t])]
+            if bad:
+                problems.append(f"{part} record {i}: {bad} apart from the witness")
+    return margins, problems
+
+
+def tp_graph_phase(dev, card: str, clock: float, held=()):
+    """Phase 4g (module note): with four cards or more, the model-sharded
+    serve over ``nccl`` on four ranks, one card each, its decode steps
+    captured as CUDA graphs: each config's program on one card in this
+    process with the ranks' q/k/v GEMMs and decode attention
+    (``tps_witness``) at each layout's model ranks, and one card's graph
+    serve of the whole weights; then the four ranks spawned.  ``held``: the
+    (M, K, N) of ``ax_matmul`` held to the plain version in this run
+    already.  Returns (rows, ``ax_matmul`` shape rows, ``ax_matmul_grid``
+    shape rows, launches by path, grid launches by path), or None with
+    fewer cards."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import default_backend, spawn
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeConfig, generate
+    from repro_torch.serve import graph as G
+
+    count = torch.cuda.device_count()
+    if count < TPG_RANKS:
+        print(f"[tp graph] not run: {count} card(s); chiprun --chips 4", flush=True)
+        return None
+    cards = smi_all("name,power.limit")
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    refs, prompts, whole, one_card = {}, {}, {}, {}
+    for cfg in _tps_configs():
+        params = init_params(cfg, seed=0, device=dev)
+        prompts[cfg.name] = torch.randint(0, cfg.vocab, (B, S),
+                                          generator=torch.Generator().manual_seed(2))
+        pr = prompts[cfg.name].to(dev)
+        for shape in TPG_LAYOUTS:
+            with _eager_engine(), tps_witness(shape[1], attention=True):
+                refs[(shape, cfg.name)] = _tpg_serves(params, cfg, pr, dev)
+        # one card's graph serve of the whole weights (the second one timed)
+        st = {}
+        for _ in range(2):
+            generate(params, {"tokens": pr}, cfg, ServeConfig(max_new_tokens=TPA_T),
+                     max_cache_len=TPG_LEN, stats=st)
+        one_card[cfg.name] = dict(prefill_ms=1e3 * st["prefill_s"],
+                                  decode_ms=1e3 * st["decode_s"] / (TPA_T - 1), path=st["path"])
+        G.clear_programs()
+        whole[cfg.name] = params
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_graph_") as tmp:
+        path = os.path.join(tmp, "prompts.pt")
+        torch.save(prompts, path)
+        backend = default_backend(dev)
+        res = spawn(tp_graph_rank, TPG_RANKS, args=(path, backend), device=dev.type,
+                    backend=backend, timeout_s=TPG_TIMEOUT)
+    ranks_s = time.perf_counter() - t1
+    problems, rows, shape_list, grid_list, paths, grid_paths = [], {}, [], [], {}, {}
+    for rank, r in enumerate(res):
+        if r["nvcc"]:
+            problems.append(f"rank {rank}: {r['nvcc']} nvcc runs")
+        if dev.type == "cuda" and r["device"] != f"cuda:{rank}":
+            problems.append(f"rank {rank} ran on {r['device']}")
+    for shape in TPG_LAYOUTS:
+        for cfg in _tps_configs():
+            name, key = cfg.name, (shape, cfg.name)
+            label = f"{name} {shape}"
+            witness = refs[key]
+            per = [r[key] for r in res]
+            steps = per[0]["graph"]["batcher"]["steps"]
+            want = _tpg_reckoned(cfg, steps)
+            for rank, row in enumerate(per):
+                g, e = row["graph"], row["eager"]
+                for mode in ("eager", "graph"):
+                    if row[mode]["launches"] != want:
+                        problems.append(f"{label} rank {rank} {mode}: executed launches "
+                                        f"{row[mode]['launches']} (reckoned {want})")
+                if g["batcher"]["steps"] != steps or e["batcher"]["steps"] != steps:
+                    problems.append(f"{label} rank {rank}: drain steps {g['batcher']['steps']} "
+                                    f"/ {e['batcher']['steps']} vs rank 0's {steps}")
+                # graph == eager, bit for bit
+                if not np.array_equal(g["static"]["tokens"], e["static"]["tokens"]) or \
+                        not g["static"]["again_equal"] or not e["static"]["again_equal"]:
+                    problems.append(f"{label} rank {rank}: static graph vs eager tokens")
+                for part in ("gen0", f"gen{TPA_TILES}", "batcher"):
+                    diff = _tpa_same(g[part], e[part])
+                    if diff:
+                        problems.append(f"{label} rank {rank} {part}: graph vs eager {diff[:6]}")
+                # captures: one per program and gate, none again
+                caps = (g["static"]["captures"], g["gen0"]["captures"],
+                        g[f"gen{TPA_TILES}"]["captures"], g["batcher"]["captures"])
+                if caps[0] != [1, 0] or caps[1] != [1, 1, 0] or caps[2] != [1, 1, 0] or \
+                        not 1 <= caps[3][0] <= 2 or caps[3][1] or g["batcher"]["retraces"]:
+                    problems.append(f"{label} rank {rank}: captures static {caps[0]}, adaptive "
+                                    f"{caps[1]} / {caps[2]}, drains {caps[3]}, retraces "
+                                    f"{g['batcher']['retraces']}")
+                if any(e[p]["captures"] != [0] * len(e[p]["captures"])
+                       for p in ("static", "gen0", f"gen{TPA_TILES}", "batcher")):
+                    problems.append(f"{label} rank {rank}: the eager run captured")
+                # the ranks agree
+                r0 = per[0]["graph"]
+                if not np.array_equal(g["static"]["tokens"], r0["static"]["tokens"]) or any(
+                        _tpa_same(g[p], r0[p]) for p in ("gen0", f"gen{TPA_TILES}", "batcher")):
+                    problems.append(f"{label} rank {rank}: differs from rank 0")
+                # against one card with the ranks' q/k/v and attention order
+                if shape[0] == 1:
+                    if not np.array_equal(e["static"]["tokens"], witness["static"]["tokens"]):
+                        problems.append(f"{label} rank {rank}: static tokens vs the witness")
+                    for part in ("gen0", f"gen{TPA_TILES}", "batcher"):
+                        diff = _tpa_same(e[part], witness[part])
+                        if diff:
+                            problems.append(f"{label} rank {rank} {part}: differs from one card "
+                                            f"with the ranks' q/k/v and attention in "
+                                            f"{diff[:6]}")
+            # (2, 2): every row's tokens equal, or apart only below the batch
+            # margin; the records alike but for what the activations round
+            margins = []
+            if shape[0] > 1:
+                margins, why = _tpg_batch_gaps(per[0]["eager"], witness, whole[name], cfg,
+                                               prompts[name], shape[1], dev)
+                problems += [f"{label}: {w}" for w in why]
+            # every launched shape: reckoned from the config and the layout
+            reck, reck_grid = _tpg_shapes(cfg, shape, f"{name} tp graph {shape}")
+            for rank, row in enumerate(per):
+                for mode in ("eager", "graph"):
+                    seen = {k: set(map(tuple, v)) for k, v in row[mode]["shapes"].items()}
+                    if seen["ax_matmul"] != set(reck) or seen["ax_matmul_grid"] != set(reck_grid):
+                        problems.append(f"{label} rank {rank} {mode}: kernel shapes {seen}, "
+                                        f"reckoned {sorted(reck)} and {sorted(reck_grid)}")
+            shape_list += [(lb,) + k for k, lb in sorted(reck.items())]
+            grid_list += [(lb,) + k for k, lb in sorted(reck_grid.items())]
+            r0 = per[0]
+            tg, te = r0["graph"]["timing"], r0["eager"]["timing"]
+            rows[f"{name} {shape[0]}x{shape[1]}"] = dict(
+                witness_equal={p: not _tpa_same(r0["eager"][p], witness[p])
+                               for p in ("gen0", f"gen{TPA_TILES}", "batcher")},
+                witness_static=bool(np.array_equal(r0["eager"]["static"]["tokens"],
+                                                    witness["static"]["tokens"])),
+                margins=margins,
+                retunes=[len(r0["graph"][p]["retunes"]) for p in ("gen0", f"gen{TPA_TILES}")],
+                tile_retunes=len(r0["graph"][f"gen{TPA_TILES}"]["tile_retunes"]),
+                batcher_retunes=len(r0["graph"]["batcher"]["retunes"]),
+                policy_moved=[r0["graph"][p]["policy_moved"]
+                              for p in ("gen0", f"gen{TPA_TILES}")],
+                steps=steps, launches=want,
+                prefill_ms=[1e3 * t["static1"]["prefill_s"] for t in (tg, te)],
+                decode_ms=[[1e3 * row[m]["timing"]["static1"]["decode_s"] / (TPA_T - 1)
+                            for row in per] for m in ("graph", "eager")],
+                nccl=[row["nccl"] for row in per], peak_gb=[row["peak_gb"] for row in per])
+            paths[f"tp graph {name} {shape} (rank 0)"] = r0["graph"]["launches"]["ax_matmul"]
+            grid_paths[f"tp graph {name} {shape} (rank 0)"] = \
+                r0["graph"]["launches"]["ax_matmul_grid"]
+    for label, row in rows.items():
+        nccl = ", ".join("not measured" if x is None else
+                         f"{x[0]:.3f} ms ({100 * x[1]:.1f}% of {x[2]:.3f} ms)"
+                         for x in row["nccl"])
+        print(f"tp graph {label} x{L} on {TPG_RANKS} nccl ranks, one card each "
+              f"(('data', 'model'), fsdp + seq_shard + ep, bf16 mxu, B={B} x {S}, {TPA_T} "
+              f"tokens, cache {TPG_LEN} rows): static serve x2, {TPG_GENS} fused adaptive "
+              f"generations per mode (scalar, {TPA_TILES} row tiles; drifted weights from the "
+              f"second) and two token drains ({TPA_REQS} requests each on {TPA_SLOTS} slots, "
+              f"{row['steps']} steps) as CUDA graphs bit-equal to the same eager on every "
+              f"rank; the ranks agreeing; against one card with the ranks' q/k/v and "
+              f"attention: static {row['witness_static']}, {row['witness_equal']} (records, "
+              f"re-tunes and policy too), at (2, 2) gaps (part, row, token, top-2 margin) "
+              f"{row['margins']} (bound {TOL_BATCH}); re-tunes {row['retunes']} (tile {row['tile_retunes']}, "
+              f"drains {row['batcher_retunes']}), policy moved before the last generation "
+              f"{row['policy_moved']}; executed launches a rank {row['launches']}; captures 1 "
+              f"per program and gate, 0 on a second serve, after a re-tune and in a second "
+              f"drain; 0 nvcc; prefill {row['prefill_ms'][0]:.1f} ms (eager "
+              f"{row['prefill_ms'][1]:.1f}); decode ms/step graph "
+              f"{', '.join(f'{x:.2f}' for x in row['decode_ms'][0])}, eager "
+              f"{', '.join(f'{x:.2f}' for x in row['decode_ms'][1])} (ranks 0-3); NCCL "
+              f"kernels a graph decode step (profiler): {nccl}; peak allocated "
+              f"{', '.join(f'{x:.2f}' for x in row['peak_gb'])} GB a rank [{'; '.join(cards)}]",
+              flush=True)
+    for name, row in one_card.items():
+        print(f"tp graph: one card, {name} x{L} whole, static serve as a graph ({row['path']}): "
+              f"prefill {row['prefill_ms']:.1f} ms, decode {row['decode_ms']:.2f} ms/step "
+              f"[{card}]", flush=True)
+    if problems:
+        fail("tp graph: " + "; ".join(problems))
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = set(held)
+    shapes = list({sh[1:]: sh for sh in shape_list}.values())
+    new = [sh for sh in shapes if tuple(sh[1:]) not in held]
+    grid_new = list({sh[1:]: sh for sh in grid_list}.values())
+    print(f"tp graph: {len(shapes) - len(new)} of {len(shapes)} ax_matmul shapes held to the "
+          f"plain version earlier in this run", flush=True)
+    shape_rows = main_shape_checks(dev, card, clock, grid_kernel=False, shapes=new)
+    grid_rows = main_shape_checks(dev, card, clock, grid_kernel=True, shapes=grid_new)
+    print(f"tp graph: the one-card references {ref_s:.1f} s, the ranks {ranks_s:.1f} s with "
+          f"the spawn [{'; '.join(cards)}]", flush=True)
+    rows.update(ref_s=ref_s, ranks_s=ranks_s, one_card=one_card, cards=cards)
+    return rows, shape_rows, grid_rows, paths, grid_paths
+
+
 def _update_gap_np(new, ref, start) -> float:
     """``_update_gap`` over numpy parameter dicts keyed alike."""
     import numpy as np
@@ -5051,6 +5547,16 @@ def main(argv):
         print(f"--- {name}: nvcc {b.seconds:.1f} s, -Xptxas -v:\n{b.report.strip()}", flush=True)
 
     nvcc_runs = _build.NVCC_RUNS["count"]
+    if "--tp-graph" in argv:
+        t0 = time.perf_counter()
+        if tp_graph_phase(dev, card, clock) is None:
+            fail("--tp-graph needs four cards")
+        print(f"[phase tp graph: {time.perf_counter() - t0:.1f} s]", flush=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}),
+              flush=True)
+        return
 
     phase_t = time.perf_counter()
 
@@ -5096,6 +5602,11 @@ def main(argv):
     tpa_rows, tpa_shape_rows, tpa_grid_rows, tpa_paths, tpa_grid_paths = tp_adapt_phase(
         dev, card, clock, held=[(r["M"], r["K"], r["N"]) for r in tps_shape_rows])
     phase_done("tp adapt")
+    tpg = tp_graph_phase(dev, card, clock, held=[(r["M"], r["K"], r["N"])
+                                                 for r in tps_shape_rows + tpa_shape_rows])
+    tpg_rows, tpg_shape_rows, tpg_grid_rows, tpg_paths, tpg_grid_paths = \
+        tpg if tpg is not None else (None, [], [], {}, {})
+    phase_done("tp graph")
     profile = "--profile" in argv
     cfg, params, prompts, tokens, paths, stats = serve(dev, card, profile)
     paths.update(w_paths)
@@ -5104,6 +5615,7 @@ def main(argv):
     paths.update(tm_paths)
     paths.update(tps_paths)
     paths.update(tpa_paths)
+    paths.update(tpg_paths)
     phase_done("serve")
     autotune_rows = autotune_phase(dev, card, cfg, params, prompts, tokens)
     phase_done("autotune")
@@ -5112,6 +5624,7 @@ def main(argv):
     grid_paths.update(m_grid_paths)
     grid_paths.update(tm_grid_paths)
     grid_paths.update(tpa_grid_paths)
+    grid_paths.update(tpg_grid_paths)
     phase_done("adapt")
     paths["per-slot graph"] = slot_serve(cfg, params, card)
     paths["token-granular graph"] = token_serve(cfg, params, card)
@@ -5178,11 +5691,11 @@ def main(argv):
                      rows, c_rows)
     grid_entry = entry("ax_matmul_grid", "src/repro/kernels/ax_matmul.py:253", grid_launches,
                        grid_paths, grid_rows, c_grid_rows)
-    for e, fam_rows, w_rows, t_rows, tm_rows_, tp_rows_, tps_rows_, tpa_rows_ in (
+    for e, fam_rows, w_rows, t_rows, tm_rows_, tp_rows_, tps_rows_, tpa_rows_, tpg_rows_ in (
             (ax_entry, family_shape_rows, whisper_shape_rows, train_shape_rows, tm_shape_rows,
-             tp_shape_rows, tps_shape_rows, tpa_shape_rows),
+             tp_shape_rows, tps_shape_rows, tpa_shape_rows, tpg_shape_rows),
             (grid_entry, family_grid_rows, [], train_grid_rows, tm_grid_rows, tp_grid_rows,
-             [], tpa_grid_rows)):
+             [], tpa_grid_rows, tpg_grid_rows)):
         e["family_shapes"] = fam_rows
         e["whisper_shapes"] = w_rows
         e["train_shapes"] = t_rows
@@ -5190,9 +5703,10 @@ def main(argv):
         e["train_tp_shapes"] = tp_rows_
         e["tp_serve_shapes"] = tps_rows_
         e["tp_adapt_shapes"] = tpa_rows_
+        e["tp_graph_shapes"] = tpg_rows_
         e["max_abs_err"] = max([e["max_abs_err"]] + [
             r["max_abs_err"] for r in fam_rows + w_rows + t_rows + tm_rows_ + tp_rows_
-            + tps_rows_ + tpa_rows_])
+            + tps_rows_ + tpa_rows_ + tpg_rows_])
     ax_entry["whisper"] = {k: whisper_row[k] for k in (
         "name", "layers", "enc_layers", "params_g", "ax_per_forward", "ax_per_decode",
         "launches", "decode_vs_full_rel", "graph_decode_ms_per_step")}
@@ -5202,6 +5716,7 @@ def main(argv):
     ax_entry["train_mesh"] = tm_rows
     ax_entry["tp_serve"] = tps_rows
     ax_entry["tp_adapt"] = tpa_rows
+    ax_entry["tp_graph"] = tpg_rows
     ax_entry["families"] = [{k: r[k] for k in ("name", "layers", "params_g", "ax_per_forward",
                                                "launches")} for r in family_rows]
     ax_entry["reduced_card_vs_cpu"] = {

@@ -79,8 +79,13 @@ mesh with several ``"model"`` ranks, with ``par``; no fleet mesh).  Every
 rank runs a batcher over the same submits with its blocks of the weights
 (``launch.parallel.serve_params``), and the engine calls run under that
 context with ``par``: a wave is one ``generate(par=)``, a token step one
-``token_step(par=)``, both eager (``cuda_graphs=False``), whose tokens and
-records come back whole on every rank (``serve/engine.py``'s note).  The
+``token_step(par=)``, whose tokens and records come back whole on every
+rank (``serve/engine.py``'s note).  Over ``nccl`` (one rank per card) they
+replay CUDA graphs as on one card: a batcher's slot cache stays put, so a
+second drain, a splice or a policy update captures nothing.  Over ``gloo``
+they run eagerly (``cuda_graphs=False``;
+``serve.engine.model_sharded_graphs`` says which, once, when the batcher
+is made).  The
 slot cache is the rank's block (``launch.mesh.cache_shardings``); every
 rank prefills an admission (the prefill is split over the ranks too), and
 its first token comes back gathered from the rank that holds row 0; the
@@ -107,8 +112,8 @@ from repro_torch.launch.mesh import block_index, cache_shardings, tree_paths, tr
 from repro_torch.launch.sharding import current_groups, current_mesh, current_tp, set_mesh_ctx
 from repro_torch.models import init_cache
 from repro_torch.runtime.telemetry import finish_host_copy, start_host_copy
-from repro_torch.serve.engine import (ServeConfig, generate, prefill_one, splice_slot,
-                                      token_step)
+from repro_torch.serve.engine import (ServeConfig, generate, model_sharded_graphs,
+                                      prefill_one, splice_slot, token_step)
 from repro_torch.train.fault import StragglerWatchdog
 
 from . import chaos, collect
@@ -248,6 +253,8 @@ class ContinuousBatcher:
                 raise ValueError("ContinuousBatcher: mesh= (the fleet mesh) and a "
                                  "model-sharded mesh context do not combine")
             self._tp_ctx = (current_mesh(), current_groups().par)
+        # the model-sharded decode as CUDA graphs: over nccl only (module note)
+        self._tp_graphs = self._tp_ctx is not None and model_sharded_graphs()
         self.params = params
         self.cfg = cfg
         self.bcfg = bcfg or BatcherConfig()
@@ -339,10 +346,10 @@ class ContinuousBatcher:
 
     def _engine_kw(self) -> dict:
         """``par`` where the caller gave one, and the eager decode of a
-        model-sharded model (module note)."""
+        model-sharded model over ``gloo`` (module note)."""
         kw = {} if self.par is None else {"par": self.par}
         if self._tp_ctx is not None:
-            kw["cuda_graphs"] = False
+            kw["cuda_graphs"] = self._tp_graphs
         return kw
 
     def _owns(self, slot: int) -> bool:
@@ -576,7 +583,7 @@ class ContinuousBatcher:
                            temperature=bc.temperature, seed=bc.seed,
                            fused=True, observe_every=bc.observe_every,
                            eos_id=bc.eos_id if self.padmask else None,
-                           cuda_graphs=self._tp_ctx is None)
+                           cuda_graphs=self._tp_ctx is None or self._tp_graphs)
         padmask_kw = (dict(prompt_lens=lens, slot_new_tokens=budgets,
                            max_cache_len=self.max_cache_len())
                       if self.padmask else {})

@@ -80,16 +80,29 @@ def default_backend(device) -> str:
 def init_world(rank: int, world_size: int, store_path: str, *, backend: str,
                timeout_s: float = DEFAULT_TIMEOUT_S) -> None:
     """Join a world of ``world_size`` ranks on a ``FileStore`` at
-    ``store_path`` (every rank names the same file)."""
+    ``store_path`` (every rank names the same file).  An ``nccl`` rank binds
+    card ``rank % count`` first and passes it as ``device_id``: its
+    communicators are then made eagerly (the world's at once, a new group's
+    when it is made), never inside a captured CUDA graph."""
     store = dist.FileStore(store_path, world_size)
+    kw = {}
+    if backend == "nccl":
+        kw["device_id"] = _card(rank)
+        torch.cuda.set_device(kw["device_id"])
     dist.init_process_group(backend, store=store, rank=rank, world_size=world_size,
-                            timeout=datetime.timedelta(seconds=timeout_s))
+                            timeout=datetime.timedelta(seconds=timeout_s), **kw)
+
+
+def _card(rank: int) -> torch.device:
+    """The card of ``rank``: ``rank % count``, one rank per card where the
+    world has no more ranks than the host has cards."""
+    return torch.device("cuda", rank % torch.cuda.device_count())
 
 
 def _bind_device(device) -> None:
     dev = torch.device(device)
     if dev.type == "cuda":
-        torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
+        torch.cuda.set_device(_card(dist.get_rank()))
 
 
 def make_fleet_mesh(n: Optional[int] = None, device="cuda", backend: Optional[str] = None):

@@ -36,11 +36,32 @@ each block starts in its leaf (:meth:`MeshGroups.block_starts`), which a
 transform of the whole weights by their global indices reads
 (``launch.serve.drift_hook``).
 
+**Float sums in rank order.**  A SUM over ranks of a floating tensor
+(:func:`all_reduce_sum`, :meth:`TensorParallel.reduce`, :meth:`~TensorParallel.all_reduce_`,
+:meth:`~TensorParallel.reduce_scatter`, :meth:`~TensorParallel.reduce_scatter_`)
+all-gathers the ranks' parts (an all-to-all of the blocks for a
+reduce-scatter) and adds them in rank order on every rank,
+``((p0 + p1) + p2) + ...`` (:func:`rank_order_sum`): the sum of one
+device adding the blocks in that order, whatever the backend's
+algorithm.  ``nccl`` adds in its algorithm's own order (ring, tree or
+NVLS, by message size), and over more than two ranks that order changes
+the bits.  The serve step reaches these sums in the split decode
+attention's combine (``layers.decode_attention_split``), the
+vocab-parallel embedding's and the MoE's token blocks
+(``TensorParallel.exit``, one nonzero part a row), the MoE dispatch's
+counts (``MeshGroups.token_sum``, ``batch_sum``) and the exact
+row-parallel projections.  MAX reductions and integer SUMs stay
+all-reduces (exact in any order): the SWAPPER projection's int32
+accumulator (``quant.ax``), the weight codes' absolute maxima, the
+records' sampled rows and tile counts (``runtime.telemetry``).
+
 **Backends.**  ``nccl`` and ``gloo`` both run these collectives natively
 on card tensors (``all_gather_into_tensor``, ``reduce_scatter_tensor``,
 ``all_to_all_single``, ``all_reduce``; ``gloo`` with torch 2.11 on an H100,
 probed by ``chip_smoke.py``), and ``gloo`` on CPU tensors; nothing is
-composed, and an unsupported call raises.
+composed, and an unsupported call raises.  Every group of a mesh takes
+the world's backend; a CUDA graph captures the collectives of ``nccl``
+only (``serve/engine.py``).
 """
 from __future__ import annotations
 
@@ -55,7 +76,8 @@ from repro_torch.launch.mesh import axes_group, batch_axis_names, batch_group, b
 from repro_torch.launch.sharding import PartitionSpec, _names, axis_rules, axis_size, mesh_shape
 
 __all__ = ["TensorParallel", "MeshGroups", "mesh_groups", "expert_all_to_all",
-           "expert_all_to_all_back", "all_reduce_sum", "serve_param_specs", "serve_params"]
+           "expert_all_to_all_back", "all_reduce_sum", "rank_order_sum", "serve_param_specs",
+           "serve_params"]
 
 # leaves sharded over "model" that a rank gathers: the router scores every
 # expert, and the SSD's conv channels (din + 2N, split as one dim) do not
@@ -71,12 +93,28 @@ def _group_of(mesh, axes):
 
 
 def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
-    """A detached all-reduce SUM of ``t`` over ``group`` (``t`` itself for
-    a one-rank group)."""
+    """A detached SUM of ``t`` over ``group`` (``t`` itself for a one-rank
+    group); a float one in rank order (module note)."""
     if group is None:
         return t.detach()
-    out = t.detach().clone()
-    dist.all_reduce(out, group=group)
+    return _all_reduce(t, group)
+
+
+def rank_order_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """The SUM of ``t`` over the ranks of ``group``, added in rank order on
+    every rank (module note): the parts all-gathered, then
+    ``((p0 + p1) + p2) + ...``.  No gradient."""
+    n = dist.get_world_size(group)
+    t = t.detach().contiguous()
+    parts = torch.empty(n * t.numel(), dtype=t.dtype, device=t.device)
+    dist.all_gather_into_tensor(parts, t.reshape(-1), group=group)
+    return _add_in_order(parts.view((n,) + tuple(t.shape)))
+
+
+def _add_in_order(parts: torch.Tensor) -> torch.Tensor:
+    out = parts[0].clone()
+    for p in parts[1:]:
+        out = out + p
     return out
 
 
@@ -128,12 +166,22 @@ def _all_gather(x, dim, group, n):
 
 def _reduce_scatter(x, dim, group, n):
     xt = x.movedim(dim, 0).contiguous()
-    out = torch.empty((xt.shape[0] // n,) + tuple(xt.shape[1:]), dtype=x.dtype, device=x.device)
-    dist.reduce_scatter_tensor(out, xt, op=dist.ReduceOp.SUM, group=group)
+    if xt.is_floating_point():
+        # each rank's part of this rank's block, added in rank order
+        parts = torch.empty_like(xt)
+        dist.all_to_all_single(parts, xt, group=group)
+        out = _add_in_order(parts.view((n, xt.shape[0] // n) + tuple(xt.shape[1:])))
+    else:
+        out = torch.empty((xt.shape[0] // n,) + tuple(xt.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        dist.reduce_scatter_tensor(out, xt, op=dist.ReduceOp.SUM, group=group)
     return out.movedim(0, dim).contiguous()
 
 
 def _all_reduce(x, group, op=dist.ReduceOp.SUM):
+    """All-reduce ``op``; a float SUM in rank order (module note)."""
+    if op == dist.ReduceOp.SUM and x.is_floating_point():
+        return rank_order_sum(x, group)
     out = x.detach().contiguous().clone()
     dist.all_reduce(out, op=op, group=group)
     return out
@@ -330,6 +378,17 @@ class MeshGroups:
         if hi - lo < B or self.batch[2] == 1:
             return axes_group(self.mesh, "model")
         return axes_group(self.mesh, self.batch_axes + ("model",))
+
+    def signature(self, B: int) -> tuple:
+        """What a captured serve step depends on beyond its tensors, for a
+        global batch of ``B``: the mesh, ``par``, this rank's rows and model
+        block, and the groups' names (``serve/engine.py`` keys its programs
+        by it)."""
+        shape = mesh_shape(self.mesh)
+        names = [g.group_name for g in (self.tp.group if self.tp is not None else None,
+                                        self.batch[0]) if g is not None]
+        return (shape.axis_names, shape.sizes, self.par, self.rows(B),
+                self.tp.index if self.tp is not None else None, tuple(names))
 
     @property
     def batch_group(self):

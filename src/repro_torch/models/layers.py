@@ -34,8 +34,10 @@ block of the padded cache (a windowed layer's ring split the same way).
 A decode step gathers the query's and this step's k/v columns (one
 token's), the rank that owns the position's row writes it, and
 :func:`decode_attention_split` attends over the rank's block and combines
-the partial softmax statistics across the group; the rank's heads of the
-result go into the row-parallel ``o``.
+the partial softmax statistics across the group, its float sums added in
+rank order; the rank's heads of the result go into the row-parallel
+``o``.  Nothing in a decode step copies from the host (its index tensors
+are built on the device), so the step can be captured as a CUDA graph.
 """
 from __future__ import annotations
 
@@ -378,13 +380,17 @@ def decode_attention_split(q, k_blk, v_blk, q_pos, kv_len, *, group, lo: int = 0
     positions come as one device's ring call gives them, ``q_pos`` at the
     last row).  Each rank keeps the partial maximum of its scores, the sum
     of their exponentials and the weighted sum of its values; the partials
-    are combined with an all-reduce MAX of the maxima, then all-reduce SUMs
-    of the sums (f32).  The weights are normalised and cast to the values'
-    dtype before the weighted sum, as one device's softmax is, and the f32
-    sums are cast once: the only step of the sharded decode that adds in
-    another order than one device.  The combine holds wherever every key is
-    held by the same number of ranks of ``group`` (a block on each, or a
-    cache whole on each: the sums then scale alike)."""
+    are combined with an all-reduce MAX of the maxima, then the f32 sums
+    all-gathered and added in rank order on every rank
+    (``launch.parallel.rank_order_sum``): one device adding the blocks of
+    the cache's sequence in order, whatever the backend's own order of a
+    SUM (``nccl`` over four cards adds in its algorithm's).  The weights
+    are normalised and cast to the values' dtype before the weighted sum,
+    as one device's softmax is, and the f32 sums are cast once: the only
+    step of the sharded decode that adds in another order than one device
+    over the whole cache.  The combine holds wherever every key is held by
+    the same number of ranks of ``group`` (a block on each, or a cache whole
+    on each: the sums then scale alike)."""
     B, _, H, hd = q.shape
     L, KV = k_blk.shape[1], k_blk.shape[2]
     G = H // KV
@@ -394,14 +400,14 @@ def decode_attention_split(q, k_blk, v_blk, q_pos, kv_len, *, group, lo: int = 0
     idx = lo + torch.arange(L, device=q.device)[None, :]
     valid = (idx < kv_len[:, None]) & (idx <= q_pos[:, None])
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, -1e30))
+    from repro_torch.launch.parallel import rank_order_sum
+
     m = s.amax(dim=-1, keepdim=True)                            # (B, KV, G, 1)
     dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
     e = torch.exp(s - m)
-    l = e.sum(dim=-1, keepdim=True)
-    dist.all_reduce(l, group=group)
+    l = rank_order_sum(e.sum(dim=-1, keepdim=True), group)
     p = (e / l).to(v_blk.dtype).to(torch.float32)
-    out = torch.einsum("bkgc,bckh->bkgh", p, v_blk.to(torch.float32))
-    dist.all_reduce(out, group=group)
+    out = rank_order_sum(torch.einsum("bkgc,bckh->bkgh", p, v_blk.to(torch.float32)), group)
     return out.to(v_blk.dtype).reshape(B, 1, H, hd).to(q.dtype)
 
 
@@ -701,7 +707,8 @@ def _tp_heads(tp, q, k, v, cfg: ModelConfig):
     k = k.reshape(B, Sk, k1 - k0, hd)
     v = v.reshape(B, Sk, k1 - k0, hd)
     if h0 % G or h1 % G:
-        idx = torch.tensor([h // G - k0 for h in range(h0, h1)], device=k.device)
+        # built on the device: a CUDA graph cannot capture a host copy
+        idx = torch.div(torch.arange(h0, h1, device=k.device), G, rounding_mode="floor") - k0
         k, v = k.index_select(2, idx), v.index_select(2, idx)
     return q, k, v, out_cols
 

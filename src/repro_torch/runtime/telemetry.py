@@ -241,6 +241,27 @@ def _sampled_rows(M: int, K: int, tile_rows: int) -> List[int]:
     return sorted(rows)
 
 
+_INDEX: Dict[tuple, torch.Tensor] = {}
+
+
+def _index(values: Tuple[int, ...], device) -> torch.Tensor:
+    """``values`` as an int64 tensor on ``device``, made once per values
+    and device and kept until :func:`clear_index`: a step that is captured
+    as a CUDA graph finds it made by its eager run, since a capture cannot
+    copy from the host."""
+    key = (values, str(device))
+    t = _INDEX.get(key)
+    if t is None:
+        t = _INDEX[key] = torch.tensor(values, dtype=torch.int64, device=device)
+    return t
+
+
+def clear_index() -> None:
+    """Drop the kept index tensors; ``serve.graph.clear_programs`` calls it
+    once no captured program can read them."""
+    _INDEX.clear()
+
+
 def tp_operands(xq, wq, tp, k_split: bool, tile_rows: int = 0, row_span=None, group=None):
     """The operands of a projection whose K (``k_split``) or output columns
     are split over the model ranks (``launch.parallel.TensorParallel``),
@@ -258,7 +279,9 @@ def tp_operands(xq, wq, tp, k_split: bool, tile_rows: int = 0, row_span=None, gr
     each row gathered from the rank that holds it; otherwise it is ``xq``
     itself.  ``row_span = (lo, M)``: ``xq``'s flattened rows are rows
     ``lo..`` of the whole batch's ``M``, split over the batch axes'
-    ``group``."""
+    ``group``.  The index tensors of the sampled rows are made once per
+    shape and rank block (:func:`_index`), so a captured step copies
+    nothing from the host."""
     n_w = max(TELEMETRY_SAMPLE, TILE_TELEMETRY_SAMPLE)
     ws = wq if tp is None else _head_rows(wq, n_w, tp, 0 if k_split else 1)
     if not k_split and row_span is None:
@@ -272,8 +295,8 @@ def tp_operands(xq, wq, tp, k_split: bool, tile_rows: int = 0, row_span=None, gr
     mine = [i for i, r in enumerate(idx) if lo <= r < lo + m]
     part = torch.zeros((len(idx), x2d.shape[1]), dtype=xq.dtype, device=dev)
     if mine:
-        src = torch.tensor([idx[i] - lo for i in mine], dtype=torch.int64, device=dev)
-        part[torch.tensor(mine, dtype=torch.int64, device=dev)] = x2d.index_select(0, src)
+        src = _index(tuple(idx[i] - lo for i in mine), dev)
+        part[_index(tuple(mine), dev)] = x2d.index_select(0, src)
     if k_split:
         part = tp.all_gather_(part, 1)
     if row_span is not None:
@@ -282,7 +305,7 @@ def tp_operands(xq, wq, tp, k_split: bool, tile_rows: int = 0, row_span=None, gr
         dist.all_reduce(part32, group=group)
         part = part32.to(xq.dtype)
     view = torch.zeros((M, K), dtype=xq.dtype, device=dev)
-    view[torch.tensor(idx, dtype=torch.int64, device=dev)] = part
+    view[_index(tuple(idx), dev)] = part
     return (view if row_span is not None else view.reshape(*xq.shape[:-1], K)), ws
 
 

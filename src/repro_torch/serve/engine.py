@@ -103,12 +103,32 @@ returns them.  With an adaptive controller every rank's records are the
 whole batch's (``quant.ax.ax_dense_dyn``: the sampled rows gathered from
 the ranks that hold them, a tile grid over the whole batch's row tiles), so
 every rank's controller observes the same records and takes the same
-decisions, those of JAX's GSPMD serve's one controller.  The decode step
-runs eagerly: a step captured as a
-CUDA graph (whose collectives would run through ``gloo``, which a graph
-cannot capture) raises ``ValueError`` (pass ``ServeConfig(cuda_graphs=False)``
-or ``token_step(cuda_graphs=False)`` on the card), and so does ``mesh=``
-(the fleet mesh) under a model-sharded context.  :func:`prefill_one` then
+decisions, those of JAX's GSPMD serve's one controller.
+
+Over ``nccl`` (one rank per card) the decode step is captured as a CUDA
+graph and replayed, as on one card: the fused static and adaptive serves
+and :func:`token_step`, so the continuous batcher's token mode too.  The
+step's ``nccl`` collectives are captured with its kernels (the program's
+eager first step creates every group's communicator before its capture;
+``launch.mesh`` binds each rank's card and initialises ``nccl`` eagerly),
+its index tensors are made on the device or once before the capture
+(``runtime.telemetry.tp_operands``), and its float sums over ranks add in
+rank order (``launch.parallel``'s note), so a replay gives the eager
+step's bits and every rank those of one card adding the blocks in rank
+order.  Every rank replays the same graphs in the same order: the gates
+come from host values every rank shares, the records are the whole
+batch's on every rank, and nothing is aggregated inside a replay.  A
+program's key names the context (:func:`_mesh_sig`: the mesh, ``par``,
+the rank's rows and model block, the groups), so a program captured
+under one context is never replayed under another.  A capture or a
+collective that fails raises: nothing falls back to eager.  Over
+``gloo`` (two ranks sharing a card, or the CPU) the step runs eagerly: a
+step asked for as a CUDA graph (whose ``gloo`` collectives go through the
+host, which a graph cannot capture) raises ``ValueError``
+(:func:`model_sharded_graphs` says which; pass
+``ServeConfig(cuda_graphs=False)`` or ``token_step(cuda_graphs=False)``).
+``mesh=`` (the fleet mesh) under a model-sharded context raises
+``ValueError`` whatever the backend.  :func:`prefill_one` then
 prefills its ``rows`` copies of the request over the ranks' rows, its first
 token gathered from the rank that holds row 0, and its cache is the rank's
 block of a slot cache of ``rows`` slots, which :func:`splice_slot` writes
@@ -123,6 +143,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs
 from repro_torch.configs.base import ModelConfig, ParallelConfig
@@ -134,7 +155,7 @@ from repro_torch.runtime.telemetry import finish_host_copy, start_host_copy
 from . import graph as G
 
 __all__ = ["ServeConfig", "generate", "slot_sample", "token_step", "prefill_one",
-           "splice_slot"]
+           "splice_slot", "model_sharded_graphs"]
 
 _PREFILL_WALL = obs.default_registry().histogram(
     "repro_prefill_dispatch_seconds",
@@ -506,17 +527,34 @@ def generate(params, prompt_batch, cfg: ModelConfig, scfg: ServeConfig, *,
     return result
 
 
+def model_sharded_graphs() -> bool:
+    """Whether the installed model-sharded context's decode step may be
+    captured as a CUDA graph: its groups are ``nccl`` (each group of a mesh
+    takes the world's backend; module note)."""
+    return dist.get_backend() == "nccl"
+
+
 def _check_model_sharded(device, graphs: bool, mesh) -> None:
     """The refusals of the model-sharded serve (module note): the fleet mesh,
-    and a decode step that would be captured as a CUDA graph."""
+    and a decode step captured as a CUDA graph over a group that is not
+    ``nccl``."""
     if mesh is not None:
         raise ValueError("mesh= (the fleet mesh) and a model-sharded mesh context do not "
                          "combine")
-    if _use_graphs(device, graphs):
-        raise ValueError("a model-sharded decode step runs collectives (gloo between ranks "
-                         "sharing a card), which a CUDA graph cannot capture: pass "
-                         "ServeConfig(cuda_graphs=False) to generate, cuda_graphs=False to "
-                         "token_step")
+    if _use_graphs(device, graphs) and not model_sharded_graphs():
+        raise ValueError(f"a model-sharded decode step over "
+                         f"{dist.get_backend()} runs collectives "
+                         f"through the host, which a CUDA graph cannot capture (nccl's it "
+                         f"can): pass ServeConfig(cuda_graphs=False) to generate, "
+                         f"cuda_graphs=False to token_step")
+
+
+def _mesh_sig(B: int):
+    """A program key's part for the installed model-sharded context: its
+    mesh, groups and this rank's block layout for a global batch of ``B``
+    (``MeshGroups.signature``), so a program captured under one context is
+    never replayed under another; None outside one."""
+    return current_groups().signature(B) if current_tp() is not None else None
 
 
 def _fleet(rec, group):
@@ -538,7 +576,7 @@ def _fused_graph(params, st: _State, cfg, dyn, gates, kw, max_len, adaptive, gro
     B = st.tok.shape[0]
     key = ("fused" if dyn is None else "fused_adaptive", cfg, B, max_len, st.out.shape[1],
            kw["temperature"], kw["eos_id"], kw["tile_rows"], _dyn_sig(dyn),
-           _cache_sig(st.cache))
+           _cache_sig(st.cache), _mesh_sig(B))
 
     def build():
         buf = dict(state=_state_like(st), dyn=({k: torch.empty_like(v) for k, v in dyn.items()}
@@ -635,10 +673,12 @@ def token_step(params, cache, tok, pos, active, cfg: ModelConfig,
 
     ``par``: as JAX's, passed to ``decode_step``.  Under a model-sharded
     mesh the per-slot vectors are the global batch's and ``cache`` is this
-    rank's block of the slot cache (``launch.mesh.cache_shardings``); the
-    step runs eagerly (``cuda_graphs=True`` on the card raises
-    ``ValueError``), its records are the whole batch's and ``tok'`` the
-    global tokens on every rank (module note)."""
+    rank's block of the slot cache (``launch.mesh.cache_shardings``); its
+    records are the whole batch's and ``tok'`` the global tokens on every
+    rank.  Over ``nccl`` the step is a CUDA graph per program as on one
+    card, its key naming the context; over ``gloo`` it runs eagerly
+    (``cuda_graphs=True`` on the card raises ``ValueError``; module
+    note)."""
     device = params["embed"]["w"].device
     shard_rows = None
     if current_tp() is not None:
@@ -687,7 +727,7 @@ def token_step(params, cache, tok, pos, active, cfg: ModelConfig,
     with torch.inference_mode():
         if _use_graphs(device, cuda_graphs):
             key = ("token_step", cfg, B, _cache_sig(cache), temperature, eos_id,
-                   tile_rows, _dyn_sig(dyn))
+                   tile_rows, _dyn_sig(dyn), _mesh_sig(B))
 
             def build():
                 buf = {n: torch.empty(B, dtype=dtypes[n], device=device) for n in inputs}

@@ -44,6 +44,7 @@ import torch
 from repro_torch import obs
 from repro_torch.kernels.ax_matmul import LAUNCHES
 from repro_torch.quant.ax import weight_cache_payloads
+from repro_torch.runtime.telemetry import clear_index
 
 __all__ = ["StepProgram", "program", "CAPTURES", "REPLAYS", "counts", "executed_launches",
            "captures_by_kind", "clear_programs", "leaves", "no_sync"]
@@ -179,5 +180,7 @@ def captures_by_kind() -> Dict[str, int]:
 
 
 def clear_programs() -> None:
-    """Drop every program (and the tensors it holds)."""
+    """Drop every program (and the tensors it holds), then the index
+    tensors of ``runtime.telemetry`` that their steps read."""
     _PROGRAMS.clear()
+    clear_index()

@@ -584,3 +584,142 @@ def row_split_rank(rank, fleet_mesh, cases):
         out.append(dict(rows=bool(torch.equal(y, whole[lo:hi])), records=bool(same),
                         targets=sorted(got), launches=launches))
     return out
+
+
+# ---------------------------------------------------------------------------
+# float sums in rank order, the graph predicate, the host copies of a step
+# (tests/test_torch_serve_tp_order.py)
+# ---------------------------------------------------------------------------
+
+def order_inputs(case):
+    """A combine case's seeded whole cache, query and positions (numpy):
+    ``(B, L, KV, H, hd, dtype, seed)``; ``L`` rows split over the ranks."""
+    B, L, KV, H, hd, dtype, seed = case
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((B, 1, H, hd), (B, L, KV, hd), (B, L, KV, hd)))
+    ci = rng.integers(0, 2 * L, B)
+    return q, k, v, ci, np.minimum(ci + 1, L)
+
+
+def order_rank(rank, _fleet, cases):
+    """On a world of 4: each combine case through ``decode_attention_split``
+    over the K/V group of a ``("data", "model")`` = (1, 4) mesh, called as
+    the sharded decode step calls it (the rank's block of the cache's
+    sequence); the graph predicate and the program key's part of the
+    context under ``gloo`` and with every group reporting ``nccl``
+    (``dist.get_backend`` replaced); and the ``torch.tensor`` calls on host
+    lists during a second observed adaptive token step at (2, 2), the first
+    one run before the count."""
+    from repro_torch.serve import engine
+
+    out = {"combine": []}
+    mesh = make_mesh((1, 4), ("data", "model"), device="cpu")
+    par = ParallelConfig(fsdp=True, seq_shard=True, ep=True)
+    for case in cases:
+        B, L, KV, H, hd, dtype, _ = case
+        q, k, v, ci, kv_len = (torch.from_numpy(a) for a in order_inputs(case))
+        q, k, v = (t.to(getattr(torch, dtype)) for t in (q, k, v))
+        group, index, n = mesh_groups(mesh, par).kv_group(B)
+        b = L // n
+        got = decode_attention_split(q, k[:, index * b:(index + 1) * b],
+                                     v[:, index * b:(index + 1) * b], ci, kv_len,
+                                     lo=index * b, group=group)
+        out["combine"].append(got.float().numpy())
+    cfg = config("qwen2-72b", {"ax": "kernel"})
+    local = serve_params(init_params(cfg, seed=0, device="cpu"), mesh, par)
+    mesh22 = make_mesh((2, 2), ("data", "model"), device="cpu")
+    with set_mesh_ctx(mesh, par):
+        out["backend"] = dist.get_backend()
+        out["graphs gloo"] = engine.model_sharded_graphs()
+        out["sig"] = repr(engine._mesh_sig(4))
+        out["sig again"] = repr(engine._mesh_sig(4))
+        real = dist.get_backend
+        dist.get_backend = lambda group=None: "nccl"
+        try:
+            out["graphs nccl"] = engine.model_sharded_graphs()
+            bat = ContinuousBatcher(local, cfg, adaptive=_controller(cfg, {}, 0)[0], par=par)
+            out["batcher graphs nccl"] = bat._engine_kw().get("cuda_graphs")
+        finally:
+            dist.get_backend = real
+        bat = ContinuousBatcher(local, cfg, adaptive=_controller(cfg, {}, 0)[0], par=par)
+        out["batcher graphs gloo"] = bat._engine_kw().get("cuda_graphs")
+    with set_mesh_ctx(mesh22, par):
+        out["sig 22"] = repr(engine._mesh_sig(4))
+    out["host lists"] = _host_lists_in_a_step(cfg, mesh22, par)
+    return out
+
+
+def _host_lists_in_a_step(cfg, mesh, par):
+    """The ``torch.tensor`` calls on a host list or tuple during the second
+    of two observed adaptive token steps (tile mode, 2 row tiles) under
+    ``set_mesh_ctx`` of ``mesh``: the reduced qwen2's 4 query heads over 2
+    model ranks split its one kv head's group, and the batch of 4 splits
+    over ``"data"`` (the records' gathered rows)."""
+    local = serve_params(init_params(cfg, seed=0, device="cpu"), mesh, par)
+    ctrl, _ = _controller(cfg, {}, 2)
+    B, L = 4, 24
+    calls = []
+    real = torch.tensor
+
+    def counting(data, *a, **kw):
+        if isinstance(data, (list, tuple)):
+            calls.append(repr(data)[:60])
+        return real(data, *a, **kw)
+
+    with set_mesh_ctx(mesh, par), torch.inference_mode():
+        cache = _slot_block(cfg, B, L, mesh, par)
+        tok = torch.arange(B, dtype=torch.int64)
+        pos = torch.full((B,), 3, dtype=torch.int64)
+        active = torch.ones(B, dtype=torch.bool)
+        for i in range(2):
+            if i == 1:
+                torch.tensor = counting
+            try:
+                tok, cache, rec = token_step(local, cache, tok, pos + i, active, cfg, par,
+                                             adaptive=ctrl, cuda_graphs=False)
+            finally:
+                torch.tensor = real
+    return dict(calls=calls, records=sorted(rec))
+
+
+def card_graph_rank(rank, _mesh, prompts):
+    """The tp graph phase's smallest case on one of four ``nccl`` ranks, one
+    card each (``tests/test_torch_gpu.py``): the reduced qwen2 (bf16,
+    ``mxu``) under ``set_mesh_ctx`` of ``("data", "model")`` = (1, 4), the
+    static serve and the fused adaptive serve in scalar and tile mode (2
+    row tiles), each twice, eager and then as CUDA graphs; returns each
+    serve's tokens, the records its controller observed and the graph
+    captures of each serve (numpy and plain values)."""
+    from repro_torch.serve import engine
+    from repro_torch.serve import graph as G
+
+    cfg = card_adapt_config()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh((1, 4), ("data", "model"), device="cuda", backend="nccl")
+    par = ParallelConfig(fsdp=True, seq_shard=True, ep=True)
+    local = serve_params(init_params(cfg, seed=0, device=dev), mesh, par)
+    out = {"device": str(dev)}
+    for mode in ("eager", "graph"):
+        use = engine._use_graphs
+        if mode == "eager":
+            engine._use_graphs = lambda device, enabled: False
+        try:
+            res = {}
+            for name, tr in (("static", None), ("scalar", 0), ("tile", 2)):
+                ctrl, seen = (None, []) if tr is None else _controller(cfg, {}, tr)
+                caps, toks = [], []
+                for _ in range(2):
+                    c0 = sum(G.captures_by_kind().values())
+                    with set_mesh_ctx(mesh, par):
+                        toks.append(generate(local, {"tokens": prompts.to(dev)}, cfg,
+                                             ServeConfig(max_new_tokens=8), par=par,
+                                             adaptive=ctrl, max_cache_len=48).cpu().numpy())
+                    caps.append(sum(G.captures_by_kind().values()) - c0)
+                res[name] = dict(tokens=toks, captures=caps, records=seen)
+        finally:
+            engine._use_graphs = use
+        out[mode] = res
+    G.clear_programs()
+    torch.cuda.synchronize()
+    return out

@@ -41,6 +41,14 @@ def cuda():
     return torch.device("cuda", 0)
 
 
+@pytest.fixture
+def cards4(cuda):
+    """Four cards or more, decided when the test runs."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip(f"needs four CUDA devices, this host has {torch.cuda.device_count()}")
+    return cuda
+
+
 def _ops(shape, signed, seed, dev):
     g = torch.Generator().manual_seed(seed)
     lo, hi = (-128, 128) if signed else (0, 256)
@@ -1054,3 +1062,39 @@ def test_projection_of_a_batch_split_on_the_card_equals_the_whole_batch(cuda, ba
     for (got,) in res:
         assert got["rows"] and got["records"], got
         assert got["targets"] == ["attn_qkv", "attn_qkv@tiles"] and got["launches"] >= 1, got
+
+
+# ---------------------------------------------------------------------------
+# the model-sharded serve over nccl on four cards
+# ---------------------------------------------------------------------------
+
+def test_cards4_tp_graph_serve_on_four_nccl_ranks_equals_eager(cards4):
+    """``chip_smoke.py``'s tp graph phase at its smallest: the reduced qwen2
+    (bf16, ``mxu``) on four ``nccl`` ranks, one card each, over ``("data",
+    "model")`` = (1, 4): the static serve and the fused adaptive serve in
+    scalar and tile mode (2 row tiles), each twice, as CUDA graphs equal to
+    the same eager on every rank (tokens and every observed record, field
+    by field), the ranks agreeing; one capture per program and gate on the
+    first serve, none on the second, none eagerly."""
+    import _torch_serve_tp_ranks as RK
+    from repro_torch.launch.mesh import spawn
+
+    cfg = RK.card_adapt_config()
+    prompts = torch.randint(0, cfg.vocab, (4, 16), generator=torch.Generator().manual_seed(2))
+    res = spawn(RK.card_graph_rank, 4, args=(prompts,), device="cuda", backend="nccl",
+                timeout_s=600)
+    assert [r["device"] for r in res] == [f"cuda:{i}" for i in range(4)]
+    for r in res:
+        for name in ("static", "scalar", "tile"):
+            g, e = r["graph"][name], r["eager"][name]
+            assert g["captures"] == [1, 0] and e["captures"] == [0, 0], (name, g["captures"])
+            for got, want in ((g, e), (g, res[0]["graph"][name])):
+                assert all((a == b).all() for a, b in zip(got["tokens"], want["tokens"])), name
+                assert len(got["records"]) == len(want["records"]), name
+                for ra, rb in zip(got["records"], want["records"]):
+                    assert sorted(ra) == sorted(rb)
+                    for t in ra:
+                        for k, v in rb[t].items():
+                            assert ra[t][k].dtype == v.dtype and (ra[t][k] == v).all(), (t, k)
+        assert (r["graph"]["static"]["tokens"][0] == r["graph"]["static"]["tokens"][1]).all()
+    assert res[0]["graph"]["scalar"]["records"], "the adaptive serve observed nothing"
