@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --tp-graph      # the build and the tp graph phase alone
+    python3 chip_smoke.py --tp-full       # the build and the tp full phase alone
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -209,6 +210,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
             eager, the NCCL kernels' share of a graph decode step
             (``torch.profiler``), the peak a rank, one card's graph step of
             the whole weights, each card's name and power limit;
+   tp full — with four cards or more (else one line says it did not run):
+            qwen2-72b at its published 80 layers (``TPF_*``; ``mxu``,
+            bf16, B = 4 x 32, 12 tokens, a 48-row cache) on four ``nccl``
+            ranks, one card each, ``("data", "model")`` = (1, 4), JAX's
+            default layout; each rank makes only its blocks of the
+            counter-addressed init's weights
+            (``launch.parallel.init_serve_params``), never a whole leaf or
+            tree.  Hard: every leaf's block (and its noted offsets) equal
+            to that leaf made whole on the same card, one leaf at a time;
+            the static serve and a tile-mode adaptive generation (2 row
+            tiles, no drift), each twice as CUDA graphs and once eager:
+            graph == eager bit for bit on every rank (tokens, each step's
+            logits, every observed record), the ranks agreeing, captures
+            [1, 0]; executed launches == reckoned from the config (4
+            approximate projections x 80 layers a forward); launched shapes
+            == reckoned, the new ones held to the plain version; no nvcc;
+            then card 0 alone runs the model layer by layer, each layer's
+            whole weights made just before it runs (``StreamedLayers``),
+            with the ranks' q/k/v and attention order (``tps_witness``):
+            the prefill's and each teacher-forced decode step's logits and
+            the tokens equal to rank 0's bit for bit.  Printed: init
+            seconds, weight and code bytes, the quantization transient,
+            prefill and decode ms/step graph and eager, the NCCL kernels'
+            share of a graph decode step, the peak a rank, the witness's
+            wall and peak, each card's name and power limit;
 5. serve  — qwen2-72b at its published widths, depth cut to 2 layers,
             random weights from a seed: the per-forward weight work that
             the weight cache removes, timed against its bytes; B=4 prompts
@@ -349,6 +375,7 @@ The second-to-last line is the ``kernels`` JSON summary, the last line
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -5110,25 +5137,43 @@ def _tpg_shapes(cfg, shape, label: str):
     return reck, grid
 
 
-def _nccl_share(prof, steps: int):
-    """(NCCL kernels' device ms a decode step, their share of the decode's
-    kernel time, kernels' device ms a decode step) of a profiled graph
-    serve: the kernels from the first graph launch on (the decode's
-    replays); None where the profiler saw no device kernel."""
+def _decode_kernels(prof):
+    """The device kernels of a profiled graph serve from its first graph
+    launch on (the decode's replays)."""
     from torch.autograd import DeviceType
 
     events = prof.events()
     starts = [e.time_range.start for e in events if "cudaGraphLaunch" in e.name]
     if not starts:
-        return None
+        return []
     t0 = min(starts)
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and e.time_range.start >= t0]
+    return [e for e in events if e.device_type == DeviceType.CUDA and e.time_range.start >= t0]
+
+
+def _nccl_share(prof, steps: int):
+    """(NCCL kernels' device ms a decode step, their share of the decode's
+    kernel time, kernels' device ms a decode step) of a profiled graph
+    serve (``_decode_kernels``); None where the profiler saw no device
+    kernel."""
+    kernels = _decode_kernels(prof)
     total = sum(e.time_range.elapsed_us() for e in kernels)
     if not total:
         return None
     nccl = sum(e.time_range.elapsed_us() for e in kernels if "nccl" in e.name.lower())
     return 1e-3 * nccl / steps, nccl / total, 1e-3 * total / steps
+
+
+def _kernel_breakdown(prof, steps: int, top: int = 8):
+    """[(kernel, device ms a decode step, share of the decode's kernel
+    time)] of the ``top`` kernels of a profiled graph serve's decode
+    replays, each named up to its first argument list (which names an
+    elementwise kernel's op)."""
+    by = collections.Counter()
+    for e in _decode_kernels(prof):
+        name = e.name.removeprefix("void ").replace("(anonymous namespace)::", "")
+        by[name.replace("at::native::", "").split("(")[0][:100]] += e.time_range.elapsed_us()
+    total = sum(by.values()) or 1
+    return [(name, 1e-3 * us / steps, us / total) for name, us in by.most_common(top)]
 
 
 def tp_graph_rank(rank, _fleet, ref_path, backend):
@@ -5457,6 +5502,453 @@ def tp_graph_phase(dev, card: str, clock: float, held=()):
     return rows, shape_rows, grid_rows, paths, grid_paths
 
 
+TPF_SHAPE = (1, 4)                       # ("data", "model"): the one layout whose blocks fit
+TPF_GENS = 2                             # graph serves of each kind: the second captures nothing
+TPF_TIMEOUT = 900                        # seconds for the four ranks
+
+
+def _tpf_config():
+    """qwen2-72b at its published 80 layers, ``mxu``, bf16 weights and
+    compute (the config's f32 weights would take 72.8 GB a rank; a bf16
+    projection casts them to bf16 first, so the serve computes the same)."""
+    from repro_torch.configs import qwen2_72b
+    from repro_torch.configs.base import AxPolicy
+
+    return dataclasses.replace(qwen2_72b, param_dtype="bfloat16", ax=AxPolicy(backend="mxu"))
+
+
+@contextlib.contextmanager
+def _logits_log(rows: int, vocab: int, dev, dtype):
+    """Each serve's last-position logits, step by step, into one device
+    buffer ``(TPA_T, rows, vocab)``: row 0 the prefill's, row ``i + 1``
+    decode step ``i``'s (indexed by the step's device counter, so a
+    captured step writes its row on every replay).  Yields the buffer; a
+    serve's logits are a clone of it after the serve."""
+    import torch
+
+    from repro_torch.serve import engine
+
+    log = torch.zeros((TPA_T, rows, vocab), dtype=dtype, device=dev)
+    decode0, prefill0, step0 = engine._decode, engine.prefill, engine.decode_step
+    now = {}
+
+    def _decode(params, st, cfg, **kw):
+        now["i"] = st.i
+        return decode0(params, st, cfg, **kw)
+
+    def prefill(*a, **kw):
+        logits, cache = prefill0(*a, **kw)
+        log[0].copy_(logits[:, -1])
+        return logits, cache
+
+    def decode_step(*a, **kw):
+        logits, cache = step0(*a, **kw)
+        log.index_copy_(0, now["i"] + 1, logits[:, -1][None])
+        return logits, cache
+
+    engine._decode, engine.prefill, engine.decode_step = _decode, prefill, decode_step
+    try:
+        yield log
+    finally:
+        engine._decode, engine.prefill, engine.decode_step = decode0, prefill0, step0
+
+
+def _digest(t) -> str:
+    """A SHA-256 of a tensor's bytes (its bits compared across processes)."""
+    import hashlib
+
+    import torch
+
+    return hashlib.sha256(t.detach().cpu().contiguous().view(torch.uint8).numpy()
+                          .tobytes()).hexdigest()
+
+
+def _tpf_serves(params, cfg, prompts, dev, par, n: int, log, keep: bool):
+    """``n`` static serves, then ``n`` fused adaptive generations in tile
+    mode (``TPA_TILES`` row tiles, no drift, a fresh controller each), under
+    the installed mesh context: each one's tokens, its logits' digest
+    (``log``: ``_logits_log``'s buffer, zeroed before each serve), the
+    steps whose logits row it left all zeros (``unwritten``), graph
+    captures and ``stats``; the
+    adaptive ones with their records, re-tunes and policy.  ``keep``: the
+    first static serve's logits too (``logits``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import ServeConfig, generate
+
+    scfg = ServeConfig(max_new_tokens=TPA_T)
+    out = {"static": [], "adaptive": []}
+    for kind in ("static", "adaptive"):
+        for _ in range(n):
+            ctrl, seen = _tpa_controller(cfg, TPA_TILES, dev) if kind == "adaptive" \
+                else (None, None)
+            c0, stats = _captures(), {}
+            log.zero_()
+            toks = generate(params, {"tokens": prompts}, cfg, scfg, par=par, adaptive=ctrl,
+                            max_cache_len=TPG_LEN, stats=stats).cpu()
+            torch.cuda.synchronize(dev)
+            res = dict(tokens=np.asarray(toks), digest=_digest(log), captures=_captures() - c0,
+                       stats=dict(stats),
+                       unwritten=np.flatnonzero(~log.flatten(1).ne(0).any(1).cpu().numpy()))
+            if ctrl is not None:
+                res.update(_tpa_result(ctrl, seen, toks))
+            if keep and kind == "static" and not out["static"]:
+                res["logits"] = log.float().cpu().numpy()
+            out[kind].append(res)
+    return out
+
+
+def _tpf_hold_blocks(params, cfg, mesh, par, dev):
+    """Every leaf of the rank's ``params`` against that leaf made whole by
+    the same init on the same card, one leaf at a time: (leaves, the paths
+    whose block or noted offsets differ, the largest whole leaf's GB)."""
+    import torch
+
+    from repro_torch.launch.mesh import block_index, tree_paths
+    from repro_torch.launch.parallel import mesh_groups, serve_param_specs
+    from repro_torch.models.layers import counter_tree
+    from repro_torch.models.registry import deferred_params, init_params
+
+    specs = dict(zip(*tree_paths(serve_param_specs(mesh, par, init_params(cfg, device="meta")))))
+    local = dict(zip(*tree_paths(params)))
+    groups = mesh_groups(mesh, par)
+    bad, largest = [], 0
+    paths, leaves = tree_paths(deferred_params(cfg, device=dev))
+    for path, leaf in zip(paths, leaves):
+        whole = counter_tree(leaf, 0, dev, prefix=path)
+        idx = block_index(mesh, specs[path], tuple(whole.shape))
+        if not torch.equal(whole[idx], local[path]) or \
+                groups.block_starts(local[path]) != tuple(s.start for s in idx):
+            bad.append(path)
+        largest = max(largest, whole.numel() * whole.element_size() / 1e9)
+        del whole
+    return len(paths), bad, largest
+
+
+def tp_full_rank(rank, _fleet, prompts_path, backend):
+    """One of the four ranks of the tp full phase, one card each: the
+    rank's blocks of qwen2-72b at 80 layers made alone
+    (``launch.parallel.init_serve_params``), each held to its leaf made
+    whole; then under ``set_mesh_ctx`` of (1, 4) the serves of
+    ``_tpf_serves`` as CUDA graphs (``TPF_GENS`` of each kind) and eager
+    (one), their executed launches and launched shapes; then one static
+    graph serve under ``torch.profiler``.  Results as numpy and plain
+    values."""
+    import torch
+
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ax_matmul import LAUNCHES
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.parallel import init_serve_params
+    from repro_torch.launch.sharding import set_mesh_ctx
+    from repro_torch.quant.ax import weight_cache_payloads
+    from repro_torch.serve import ServeConfig, generate
+    from repro_torch.serve import graph as G
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = (torch.device("cuda", torch.cuda.current_device()) if _fleet.device_type == "cuda"
+           else torch.device("cpu"))
+    nvcc0 = _build.NVCC_RUNS["count"]
+    cfg = _tpf_config()
+    par = ParallelConfig(fsdp=True, seq_shard=True, ep=True)     # JAX's default layout
+    mesh = make_mesh(TPF_SHAPE, ("data", "model"), device=dev.type, backend=backend)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_serve_params(cfg, mesh, par, seed=0, device=dev)
+    torch.cuda.synchronize(dev)
+    out = {"device": str(dev), "init_s": time.perf_counter() - t0,
+           "weight_gb": sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9,
+           "allocated_gb": torch.cuda.memory_allocated(dev) / 1e9,
+           "init_peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    t0 = time.perf_counter()
+    out["leaves"], out["bad_blocks"], out["largest_leaf_gb"] = _tpf_hold_blocks(
+        params, cfg, mesh, par, dev)
+    torch.cuda.synchronize(dev)
+    out["check_s"] = time.perf_counter() - t0
+    if rank == 0:
+        print(f"[tp full] rank 0: blocks made in {out['init_s']:.1f} s, {out['weight_gb']:.2f} GB "
+              f"(allocated {out['allocated_gb']:.2f} GB), every leaf held in "
+              f"{out['check_s']:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    prompts = torch.load(prompts_path).to(dev)
+    with set_mesh_ctx(mesh, par), _logits_log(B, cfg.padded_vocab, dev,
+                                              getattr(torch, cfg.compute_dtype)) as log:
+        for mode, n in (("graph", TPF_GENS), ("eager", 1)):
+            t0 = time.perf_counter()
+            l0, c0 = dict(LAUNCHES), G.counts()
+            with kernel_shapes() as seen, _eager_engine(mode == "eager"):
+                res = _tpf_serves(params, cfg, prompts, dev, par, n, log,
+                                  keep=rank == 0 and mode == "graph")
+            delta = {k: LAUNCHES[k] - l0[k] for k in LAUNCHES}
+            res.update(launches=G.executed_launches(c0, delta),
+                       shapes={k: sorted(v) for k, v in seen.items()},
+                       wall_s=time.perf_counter() - t0)
+            out[mode] = res
+            if rank == 0:
+                print(f"[tp full] rank 0: {mode} serves in {res['wall_s']:.1f} s, allocated "
+                      f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB, peak "
+                      f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB", flush=True)
+        out["codes_gb"] = sum(t.numel() * t.element_size()
+                              for t in weight_cache_payloads(_leaves(params))) / 1e9
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            generate(params, {"tokens": prompts}, cfg, ServeConfig(max_new_tokens=TPA_T),
+                     par=par, max_cache_len=TPG_LEN)
+            torch.cuda.synchronize(dev)
+    out["nccl"] = _nccl_share(prof, TPA_T - 1) if dev.type == "cuda" else None
+    out["kernels"] = _kernel_breakdown(prof, TPA_T - 1)
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["nvcc"] = _build.NVCC_RUNS["count"] - nvcc0
+    G.clear_programs()
+    torch.cuda.synchronize(dev)
+    return out
+
+
+class StreamedLayers:
+    """``params["layers"]`` of the layer-streamed witness: layer ``i``'s
+    whole weights made by the counter-addressed init when the forward
+    reaches it, and dropped when the next one takes its place; ``built``
+    counts the layers made."""
+
+    def __init__(self, deferred_layers, seed: int, dev):
+        self.deferred, self.seed, self.dev, self.built = deferred_layers, seed, dev, 0
+
+    def __len__(self):
+        return len(self.deferred)
+
+    def __getitem__(self, i: int):
+        from repro_torch.models.layers import counter_tree
+
+        self.built += 1
+        return counter_tree(self.deferred[i], self.seed, self.dev, prefix=f"layers/{i}")
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
+
+def _tpf_witness(cfg, prompts, tokens, dev):
+    """One card running the model layer by layer, each layer's whole
+    weights made just before it runs (``StreamedLayers``), under
+    ``tps_witness(4, attention=True)``: the prefill and the serve's decode
+    steps teacher-forced on ``tokens``.  Returns (each step's last-position
+    logits (``TPA_T``, B, V) in f32 on the host, the tokens they sample,
+    the layers made)."""
+    import torch
+
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.models.layers import counter_tree
+    from repro_torch.models.registry import deferred_params
+    from repro_torch.serve.engine import slot_sample
+
+    deferred = deferred_params(cfg, device=dev)
+    params = {k: counter_tree(v, 0, dev, prefix=k) for k, v in deferred.items() if k != "layers"}
+    params["layers"] = StreamedLayers(deferred["layers"], 0, dev)
+    teacher = torch.as_tensor(tokens, dtype=torch.int64, device=dev)
+    zeros = torch.zeros(B, dtype=torch.int64, device=dev)
+    logs = []
+    with torch.inference_mode(), tps_witness(TPF_SHAPE[1], attention=True):
+        lg, cache = prefill(params, {"tokens": prompts}, cfg, None, max_cache_len=TPG_LEN)
+        logs.append(lg[:, -1])
+        pos = torch.full((B,), S, dtype=torch.int64, device=dev)
+        live = torch.ones(B, dtype=torch.bool, device=dev)
+        for i in range(TPA_T - 1):
+            lg, cache = decode_step(params, cache, teacher[:, i:i + 1], pos + i, cfg, None,
+                                    write_mask=live)
+            logs.append(lg[:, -1])
+        toks = torch.stack([slot_sample(x, zeros, zeros, 0.0) for x in logs], 1)
+        out = torch.stack(logs).float().cpu().numpy()
+    return out, toks.cpu().numpy(), params["layers"].built
+
+
+def tp_full_phase(dev, card: str, clock: float, held=(), held_grid=()):
+    """Phase 4h (module note): with four cards or more, qwen2-72b at its
+    published 80 layers served over ``nccl`` on four ranks, one card each,
+    at (1, 4), each rank making only its blocks of the weights; then the
+    layer-streamed witness on card 0.  ``held``, ``held_grid``: the (M, K,
+    N) of ``ax_matmul`` and ``ax_matmul_grid`` held to the plain version in
+    this run already.  Returns (row, ``ax_matmul`` shape rows,
+    ``ax_matmul_grid`` shape rows, launches by path, grid launches by
+    path), or None with fewer cards."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import default_backend, spawn
+    from repro_torch.models import transformer
+
+    count = torch.cuda.device_count()
+    if count < TPG_RANKS:
+        print(f"[tp full] not run: {count} card(s); chiprun --chips 4", flush=True)
+        return None
+    cards = smi_all("name,power.limit")
+    cfg = _tpf_config()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if dev.type == "cuda":
+        free, total = torch.cuda.mem_get_info(dev)
+        held_gb = torch.cuda.memory_allocated(dev) / 1e9, torch.cuda.memory_reserved(dev) / 1e9
+        print(f"[tp full] card 0 before the ranks: this process {held_gb[0]:.2f} GB allocated, "
+              f"{held_gb[1]:.2f} GB reserved; {free / 1e9:.2f} of {total / 1e9:.2f} GB free on "
+              f"the card", flush=True)
+    prompts = torch.randint(0, cfg.vocab, (B, S), generator=torch.Generator().manual_seed(2))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_full_") as tmp:
+        path = os.path.join(tmp, "prompts.pt")
+        torch.save(prompts, path)
+        backend = default_backend(dev)
+        res = spawn(tp_full_rank, TPG_RANKS, args=(path, backend), device=dev.type,
+                    backend=backend, timeout_s=TPF_TIMEOUT)
+    ranks_s = time.perf_counter() - t0
+    problems = []
+    n_ax = len(transformer.ax_projections(cfg))
+    steps = TPA_T - 1
+    want = {"graph": {"ax_matmul": n_ax * TPF_GENS * (2 + steps),
+                      "ax_matmul_grid": n_ax * TPF_GENS * steps},
+            "eager": {"ax_matmul": n_ax * (2 + steps), "ax_matmul_grid": n_ax * steps}}
+    who = f"{cfg.name} tp full {TPF_SHAPE}"
+    reck, _ = _tpg_shapes(cfg, TPF_SHAPE, who)
+    reck_grid = {}                       # tile mode only: the grid kernel's N unpadded
+    for _, proj, K, N in transformer.ax_projections(cfg):
+        K, N = (K // TPF_SHAPE[1], N) if proj.endswith(" out") else (K, N // TPF_SHAPE[1])
+        reck_grid.setdefault((B // TPF_SHAPE[0], _padded(K), N), f"{who} decode tiles {proj}")
+    r0 = res[0]
+    for rank, r in enumerate(res):
+        g, e = r["graph"], r["eager"]
+        if r["nvcc"]:
+            problems.append(f"rank {rank}: {r['nvcc']} nvcc runs")
+        if dev.type == "cuda" and r["device"] != f"cuda:{rank}":
+            problems.append(f"rank {rank} ran on {r['device']}")
+        if r["bad_blocks"]:
+            problems.append(f"rank {rank}: blocks apart from their leaves made whole: "
+                            f"{r['bad_blocks'][:6]}")
+        for mode in ("graph", "eager"):
+            if r[mode]["launches"] != want[mode]:
+                problems.append(f"rank {rank} {mode}: executed launches {r[mode]['launches']} "
+                                f"(reckoned {want[mode]})")
+            seen = {k: set(map(tuple, v)) for k, v in r[mode]["shapes"].items()}
+            if seen["ax_matmul"] != set(reck) or seen["ax_matmul_grid"] != set(reck_grid):
+                problems.append(f"rank {rank} {mode}: kernel shapes {seen}, reckoned "
+                                f"{sorted(reck)} and {sorted(reck_grid)}")
+        # graph == eager, each graph serve the same, bit for bit
+        for kind in ("static", "adaptive"):
+            for mode in ("graph", "eager"):
+                for j, x in enumerate(r[mode][kind]):
+                    if len(x["unwritten"]):
+                        problems.append(f"rank {rank} {kind} {mode} serve {j}: no logits logged "
+                                        f"for steps {[int(i) for i in x['unwritten']]}")
+            ref = e[kind][0]
+            for j, x in enumerate(g[kind]):
+                if not np.array_equal(x["tokens"], ref["tokens"]) or x["digest"] != ref["digest"]:
+                    problems.append(f"rank {rank} {kind} graph serve {j}: tokens or logits "
+                                    f"apart from eager")
+                if kind == "adaptive":
+                    diff = _tpa_same(x, ref)
+                    if diff:
+                        problems.append(f"rank {rank} adaptive graph serve {j} vs eager "
+                                        f"{diff[:6]}")
+            caps = [x["captures"] for x in g[kind]]
+            if caps != [1] + [0] * (TPF_GENS - 1) or e[kind][0]["captures"]:
+                problems.append(f"rank {rank} {kind}: captures {caps}, eager "
+                                f"{e[kind][0]['captures']}")
+            # the ranks agree
+            if not np.array_equal(g[kind][0]["tokens"], r0["graph"][kind][0]["tokens"]) or \
+                    g[kind][0]["digest"] != r0["graph"][kind][0]["digest"] or (
+                        kind == "adaptive" and _tpa_same(g[kind][0], r0["graph"][kind][0])):
+                problems.append(f"rank {rank} {kind}: differs from rank 0")
+    # against one card running the whole model layer by layer
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tokens = r0["graph"]["static"][0]["tokens"]
+    w_logits, w_tokens, built = _tpf_witness(cfg, prompts.to(dev), tokens, dev)
+    witness_s = time.perf_counter() - t0
+    witness_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    logits = r0["graph"]["static"][0]["logits"]
+    gaps = [float(np.abs(a - b).max()) for a, b in zip(logits, w_logits)]
+    if built != cfg.n_layers * TPA_T:
+        problems.append(f"the witness made {built} layers, not {cfg.n_layers} x {TPA_T}")
+    if any(gaps) or not np.array_equal(w_tokens, tokens):
+        problems.append(f"the ranks vs the layer-streamed witness: logit gaps per step {gaps}, "
+                        f"tokens equal {bool(np.array_equal(w_tokens, tokens))}")
+    g0, e0 = r0["graph"], r0["eager"]
+    row = dict(
+        layers=cfg.n_layers, init_s=[r["init_s"] for r in res],
+        weight_gb=[r["weight_gb"] for r in res], allocated_gb=[r["allocated_gb"] for r in res],
+        init_peak_gb=[r["init_peak_gb"] for r in res], check_s=[r["check_s"] for r in res],
+        leaves=r0["leaves"], largest_leaf_gb=r0["largest_leaf_gb"],
+        codes_gb=[r["codes_gb"] for r in res], peak_gb=[r["peak_gb"] for r in res],
+        transient_gb=max(K * N // TPF_SHAPE[1] for _, _, K, N in
+                         transformer.ax_projections(cfg)) * 4 / 1e9,
+        launches=want, retunes=len(g0["adaptive"][0]["retunes"]),
+        tile_retunes=len(g0["adaptive"][0]["tile_retunes"]),
+        prefill_ms=[1e3 * x["stats"]["prefill_s"] for x in (g0["static"][-1], e0["static"][0])],
+        decode_ms=[[1e3 * r[m]["static"][-1 if m == "graph" else 0]["stats"]["decode_s"] / steps
+                    for r in res] for m in ("graph", "eager")],
+        adaptive_decode_ms=[1e3 * x["stats"]["decode_s"] / steps
+                            for x in (g0["adaptive"][-1], e0["adaptive"][0])],
+        walls_s=[g0["wall_s"], e0["wall_s"]], nccl=[r["nccl"] for r in res],
+        kernels=r0["kernels"],
+        witness_s=witness_s, witness_peak_gb=witness_peak, witness_gaps=gaps,
+        ranks_s=ranks_s, cards=cards)
+    nccl = ", ".join("not measured" if x is None else
+                     f"{x[0]:.3f} ms ({100 * x[1]:.1f}% of {x[2]:.3f} ms)" for x in row["nccl"])
+    f2 = (lambda xs: ", ".join(f"{x:.2f}" for x in xs))  # noqa: E731
+    print(f"tp full {cfg.name} x{cfg.n_layers} on "
+          f"{TPG_RANKS} nccl ranks, one card each ({TPF_SHAPE}, fsdp + seq_shard + ep, bf16 weights "
+          f"and compute, mxu, "
+          f"B={B} x {S}, {TPA_T} tokens, cache {TPG_LEN} rows): each rank made only its blocks "
+          f"(launch.parallel.init_serve_params) in {f2(row['init_s'])} s, {f2(row['weight_gb'])} "
+          f"GB of weights a rank (allocated {f2(row['allocated_gb'])}, init peak "
+          f"{f2(row['init_peak_gb'])} GB); every one of the {row['leaves']} leaves' blocks == "
+          f"the leaf made whole on the same card (the largest {row['largest_leaf_gb']:.2f} GB) "
+          f"in {f2(row['check_s'])} s; cached int8 codes {f2(row['codes_gb'])} GB a rank, the "
+          f"largest quantization transient (one block in f32) {row['transient_gb']:.3f} GB; "
+          f"{TPF_GENS} static serves and {TPF_GENS} tile-mode adaptive generations ({TPA_TILES} "
+          f"row tiles, no drift) as CUDA graphs == one eager of each bit for bit (tokens, each "
+          f"step's logits, every record) on every rank, the ranks agreeing; re-tunes "
+          f"{row['retunes']} (tile {row['tile_retunes']}); captures [1, 0] a kind; executed "
+          f"launches a rank {want}; 0 nvcc; prefill {row['prefill_ms'][0]:.1f} ms (eager "
+          f"{row['prefill_ms'][1]:.1f}); decode ms/step graph {f2(row['decode_ms'][0])}, eager "
+          f"{f2(row['decode_ms'][1])} (ranks 0-3); adaptive tile mode graph / eager "
+          f"{f2(row['adaptive_decode_ms'])} ms/step; NCCL kernels a graph decode step "
+          f"(profiler): {nccl}; peak allocated {f2(row['peak_gb'])} GB a rank; graph / eager "
+          f"serves {f2(row['walls_s'])} s; the ranks {ranks_s:.1f} s with the spawn "
+          f"[{'; '.join(cards)}]", flush=True)
+    print(f"tp full: rank 0's graph decode step by kernel (profiler; ms a step, share of "
+          f"its kernel time): " + "; ".join(f"{n} {ms:.3f} ({100 * sh:.1f}%)"
+                                           for n, ms, sh in r0["kernels"]) + f" [{card}]",
+          flush=True)
+    print(f"tp full: one card (card 0) running the same model layer by layer, each layer's "
+          f"whole weights made before it runs ({built} layers made), with the ranks' q/k/v "
+          f"and attention order: the prefill's and {steps} teacher-forced decode steps' logits "
+          f"max |diff| {max(gaps)} (bound {TOL_TPS_WITNESS}), tokens equal "
+          f"{bool(np.array_equal(w_tokens, tokens))}; {witness_s:.1f} s, peak "
+          f"{witness_peak:.2f} GB [{card}]", flush=True)
+    if problems:
+        fail("tp full: " + "; ".join(problems))
+    held, held_grid = set(held), set(held_grid)
+    shapes = [(lb,) + k for k, lb in sorted(reck.items()) if k not in held]
+    grid = [(lb,) + k for k, lb in sorted(reck_grid.items()) if k not in held_grid]
+    print(f"tp full: {len(reck) - len(shapes)} of {len(reck)} ax_matmul and "
+          f"{len(reck_grid) - len(grid)} of {len(reck_grid)} ax_matmul_grid shapes held to the "
+          f"plain version earlier in this run", flush=True)
+    shape_rows = main_shape_checks(dev, card, clock, grid_kernel=False, shapes=shapes) \
+        if shapes else []
+    grid_rows = main_shape_checks(dev, card, clock, grid_kernel=True, shapes=grid) \
+        if grid else []
+    label = f"tp full {cfg.name} x{cfg.n_layers} {TPF_SHAPE} (rank 0)"
+    return (row, shape_rows, grid_rows, {label: g0["launches"]["ax_matmul"]},
+            {label: g0["launches"]["ax_matmul_grid"]})
+
+
 def _update_gap_np(new, ref, start) -> float:
     """``_update_gap`` over numpy parameter dicts keyed alike."""
     import numpy as np
@@ -5547,11 +6039,14 @@ def main(argv):
         print(f"--- {name}: nvcc {b.seconds:.1f} s, -Xptxas -v:\n{b.report.strip()}", flush=True)
 
     nvcc_runs = _build.NVCC_RUNS["count"]
-    if "--tp-graph" in argv:
+    alone = {"--tp-graph": ("tp graph", tp_graph_phase), "--tp-full": ("tp full", tp_full_phase)}
+    for flag, (name, phase) in alone.items():
+        if flag not in argv:
+            continue
         t0 = time.perf_counter()
-        if tp_graph_phase(dev, card, clock) is None:
-            fail("--tp-graph needs four cards")
-        print(f"[phase tp graph: {time.perf_counter() - t0:.1f} s]", flush=True)
+        if phase(dev, card, clock) is None:
+            fail(f"{flag} needs four cards")
+        print(f"[phase {name}: {time.perf_counter() - t0:.1f} s]", flush=True)
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}),
@@ -5607,6 +6102,13 @@ def main(argv):
     tpg_rows, tpg_shape_rows, tpg_grid_rows, tpg_paths, tpg_grid_paths = \
         tpg if tpg is not None else (None, [], [], {}, {})
     phase_done("tp graph")
+    tpf = tp_full_phase(dev, card, clock,
+                        held=[(r["M"], r["K"], r["N"])
+                              for r in tps_shape_rows + tpa_shape_rows + tpg_shape_rows],
+                        held_grid=[(r["M"], r["K"], r["N"]) for r in tpa_grid_rows + tpg_grid_rows])
+    tpf_row, tpf_shape_rows, tpf_grid_rows, tpf_paths, tpf_grid_paths = \
+        tpf if tpf is not None else (None, [], [], {}, {})
+    phase_done("tp full")
     profile = "--profile" in argv
     cfg, params, prompts, tokens, paths, stats = serve(dev, card, profile)
     paths.update(w_paths)
@@ -5616,6 +6118,7 @@ def main(argv):
     paths.update(tps_paths)
     paths.update(tpa_paths)
     paths.update(tpg_paths)
+    paths.update(tpf_paths)
     phase_done("serve")
     autotune_rows = autotune_phase(dev, card, cfg, params, prompts, tokens)
     phase_done("autotune")
@@ -5625,6 +6128,7 @@ def main(argv):
     grid_paths.update(tm_grid_paths)
     grid_paths.update(tpa_grid_paths)
     grid_paths.update(tpg_grid_paths)
+    grid_paths.update(tpf_grid_paths)
     phase_done("adapt")
     paths["per-slot graph"] = slot_serve(cfg, params, card)
     paths["token-granular graph"] = token_serve(cfg, params, card)
@@ -5691,11 +6195,12 @@ def main(argv):
                      rows, c_rows)
     grid_entry = entry("ax_matmul_grid", "src/repro/kernels/ax_matmul.py:253", grid_launches,
                        grid_paths, grid_rows, c_grid_rows)
-    for e, fam_rows, w_rows, t_rows, tm_rows_, tp_rows_, tps_rows_, tpa_rows_, tpg_rows_ in (
+    for e, fam_rows, w_rows, t_rows, tm_rows_, tp_rows_, tps_rows_, tpa_rows_, tpg_rows_, \
+            tpf_rows_ in (
             (ax_entry, family_shape_rows, whisper_shape_rows, train_shape_rows, tm_shape_rows,
-             tp_shape_rows, tps_shape_rows, tpa_shape_rows, tpg_shape_rows),
+             tp_shape_rows, tps_shape_rows, tpa_shape_rows, tpg_shape_rows, tpf_shape_rows),
             (grid_entry, family_grid_rows, [], train_grid_rows, tm_grid_rows, tp_grid_rows,
-             [], tpa_grid_rows, tpg_grid_rows)):
+             [], tpa_grid_rows, tpg_grid_rows, tpf_grid_rows)):
         e["family_shapes"] = fam_rows
         e["whisper_shapes"] = w_rows
         e["train_shapes"] = t_rows
@@ -5704,9 +6209,10 @@ def main(argv):
         e["tp_serve_shapes"] = tps_rows_
         e["tp_adapt_shapes"] = tpa_rows_
         e["tp_graph_shapes"] = tpg_rows_
+        e["tp_full_shapes"] = tpf_rows_
         e["max_abs_err"] = max([e["max_abs_err"]] + [
             r["max_abs_err"] for r in fam_rows + w_rows + t_rows + tm_rows_ + tp_rows_
-            + tps_rows_ + tpa_rows_ + tpg_rows_])
+            + tps_rows_ + tpa_rows_ + tpg_rows_ + tpf_rows_])
     ax_entry["whisper"] = {k: whisper_row[k] for k in (
         "name", "layers", "enc_layers", "params_g", "ax_per_forward", "ax_per_decode",
         "launches", "decode_vs_full_rel", "graph_decode_ms_per_step")}
@@ -5717,6 +6223,7 @@ def main(argv):
     ax_entry["tp_serve"] = tps_rows
     ax_entry["tp_adapt"] = tpa_rows
     ax_entry["tp_graph"] = tpg_rows
+    ax_entry["tp_full"] = tpf_row
     ax_entry["families"] = [{k: r[k] for k in ("name", "layers", "params_g", "ax_per_forward",
                                                "launches")} for r in family_rows]
     ax_entry["reduced_card_vs_cpu"] = {

@@ -14,7 +14,8 @@ with a leading period axis, and keeps the pattern's remainder as
     layers/p{j}[n]    -> layer first_dense + n * len(period) + j
     rest{i}           -> layer first_dense + n_periods * len(period) + i
 
-Weight layouts are the same: ``(in, out)``.
+Weight layouts are the same: ``(in, out)``.  ``serve_params_from_jax``
+gives a serving rank only its blocks, sliced from JAX's numpy leaves.
 
 The encoder-decoder (whisper) keeps each stack, ``layers_enc`` and
 ``layers_dec``, as one ``jax.vmap``-stacked tree with a leading layer axis;
@@ -35,7 +36,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 
-__all__ = ["params_from_jax", "cache_from_jax", "train_state_from_jax", "layer_order"]
+__all__ = ["params_from_jax", "serve_params_from_jax", "cache_from_jax", "train_state_from_jax",
+           "layer_order"]
 
 
 def _tensor(x, device):
@@ -67,7 +69,7 @@ def layer_order(cfg: ModelConfig):
     return order
 
 
-def _layers(np_tree, cfg: ModelConfig, stack_key: str, device):
+def _layers(np_tree, cfg: ModelConfig, stack_key: str, leaf):
     order = layer_order(cfg)
     want = {key for key, k in order if k is None}
     if any(k is not None for _, k in order):
@@ -79,21 +81,20 @@ def _layers(np_tree, cfg: ModelConfig, stack_key: str, device):
     out = []
     for key, k in order:
         if k is None:
-            out.append(_map(np_tree[key], lambda a: _tensor(a, device)))
+            out.append(_map(np_tree[key], leaf))
         else:
-            out.append(_map(np_tree[stack_key][key],
-                            lambda a, k=k: _tensor(np.asarray(a)[k], device)))
+            out.append(_map(np_tree[stack_key][key], lambda a, k=k: leaf(np.asarray(a)[k])))
     return out
 
 
-def _unstack(np_tree, n: int, device):
+def _unstack(np_tree, n: int, leaf):
     """A tree whose leaves carry a leading layer axis of ``n`` as a list of
     ``n`` per-layer trees."""
     first = {a.shape[0] for a in _leaves(np_tree)}
     if first != {n}:
         raise ValueError(f"a stacked layer tree with leading axes {sorted(first)}, "
                          f"expected {n}")
-    return [_map(np_tree, lambda a, i=i: _tensor(np.asarray(a)[i], device)) for i in range(n)]
+    return [_map(np_tree, lambda a, i=i: leaf(np.asarray(a)[i])) for i in range(n)]
 
 
 def _leaves(tree):
@@ -108,33 +109,56 @@ _ENCDEC_KEYS = {"embed", "pos_embed", "layers_enc", "layers_dec", "ln_enc", "ln_
 
 
 def params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
+    return _params(np_tree, cfg, lambda a: _tensor(a, device))
+
+
+def serve_params_from_jax(np_tree, cfg: ModelConfig, mesh, par, device="cuda"):
+    """This rank's blocks of :func:`params_from_jax` for the model-sharded
+    prefill and decode step (``launch.parallel.serve_params``, its notes of
+    each block's offsets included), each sliced from JAX's numpy leaf before
+    it becomes a tensor: no whole torch tree is made (JAX's ``device_put``
+    of a tree with its shardings)."""
+    from repro_torch.launch.mesh import block_index, tree_paths, tree_unflatten
+    from repro_torch.launch.parallel import note_blocks, serve_param_specs
+
+    views = _params(np_tree, cfg, np.asarray)
+    specs = serve_param_specs(mesh, par, views)
+    local = tree_unflatten(views, [
+        _tensor(v[block_index(mesh, spec, v.shape)] if any(spec) else v, device)
+        for spec, v in zip(tree_paths(specs)[1], tree_paths(views)[1])])
+    note_blocks(mesh, par, specs, views, local)
+    return local
+
+
+def _params(np_tree, cfg: ModelConfig, leaf):
+    """The port's param tree of JAX's ``np_tree``, each leaf ``leaf`` of
+    JAX's array (a layer's slice of a stacked one)."""
     if cfg.family == "encdec":
         if set(np_tree) != _ENCDEC_KEYS:
             raise ValueError(f"{cfg.name}: tree keys {sorted(np_tree)}, expected "
                              f"{sorted(_ENCDEC_KEYS)}")
-        out = {k: _map(np_tree[k], lambda a: _tensor(a, device))
-               for k in ("embed", "pos_embed", "ln_enc", "ln_f")}
-        out["layers_enc"] = _unstack(np_tree["layers_enc"], cfg.n_enc_layers, device)
-        out["layers_dec"] = _unstack(np_tree["layers_dec"], cfg.n_layers, device)
+        out = {k: _map(np_tree[k], leaf) for k in ("embed", "pos_embed", "ln_enc", "ln_f")}
+        out["layers_enc"] = _unstack(np_tree["layers_enc"], cfg.n_enc_layers, leaf)
+        out["layers_dec"] = _unstack(np_tree["layers_dec"], cfg.n_layers, leaf)
         return out
     extra = {k for k in np_tree if not k.startswith(("lead", "rest"))} - {
         "embed", "ln_f", "lm_head", "layers"}
     if extra:
         raise ValueError(f"unexpected tree keys: {sorted(extra)}")
-    out = {k: _map(np_tree[k], lambda a: _tensor(a, device))
-           for k in ("embed", "ln_f", "lm_head") if k in np_tree}
-    out["layers"] = _layers(np_tree, cfg, "layers", device)
+    out = {k: _map(np_tree[k], leaf) for k in ("embed", "ln_f", "lm_head") if k in np_tree}
+    out["layers"] = _layers(np_tree, cfg, "layers", leaf)
     return out
 
 
 def cache_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
     """A JAX decode cache (numpy leaves) as the port's per-layer list."""
+    tensor = (lambda a: _tensor(a, device))  # noqa: E731
     if cfg.family == "encdec":
-        self_c = _unstack(np_tree["self"], cfg.n_layers, device)
+        self_c = _unstack(np_tree["self"], cfg.n_layers, tensor)
         cross = np.asarray(np_tree["cross"])
         return [dict(c, xk=_tensor(cross[i, 0], device), xv=_tensor(cross[i, 1], device))
                 for i, c in enumerate(self_c)]
-    return _layers(np_tree, cfg, "stack", device)
+    return _layers(np_tree, cfg, "stack", tensor)
 
 
 def train_state_from_jax(np_state, cfg: ModelConfig, device="cuda"):

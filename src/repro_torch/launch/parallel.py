@@ -34,7 +34,9 @@ adds its per-leaf plans to it.  :func:`serve_params` takes a rank's blocks
 of a whole param tree for serving and notes on the mesh's groups where
 each block starts in its leaf (:meth:`MeshGroups.block_starts`), which a
 transform of the whole weights by their global indices reads
-(``launch.serve.drift_hook``).
+(``launch.serve.drift_hook``); :func:`init_serve_params` makes only the
+rank's blocks of the counter-addressed init's weights, with the same
+notes, so a model that fits no card whole is served on several.
 
 **Float sums in rank order.**  A SUM over ranks of a floating tensor
 (:func:`all_reduce_sum`, :meth:`TensorParallel.reduce`, :meth:`~TensorParallel.all_reduce_`,
@@ -77,7 +79,7 @@ from repro_torch.launch.sharding import PartitionSpec, _names, axis_rules, axis_
 
 __all__ = ["TensorParallel", "MeshGroups", "mesh_groups", "expert_all_to_all",
            "expert_all_to_all_back", "all_reduce_sum", "rank_order_sum", "serve_param_specs",
-           "serve_params"]
+           "serve_params", "init_serve_params", "note_blocks"]
 
 # leaves sharded over "model" that a rank gathers: the router scores every
 # expert, and the SSD's conv channels (din + 2N, split as one dim) do not
@@ -453,8 +455,31 @@ def serve_params(params, mesh, par):
     (:meth:`MeshGroups.block_starts`)."""
     specs = serve_param_specs(mesh, par, params)
     local = local_blocks(params, specs, mesh)
-    groups = mesh_groups(mesh, par)
-    for spec, whole, blk in zip(tree_paths(specs)[1], tree_paths(params)[1],
-                                tree_paths(local)[1]):
-        groups.note_block(blk, [s.start for s in block_index(mesh, spec, tuple(whole.shape))])
+    note_blocks(mesh, par, specs, params, local)
     return local
+
+
+def init_serve_params(cfg, mesh, par, *, seed: int = 0, device="cuda"):
+    """This rank's blocks of the counter-addressed init's weights for the
+    model-sharded prefill and decode step, made without the whole tree: the
+    tree is shaped on ``meta``, and only each leaf's block under
+    :func:`serve_param_specs` is made (``models.registry.init_blocks``; a
+    leaf the specs leave whole, such as FSDP's ``"embed"`` over ``"data"``,
+    whole).  Bit for bit ``serve_params(init_blocks(cfg, seed=seed), mesh,
+    par)``, with the same notes of each block's offsets."""
+    from repro_torch.models import registry
+
+    shapes = registry.init_params(cfg, device="meta")
+    specs = serve_param_specs(mesh, par, shapes)
+    local = registry.init_blocks(cfg, specs, mesh=mesh, seed=seed, device=device)
+    note_blocks(mesh, par, specs, shapes, local)
+    return local
+
+
+def note_blocks(mesh, par, specs, whole, local) -> None:
+    """Note on the mesh's groups where each leaf of ``local`` starts in its
+    leaf of ``whole`` (a tree of tensors or of anything with a ``shape``)
+    under the spec tree ``specs`` (:meth:`MeshGroups.note_block`)."""
+    groups = mesh_groups(mesh, par)
+    for spec, w, blk in zip(tree_paths(specs)[1], tree_paths(whole)[1], tree_paths(local)[1]):
+        groups.note_block(blk, [s.start for s in block_index(mesh, spec, tuple(w.shape))])

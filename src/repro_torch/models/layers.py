@@ -9,7 +9,11 @@ a projection weight is ``(in, out)`` and ``y = x @ w``.  Their logical
 sharding axes come from their paths (:func:`axes_for_path`, the JAX
 package's rule; ``launch/sharding.py`` maps them onto mesh axes), and
 ``init_params(..., device="meta")`` gives the parameter tree's shapes
-without allocating it.  Every op keeps the
+without allocating it.  Beside ``init_params``' seeded stream there is a
+counter-addressed init (:func:`counter_normal`): an element's value
+depends only on the seed, its leaf's path and its index in the whole leaf,
+so a rank makes its blocks of a model without the whole tree
+(``models.registry.init_blocks``).  Every op keeps the
 JAX package's dtype sequence (where bf16 is rounded, where f32 is used), so
 the two packages agree to within bf16 rounding.
 
@@ -42,6 +46,7 @@ are built on the device), so the step can be captured as a CUDA graph.
 from __future__ import annotations
 
 import math
+import zlib
 from typing import Optional
 
 import numpy as np
@@ -53,7 +58,8 @@ from repro_torch.launch.sharding import current_kv, current_rows, current_tp
 from repro_torch.quant.ax import ax_dense, ax_dense_dyn, weight_cast, weight_codes
 from repro_torch.runtime.scope import active_scope
 
-__all__ = ["ninit", "generator", "axes_for_path", "dense", "rmsnorm", "layernorm", "make_rope", "apply_rope", "sinusoid_pos",
+__all__ = ["ninit", "generator", "DEFER", "Deferred", "counter_normal", "counter_tree",
+           "leaf_key", "axes_for_path", "dense", "rmsnorm", "layernorm", "make_rope", "apply_rope", "sinusoid_pos",
            "chunked_attention", "decode_attention", "decode_attention_split", "attn_init",
            "attn_apply",
            "mlp_init", "mlp_apply"]
@@ -69,12 +75,145 @@ def generator(seed: int, device) -> Optional[torch.Generator]:
 
 def ninit(shape, dtype, generator: Optional[torch.Generator], device, scale=None):
     """Seeded normal init scaled by ``1/sqrt(fan_in)`` (or ``scale``); an
-    empty tensor of the shape on the ``meta`` device."""
+    empty tensor of the shape on the ``meta`` device.  ``generator`` doubles
+    as the init's mode: :data:`DEFER` in its place gives a :class:`Deferred`
+    leaf of the counter-addressed init (note below) instead of a tensor."""
+    if generator is DEFER:
+        return Deferred(shape, dtype, scale if scale is not None else 1.0 / math.sqrt(shape[0]))
     if torch.device(device).type == "meta":
         return torch.empty(shape, dtype=dtype, device="meta")
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
     t = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
     return t.mul_(scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# the counter-addressed init: any block of a leaf made alone
+# ---------------------------------------------------------------------------
+#
+# ``init_params`` draws one generator in sequence through the whole tree, so
+# a leaf's values depend on every leaf before it.  In this init element n of
+# a random leaf (its row-major index in the whole leaf) is a function of
+# (seed, the leaf's '/'-joined path, n): MurmurHash3's finaliser of n (the
+# counter-based sampler's hash, ``serve/engine.py``) keyed by the seed and a
+# CRC-32 of the path, its top 23 bits a uniform in (0, 1), the inverse
+# normal CDF of it times the leaf's scale (``1/sqrt(fan_in)`` of the whole
+# leaf).  Each step is elementwise and exact integer or IEEE arithmetic, so a
+# block made alone is the same slice of the leaf made whole, bit for bit, on
+# one device.  Blocks are made CHUNK elements at a time.
+
+
+class _Defer:
+    def __repr__(self):
+        return "DEFER"
+
+
+#: the ``generator`` of an init whose random leaves come back as
+#: :class:`Deferred` (``models.registry.init_blocks`` makes them)
+DEFER = _Defer()
+
+#: the elements :func:`counter_normal` makes at a time (its temporaries are
+#: four 4-byte tensors of this many elements)
+CHUNK = 1 << 24
+
+_M32 = 0xFFFFFFFF
+
+
+class Deferred:
+    """A random leaf of the counter-addressed init, not made yet: the whole
+    leaf's shape, its dtype and its scale."""
+
+    __slots__ = ("shape", "dtype", "scale")
+
+    def __init__(self, shape, dtype, scale: float):
+        self.shape = tuple(int(d) for d in shape)
+        self.dtype, self.scale = dtype, float(scale)
+
+
+def _s32(v: int) -> int:
+    """The int32 with the bits of ``v mod 2^32``."""
+    v &= _M32
+    return v - (1 << 32) if v >> 31 else v
+
+
+def _fmix32_int(h: int) -> int:
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & _M32
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & _M32
+    return h ^ (h >> 16)
+
+
+def _fmix32_(h: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """MurmurHash3's 32-bit finaliser in place on int32 ``h`` holding uint32
+    bits (int32 products wrap mod 2^32; a right shift is arithmetic, so its
+    high bits are masked off); ``t`` is scratch of ``h``'s shape."""
+    for shift, mul in ((16, 0x85EBCA6B), (13, 0xC2B2AE35), (16, None)):
+        torch.bitwise_right_shift(h, shift, out=t)
+        h.bitwise_xor_(t.bitwise_and_((1 << (32 - shift)) - 1))
+        if mul is not None:
+            h.mul_(_s32(mul))
+    return h
+
+
+def leaf_key(seed: int, path: str) -> int:
+    """The 32-bit key of the leaf at ``path`` under ``seed``."""
+    return _fmix32_int(_fmix32_int((seed ^ 0x9E3779B9) & _M32) ^ zlib.crc32(path.encode()))
+
+
+def counter_normal(seed: int, path: str, leaf: Deferred, index=None, device="cuda"):
+    """The block ``index`` (a tuple of unit-step slices, one per leading dim;
+    None: the whole leaf) of the counter-addressed init's random ``leaf`` at
+    ``path`` (note above), made on ``device`` ``CHUNK`` elements at a time."""
+    shape = leaf.shape
+    if math.prod(shape) > _M32 + 1:
+        raise ValueError(f"{path}: {math.prod(shape)} elements; the counter is 32 bits")
+    index = tuple(index or ()) + (slice(None),) * (len(shape) - len(index or ()))
+    ranges = [range(*ix.indices(d)) for ix, d in zip(index, shape)]
+    if any(r.step != 1 for r in ranges):
+        raise ValueError(f"{path}: a block is unit-step slices, not {index}")
+    block = [len(r) for r in ranges]
+    out = torch.empty(block, dtype=leaf.dtype, device=device)
+    if not out.numel():
+        return out
+    strides = [math.prod(shape[d + 1:]) for d in range(len(shape))]
+    # each element's index over the trailing dims, made once
+    tail = torch.zeros((), dtype=torch.int32, device=device)
+    for r, st in zip(ranges[1:], strides[1:]):
+        ar = torch.arange(r.start, r.stop, dtype=torch.int32, device=device).mul_(_s32(st))
+        tail = tail.unsqueeze(-1) + ar
+    tail = tail.reshape(1, -1)
+    rows = out.view(block[0], -1)
+    per = max(1, CHUNK // tail.numel())
+    key = _s32(leaf_key(seed, path))
+    for lo in range(0, block[0], per):
+        hi = min(lo + per, block[0])
+        h = torch.arange(ranges[0].start + lo, ranges[0].start + hi, dtype=torch.int32,
+                         device=device).mul_(_s32(strides[0]))
+        h = (h.unsqueeze(1) + tail).mul_(_s32(0x27D4EB2F)).bitwise_xor_(key)
+        t = _fmix32_(h, torch.empty_like(h))
+        torch.bitwise_right_shift(h, 9, out=t).bitwise_and_(0x7FFFFF)
+        u = t.to(torch.float32).add_(0.5).mul_(2.0 ** -23)
+        rows[lo:hi] = torch.special.ndtri(u).mul_(leaf.scale)
+    return out
+
+
+def counter_tree(tree, seed: int, device, prefix: str = "", index_of=None):
+    """``tree`` (an init's with ``generator=DEFER``) made: each
+    :class:`Deferred` leaf by :func:`counter_normal`, each tensor leaf (the
+    constants: zeros, ones, ``lam``, ``a_log``) as it is, or a copy of its
+    block.  ``index_of(path, leaf)`` gives the block of the leaf at
+    ``path`` to make (None: the whole leaf); paths are '/'-joined under
+    ``prefix``."""
+    if isinstance(tree, (dict, list)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        made = {k: counter_tree(v, seed, device, f"{prefix}/{k}" if prefix else str(k), index_of)
+                for k, v in items}
+        return made if isinstance(tree, dict) else list(made.values())
+    index = index_of(prefix, tree) if index_of is not None else None
+    if isinstance(tree, Deferred):
+        return counter_normal(seed, prefix, tree, index, device)
+    return tree if index is None else tree[index].clone()
 
 
 def axes_for_path(path: str, ndim: int):

@@ -19,6 +19,13 @@ of the new cache.  ``ValueError`` where a cache's sequence, a prompt under
 ``seq_shard`` or the SSD heads do not split over the ranks (JAX would pad
 or reshard).  With ``par.dp_only``, a 1-D ``("data",)`` fleet mesh or no
 mesh, nothing here changes.
+
+**Rank-local weights.**  :func:`init_blocks` makes the weights of the
+counter-addressed init (``layers.counter_normal``), whole or only this
+rank's block of each leaf under a spec tree, so a model wider than a card
+(or a host) is served without its whole tree ever being made
+(``launch.parallel.init_serve_params``).  :func:`init_params`' seeded
+stream is another set of weights and stays as it is.
 """
 from __future__ import annotations
 
@@ -32,9 +39,10 @@ from repro_torch.configs.base import ModelConfig, ParallelConfig, ShapeConfig
 from repro_torch.launch.sharding import current_groups, current_tp, serving
 
 from . import transformer, whisper
+from .layers import counter_tree
 
-__all__ = ["init_params", "init_cache", "train_loss", "prefill", "decode_step",
-           "input_specs"]
+__all__ = ["init_params", "deferred_params", "init_blocks", "init_cache", "train_loss",
+           "prefill", "decode_step", "input_specs"]
 
 
 def _mod(cfg: ModelConfig):
@@ -43,6 +51,38 @@ def _mod(cfg: ModelConfig):
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", dtype=None):
     return _mod(cfg).init_params(cfg, seed=seed, device=device, dtype=dtype)
+
+
+def deferred_params(cfg: ModelConfig, *, device="cuda", dtype=None):
+    """The param tree with each random leaf a ``layers.Deferred`` of the
+    counter-addressed init and the (small) constant leaves on ``device``."""
+    return _mod(cfg).deferred_params(cfg, device=device, dtype=dtype)
+
+
+def init_blocks(cfg: ModelConfig, specs=None, *, mesh=None, seed: int = 0, device="cuda",
+                dtype=None):
+    """Random weights of the counter-addressed init (``layers.counter_normal``:
+    a separate stream from :func:`init_params`', in which every element is a
+    function of the seed, its leaf's path and its index in the whole leaf).
+    ``specs`` (a spec tree of the param tree, e.g.
+    ``launch.parallel.serve_param_specs``) on ``mesh``: only this rank's
+    block of each leaf is made (``launch.mesh.block_index``), the whole leaf
+    never; None: the whole tree.  A block equals the same slice of the leaf
+    made whole, bit for bit, on the same device."""
+    tree = deferred_params(cfg, device=device, dtype=dtype)
+    index_of = None
+    if specs is not None:
+        if mesh is None:
+            raise ValueError("init_blocks: specs= needs the mesh= that places the blocks")
+        from repro_torch.launch.mesh import block_index, tree_paths
+
+        table = dict(zip(*tree_paths(specs)))
+
+        def index_of(path, leaf):
+            spec = table[path]
+            return block_index(mesh, spec, leaf.shape) if any(spec) else None
+
+    return counter_tree(tree, seed, device, index_of=index_of)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda", enc_len: int = 0):

@@ -61,10 +61,10 @@ from repro_torch.launch.sharding import current_tp, recompute_context
 from repro_torch.quant.ax import weight_cast
 
 from . import blocks
-from .layers import attn_apply, attn_init, generator, make_rope, mlp_apply, mlp_init, ninit, \
-    rmsnorm
+from .layers import DEFER, attn_apply, attn_init, generator, make_rope, mlp_apply, mlp_init, \
+    ninit, rmsnorm
 
-__all__ = ["init_params", "init_cache", "forward", "ax_projections"]
+__all__ = ["init_params", "deferred_params", "init_cache", "forward", "ax_projections"]
 
 
 def _check(cfg: ModelConfig):
@@ -194,8 +194,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", dtype=None):
     """Random weights from a seeded ``torch.Generator`` on ``device``."""
     _check(cfg)
-    dtype = dtype or getattr(torch, cfg.param_dtype)
-    gen = generator(seed, device)
+    return _tree(cfg, generator(seed, device), device, dtype or getattr(torch, cfg.param_dtype))
+
+
+def deferred_params(cfg: ModelConfig, *, device="cuda", dtype=None):
+    """:func:`init_params`' tree with each random leaf a ``layers.Deferred``
+    of the counter-addressed init (``models.registry.init_blocks`` makes
+    them) and the constant leaves on ``device``."""
+    _check(cfg)
+    return _tree(cfg, DEFER, device, dtype or getattr(torch, cfg.param_dtype))
+
+
+def _tree(cfg: ModelConfig, gen, device, dtype):
     V = cfg.padded_vocab
     params = {
         "embed": {"w": ninit((V, cfg.d_model), dtype, gen, device, scale=0.02)},

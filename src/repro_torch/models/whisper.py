@@ -46,11 +46,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.sharding import current_kv, current_tp
 from repro_torch.quant.ax import weight_cast
 
-from .layers import _col, _seq_block, _whole, attn_apply, attn_init, dense, layernorm, \
+from .layers import DEFER, _col, _seq_block, _whole, attn_apply, attn_init, dense, layernorm, \
     mlp_apply, mlp_init, ninit, generator, sinusoid_pos
 from .transformer import _identity, _positions, _whole_vocab, embed_lookup
 
-__all__ = ["init_params", "init_cache", "forward", "ax_projections", "MAX_DEC_POS"]
+__all__ = ["init_params", "deferred_params", "init_cache", "forward", "ax_projections",
+           "MAX_DEC_POS"]
 
 MAX_DEC_POS = 1 << 16
 
@@ -78,8 +79,16 @@ def _dec_layer_init(cfg, dtype, gen, device):
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", dtype=None):
     """Random weights from a seeded ``torch.Generator`` on ``device``."""
-    dtype = dtype or getattr(torch, cfg.param_dtype)
-    gen = generator(seed, device)
+    return _tree(cfg, generator(seed, device), device, dtype or getattr(torch, cfg.param_dtype))
+
+
+def deferred_params(cfg: ModelConfig, *, device="cuda", dtype=None):
+    """:func:`init_params`' tree with each random leaf a ``layers.Deferred``
+    of the counter-addressed init (``models.registry.init_blocks``)."""
+    return _tree(cfg, DEFER, device, dtype or getattr(torch, cfg.param_dtype))
+
+
+def _tree(cfg: ModelConfig, gen, device, dtype):
     D = cfg.d_model
     return {
         "embed": {"w": ninit((cfg.padded_vocab, D), dtype, gen, device, scale=0.02)},

@@ -11,6 +11,7 @@ import os
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import repro_torch.configs as TC
 from repro_torch import train
@@ -722,4 +723,138 @@ def card_graph_rank(rank, _mesh, prompts):
         out[mode] = res
     G.clear_programs()
     torch.cuda.synchronize()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# rank-local weights (tests/test_torch_serve_init.py)
+# ---------------------------------------------------------------------------
+
+INIT_FAMILIES = ("qwen2-72b", "qwen2-vl-72b", "gemma3-27b", "deepseek-moe-16b",
+                 "recurrentgemma-2b", "mamba2-370m", "whisper-base")
+INIT_PARS = {"jax": dict(fsdp=True, seq_shard=True, ep=True), "dp_only": dict(dp_only=True),
+             "seq_shard": dict(seq_shard=True)}
+INIT_CHUNK = 4096                 # layers.CHUNK in the size check: several chunks a block
+
+
+class _Made(TorchDispatchMode):
+    """The largest tensor (in elements) any op makes off the ``meta`` device."""
+
+    def __init__(self):
+        super().__init__()
+        self.largest = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in (out if isinstance(out, (list, tuple)) else (out,)):
+            if torch.is_tensor(t) and t.device.type != "meta":
+                self.largest = max(self.largest, t.numel())
+        return out
+
+
+def init_config(arch):
+    """The reduced config of ``arch`` (its 4 layers; whisper 2 + 4)."""
+    return TC.reduced(TC.ARCHS[arch])
+
+
+def _same_blocks(got, want, groups):
+    """Paths whose blocks differ in bits, and those whose noted offsets do."""
+    bad, starts = [], []
+    for (p, g), (_, w) in zip(zip(*tree_paths(got)), zip(*tree_paths(want))):
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+            bad.append(p)
+        s = groups.block_starts(g)
+        if s is None or s != groups.block_starts(w):
+            starts.append(p)
+    return bad, starts
+
+
+def init_blocks_rank(rank, _mesh, shape, archs, pars):
+    """Per config and layout (a ``ParallelConfig`` of ``pars``) on a
+    ``("data", "model")`` mesh of ``shape``: this rank's
+    ``init_serve_params`` against ``serve_params(init_blocks(cfg))`` (bits
+    and the noted offsets), or both refusals; under JAX's default layout
+    also the largest tensor ``init_serve_params`` made (``layers.CHUNK`` at
+    ``INIT_CHUNK``) beside the rank's largest block and the largest whole
+    leaf (elements)."""
+    from repro_torch.launch.parallel import init_serve_params
+    from repro_torch.models import init_blocks, layers
+
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    out = {}
+    for arch in archs:
+        cfg = init_config(arch)
+        whole = init_blocks(cfg, device="cpu")
+        for name, kw in pars.items():
+            par = ParallelConfig(**kw)
+            res = {}
+            try:
+                want = serve_params(whole, mesh, par)
+            except ValueError as e:
+                want = res["want_refused"] = str(e)
+            made, chunk = _Made(), layers.CHUNK
+            layers.CHUNK = INIT_CHUNK
+            try:
+                with made:
+                    got = init_serve_params(cfg, mesh, par, device="cpu")
+            except ValueError as e:
+                got = res["got_refused"] = str(e)
+            finally:
+                layers.CHUNK = chunk
+            if not isinstance(got, str) and not isinstance(want, str):
+                res["bad"], res["starts"] = _same_blocks(got, want, mesh_groups(mesh, par))
+                res["made"] = made.largest
+                res["largest_block"] = max(t.numel() for t in tree_paths(got)[1])
+                res["largest_leaf"] = max(t.numel() for t in tree_paths(whole)[1])
+            out[(arch, name)] = res
+    return out
+
+
+def init_serve_rank(rank, _mesh, shape):
+    """The reduced qwen2 (2 layers, ``mxu``) under JAX's default layout on a
+    ``("data", "model")`` mesh of ``shape``, served from this rank's
+    ``init_serve_params`` and from ``serve_params(init_blocks(cfg))``: the
+    prefill's and 3 teacher-forced decode steps' logits (this rank's rows),
+    a greedy ``generate`` and a drift serve (``drift_hook(1, 0.05)``) each,
+    as numpy."""
+    from repro_torch.launch.parallel import init_serve_params
+    from repro_torch.models import init_blocks
+
+    cfg = dataclasses.replace(init_config("qwen2-72b"), n_layers=2, ax=AxPolicy(backend="mxu"))
+    par = ParallelConfig(**INIT_PARS["jax"])
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    job = dict(B=4, S=8, L=16, steps=3)
+    rng = np.random.default_rng(11)
+    inp = dict(tokens=rng.integers(0, cfg.vocab, (4, 8)),
+               teacher=rng.integers(0, cfg.vocab, (4, 3)))
+    prompts = {"tokens": torch.from_numpy(inp["tokens"])}
+    scfg = ServeConfig(max_new_tokens=4)
+    out = {}
+    for name, params in (("init", init_serve_params(cfg, mesh, par, seed=3, device="cpu")),
+                         ("whole", serve_params(init_blocks(cfg, seed=3, device="cpu"), mesh,
+                                                par))):
+        with set_mesh_ctx(mesh, par):
+            logits, _ = serve_loop(params, cfg, job, inp, par)
+            tokens = generate(params, prompts, cfg, scfg, par=par, max_cache_len=16).numpy()
+            drift = generate(params, prompts, cfg, scfg, par=par, max_cache_len=16,
+                             param_hook=drift_hook(1, 0.05)).numpy()
+        out[name] = dict(logits=logits, tokens=tokens, drift=drift)
+    return out
+
+
+def init_convert_rank(rank, _mesh, shape, np_trees):
+    """``convert.serve_params_from_jax`` of each JAX param tree against
+    ``serve_params(params_from_jax(...))`` under JAX's default layout on a
+    ``("data", "model")`` mesh of ``shape``: (paths apart in bits, paths
+    whose noted offsets differ) per config."""
+    from repro_torch.convert import serve_params_from_jax
+
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    par = ParallelConfig(**INIT_PARS["jax"])
+    out = {}
+    for arch, tree in np_trees.items():
+        cfg = init_config(arch)
+        got = serve_params_from_jax(tree, cfg, mesh, par, device="cpu")
+        want = serve_params(params_from_jax(tree, cfg, device="cpu"), mesh, par)
+        out[arch] = _same_blocks(got, want, mesh_groups(mesh, par))
     return out

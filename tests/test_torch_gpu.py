@@ -1068,6 +1068,30 @@ def test_projection_of_a_batch_split_on_the_card_equals_the_whole_batch(cuda, ba
 # the model-sharded serve over nccl on four cards
 # ---------------------------------------------------------------------------
 
+COUNTER_SPLITS = {  # a leaf of qwen2-72b or deepseek-moe-16b and a rank's block of four
+    "column": ((8192, 29568), (slice(None), slice(3 * 7392, 4 * 7392))),
+    "row": ((29568, 8192), (slice(7392, 2 * 7392),)),
+    "expert": ((64, 2048, 1408), (slice(16, 32),)),
+    "vocab": ((152064, 8192), (slice(2 * 38016, 3 * 38016),)),
+}
+
+
+@pytest.mark.parametrize("split", sorted(COUNTER_SPLITS))
+def test_counter_block_on_the_card_is_the_slice_of_the_leaf_made_whole(cuda, split):
+    """The counter-addressed init on the card: a rank's block made alone
+    (column, row, expert and vocab splits; several chunks) equals the same
+    slice of the leaf made whole there, bit for bit."""
+    from repro_torch.models import layers
+
+    shape, index = COUNTER_SPLITS[split]
+    leaf = layers.Deferred(shape, torch.bfloat16, 1.0 / math.sqrt(shape[-2]))
+    block = layers.counter_normal(0, f"layers/5/{split}/w", leaf, index, device=cuda)
+    whole = layers.counter_normal(0, f"layers/5/{split}/w", leaf, device=cuda)
+    torch.cuda.synchronize()
+    assert block.is_cuda and torch.equal(block, whole[index])
+    assert abs(float(whole.float().std()) * math.sqrt(shape[-2]) - 1) < 1e-2
+
+
 def test_cards4_tp_graph_serve_on_four_nccl_ranks_equals_eager(cards4):
     """``chip_smoke.py``'s tp graph phase at its smallest: the reduced qwen2
     (bf16, ``mxu``) on four ``nccl`` ranks, one card each, over ``("data",

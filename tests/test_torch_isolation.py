@@ -8,7 +8,8 @@ CLI, a train step with a checkpoint, the train CLI, the schedule autotuner's
 CLI with a store, a reader and ``resolve``, the serve CLI's
 ``--autotune``, its ``--fleet 2`` over spawned ranks, a one-rank fleet mesh
 with a mesh-sharded serve and batcher, the sharded train step on a
-one-rank train mesh, the spec trees of the multi-pod mesh, and a dry-run
+one-rank train mesh, the rank-local weights (``init_serve_params`` on that
+mesh, a serve of ``init_blocks``), the spec trees of the multi-pod mesh, and a dry-run
 cell of the model-sharded decode step on a fake world with its op tables
 load neither; the examples are held so in
 ``tests/test_torch_examples.py``), and
@@ -143,6 +144,13 @@ with tempfile.TemporaryDirectory() as root:
     tstate, _ = train.make_train_step(cfg, tpar, topt, mesh=tmesh)(
         tstate, train.SyntheticStream(train.DataConfig(cfg.vocab, 8, 2)).next())
     mesh_trained = int(train.gather_state(tstate, tspecs, tmesh)["opt"]["step"])
+    from repro_torch.launch.parallel import init_serve_params
+    from repro_torch.models import init_blocks
+    iparams = init_serve_params(cfg, tmesh, ParallelConfig(fsdp=True, seq_shard=True, ep=True),
+                                device="cpu")
+    init = [len(iparams["layers"]), list(generate(
+        init_blocks(cfg, device="cpu"), {{"tokens": torch.zeros((1, 4), dtype=torch.int64)}}, cfg,
+        ServeConfig(max_new_tokens=2)).shape)]
     dist.destroy_process_group()
     specs = param_shardings(production_mesh_shape(multi_pod=True), ParallelConfig(),
                             init_params(ARCHS["qwen2-72b"], device="meta"))
@@ -176,7 +184,7 @@ print(json.dumps({{"modules": len(names), "bad": bad, "shape": list(toks.shape),
                   "served": served, "cli": cli.stats["requests"],
                   "mesh": [list(meshed.shape), mesh_served, fleet2["stats"]["requests"],
                            list(specs["embed"]["w"]), mesh_trained],
-                  "families": families, "trained": trained, "dry": dry,
+                  "families": families, "trained": trained, "dry": dry, "init": init,
                   "autotune": [sched_reader.version, sched.backend, list(tuned.shape)]}}))
 """
 
@@ -205,6 +213,7 @@ def test_importing_and_running_the_port_loads_no_jax_and_no_repro():
     assert res["mesh"] == [[2, 3], 3, 2, ["model", None], 1]
     assert res["autotune"] == [1, "mxu", [1, 2]]
     assert res["dry"] == ["ok", "1x2", True]
+    assert res["init"] == [1, [1, 2]]
 
 
 def _imported_roots(path: Path):
@@ -252,6 +261,7 @@ def _entry_points():
     import repro_torch.kernels.autotune as autotune
     import repro_torch.kernels.ops as ops
     import repro_torch.launch.mesh as launch_mesh
+    import repro_torch.launch.parallel as parallel
     import repro_torch.launch.serve as launch_serve
     import repro_torch.launch.train as launch_train
     import repro_torch.models as models
@@ -263,6 +273,10 @@ def _entry_points():
     from repro_torch.runtime import AdaptiveController, SwapPolicy
 
     return {"init_params": models.init_params, "init_cache": models.init_cache,
+            "init_blocks": models.init_blocks,
+            "registry.deferred_params": models.registry.deferred_params,
+            "parallel.init_serve_params": parallel.init_serve_params,
+            "serve_params_from_jax": convert.serve_params_from_jax,
             "whisper.init_params": whisper.init_params,
             "whisper.init_cache": whisper.init_cache,
             "train_step.fresh_train_state": train_step.fresh_train_state,
