@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --tp-graph      # the build and the tp graph phase alone
     python3 chip_smoke.py --tp-full       # the build and the tp full phase alone
+    python3 chip_smoke.py --train-nccl    # the build and the train nccl phase alone
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -105,7 +106,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
             no model (after its one-card reference steps): the step's
             collectives on card tensors, values checked (all-gather,
             reduce-scatter, all-to-all, and for tensor parallelism
-            all-reduce MAX f32, SUM int32 and an int32 reduce-scatter); the
+            all-reduce MAX f32, SUM int32 and an int32 reduce-scatter; the
+            float SUMs in rank order against one process's adds); the
             SWAPPER projection split over K on the two ranks == the
             one-card call bit for bit at qwen2-72b's ``mlp out`` (K 29568
             -> 14784 a rank, N 8192; ``ax_dense`` and ``ax_dense_dyn``, 4
@@ -235,6 +237,40 @@ Phases, each of which fails the run (non-zero exit, no result line):
             prefill and decode ms/step graph and eager, the NCCL kernels'
             share of a graph decode step, the peak a rank, the witness's
             wall and peak, each card's name and power limit;
+   train nccl — with four cards or more (else one line says it did not
+            run): the train mesh phase's ranks (``train_mesh_rank``) over
+            ``nccl`` on four ranks, one card each: layouts (a)-(d) at four
+            ranks (a4: ``("data",)`` = 4 with FSDP, 2 adaptive steps and
+            the restart; b4: (1, 4) ``dp_only`` + ``ep``, 16 experts a rank,
+            and a ``remat="layer"`` step; c4: TP + ``ep``, heads 4, ``ff``
+            352 and 2736, a 25600-row vocab block, 2 adaptive steps; d4: +
+            ``seq_shard``, a ``remat="layer"`` step), and JAX's default
+            ``ParallelConfig()`` on (2, 2) (``fsdp``, ``seq_shard``, ``ep``,
+            ``remat="layer"``) at B = 4 x 256 (e) and at ``train_4k``'s
+            sequence, B = 4 x 4096 (e-4k); 8 steps a layout, 6 on e-4k,
+            and one more under ``torch.profiler``.  Hard, beside the train mesh
+            phase's gates (the collective probe, now with the float SUMs
+            in rank order against one process's adds; the K-split
+            projection at K 29568 -> 7392 a rank; finite losses equal on
+            every rank; step 1 within 1e-2 of the one-card step, e-4k's
+            against one card's ``remat="layer"`` step; launches reckoned
+            from the config, twice under ``remat="layer"``; the shapes,
+            the new ones held to plain; the remat step; the reduced configs
+            on every layout but e-4k; the restart on a4; no nvcc): every
+            rank on its own card, and after every step each leaf whose
+            block several ranks hold, AdamW moments included, bit-equal on
+            them (``train.distributed.replicas_apart``).  The parent
+            computes the one-card references on card 0, then frees it and
+            prints its memory.  Printed: the interconnect (``nvidia-smi
+            topo`` and ``nvlink``, torch's peer access), ms/step over the
+            middle steps and their range over the ranks, the first step,
+            tokens/s, state and peak a rank, the collectives a step
+            and their share of one step (a synchronise around each), the
+            NCCL kernels' share of the profiled step (behind a barrier),
+            and the collective-timed step's float SUMs in rank order as
+            they ran, then replayed behind barriers in rank order and as
+            the backend's own all-reduce and reduce-scatter at the same
+            sizes (ROADMAP item 13);
 5. serve  — qwen2-72b at its published widths, depth cut to 2 layers,
             random weights from a seed: the per-forward weight work that
             the weight cache removes, timed against its bytes; B=4 prompts
@@ -3787,41 +3823,69 @@ COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_to_all_si
                "all_reduce")
 
 
-TM_TP = ("c", "d")                       # the layouts with tensor parallelism
+TM_TP = ("c", "d", "e")                  # the layouts with tensor parallelism
 TM_ADAPTIVE = ("a", "c")                 # + 2 adaptive steps, the policy changed between
 TM_REMAT = ("b", "d")                    # + a remat="layer" step from step 1's state
+TN_STEPS = 8                             # static steps of a layout in a world of four
+# train_4k's sequence (configs/base.py: 4096 x 256) with its batch cut to 4:
+# label -> (B, S, static steps) where a layout's are not (DS_B, DS_S, TM_STEPS
+# or TN_STEPS)
+TM_LONG = {"e-4k": (4, 4096, 6)}
 
 
-def _tm_layouts(remat: bool = False):
-    """(label, mesh shape, axes, ParallelConfig) of the phase: (a) FSDP over
+def _tm_layouts(n: int = TM_RANKS, remat: bool = False, default: bool = False):
+    """(label, mesh shape, axes, ParallelConfig) of the phase on ``n`` ranks
+    (the label carries ``n`` where it is not ``TM_RANKS``): (a) FSDP over
     ``("data",)`` (JAX's rules need ``dp_only`` on a mesh without
     ``"model"``), (b) the expert all-to-all over ``("data", "model")`` =
-    (1, 2) with ``dp_only`` + ``ep`` (32 of the 64 experts a rank), (c)
-    tensor parallelism over ``("data", "model")`` = (1, 2) with ``ep`` (the
-    heads, ``ff`` and vocab split, the rank's experts sliced from the
-    replicated dispatch), (d) (c) with ``seq_shard`` (the residual on its
-    seq shard, the expert all-to-all over the token shards).  ``remat``:
-    also (b) and (d) with ``remat="layer"``, whose recomputed layers run
-    their collectives in the backward, on autograd's device thread."""
+    (1, n) with ``dp_only`` + ``ep`` (64 / n experts a rank), (c) tensor
+    parallelism over ``("data", "model")`` = (1, n) with ``ep`` (the heads,
+    ``ff`` and vocab split, the rank's experts sliced from the replicated
+    dispatch), (d) (c) with ``seq_shard`` (the residual on its seq shard,
+    the expert all-to-all over the token shards).  ``default``: also JAX's
+    default ``ParallelConfig()`` (``fsdp``, ``seq_shard``, ``ep``,
+    ``remat="layer"``) on (2, 2), at the phase's sequence (e) and at
+    ``train_4k``'s (e-4k, ``TM_LONG``).  ``remat``: also (b) and (d) with
+    ``remat="layer"``, whose recomputed layers run their collectives in the
+    backward, on autograd's device thread."""
     from repro_torch.configs import ParallelConfig
 
-    out = [("a", (2,), ("data",), ParallelConfig(dp_only=True, fsdp=True, remat="none")),
-           ("b", (1, 2), ("data", "model"), ParallelConfig(dp_only=True, ep=True,
-                                                           remat="none")),
-           ("c", (1, 2), ("data", "model"), ParallelConfig(ep=True, remat="none")),
-           ("d", (1, 2), ("data", "model"), ParallelConfig(seq_shard=True, ep=True,
-                                                           remat="none"))]
+    sfx = "" if n == TM_RANKS else str(n)
+    out = [(f"a{sfx}", (n,), ("data",), ParallelConfig(dp_only=True, fsdp=True, remat="none")),
+           (f"b{sfx}", (1, n), ("data", "model"), ParallelConfig(dp_only=True, ep=True,
+                                                                 remat="none")),
+           (f"c{sfx}", (1, n), ("data", "model"), ParallelConfig(ep=True, remat="none")),
+           (f"d{sfx}", (1, n), ("data", "model"), ParallelConfig(seq_shard=True, ep=True,
+                                                                 remat="none"))]
+    if default:
+        jax_default = ParallelConfig(fsdp=True, seq_shard=True, ep=True, remat="layer")
+        out += [(lb, (2, 2), ("data", "model"), jax_default) for lb in ("e", "e-4k")]
     if remat:
         out += [(f"{lb} remat", shape, axes, dataclasses.replace(par, remat="layer"))
-                for lb, shape, axes, par in out if lb in TM_REMAT]
+                for lb, shape, axes, par in out if lb[0] in TM_REMAT]
     return out
+
+
+def _tm_run(label: str, four: bool = False):
+    """(B, S, static steps) of a layout (``four``: in a world of four)."""
+    return TM_LONG.get(label, (DS_B, DS_S, TN_STEPS if four else TM_STEPS))
+
+
+def _tm_split(label: str, shape, par):
+    """(rows of the global batch a rank's projections take, the model ranks
+    a projection is split over): the batch splits over every axis with
+    ``dp_only``, else over ``"data"`` (a seq shard is gathered before each
+    block's projections)."""
+    B_, S_, _ = _tm_run(label)
+    tp = shape[1] if len(shape) > 1 and not par.dp_only else 1
+    return B_ * S_ // (math.prod(shape) if par.dp_only else shape[0]), tp
 
 
 def _tm_configs():
     """deepseek-moe-16b at its published widths, depth 2, ``mxu``; the
     reduced deepseek and the reduced qwen2 in f32 on the exact path (the
     deepseek's capacity drops nothing; qwen2's one kv head splits inside a
-    head over two ranks)."""
+    head over the model ranks)."""
     from repro_torch.configs import ARCHS, reduced
     from repro_torch.configs.base import AxPolicy
 
@@ -3834,8 +3898,8 @@ def _tm_configs():
 
 def _tm_tp_shapes(cfg, M: int, n: int, who: str = "deepseek train TP") -> dict:
     """{(M, K, N): label} of the kernel launches of ``cfg``'s approximate
-    projections on a rank of ``n`` tensor-parallel ranks: the output
-    projections (``out``) split over K, the others over N."""
+    projections on a rank of ``n`` tensor-parallel ranks (1: none): the
+    output projections (``out``) split over K, the others over N."""
     from repro_torch.models.transformer import ax_projections
 
     shapes = {}
@@ -3890,11 +3954,96 @@ def _collective_timer():
             setattr(dist, n, fn)
 
 
-def _gloo_train_probe(dev) -> dict:
-    """The collectives of the sharded step on card tensors over ``gloo``,
-    their values checked (each rank runs the same calls)."""
+@contextlib.contextmanager
+def _order_timer():
+    """Each float SUM over ranks that a step adds in rank order
+    (``launch.parallel.rank_order_sum``: an all-gather, then the adds; the
+    float ``_reduce_scatter``: an all-to-all, then the adds), timed as it
+    runs between two synchronises, with its kind, size, dtype and group:
+    :func:`_native_sums` times the backend's own all-reduce and
+    reduce-scatter at the same sizes (ROADMAP item 13)."""
+    import torch
+
+    from repro_torch.launch import parallel as P
+
+    acc = {"s": 0.0, "calls": []}
+    real_sum, real_rs = P.rank_order_sum, P._reduce_scatter
+
+    def timed(fn, *a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        acc["s"] += time.perf_counter() - t
+        return out
+
+    def order_sum(t, group):
+        acc["calls"].append(("all_reduce", t.numel(), t.dtype, group))
+        return timed(real_sum, t, group)
+
+    def reduce_scatter(x, dim, group, n):
+        if not x.is_floating_point():
+            return real_rs(x, dim, group, n)
+        acc["calls"].append(("reduce_scatter", x.numel(), x.dtype, group))
+        return timed(real_rs, x, dim, group, n)
+
+    P.rank_order_sum, P._reduce_scatter = order_sum, reduce_scatter
+    try:
+        yield acc
+    finally:
+        P.rank_order_sum, P._reduce_scatter = real_sum, real_rs
+
+
+def _native_sums(calls, dev):
+    """(rank order seconds, native seconds, bytes): each of ``calls``
+    (:func:`_order_timer`) replayed after the step in its order, in rank
+    order (``rank_order_sum``, the float ``_reduce_scatter``) and as the
+    backend's own ``all_reduce`` or ``reduce_scatter_tensor`` (SUM) at the
+    same size, dtype and group, each between two synchronises and behind a
+    barrier of the group (the ranks start each together, where a step's
+    collective also waits for the slowest rank); the bytes are the calls'
+    inputs."""
     import torch
     import torch.distributed as dist
+
+    from repro_torch.launch.parallel import _reduce_scatter, rank_order_sum
+
+    order_s, native_s, nbytes = 0.0, 0.0, 0
+    for kind, numel, dtype, group in calls:
+        n = dist.get_world_size(group)
+        x = torch.ones(numel, dtype=dtype, device=dev)
+        nbytes += x.numel() * x.element_size()
+        out = torch.empty(numel // n, dtype=dtype, device=dev)
+        for way in ("order", "native"):
+            dist.barrier(group=group)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if kind == "all_reduce":
+                if way == "order":
+                    rank_order_sum(x, group)
+                else:
+                    dist.all_reduce(x, group=group)
+            elif way == "order":
+                _reduce_scatter(x, 0, group, n)
+            else:
+                dist.reduce_scatter_tensor(out, x, group=group)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            order_s, native_s = (order_s + dt, native_s) if way == "order" else \
+                (order_s, native_s + dt)
+        del x, out
+    return order_s, native_s, nbytes
+
+
+def _train_probe(dev) -> dict:
+    """The collectives of the sharded step on card tensors over the world's
+    backend, their values checked (each rank runs the same calls); the float
+    SUMs in rank order (``rank_order_sum``, the float ``_reduce_scatter``)
+    against one process adding every rank's part in rank order (bound 0)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.parallel import _reduce_scatter, rank_order_sum
 
     n, r = dist.get_world_size(), dist.get_rank()
     x = torch.arange(2 * n, dtype=torch.float32, device=dev) + 10 * r
@@ -3925,6 +4074,17 @@ def _gloo_train_probe(dev) -> dict:
     dist.all_to_all_single(a2a, x)
     out["all_to_all_single"] = torch.equal(a2a.cpu(), torch.cat(
         [torch.arange(2 * r, 2 * r + 2, dtype=torch.float32) + 10 * k for k in range(n)]))
+    # every rank's part made here from its seed: one process's adds in rank order
+    parts = [torch.randn(4 * n, 3, generator=torch.Generator(device=dev).manual_seed(70 + k),
+                         device=dev) for k in range(n)]
+    in_order = parts[0].clone()
+    for p in parts[1:]:
+        in_order = in_order + p
+    world = dist.group.WORLD
+    out["rank_order_sum == adds in rank order"] = torch.equal(rank_order_sum(parts[r], world),
+                                                              in_order)
+    out["float reduce-scatter == adds in rank order"] = torch.equal(
+        _reduce_scatter(parts[r], 0, world, n), in_order[4 * r:4 * r + 4])
     return out
 
 
@@ -3932,12 +4092,12 @@ KSPLIT_K, KSPLIT_N = 29568, 8192          # qwen2-72b's mlp out
 
 
 def _ksplit_card(dev, mesh) -> dict:
-    """The SWAPPER projection split over K on the two ranks against the
-    one-card call (each rank makes both from one seed, on the card) at
-    qwen2-72b's ``mlp out`` shape, K 29568 -> 14784 a rank, N 8192, bf16,
-    ``mxu``: ``ax_dense`` and ``ax_dense_dyn`` (a triple, the grid kernel),
-    4 and 512 rows, the int32 sums all-reduced and, at 512 rows,
-    reduce-scattered over ``seq``.  {check: bit-equal}."""
+    """The SWAPPER projection split over K on the mesh's model ranks
+    against the one-card call (each rank makes both from one seed, on the
+    card) at qwen2-72b's ``mlp out`` shape, K 29568 -> 29568 / n a rank, N
+    8192, bf16, ``mxu``: ``ax_dense`` and ``ax_dense_dyn`` (a triple, the
+    grid kernel), 4 and 512 rows, the int32 sums all-reduced and, at 512
+    rows, reduce-scattered over ``seq``.  {check: bit-equal}."""
     import torch
 
     from repro_torch.configs import ParallelConfig
@@ -3976,19 +4136,28 @@ def _ksplit_card(dev, mesh) -> dict:
     return out
 
 
-def train_mesh_rank(rank, _fleet, ref):
-    """One of the two ``gloo`` ranks sharing the card (phase 4d): the
-    collectives probed; the K-split projection against the one-card call
-    (:func:`_ksplit_card`); per layout 4 static steps of deepseek-moe-16b x2
-    from the seeded state (the rank builds its blocks), the last of them
-    with the collectives timed, (a) and (c) also 2 adaptive steps with the
-    policy changed between them, (b) and (d) also a ``remat="layer"`` step
-    from the same state as step 1; the reduced deepseek f32 step on every
-    layout and on (b) and (d) with ``remat="layer"``, the reduced qwen2 f32
-    step on (c) and (d); the restart on (a).  Everything numpy or plain
-    Python."""
+def train_mesh_rank(rank, _fleet, ref, backend="gloo"):
+    """One rank of the train-mesh phase (4d: two ``gloo`` ranks sharing the
+    card) or of the train nccl phase (4i: four ``nccl`` ranks, one card
+    each): the collectives probed (:func:`_train_probe`); the K-split
+    projection against the one-card call (:func:`_ksplit_card`); per layout
+    (:func:`_tm_layouts`) the static steps of deepseek-moe-16b x2 from the
+    seeded state (the rank builds its blocks), the last of them with the
+    collectives timed, (a) and (c) also 2 adaptive steps with the policy
+    changed between them, (b) and (d) also a ``remat="layer"`` step from
+    the same state as step 1; the reduced deepseek f32 step on every
+    layout but e-4k and on (b) and (d) with ``remat="layer"``, the reduced
+    qwen2 f32 step on the TP layouts; the restart on (a).  In a world of
+    more than ``TM_RANKS``, also: JAX's default layout at two sequence
+    lengths (e, e-4k); after every step the replicated leaves, moments
+    included, checked bit for bit across the ranks that hold them
+    (``D.replicas_apart``); one more static step under ``torch.profiler``
+    (the NCCL kernels' share of it); in the collective-timed step the float
+    SUMs in rank order timed as they run (:func:`_order_timer`) and the
+    backend's own at the same sizes.  Everything numpy or plain Python."""
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.ax_matmul import LAUNCHES, reset_launches
@@ -4005,18 +4174,36 @@ def train_mesh_rank(rank, _fleet, ref):
     torch.backends.cudnn.allow_tf32 = False
     dev = (torch.device("cuda", torch.cuda.current_device()) if _fleet.device_type == "cuda"
            else torch.device("cpu"))
+    n = dist.get_world_size()
+    four = n > TM_RANKS
     nvcc0 = _build.NVCC_RUNS["count"]
-    res = {"probe": _gloo_train_probe(dev), "layouts": {}, "small": {}, "shapes": {}}
-    res["ksplit"] = _ksplit_card(dev, make_mesh((1, 2), ("data", "model"), device=dev.type,
-                                                backend="gloo"))
+    res = {"probe": _train_probe(dev), "layouts": {}, "small": {}, "shapes": {},
+           "device": str(dev)}
+    meshes = {}
+
+    def mesh_of(shape, axes):
+        """One mesh per shape, made once: its groups' communicators too."""
+        if (shape, axes) not in meshes:
+            meshes[(shape, axes)] = make_mesh(shape, axes, device=dev.type, backend=backend)
+        return meshes[(shape, axes)]
+
+    res["ksplit"] = _ksplit_card(dev, mesh_of((1, n), ("data", "model")))
     big, small = _tm_configs()
     opt = AdamWConfig(lr=1e-4, warmup=2)
     n_d = len(transformer.ax_projections(big))
-    batches = _tm_batches(big, TM_STEPS + TM_ADAPTIVE_STEPS, DS_B, DS_S, 3)
-    for label, shape, axes, par in _tm_layouts():
+    for label, shape, axes, par in _tm_layouts(n, default=four):
+        B_, S_, steps = _tm_run(label, four)
+        extra = 1 if four else 0                 # the profiled step
+        batches = _tm_batches(big, steps + extra + TM_ADAPTIVE_STEPS, B_, S_, 3)
         with kernel_shapes() as seen:
-            mesh = make_mesh(shape, axes, device=dev.type, backend="gloo")
+            mesh = mesh_of(shape, axes)
             specs = D.state_specs(big, opt, mesh, par)
+            replicas = []
+
+            def check(st):
+                if four:
+                    replicas.append(D.replicas_apart(st, specs, mesh))
+
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             whole = init_params(big, seed=0, device=dev)
@@ -4028,37 +4215,66 @@ def train_mesh_rank(rank, _fleet, ref):
             state_gb = sum(t.numel() * t.element_size() for t in _leaves(state)) / 1e9
             torch.cuda.reset_peak_memory_stats(dev)
             remat_m = None
-            if label in TM_REMAT:
+            if label[0] in TM_REMAT:
                 # remat="layer" from the same state and batch as step 1 (its
                 # new state dropped): the recompute's collectives run on
                 # autograd's device thread
                 out_r = make_train_step(big, dataclasses.replace(par, remat="layer"), opt,
                                         mesh=mesh)(state, batches[0])
+                check(out_r[0])
                 remat_m = {k: float(out_r[1][k]) for k in TM_METRICS}
                 del out_r
                 torch.cuda.empty_cache()
             step = make_train_step(big, par, opt, mesh=mesh)
             reset_launches()
-            losses, walls = [], []
-            for i in range(TM_STEPS):
+            losses, walls, order = [], [], None
+            for i in range(steps):
                 torch.cuda.synchronize()
                 t = time.perf_counter()
                 # the last step times its collectives, a synchronise before and
-                # after each; the steps before it run uninstrumented
-                with (_collective_timer() if i == TM_STEPS - 1 else
-                      contextlib.nullcontext()) as coll:
+                # after each, and in a world of four its float SUMs in rank
+                # order; the steps before it run uninstrumented
+                timed = i == steps - 1
+                with (_collective_timer() if timed else contextlib.nullcontext()) as coll, \
+                        (_order_timer() if timed and four else contextlib.nullcontext()) as o:
                     state, m = step(state, batches[i])
                     losses.append(float(m["loss"]))
                 walls.append(time.perf_counter() - t)
+                order = o if timed else order
                 if i == 0:
                     first_m = {k: float(m[k]) for k in TM_METRICS}
-            row = dict(losses=losses, launches=dict(LAUNCHES), n_d=n_d, init_s=init_s,
-                       state_gb=state_gb,
-                       ms_per_step=1e3 * sum(walls[1:-1]) / (TM_STEPS - 2),
+                check(state)
+            row = dict(losses=losses, n_d=n_d, init_s=init_s, state_gb=state_gb,
+                       ms_per_step=1e3 * sum(walls[1:-1]) / max(steps - 2, 1),
+                       middle_ms=[1e3 * w for w in walls[1:-1]],
                        first_ms=1e3 * walls[0], timed_ms=1e3 * walls[-1], coll_s=coll["s"],
                        coll_calls=coll["calls"], coll_share=coll["s"] / walls[-1],
                        grad_norm=float(m["grad_norm"]), remat=remat_m, step1=first_m)
-            if label in TM_ADAPTIVE:
+            if four:
+                replay_s, native_s, order_bytes = _native_sums(order["calls"], dev)
+                row.update(order_ms=1e3 * order["s"], replay_ms=1e3 * replay_s,
+                           native_ms=1e3 * native_s, order_calls=len(order["calls"]),
+                           order_bytes=order_bytes)
+                del order
+                acts = [torch.profiler.ProfilerActivity.CUDA if dev.type == "cuda"
+                        else torch.profiler.ProfilerActivity.CPU]
+                torch.cuda.synchronize()         # the card idle as the profile starts
+                with torch.profiler.profile(activities=acts) as prof:
+                    # the ranks start the step together: the profiler's own
+                    # start-up is not waited out in the step's first collective
+                    dist.barrier()
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    state, m = step(state, batches[steps])
+                    torch.cuda.synchronize()
+                    row["profiled_ms"] = 1e3 * (time.perf_counter() - t)
+                row.update(profiled_loss=float(m["loss"]),
+                           nccl=_nccl_share(prof, 1, graph=False) if dev.type == "cuda"
+                           else None)
+                del prof
+                check(state)
+            row["launches"] = dict(LAUNCHES)
+            if label[0] in TM_ADAPTIVE:
                 astep = make_train_step(big, par, opt, adaptive=True, mesh=mesh)
                 pol_a = SwapPolicy.from_ax_policy(big.ax)
                 pol_b = SwapPolicy.from_ax_policy(dataclasses.replace(big.ax, swap_bit=5,
@@ -4068,25 +4284,29 @@ def train_mesh_rank(rank, _fleet, ref):
                 for i, pol in enumerate((pol_a, pol_b)):
                     torch.cuda.synchronize()
                     t = time.perf_counter()
-                    state, m = astep(state, batches[TM_STEPS + i],
+                    state, m = astep(state, batches[steps + extra + i],
                                      pol.dyn_tree(big.ax.targets, device=dev))
                     rec = records_to_host(m["ax_telemetry"])
                     a_walls.append(time.perf_counter() - t)
                     ns.append({tg: int(np.sum(r["n"])) for tg, r in rec.items()})
                     a_losses.append(float(m["loss"]))
+                    check(state)
                 row.update(adaptive_losses=a_losses, adaptive_n=ns,
                            adaptive_launches=dict(LAUNCHES),
                            adaptive_ms=[1e3 * w for w in a_walls],
                            policies=[pol_a.describe(), pol_b.describe()])
             row["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+            row["replicas"] = replicas
             res["layouts"][label] = row
             del state, step, m
             torch.cuda.empty_cache()
         res["shapes"][label] = {k: sorted(v) for k, v in seen.items()}
 
     # the reduced configs in f32: one sharded step against the one-card one
-    for label, shape, axes, par in _tm_layouts(remat=True):
-        mesh = make_mesh(shape, axes, device=dev.type, backend="gloo")
+    for label, shape, axes, par in _tm_layouts(n, remat=True, default=four):
+        if label in TM_LONG:
+            continue
+        mesh = mesh_of(shape, axes)
         for name, cfg in small.items():
             if name == "qwen2-72b" and label[0] not in TM_TP:
                 continue
@@ -4097,12 +4317,13 @@ def train_mesh_rank(rank, _fleet, ref):
             back = gather_state(new, specs, mesh)
             res["small"][f"{name} {label}"] = dict(
                 metrics={k: float(m[k]) for k in ("loss", "grad_norm")},
-                params=_tm_flat(back["params"]) if rank == 0 else None)
+                params=_tm_flat(back["params"]) if rank == 0 else None,
+                replicas=D.replicas_apart(new, specs, mesh) if four else None)
 
     # the supervised restart on (a), the reduced deepseek
-    label, shape, axes, par = _tm_layouts()[0]
+    label, shape, axes, par = _tm_layouts(n)[0]
     small_ds = small["deepseek-moe-16b"]
-    mesh = make_mesh(shape, axes, device=dev.type, backend="gloo")
+    mesh = mesh_of(shape, axes)
     specs = D.state_specs(small_ds, opt, mesh, par)
     step = make_train_step(small_ds, par, opt, mesh=mesh)
     n_steps, every, crash = TM_RESTART
@@ -4137,12 +4358,41 @@ def train_mesh_rank(rank, _fleet, ref):
     return res
 
 
-def train_mesh_phase(dev, card: str, clock: float):
+def _tm_reference(big, opt, dev, B_, S_, par, steps: int = 1):
+    """(step 1's loss, peak GB, ms of each step after the first): ``steps``
+    steps of ``big`` on one card from the seeded state on the phase's
+    batches of B_ x S_."""
+    import torch
+
+    from repro_torch.train import fresh_train_state, make_train_step
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = fresh_train_state(big, opt, seed=0, device=dev)
+    step = make_train_step(big, par, opt)
+    walls = []
+    for i, b in enumerate(_tm_batches(big, steps, B_, S_, 3)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t))
+        if i == 0:
+            loss = float(m["loss"])
+    del state, m
+    torch.cuda.empty_cache()
+    return loss, torch.cuda.max_memory_allocated(dev) / 1e9, walls[1:]
+
+
+def train_mesh_phase(dev, card: str, clock: float, backend: str = "gloo", n: int = TM_RANKS,
+                     held=(), held_grid=()):
     """Phase 4d (module note): the one-card reference steps in this process,
-    then two ``gloo`` ranks spawned on the card while it holds no model.
-    Returns (rows, ax_matmul shape rows, ax_matmul_grid shape rows, the same
-    two of the tensor-parallel layouts, launches by path, grid launches by
-    path)."""
+    then ``n`` ranks spawned while it holds no model: two ``gloo`` ranks
+    sharing the card, or (:func:`train_nccl_phase`) four ranks of
+    ``backend``, one card each, with JAX's default layout too.  ``held``,
+    ``held_grid``: the (M, K, N) of ``ax_matmul`` and ``ax_matmul_grid``
+    held to the plain version in this run already.  Returns (rows,
+    ax_matmul shape rows, ax_matmul_grid shape rows, the same two of the
+    tensor-parallel layouts, launches by path, grid launches by path)."""
     import tempfile
 
     import torch
@@ -4152,20 +4402,27 @@ def train_mesh_phase(dev, card: str, clock: float):
     from repro_torch.models import transformer
     from repro_torch.train import AdamWConfig, fresh_train_state, make_train_step
 
+    four = n > TM_RANKS
+    phase = "train nccl" if four else "train mesh"
     t_ref = time.perf_counter()
-    # the two ranks need the card's room: drop what earlier phases left unreferenced
+    # the ranks need the card's room: drop what earlier phases left unreferenced
     gc.collect()
     torch.cuda.empty_cache()
     left_gb = torch.cuda.memory_allocated(dev) / 1e9
     big, small = _tm_configs()
     opt = AdamWConfig(lr=1e-4, warmup=2)
     n_d = len(transformer.ax_projections(big))
-    # one card: step 1 of deepseek x2, and the reduced f32 steps
-    state = fresh_train_state(big, opt, seed=0, device=dev)
-    b0 = _tm_batches(big, 1, DS_B, DS_S, 3)[0]
-    one_loss = float(make_train_step(big, ParallelConfig(remat="none"), opt)(state, b0)[1]["loss"])
-    del state
-    torch.cuda.empty_cache()
+    # one card: step 1 of deepseek x2 (in a world of four, timed over as
+    # many steps as a layout runs before its timed one, and at train_4k's
+    # sequence with remat="layer"), and the reduced f32 steps
+    one_loss, one_peak, one_ms = _tm_reference(big, opt, dev, DS_B, DS_S,
+                                               ParallelConfig(remat="none"),
+                                               steps=TN_STEPS - 1 if four else 1)
+    long_ref = {}
+    if four:
+        for label, (B_, S_, _) in TM_LONG.items():
+            long_ref[label] = _tm_reference(big, opt, dev, B_, S_,
+                                            ParallelConfig(remat="layer"))
     small_batch, one_small = {}, {}
     for name, cfg in small.items():
         small_batch[name] = _tm_batches(cfg, 1, 8, 32, 5)[0]
@@ -4177,56 +4434,83 @@ def train_mesh_phase(dev, card: str, clock: float):
     gc.collect()
     torch.cuda.empty_cache()
     ref_s = time.perf_counter() - t_ref
-    # what this process keeps on the card while the two ranks train beside it
+    # what this process keeps on the card while the ranks train beside it
     held_gb = (torch.cuda.memory_allocated(dev) / 1e9, torch.cuda.memory_reserved(dev) / 1e9)
-    print(f"train mesh: earlier phases left {left_gb:.2f} GB allocated; this process holds "
-          f"{held_gb[0]:.2f} GB allocated, {held_gb[1]:.2f} GB reserved while the ranks run "
-          f"[{card}]", flush=True)
+    free = ""
+    if dev.type == "cuda":
+        f, tot = torch.cuda.mem_get_info(dev)
+        free = f"; {f / 1e9:.2f} of {tot / 1e9:.2f} GB free on the card"
+    print(f"{phase}: card 0 before the ranks: earlier phases left {left_gb:.2f} GB allocated; "
+          f"this process holds {held_gb[0]:.2f} GB allocated, {held_gb[1]:.2f} GB reserved "
+          f"while the ranks run{free} [{card}]", flush=True)
 
     t_b = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_mesh_") as tmp:
-        res = spawn(train_mesh_rank, TM_RANKS, args=(dict(small_batch=small_batch, ckpt=tmp),),
-                    device=dev.type, backend="gloo", timeout_s=900)
+        res = spawn(train_mesh_rank, n, args=(dict(small_batch=small_batch, ckpt=tmp), backend),
+                    device=dev.type, backend=backend, timeout_s=TN_TIMEOUT if four else 900)
     ranks_s = time.perf_counter() - t_b
     problems = []
     r0 = res[0]
-    want = {"ax_matmul": n_d * TM_STEPS, "ax_matmul_grid": 0}
+    layouts = _tm_layouts(n, default=four)
     want_a = {"ax_matmul": 0, "ax_matmul_grid": n_d * TM_ADAPTIVE_STEPS}
+
+    def want_of(label, par):
+        # a recomputed layer (remat="layer") launches its projections again
+        steps = _tm_run(label, four)[2] + (1 if four else 0)
+        return {"ax_matmul": n_d * steps * (2 if par.remat == "layer" else 1),
+                "ax_matmul_grid": 0}
+
+    step1 = {label: one_loss for label, *_ in layouts if label not in TM_LONG}
+    step1.update({label: v[0] for label, v in long_ref.items()})
     for rank, r in enumerate(res):
         if r["nvcc"]:
             problems.append(f"rank {rank}: {r['nvcc']} nvcc runs")
+        if four and dev.type == "cuda" and r["device"] != f"cuda:{rank}":
+            problems.append(f"rank {rank} ran on {r['device']}")
         if not all(r["probe"].values()):
-            problems.append(f"rank {rank}: gloo card collectives {r['probe']}")
+            problems.append(f"rank {rank}: {backend} card collectives {r['probe']}")
         if not all(r["ksplit"].values()):
             problems.append(f"rank {rank}: the K-split projection vs one card {r['ksplit']}")
-        for label, row in r["layouts"].items():
-            losses = row["losses"] + row.get("adaptive_losses", [])
+        for label, shape, axes, par in layouts:
+            row = r["layouts"][label]
+            losses = row["losses"] + row.get("adaptive_losses", []) + (
+                [row["profiled_loss"]] if four else [])
             if not all(math.isfinite(x) for x in losses):
                 problems.append(f"rank {rank} ({label}): losses {losses}")
-            if row["launches"] != want:
+            if row["launches"] != want_of(label, par):
                 problems.append(f"rank {rank} ({label}): launches {row['launches']} (want "
-                                f"{want})")
-            gap = abs(row["losses"][0] / one_loss - 1)
-            if gap > TOL_TM_STEP1:
-                problems.append(f"rank {rank} ({label}): step 1 loss {row['losses'][0]} vs "
-                                f"one card {one_loss} ({gap:.3g} > {TOL_TM_STEP1})")
+                                f"{want_of(label, par)})")
+            if label in step1:
+                gap = abs(row["losses"][0] / step1[label] - 1)
+                if gap > TOL_TM_STEP1:
+                    problems.append(f"rank {rank} ({label}): step 1 loss {row['losses'][0]} vs "
+                                    f"one card {step1[label]} ({gap:.3g} > {TOL_TM_STEP1})")
+            if four and (any(apart for apart, _ in row["replicas"]) or
+                         not all(checked for _, checked in row["replicas"])):
+                problems.append(f"rank {rank} ({label}): replicated leaves apart across ranks "
+                                f"{[apart for apart, _ in row['replicas'] if apart][:2]} "
+                                f"(checked {[c for _, c in row['replicas']]})")
             if row["remat"] is not None:
                 gaps = {k: abs(row["remat"][k] / row["step1"][k] - 1) for k in TM_METRICS}
-                # the same forward: (d) holds loss, ce and aux equal
-                exact = [k for k in ("loss", "ce", "aux") if label in TM_TP and gaps[k]]
+                # the same forward: the TP layouts hold loss, ce and aux equal
+                exact = [k for k in ("loss", "ce", "aux") if label[0] in TM_TP and gaps[k]]
                 if max(gaps.values()) > TOL_TRAIN_STEP or exact:
                     problems.append(f"rank {rank} ({label}): the remat='layer' step vs step 1 "
                                     f"{gaps} (tol {TOL_TRAIN_STEP}; equal: {exact or 'yes'})")
-            if label in TM_ADAPTIVE and (row["adaptive_launches"] != want_a or not all(
-                    min(n.values()) > 0 for n in row["adaptive_n"])):
+            if label[0] in TM_ADAPTIVE and (row["adaptive_launches"] != want_a or not all(
+                    min(x.values()) > 0 for x in row["adaptive_n"])):
                 problems.append(f"rank {rank} ({label}) adaptive: launches "
                                 f"{row['adaptive_launches']} (want {want_a}), telemetry n "
                                 f"{row['adaptive_n']}")
+            if row["losses"] != r0["layouts"][label]["losses"]:
+                problems.append(f"rank {rank} ({label}): reported losses differ from rank 0's")
+        if four:
+            apart = {k: v["replicas"] for k, v in r["small"].items()
+                     if v["replicas"][0] or not v["replicas"][1]}
+            if apart:
+                problems.append(f"rank {rank}: reduced configs' replicated leaves {apart}")
         if r["restart"]["restarts"] != [0, 1] or r["restart"]["worst_rel"] > TOL_TM_RESTART:
             problems.append(f"rank {rank}: restart {r['restart']}")
-        for label in r["layouts"]:
-            if r["layouts"][label]["losses"] != r0["layouts"][label]["losses"]:
-                problems.append(f"rank {rank} ({label}): reported losses differ from rank 0's")
     small_rows = {}
     for key, got in r0["small"].items():
         name = key.split(" ")[0]
@@ -4238,88 +4522,179 @@ def train_mesh_phase(dev, card: str, clock: float):
         if max(gaps.values()) > TOL_TRAIN_STEP or upd > TOL_TRAIN_UPDATE:
             problems.append(f"reduced f32 step ({key}) vs one card: {gaps}, update {upd} "
                             f"(tol {TOL_TRAIN_STEP}, {TOL_TRAIN_UPDATE})")
-    # every launched shape: the ranks' rows, reckoned from the config
-    M = DS_B * DS_S // TM_RANKS
-    dshapes = {}
-    for _, proj, K, N in transformer.ax_projections(big):
-        dshapes.setdefault((_padded(M), _padded(K), _padded(N)),
-                           f"deepseek train mesh M={M} {proj}")
-    tp_shapes = _tm_tp_shapes(big, DS_B * DS_S, TM_RANKS)
+    # every launched shape: the ranks' rows and model split, reckoned from the config
+    reck_of, tp_reck, dp_reck = {}, {}, {}
+    for label, shape, axes, par in layouts:
+        M, tp = _tm_split(label, shape, par)
+        reck_of[label] = _tm_tp_shapes(big, M, tp, f"deepseek {phase} ({label})")
+        (tp_reck if tp > 1 else dp_reck).update(reck_of[label])
+    grid_of = {label: reck_of[label] for label, *_ in layouts if label[0] in TM_ADAPTIVE}
     for label in r0["shapes"]:
         seen = {k: set(map(tuple, v)) for k, v in r0["shapes"][label].items()}
-        reck = set(tp_shapes if label in TM_TP else dshapes)
-        grid_reck = reck if label in TM_ADAPTIVE else set()
+        reck = set(reck_of[label])
+        grid_reck = set(grid_of.get(label, ()))
         if seen["ax_matmul"] != reck or seen["ax_matmul_grid"] != grid_reck:
             problems.append(f"({label}) kernel shapes launched {seen}, reckoned "
                             f"{sorted(reck)} ({sorted(grid_reck)} grid)")
     if problems:
-        fail("train mesh: " + "; ".join(problems))
-    shape_list = [(label,) + k for k, label in sorted(dshapes.items())]
-    tp_list = [(label,) + k for k, label in sorted(tp_shapes.items())]
-    ax_rows = main_shape_checks(dev, card, clock, grid_kernel=False, shapes=shape_list)
-    grid_rows = main_shape_checks(dev, card, clock, grid_kernel=True, shapes=shape_list)
-    tp_ax_rows = main_shape_checks(dev, card, clock, grid_kernel=False, shapes=tp_list)
-    tp_grid_rows = main_shape_checks(dev, card, clock, grid_kernel=True, shapes=tp_list)
-    print(f"train mesh: gloo takes card tensors for {sorted(r0['probe'])} (values checked); "
-          f"one-card step 1 of deepseek-moe-16b x2 loss {one_loss:.6f} [{card}]", flush=True)
-    print(f"train mesh: the K-split SWAPPER projection (K {KSPLIT_K} -> {KSPLIT_K // TM_RANKS} "
-          f"a rank, N {KSPLIT_N}, bf16, mxu) on two gloo ranks == the one-card call bit for "
-          f"bit: {', '.join(k for k, v in r0['ksplit'].items() if v)} [{card}]", flush=True)
-    rows = {"one_card_loss": one_loss, "small": small_rows, "restart": r0["restart"],
-            "ref_s": ref_s, "ranks_s": ranks_s, "parent_gb": held_gb,
-            "ksplit": r0["ksplit"]}
-    for label, shape, axes, par in _tm_layouts():
+        fail(f"{phase}: " + "; ".join(problems))
+    held, held_grid = set(held), set(held_grid)
+    grid_all = {k: v for g in grid_of.values() for k, v in g.items()}
+
+    def checks(reck, grid_kernel, done):
+        rows_ = [(label,) + k for k, label in sorted(reck.items()) if k not in done]
+        return main_shape_checks(dev, card, clock, grid_kernel=grid_kernel, shapes=rows_) \
+            if rows_ else []
+
+    ax_rows = checks(dp_reck, False, held)
+    grid_rows = checks({k: v for k, v in grid_all.items() if k in dp_reck}, True, held_grid)
+    tp_ax_rows = checks(tp_reck, False, held)
+    tp_grid_rows = checks({k: v for k, v in grid_all.items() if k in tp_reck}, True, held_grid)
+    print(f"{phase}: {backend} takes card tensors for {sorted(r0['probe'])} (values checked); "
+          f"one-card step 1 of deepseek-moe-16b x2 loss {one_loss:.6f}, peak {one_peak:.2f} GB"
+          + (f", steps 2-{len(one_ms) + 1} {sum(one_ms) / len(one_ms):.1f} ms/step (each "
+             f"{min(one_ms):.1f}-{max(one_ms):.1f} ms)" if one_ms else "")
+          + "".join(f"; {label} (B={TM_LONG[label][0]} x {TM_LONG[label][1]}, remat='layer') "
+                    f"loss {v[0]:.6f}, peak {v[1]:.2f} GB"
+                    for label, v in long_ref.items()) + f" [{card}]", flush=True)
+    print(f"{phase}: the K-split SWAPPER projection (K {KSPLIT_K} -> {KSPLIT_K // n} "
+          f"a rank, N {KSPLIT_N}, bf16, mxu) on {n} {backend} ranks == the one-card call bit "
+          f"for bit: {', '.join(k for k, v in r0['ksplit'].items() if v)} [{card}]", flush=True)
+    rows = {"one_card_loss": one_loss, "one_card_peak_gb": one_peak, "one_card_ms": one_ms,
+            "long_one_card": long_ref, "small": small_rows, "restart": r0["restart"],
+            "ref_s": ref_s, "ranks_s": ranks_s, "parent_gb": held_gb, "ksplit": r0["ksplit"],
+            "backend": backend, "ranks": n}
+    for label, shape, axes, par in layouts:
         per = [r["layouts"][label] for r in res]
         row = per[0]
-        tokens = DS_B * DS_S if label in TM_TP else DS_B * DS_S // TM_RANKS
+        B_, S_, steps = _tm_run(label, four)
+        M, tp = _tm_split(label, shape, par)
+        want = want_of(label, par)
+        middle = [ms for p in per for ms in p["middle_ms"]]
         rows[label] = dict(mesh=f"{dict(zip(axes, shape))}", ms_per_step=row["ms_per_step"],
+                           middle_ms=[min(middle), max(middle)],
                            first_ms=row["first_ms"], losses=row["losses"],
                            peak_gb=[p["peak_gb"] for p in per],
                            state_gb=[p["state_gb"] for p in per],
+                           init_s=[p["init_s"] for p in per],
                            coll_share=[p["coll_share"] for p in per],
                            coll_ms=[1e3 * p["coll_s"] for p in per],
                            timed_ms=[p["timed_ms"] for p in per],
-                           coll_calls=row["coll_calls"],
-                           tokens_per_s=DS_B * DS_S / row["ms_per_step"] * 1e3)
+                           coll_calls=row["coll_calls"], launches=want,
+                           tokens_per_s=B_ * S_ / row["ms_per_step"] * 1e3)
         extra = ""
+        if four:
+            rows[label].update(
+                nccl=[p["nccl"] for p in per], profiled_ms=[p["profiled_ms"] for p in per],
+                replicas_checked=row["replicas"][0][1], replica_checks=len(row["replicas"]),
+                order_ms=[p["order_ms"] for p in per], replay_ms=[p["replay_ms"] for p in per],
+                native_ms=[p["native_ms"] for p in per],
+                order_calls=row["order_calls"], order_bytes=row["order_bytes"],
+                order_share=[(p["replay_ms"] - p["native_ms"]) / row["ms_per_step"]
+                             for p in per])
+            nccl = ", ".join("not measured" if x is None else
+                             f"{x[0]:.1f} ms ({100 * x[1]:.1f}% of {x[2]:.1f} ms of kernels "
+                             f"in a {w:.1f} ms step)"
+                             for x, w in zip(rows[label]["nccl"], rows[label]["profiled_ms"]))
+            extra += (f"; after each of {len(row['replicas'])} steps the "
+                      f"{row['replicas'][0][1]} replicated leaves a rank bit-equal across "
+                      f"the ranks that hold them; NCCL kernels of a profiled step (ranks 0-"
+                      f"{n - 1}): {nccl}; its float SUMs in rank order "
+                      f"({row['order_calls']} calls, {row['order_bytes'] / 1e9:.3f} GB) took "
+                      f"{', '.join(f'{x:.1f}' for x in rows[label]['order_ms'])} ms in the "
+                      f"step; replayed behind barriers "
+                      f"{', '.join(f'{x:.1f}' for x in rows[label]['replay_ms'])} ms vs the "
+                      f"backend's all-reduce / reduce-scatter at the same sizes "
+                      f"{', '.join(f'{x:.1f}' for x in rows[label]['native_ms'])} ms: the "
+                      f"rank order costs "
+                      f"{', '.join(f'{100 * x:.1f}%' for x in rows[label]['order_share'])} of "
+                      f"a step")
         if row["remat"] is not None:
             rows[label]["remat_gap"] = {k: abs(row["remat"][k] / row["step1"][k] - 1)
                                         for k in TM_METRICS}
             gaps = ", ".join(f"{k} {v:.3g}" for k, v in rows[label]["remat_gap"].items())
-            extra = (f"; remat='layer' from step 1's state: loss {row['remat']['loss']:.6f}, "
-                     f"gaps {gaps} (tol {TOL_TRAIN_STEP})")
-        if label in TM_ADAPTIVE:
+            extra += (f"; remat='layer' from step 1's state: loss {row['remat']['loss']:.6f}, "
+                      f"gaps {gaps} (tol {TOL_TRAIN_STEP})")
+        if label[0] in TM_ADAPTIVE:
             rows[label].update(adaptive_ms=row["adaptive_ms"], adaptive_n=row["adaptive_n"])
-            extra = (f"; 2 adaptive steps ({row['policies'][0]} then {row['policies'][1]}): "
-                     f"telemetry n {row['adaptive_n']}, ax_matmul_grid {want_a['ax_matmul_grid']} "
-                     f"a rank, {', '.join(f'{x:.0f}' for x in row['adaptive_ms'])} ms")
+            extra += (f"; 2 adaptive steps ({row['policies'][0]} then {row['policies'][1]}): "
+                      f"telemetry n {row['adaptive_n']}, ax_matmul_grid "
+                      f"{want_a['ax_matmul_grid']} a rank, "
+                      f"{', '.join(f'{x:.0f}' for x in row['adaptive_ms'])} ms")
         flags = "+".join(f for f in ("dp_only", "fsdp", "seq_shard", "ep") if getattr(par, f))
-        print(f"train mesh ({label}) {dict(zip(axes, shape))} {flags}: deepseek-moe-16b x2 "
-              f"(--ax mxu, B={DS_B} x {DS_S}, {tokens} tokens a rank), {TM_STEPS} "
-              f"steps: losses {', '.join(f'{x:.5f}' for x in row['losses'])} (step 1 "
-              f"{abs(row['losses'][0] / one_loss - 1):.3g} from one card, tol {TOL_TM_STEP1}); "
-              f"ax_matmul {want['ax_matmul']} a rank (= {n_d} x {TM_STEPS}); "
-              f"{row['ms_per_step']:.1f} ms/step over steps 2-{TM_STEPS - 1} (first "
-              f"{row['first_ms']:.0f} ms), {rows[label]['tokens_per_s']:.0f} tokens/s; state "
+        gap1 = (f"{abs(row['losses'][0] / step1[label] - 1):.3g} from one card, tol "
+                f"{TOL_TM_STEP1}" if label in step1 else "no one-card step")
+        print(f"{phase} ({label}) {dict(zip(axes, shape))} {flags} remat={par.remat}: "
+              f"deepseek-moe-16b x2 (--ax mxu, B={B_} x {S_}, {M} rows a rank, model split "
+              f"{tp}), {steps} steps: losses {', '.join(f'{x:.5f}' for x in row['losses'])} "
+              f"(step 1 {gap1}); ax_matmul {want['ax_matmul']} a rank; "
+              f"{row['ms_per_step']:.1f} ms/step over steps 2-{max(steps - 1, 2)} (each "
+              f"{rows[label]['middle_ms'][0]:.1f}-{rows[label]['middle_ms'][1]:.1f} ms on "
+              f"ranks 0-{n - 1}; first {row['first_ms']:.0f} ms), {rows[label]['tokens_per_s']:.0f} tokens/s; state "
               f"{row['state_gb']:.2f} GB a rank, peak allocated "
               f"{', '.join(f'{p:.1f}' for p in rows[label]['peak_gb'])} GB; collectives "
               f"{rows[label]['coll_calls']} a step, "
               f"{', '.join(f'{100 * c:.1f}%' for c in rows[label]['coll_share'])} of step "
-              f"{TM_STEPS}'s wall ({', '.join(f'{x:.1f}' for x in rows[label]['timed_ms'])} ms, "
+              f"{steps}'s wall ({', '.join(f'{x:.1f}' for x in rows[label]['timed_ms'])} ms, "
               f"a synchronise around each collective){extra} [{card}]", flush=True)
     rs = r0["restart"]
-    print(f"train mesh: reduced configs (2 layers, f32, exact) sharded vs one card "
-          f"{ {k: {n: float(f'{v:.3g}') for n, v in g.items()} for k, g in small_rows.items()} } "
-          f"(tol {TOL_TRAIN_STEP}, update {TOL_TRAIN_UPDATE}); run_supervised on (a) "
-          f"({TM_RESTART[0]} steps, ckpt_every {TM_RESTART[1]}, a crash at step "
-          f"{TM_RESTART[2]}): 1 restart, within {rs['worst_rel']:.3g} relative of the "
+    print(f"{phase}: reduced configs (2 layers, f32, exact) sharded vs one card "
+          f"{ {k: {m: float(f'{v:.3g}') for m, v in g.items()} for k, g in small_rows.items()} } "
+          f"(tol {TOL_TRAIN_STEP}, update {TOL_TRAIN_UPDATE}); run_supervised on "
+          f"({layouts[0][0]}) ({TM_RESTART[0]} steps, ckpt_every {TM_RESTART[1]}, a crash at "
+          f"step {TM_RESTART[2]}): 1 restart, within {rs['worst_rel']:.3g} relative of the "
           f"uninterrupted run (tol {TOL_TM_RESTART}), bit-equal {rs['bit_equal']}, walls "
           f"{rs['walls'][0]:.1f} / {rs['walls'][1]:.1f} s; the one-card references "
           f"{ref_s:.1f} s, the ranks {ranks_s:.1f} s with the spawn [{card}]", flush=True)
-    paths = {f"train mesh ({label}, rank 0)": want["ax_matmul"] for label in "abcd"}
-    grid_paths = {f"train mesh ({label}) adaptive, rank 0": want_a["ax_matmul_grid"]
-                  for label in TM_ADAPTIVE}
+    paths = {f"{phase} ({label}, rank 0)": r0["layouts"][label]["launches"]["ax_matmul"]
+             for label, *_ in layouts}
+    grid_paths = {f"{phase} ({label}) adaptive, rank 0":
+                  r0["layouts"][label]["adaptive_launches"]["ax_matmul_grid"]
+                  for label in grid_of}
     return rows, ax_rows, grid_rows, tp_ax_rows, tp_grid_rows, paths, grid_paths
+
+
+# ---------------------------------------------------------------------------
+# phase 4i: the sharded train step over nccl, one rank per card
+# ---------------------------------------------------------------------------
+
+FOUR_CARDS = 4                           # the four-card phases: one nccl rank per card
+TN_TIMEOUT = 600                         # seconds for the four ranks
+
+
+def _four_cards(name: str) -> bool:
+    """Whether this machine has the ``FOUR_CARDS`` cards of a four-card
+    phase; where not, prints the phase ``name``'s not-run line."""
+    import torch
+
+    count = torch.cuda.device_count()
+    if count < FOUR_CARDS:
+        print(f"[{name}] not run: {count} card(s); chiprun --chips 4", flush=True)
+    return count >= FOUR_CARDS
+
+
+def train_nccl_phase(dev, card: str, clock: float, held=(), held_grid=()):
+    """Phase 4i (module note): with four cards or more, the train-mesh
+    phase's ranks (:func:`train_mesh_rank`) over ``nccl`` on four ranks,
+    one card each, with JAX's default layout at two sequence lengths.
+    Returns :func:`train_mesh_phase`'s result, or None with fewer cards."""
+    import torch
+
+    from repro_torch.launch.mesh import default_backend
+
+    if not _four_cards("train nccl"):
+        return None
+    count = torch.cuda.device_count()
+    peers = [[i == j or torch.cuda.can_device_access_peer(i, j) for j in range(count)]
+             for i in range(count)]
+    print(f"train nccl: {'; '.join(smi_all('name,power.limit'))}; peer access between the "
+          f"cards (torch.cuda.can_device_access_peer): {peers}", flush=True)
+    for args in (["topo", "-m"], ["topo", "-p2p", "n"], ["nvlink", "-s", "-i", "0"]):
+        got = subprocess.run(["nvidia-smi"] + args, capture_output=True, text=True, timeout=60)
+        print(f"train nccl: the interconnect (nvidia-smi {' '.join(args)}, exit "
+              f"{got.returncode}):\n{(got.stdout + got.stderr).rstrip()}", flush=True)
+    return train_mesh_phase(dev, card, clock, backend=default_backend(dev), n=FOUR_CARDS,
+                            held=held, held_grid=held_grid)
 
 
 TPS_RANKS = 2
@@ -5018,7 +5393,6 @@ def tp_adapt_phase(dev, card: str, clock: float, held=()):
     return rows, shape_rows, grid_rows, paths, grid_paths
 
 
-TPG_RANKS = 4                            # one nccl rank per card
 TPG_LAYOUTS = ((1, 4), (2, 2))           # ("data", "model")
 TPG_LEN = 48                             # S + T + 1 = 45 rows, split over 4 ranks
 TPG_GENS = 3                             # fused adaptive generations: the drift after the first
@@ -5137,25 +5511,35 @@ def _tpg_shapes(cfg, shape, label: str):
     return reck, grid
 
 
-def _decode_kernels(prof):
+def _decode_kernels(prof, graph: bool = True):
     """The device kernels of a profiled graph serve from its first graph
-    launch on (the decode's replays)."""
+    launch on (the decode's replays); where not ``graph``, of a profiled
+    step after the barrier the ranks start it behind, on a card idle when
+    the profile starts: from the end of the NCCL kernel that starts first
+    (the barrier's, found by time, whatever the events' order; the barrier
+    fills its tensor with another kernel before it)."""
     from torch.autograd import DeviceType
 
     events = prof.events()
-    starts = [e.time_range.start for e in events if "cudaGraphLaunch" in e.name]
+    if graph:
+        starts = [e.time_range.start for e in events if "cudaGraphLaunch" in e.name]
+    else:
+        nccl = [e for e in events
+                if e.device_type == DeviceType.CUDA and "nccl" in e.name.lower()]
+        starts = [min(nccl, key=lambda e: e.time_range.start).time_range.end] if nccl else []
     if not starts:
         return []
     t0 = min(starts)
     return [e for e in events if e.device_type == DeviceType.CUDA and e.time_range.start >= t0]
 
 
-def _nccl_share(prof, steps: int):
+def _nccl_share(prof, steps: int, graph: bool = True):
     """(NCCL kernels' device ms a decode step, their share of the decode's
     kernel time, kernels' device ms a decode step) of a profiled graph
-    serve (``_decode_kernels``); None where the profiler saw no device
-    kernel."""
-    kernels = _decode_kernels(prof)
+    serve (``_decode_kernels``), or of ``steps`` profiled eager steps
+    behind a barrier where not ``graph``; None where the profiler saw no
+    device kernel."""
+    kernels = _decode_kernels(prof, graph)
     total = sum(e.time_range.elapsed_us() for e in kernels)
     if not total:
         return None
@@ -5323,9 +5707,7 @@ def tp_graph_phase(dev, card: str, clock: float, held=()):
     from repro_torch.serve import ServeConfig, generate
     from repro_torch.serve import graph as G
 
-    count = torch.cuda.device_count()
-    if count < TPG_RANKS:
-        print(f"[tp graph] not run: {count} card(s); chiprun --chips 4", flush=True)
+    if not _four_cards("tp graph"):
         return None
     cards = smi_all("name,power.limit")
     t0 = time.perf_counter()
@@ -5357,7 +5739,7 @@ def tp_graph_phase(dev, card: str, clock: float, held=()):
         path = os.path.join(tmp, "prompts.pt")
         torch.save(prompts, path)
         backend = default_backend(dev)
-        res = spawn(tp_graph_rank, TPG_RANKS, args=(path, backend), device=dev.type,
+        res = spawn(tp_graph_rank, FOUR_CARDS, args=(path, backend), device=dev.type,
                     backend=backend, timeout_s=TPG_TIMEOUT)
     ranks_s = time.perf_counter() - t1
     problems, rows, shape_list, grid_list, paths, grid_paths = [], {}, [], [], {}, {}
@@ -5459,7 +5841,7 @@ def tp_graph_phase(dev, card: str, clock: float, held=()):
         nccl = ", ".join("not measured" if x is None else
                          f"{x[0]:.3f} ms ({100 * x[1]:.1f}% of {x[2]:.3f} ms)"
                          for x in row["nccl"])
-        print(f"tp graph {label} x{L} on {TPG_RANKS} nccl ranks, one card each "
+        print(f"tp graph {label} x{L} on {FOUR_CARDS} nccl ranks, one card each "
               f"(('data', 'model'), fsdp + seq_shard + ep, bf16 mxu, B={B} x {S}, {TPA_T} "
               f"tokens, cache {TPG_LEN} rows): static serve x2, {TPG_GENS} fused adaptive "
               f"generations per mode (scalar, {TPA_TILES} row tiles; drifted weights from the "
@@ -5783,9 +6165,7 @@ def tp_full_phase(dev, card: str, clock: float, held=(), held_grid=()):
     from repro_torch.launch.mesh import default_backend, spawn
     from repro_torch.models import transformer
 
-    count = torch.cuda.device_count()
-    if count < TPG_RANKS:
-        print(f"[tp full] not run: {count} card(s); chiprun --chips 4", flush=True)
+    if not _four_cards("tp full"):
         return None
     cards = smi_all("name,power.limit")
     cfg = _tpf_config()
@@ -5803,7 +6183,7 @@ def tp_full_phase(dev, card: str, clock: float, held=(), held_grid=()):
         path = os.path.join(tmp, "prompts.pt")
         torch.save(prompts, path)
         backend = default_backend(dev)
-        res = spawn(tp_full_rank, TPG_RANKS, args=(path, backend), device=dev.type,
+        res = spawn(tp_full_rank, FOUR_CARDS, args=(path, backend), device=dev.type,
                     backend=backend, timeout_s=TPF_TIMEOUT)
     ranks_s = time.perf_counter() - t0
     problems = []
@@ -5902,7 +6282,7 @@ def tp_full_phase(dev, card: str, clock: float, held=(), held_grid=()):
                      f"{x[0]:.3f} ms ({100 * x[1]:.1f}% of {x[2]:.3f} ms)" for x in row["nccl"])
     f2 = (lambda xs: ", ".join(f"{x:.2f}" for x in xs))  # noqa: E731
     print(f"tp full {cfg.name} x{cfg.n_layers} on "
-          f"{TPG_RANKS} nccl ranks, one card each ({TPF_SHAPE}, fsdp + seq_shard + ep, bf16 weights "
+          f"{FOUR_CARDS} nccl ranks, one card each ({TPF_SHAPE}, fsdp + seq_shard + ep, bf16 weights "
           f"and compute, mxu, "
           f"B={B} x {S}, {TPA_T} tokens, cache {TPG_LEN} rows): each rank made only its blocks "
           f"(launch.parallel.init_serve_params) in {f2(row['init_s'])} s, {f2(row['weight_gb'])} "
@@ -6039,7 +6419,8 @@ def main(argv):
         print(f"--- {name}: nvcc {b.seconds:.1f} s, -Xptxas -v:\n{b.report.strip()}", flush=True)
 
     nvcc_runs = _build.NVCC_RUNS["count"]
-    alone = {"--tp-graph": ("tp graph", tp_graph_phase), "--tp-full": ("tp full", tp_full_phase)}
+    alone = {"--tp-graph": ("tp graph", tp_graph_phase), "--tp-full": ("tp full", tp_full_phase),
+             "--train-nccl": ("train nccl", train_nccl_phase)}
     for flag, (name, phase) in alone.items():
         if flag not in argv:
             continue
@@ -6109,6 +6490,13 @@ def main(argv):
     tpf_row, tpf_shape_rows, tpf_grid_rows, tpf_paths, tpf_grid_paths = \
         tpf if tpf is not None else (None, [], [], {}, {})
     phase_done("tp full")
+    tpn = train_nccl_phase(dev, card, clock,
+                           held=[(r["M"], r["K"], r["N"]) for r in tm_shape_rows + tp_shape_rows],
+                           held_grid=[(r["M"], r["K"], r["N"])
+                                      for r in tm_grid_rows + tp_grid_rows])
+    tpn_rows, tpn_shape_rows, tpn_grid_rows, tpn_tp_rows, tpn_tp_grid_rows, tpn_paths, \
+        tpn_grid_paths = tpn if tpn is not None else (None, [], [], [], [], {}, {})
+    phase_done("train nccl")
     profile = "--profile" in argv
     cfg, params, prompts, tokens, paths, stats = serve(dev, card, profile)
     paths.update(w_paths)
@@ -6119,6 +6507,7 @@ def main(argv):
     paths.update(tpa_paths)
     paths.update(tpg_paths)
     paths.update(tpf_paths)
+    paths.update(tpn_paths)
     phase_done("serve")
     autotune_rows = autotune_phase(dev, card, cfg, params, prompts, tokens)
     phase_done("autotune")
@@ -6129,6 +6518,7 @@ def main(argv):
     grid_paths.update(tpa_grid_paths)
     grid_paths.update(tpg_grid_paths)
     grid_paths.update(tpf_grid_paths)
+    grid_paths.update(tpn_grid_paths)
     phase_done("adapt")
     paths["per-slot graph"] = slot_serve(cfg, params, card)
     paths["token-granular graph"] = token_serve(cfg, params, card)
@@ -6196,11 +6586,13 @@ def main(argv):
     grid_entry = entry("ax_matmul_grid", "src/repro/kernels/ax_matmul.py:253", grid_launches,
                        grid_paths, grid_rows, c_grid_rows)
     for e, fam_rows, w_rows, t_rows, tm_rows_, tp_rows_, tps_rows_, tpa_rows_, tpg_rows_, \
-            tpf_rows_ in (
+            tpf_rows_, tpn_rows_ in (
             (ax_entry, family_shape_rows, whisper_shape_rows, train_shape_rows, tm_shape_rows,
-             tp_shape_rows, tps_shape_rows, tpa_shape_rows, tpg_shape_rows, tpf_shape_rows),
+             tp_shape_rows, tps_shape_rows, tpa_shape_rows, tpg_shape_rows, tpf_shape_rows,
+             tpn_shape_rows + tpn_tp_rows),
             (grid_entry, family_grid_rows, [], train_grid_rows, tm_grid_rows, tp_grid_rows,
-             [], tpa_grid_rows, tpg_grid_rows, tpf_grid_rows)):
+             [], tpa_grid_rows, tpg_grid_rows, tpf_grid_rows,
+             tpn_grid_rows + tpn_tp_grid_rows)):
         e["family_shapes"] = fam_rows
         e["whisper_shapes"] = w_rows
         e["train_shapes"] = t_rows
@@ -6210,9 +6602,10 @@ def main(argv):
         e["tp_adapt_shapes"] = tpa_rows_
         e["tp_graph_shapes"] = tpg_rows_
         e["tp_full_shapes"] = tpf_rows_
+        e["train_nccl_shapes"] = tpn_rows_
         e["max_abs_err"] = max([e["max_abs_err"]] + [
             r["max_abs_err"] for r in fam_rows + w_rows + t_rows + tm_rows_ + tp_rows_
-            + tps_rows_ + tpa_rows_ + tpg_rows_ + tpf_rows_])
+            + tps_rows_ + tpa_rows_ + tpg_rows_ + tpf_rows_ + tpn_rows_])
     ax_entry["whisper"] = {k: whisper_row[k] for k in (
         "name", "layers", "enc_layers", "params_g", "ax_per_forward", "ax_per_decode",
         "launches", "decode_vs_full_rel", "graph_decode_ms_per_step")}
@@ -6224,6 +6617,7 @@ def main(argv):
     ax_entry["tp_adapt"] = tpa_rows
     ax_entry["tp_graph"] = tpg_rows
     ax_entry["tp_full"] = tpf_row
+    ax_entry["train_nccl"] = tpn_rows
     ax_entry["families"] = [{k: r[k] for k in ("name", "layers", "params_g", "ax_per_forward",
                                                "launches")} for r in family_rows]
     ax_entry["reduced_card_vs_cpu"] = {

@@ -224,6 +224,13 @@ def build_cell(cfg, shape_name: str, mesh, par: ParallelConfig, ax: Optional[AxP
 
     if ax is not None:
         cfg = dataclasses.replace(cfg, ax=ax)
+    if cfg.ax is not None:
+        # the multiplier's tables are built from real values, once: here,
+        # outside the fake mode
+        from repro_torch.core.multipliers import get as get_mult
+        from repro_torch.kernels.ax_matmul import route_of
+
+        route_of(get_mult(cfg.ax.mult_name), torch.int8)
     shape = SHAPES[shape_name]
     specs = registry.input_specs(cfg, shape)
 

@@ -18,7 +18,11 @@ A rank's train state holds its blocks under ``launch.mesh.state_shardings``
   holds it and back (``launch.parallel.expert_all_to_all``).
 * :meth:`TrainMesh.reduce_grads` all-reduces (SUM) each gradient over the
   mesh axes on which its leaf is replicated, in one buffer per group and
-  dtype.
+  dtype.  It and the grad norm (``optimizer.global_norm``) are the step's
+  two float SUMs that do not add in rank order
+  (``launch.parallel.rank_order_sum``): they are plain ``dist.all_reduce``,
+  whose ranks all receive the same bits, so the copies of a replicated
+  leaf stay equal; :func:`replicas_apart` checks that after a step.
 * The loss is a sum over ranks of per-rank terms (``models/registry.py``,
   ``models/blocks.py``, which find the step's :class:`TrainMesh` through
   ``launch.sharding.current_groups``): each rank backpropagates its own, so
@@ -65,7 +69,7 @@ from repro_torch.launch.parallel import (GATHERED_ON_MODEL, MeshGroups, TensorPa
 from repro_torch.launch.sharding import _names, axis_size, mesh_shape
 
 __all__ = ["TrainMesh", "LeafPlan", "TensorParallel", "train_mesh", "gather_leaf",
-           "all_reduce_sum", "state_specs", "local_state"]
+           "all_reduce_sum", "state_specs", "local_state", "replicas_apart"]
 
 
 def gather_leaf(x: torch.Tensor, dims) -> torch.Tensor:
@@ -75,7 +79,6 @@ def gather_leaf(x: torch.Tensor, dims) -> torch.Tensor:
     for d, (group, _, n) in dims:
         x = _Gather.apply(x, d, group, n)
     return x
-
 
 
 class LeafPlan(NamedTuple):
@@ -171,3 +174,40 @@ def state_specs(cfg, opt_cfg, mesh, par):
 
 
 local_state = local_blocks     # a whole state's blocks under its spec tree
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """The bits of ``x`` as a flat int32 tensor (2- and 1-byte elements
+    widened, 8-byte ones as two words)."""
+    x = x.detach().contiguous().reshape(-1)
+    size = x.element_size()
+    if size in (4, 8):
+        return x.view(torch.int32)
+    return x.view(torch.int16 if size == 2 else torch.int8).to(torch.int32)
+
+
+def replicas_apart(state, specs, mesh):
+    """(paths, checked): the paths of the leaves of a rank's ``state`` (its
+    blocks under the spec tree ``specs``, :func:`state_specs`) whose copies
+    differ bit for bit on the ranks that hold the same block (the ranks
+    that differ only on the mesh axes the leaf's spec does not use), and
+    how many of its leaves have such copies.  One MAX all-reduce of a
+    leaf's bits and their complement over those ranks: every copy is equal
+    where ``max(v) == ~max(~v)``, the minimum.  Run it on every rank, in
+    one order; the ranks of a group get the same answer."""
+    names = mesh_shape(mesh).axis_names
+    spec_of = dict(zip(*tree_paths(specs)))
+    apart, checked = [], 0
+    for path, x in zip(*tree_paths(state)):
+        used = {a for ax in spec_of[path] for a in _names(ax)}
+        group = _group_of(mesh, tuple(a for a in names
+                                      if a not in used and axis_size(mesh, a) > 1))
+        if group is None:
+            continue
+        checked += 1
+        bits = _bits(x)
+        both = torch.cat([bits, ~bits])
+        dist.all_reduce(both, op=dist.ReduceOp.MAX, group=group[0])
+        if not torch.equal(both[:bits.numel()], ~both[bits.numel():]):
+            apart.append(path)
+    return apart, checked

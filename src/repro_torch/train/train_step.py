@@ -156,6 +156,10 @@ def make_train_step(cfg: ModelConfig, par: Optional[ParallelConfig], opt_cfg: Ad
     called in) makes it the sharded step (module note)."""
     par = par or ParallelConfig()
     check_parallel(par, adaptive, mesh)
+    if mesh is not None:
+        # every group of the step made now, on every rank in one order: a
+        # collective on autograd's device thread never makes a communicator
+        D.train_mesh(mesh, par).plans(cfg, opt_cfg)
 
     def body(state, batch, dyn, tm):
         """The step on one device (``tm`` None) or on a rank of the train

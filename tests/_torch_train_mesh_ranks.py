@@ -201,7 +201,9 @@ def gspmd_rank(rank, _mesh, jax_root, jobs):
     """Each job of ``tests/_torch_jax_gspmd.py`` on this world: every step
     from JAX's state before it (the rank takes its blocks), the step's
     metrics and ``gather_state`` of the new blocks; rank 0 returns them,
-    every rank its block index per leaf and its dropped dispatch choices."""
+    every rank its block index per leaf, its dropped dispatch choices and,
+    per step, ``D.replicas_apart`` of the new blocks (the replicated
+    leaves, moments included, whose copies differ; the leaves checked)."""
     out = {}
     for job in jobs:
         cfg = config(job["arch"], job.get("cfg", {}))
@@ -210,7 +212,7 @@ def gspmd_rank(rank, _mesh, jax_root, jobs):
         step = train.make_train_step(cfg, par, opt_cfg(), mesh=mesh)
         specs = D.state_specs(cfg, opt_cfg(), mesh, par)
         d = os.path.join(jax_root, job["label"])
-        res = {"steps": [], "dropped": 0}
+        res = {"steps": [], "dropped": 0, "replicas": []}
         for i, bt in enumerate(batches(cfg, job["steps"])):
             tree, _ = train.load_tree(d, i)
             whole = train_state_from_jax(tree, cfg, device="cpu")
@@ -218,6 +220,7 @@ def gspmd_rank(rank, _mesh, jax_root, jobs):
             with DropCounter() as dc:
                 new, m = step(local, bt)
             res["dropped"] += dc.dropped
+            res["replicas"].append(D.replicas_apart(new, specs, mesh))
             back = train.gather_state(new, specs, mesh)
             res["steps"].append((metrics_of(m), flat(back) if rank == 0 else None,
                                  flat(whole["params"]) if rank == 0 else None))
@@ -670,3 +673,71 @@ def tp_refusal_rank(rank, _mesh):
     except ValueError as e:
         return str(e)
     return None
+
+
+def replica_rank(rank, _mesh):
+    """``D.replicas_apart`` after one step of the reduced qwen2 on
+    ``("data", "model")`` = (2, 2) with ``fsdp`` (f32, exact), then again
+    with one element of two replicated leaves moved on rank 1 (by one ulp,
+    or by 1 for the step count): the first leaf whole on every rank and the
+    first parameter sharded over ``"model"`` only, whose copies lie on the
+    two batch shards of a model rank (ranks 1 and 3).  Returns
+    (the step's result, the moved result, the two paths)."""
+    cfg = config("qwen2-72b", {})
+    par = ParallelConfig(fsdp=True, remat="none")
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    opt = opt_cfg()
+    specs = D.state_specs(cfg, opt, mesh, par)
+    state = D.local_state(train.fresh_train_state(cfg, opt, seed=0, device="cpu"), specs,
+                          mesh)
+    new, _ = train.make_train_step(cfg, par, opt, mesh=mesh)(state, batches(cfg, 1)[0])
+    clean = D.replicas_apart(new, specs, mesh)
+    paths, leaves = tree_paths(new)
+    spec_of = dict(zip(*tree_paths(specs)))
+    whole = next(p for p in paths if not any(spec_of[p]))
+    on_model = next(p for p in paths if p.startswith("params/")
+                    and tuple(ax for ax in spec_of[p] if ax) == ("model",))
+    if rank == 1:
+        for p, x in zip(paths, leaves):
+            if p in (whole, on_model):
+                flat_ = x.view(-1)
+                flat_[0] = (torch.nextafter(flat_[0], torch.tensor(float("inf")))
+                            if x.is_floating_point() else flat_[0] + 1)
+    return clean, D.replicas_apart(new, specs, mesh), (whole, on_model)
+
+
+def card_default_rank(rank, _mesh):
+    """``tests/test_torch_gpu.py``'s four-card check, one ``nccl`` rank a
+    card: ``chip_smoke.py``'s collective probe (values checked), then one
+    step of the reduced deepseek-moe (f32, exact, a capacity that drops
+    nothing) at JAX's default layout on ``("data", "model")`` = (2, 2)
+    (``fsdp``, ``seq_shard``, ``ep``, ``remat="layer"``) from the seeded
+    state, and the one-card step from the same state on this rank's card.
+    Returns the probe, both steps' metrics, ``D.replicas_apart`` of the new
+    blocks and (rank 0) the gathered, one-card and start parameters."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    probe = chip_smoke._train_probe(dev)
+    cfg = config("deepseek-moe-16b", {})
+    par = ParallelConfig(fsdp=True, seq_shard=True, ep=True, remat="layer")
+    mesh = make_mesh((2, 2), ("data", "model"), device="cuda")
+    opt = opt_cfg()
+    whole = train.fresh_train_state(cfg, opt, seed=0, device=dev)
+    bt = batches(cfg, 1)[0]
+    specs = D.state_specs(cfg, opt, mesh, par)
+    new, m = train.make_train_step(cfg, par, opt, mesh=mesh)(D.local_state(whole, specs, mesh),
+                                                               bt)
+    replicas = D.replicas_apart(new, specs, mesh)
+    back = train.gather_state(new, specs, mesh)
+    one, m1 = train.make_train_step(cfg, ParallelConfig(remat="none"), opt)(whole, bt)
+
+    def host(tree):
+        paths, leaves = tree_paths(tree)
+        return {p: v.detach().float().cpu().numpy() for p, v in zip(paths, leaves)}
+
+    return dict(device=str(dev), probe=probe, metrics=metrics_of(m), one_metrics=metrics_of(m1),
+                replicas=replicas,
+                params=(host(back["params"]), host(one["params"]), host(whole["params"]))
+                if rank == 0 else None)

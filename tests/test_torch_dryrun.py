@@ -28,7 +28,8 @@ JAX package's.
   decode step of mamba2, a decode step of qwen2.
 * The production meshes over fake worlds of 256 and 512 ranks, a group of
   two axes made under ``FakeTensorMode``; ``hlo_analyze`` prints its
-  tables, and the dry-run CLI runs a cell.
+  tables, and the dry-run CLI runs a cell, and one with ``--ax`` in a
+  process that has built no multiplier table before.
 """
 import json
 import os
@@ -80,6 +81,8 @@ def runs():
                 "decode_32k", "--top", "5"],
         "cli": ["-m", "repro_torch.launch.dryrun", "--arch", "recurrentgemma-2b", "--shape",
                 "decode_32k", "--out", os.path.join(tmp, "cli.jsonl")],
+        "cli_ax": ["-m", "repro_torch.launch.dryrun", "--arch", "mamba2-370m", "--shape",
+                   "decode_32k", "--ax", "--out", os.path.join(tmp, "cli_ax.jsonl")],
     }
     procs = {k: _start(a, os.path.join(tmp, f"{k}.log")) for k, a in jobs.items()}
     try:
@@ -92,9 +95,9 @@ def runs():
     for k in ("jax", "port"):
         assert codes[k] == 0, logs[k][-3000:]
     out = {k: json.load(open(os.path.join(tmp, f"{k}.json"))) for k in ("jax", "port")}
-    cli = [json.loads(x) for x in open(os.path.join(tmp, "cli.jsonl"))] if codes["cli"] == 0 \
-        else None
-    return dict(out, codes=codes, logs=logs, cli=cli)
+    cli = {k: [json.loads(x) for x in open(os.path.join(tmp, f"{k}.jsonl"))]
+           if codes[k] == 0 else None for k in ("cli", "cli_ax")}
+    return dict(out, codes=codes, logs=logs, **cli)
 
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
@@ -175,3 +178,16 @@ def test_dryrun_cli_runs_a_cell(runs):
     (row,) = runs["cli"]
     assert (row["status"], row["mesh"], row["chips"], row["cost_source"]) == (
         "ok", "16x16", 256, "extrapolated_1p2p")
+
+
+def test_dryrun_cli_ax_on_a_cold_process(runs):
+    """``--ax`` in a fresh process: the multiplier's tables are built from
+    real values before the fake run (under ``FakeTensorMode`` they would be
+    fakes), and the cell's row is ``ok`` with the multiplier named."""
+    assert runs["codes"]["cli_ax"] == 0, runs["logs"]["cli_ax"][-3000:]
+    (row,) = runs["cli_ax"]
+    assert (row["status"], row["ax"], row["cost_source"]) == (
+        "ok", "mul8s_trunc0_4", "extrapolated_1p2p")
+    want = roofline.model_flops(ARCHS["mamba2-370m"], SHAPES["decode_32k"])
+    assert row["model_flops"] == pytest.approx(want, rel=1e-12)
+    assert row["memory"]["memtracker_peak_bytes"] > 0

@@ -1122,3 +1122,29 @@ def test_cards4_tp_graph_serve_on_four_nccl_ranks_equals_eager(cards4):
                             assert ra[t][k].dtype == v.dtype and (ra[t][k] == v).all(), (t, k)
         assert (r["graph"]["static"]["tokens"][0] == r["graph"]["static"]["tokens"][1]).all()
     assert res[0]["graph"]["scalar"]["records"], "the adaptive serve observed nothing"
+
+
+def test_cards4_train_step_on_four_nccl_ranks(cards4):
+    """``chip_smoke.py``'s train nccl phase at its smallest: on four
+    ``nccl`` ranks, one card each, the collective probe (all-reduce MAX f32
+    and SUM int32, the int32 reduce-scatter, all-gather, all-to-all, and the
+    float SUMs in rank order against one process's adds, bound 0), then one
+    step of the reduced deepseek-moe (f32, exact) at JAX's default layout on
+    (2, 2): within 1e-4 (loss, ``ce``, ``aux``, grad norm) and 0.1 (each
+    leaf's update) of the one-card step, the ranks reporting the same
+    metrics, every replicated leaf and moment bit-equal on all four."""
+    import _torch_train_mesh_ranks as RK
+    from repro_torch.launch.mesh import spawn
+
+    res = spawn(RK.card_default_rank, 4, device="cuda", backend="nccl", timeout_s=600)
+    assert [r["device"] for r in res] == [f"cuda:{i}" for i in range(4)]
+    for r in res:
+        assert all(r["probe"].values()), r["probe"]
+        apart, checked = r["replicas"]
+        assert checked > 0 and apart == [], apart
+        assert r["metrics"] == res[0]["metrics"]
+    m, m1 = res[0]["metrics"], res[0]["one_metrics"]
+    for k in ("loss", "ce", "aux", "grad_norm"):
+        assert RK.rel(m[k], m1[k]) <= RK.TOL_REL, (k, m[k], m1[k])
+    new, one, start = res[0]["params"]
+    assert max(RK.update_gaps(new, one, start).values()) <= RK.TOL_UPDATE

@@ -40,7 +40,9 @@ Against the port's own one-device step (held to JAX in
 step each on the exact path (measured 2.1e-7 and 2.7e-5); the adaptive
 step, whose aggregated records equal ``combine_records`` of the ranks'
 solo records bit for bit and whose controllers agree; ``run_supervised``
-with a crash, within 1e-5 of the uninterrupted sharded run.
+with a crash, within 1e-5 of the uninterrupted sharded run.  After every
+step of every job each replicated leaf, the AdamW moments included, is
+bit-equal on the ranks that hold it.
 """
 import os
 import tempfile
@@ -123,6 +125,16 @@ def test_sharded_step_equals_jax_gspmd(runs, label):
     ``gather_state`` of the port's blocks."""
     job = _job(label)
     RK.hold_to_jax(job, os.path.join(runs["jax_root"], label), runs["gspmd"][label][0])
+
+
+@pytest.mark.parametrize("label", LABELS)
+def test_replicated_leaves_stay_bit_equal_across_ranks(runs, label):
+    """After each step every leaf whose block several ranks hold (over the
+    batch axes, or over ``"model"`` beside the experts), the AdamW moments
+    included, is bit-equal on all of them (``D.replicas_apart``)."""
+    for rank, r in enumerate(runs["gspmd"][label]):
+        for apart, checked in r["replicas"]:
+            assert checked > 0 and apart == [], (rank, apart)
 
 
 @pytest.mark.parametrize("label", ["ds_14", "ds_22"])

@@ -28,6 +28,10 @@ forward.  Layouts (``("data", "model")``):
   token shard's capacity drops choices), (2, 2) with ``ep`` (the rank's
   experts sliced from the replicated dispatch) and (1, 4) without it (the
   experts' ``ff`` split);
+* ``ds_default_22``: the same deepseek-moe (``mxu``) at JAX's full default
+  layout on (2, 2): ``fsdp``, ``seq_shard``, ``ep`` and ``remat="layer"``
+  (token shards across both axes, the expert all-to-all recomputed in the
+  backward);
 * ``granite_14``: (1, 4) with ``ep`` + ``seq_shard`` (token shards across
   ``"model"``, the expert all-to-all);
 * ``rg_22``, ``mamba_22``: the channel-parallel RG-LRU and the SSD parallel
@@ -45,6 +49,10 @@ against one rank (every backend, static and ``dyn``, route C, under
 whose aggregated records equal ``combine_records`` of each batch shard's
 one-rank records; ``remat="layer"`` with the backward on another thread;
 ``run_supervised`` with a crash; the sequence that does not divide.
+After every step of every job, each leaf whose block several ranks hold
+(parameters and AdamW moments alike) is bit-equal on them
+(``train.distributed.replicas_apart``), and that check finds one ulp moved
+on one rank.
 """
 import json
 import os
@@ -79,6 +87,8 @@ JOBS = [
      "cfg": MOE, "steps": 1},
     {"label": "ds_14", "arch": "deepseek-moe-16b", "shape": [1, 4], "par": _par(fsdp=True),
      "cfg": MOE, "steps": 1, "one": True},
+    {"label": "ds_default_22", "arch": "deepseek-moe-16b", "shape": [2, 2],
+     "par": _par(fsdp=True, seq_shard=True, ep=True, remat="layer"), "cfg": MOE, "steps": 1},
     {"label": "granite_14", "arch": "granite-moe-1b-a400m", "shape": [1, 4],
      "par": _par(ep=True, seq_shard=True), "cfg": {"moe_capacity": 1.0}, "steps": 1},
     {"label": "rg_22", "arch": "recurrentgemma-2b", "shape": [2, 2], "par": _par(),
@@ -113,7 +123,8 @@ def runs():
                          ("tp_supervised_rank", (os.path.join(tmp, "ckpt"),)),
                          ("tp_refusal_rank", ())])
         four = _world(4, [("ksplit_rank", (4,)), ("tp_adaptive_rank", (0, False)),
-                          ("tp_adaptive_rank", (2, True)), ("jax_rank", (jax_root, JOBS))])
+                          ("tp_adaptive_rank", (2, True)), ("jax_rank", (jax_root, JOBS)),
+                          ("replica_rank", ())])
         for proc, log in procs:
             assert proc.wait(timeout=RK.TIMEOUT) == 0, open(log).read()[-3000:]
     finally:
@@ -123,7 +134,8 @@ def runs():
     return dict(jax_root=jax_root, gspmd={lb: [r[3][lb] for r in four] for lb in LABELS},
                 ksplit={2: two[0][0], 4: four[0][0]}, families=two[0][1],
                 remat=two[0][2], supervised=two[0][3], refusal=[r[4] for r in two],
-                adaptive={0: [r[1] for r in four], 2: [r[2] for r in four]})
+                adaptive={0: [r[1] for r in four], 2: [r[2] for r in four]},
+                replica=[r[4] for r in four])
 
 
 def _job(label):
@@ -165,7 +177,31 @@ def test_tp_rank_blocks_are_jax_device_shards(runs, label):
     RK.check_shards(os.path.join(runs["jax_root"], label), runs["gspmd"][label])
 
 
-@pytest.mark.parametrize("label", ["ds_ep_22", "ds_14", "granite_14"])
+@pytest.mark.parametrize("label", LABELS)
+def test_tp_replicated_leaves_stay_bit_equal_across_ranks(runs, label):
+    """After each step every leaf whose block several ranks hold, the AdamW
+    moments included, is bit-equal on all of them: the gradient buckets and
+    the grad norm are plain all-reduces, whose ranks receive the same
+    bits."""
+    for rank, r in enumerate(runs["gspmd"][label]):
+        for apart, checked in r["replicas"]:
+            assert checked > 0 and apart == [], (rank, apart)
+
+
+def test_replicas_apart_finds_one_ulp_on_one_rank(runs):
+    """One element of two replicated leaves moved on rank 1 of (2, 2): the
+    leaf held whole by every rank is reported on all four, the leaf sharded
+    over ``"model"`` only on the ranks of rank 1's model block (1 and 3);
+    before the move nothing is."""
+    whole, on_model = runs["replica"][0][2]
+    for rank, (clean, moved, _) in enumerate(runs["replica"]):
+        assert clean[0] == [] and clean[1] > 0
+        assert moved[1] == clean[1]
+        assert sorted(moved[0]) == sorted([whole, on_model] if rank % 2 else [whole]), \
+            (rank, moved[0])
+
+
+@pytest.mark.parametrize("label", ["ds_ep_22", "ds_14", "granite_14", "ds_default_22"])
 def test_tp_moe_capacity_drops_tokens_on_every_rank(runs, label):
     """Each token shard's ``C_loc`` binds on every rank (the steps above
     agree with JAX's per-shard dispatch)."""
