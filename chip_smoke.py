@@ -5,6 +5,8 @@
     python3 chip_smoke.py --tp-graph      # the build and the tp graph phase alone
     python3 chip_smoke.py --tp-full       # the build and the tp full phase alone
     python3 chip_smoke.py --train-nccl    # the build and the train nccl phase alone
+    python3 chip_smoke.py --train-wide    # the build and the train wide phase alone
+    python3 chip_smoke.py --train-nccl --train-wide   # the build and both, in that order
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -271,6 +273,39 @@ Phases, each of which fails the run (non-zero exit, no result line):
             they ran, then replayed behind barriers in rank order and as
             the backend's own all-reduce and reduce-scatter at the same
             sizes (ROADMAP item 13);
+   train wide — with four cards or more (else one line says it did not
+            run): qwen2-72b at its published widths cut to 6 layers (7.76
+            G parameters: 93.1 GB of f32 parameters and moments whole,
+            more than one card holds; a rank's reckoned peak 62.1 GB),
+            ``mxu``, trained over ``nccl`` on four ranks, one card each,
+            on JAX's default layout on (2, 2) in bf16 (e) and in f32 (e
+            f32), and FSDP over ``("data",)`` = 4 with ``dp_only`` and
+            ``remat="layer"`` in bf16 (a4 remat): each rank makes only its
+            blocks of the state (``train.init_train_blocks``) and each
+            layer gathers its own weights where it runs; B = 4 x 256, 3
+            steps a layout and one more under ``torch.profiler``.  Then
+            the one-card witness on card 0, once in bf16 and once in f32:
+            the whole parameters of the same init, ``train_loss`` and its
+            backward under ``remat="layer"`` over the global batch in the
+            ranks' four row blocks, the gradients adding up in rank order
+            (parameters and gradients, no moments).
+            Hard: every rank's parameter blocks == their leaves made whole
+            one at a time on its card, moments zero; finite losses equal
+            on every rank; every replicated leaf and moment bit-equal
+            across the ranks after every step; step 1's loss, ce and grad
+            norm within 1e-4 of the witness's, or 1e-2 where the int8
+            activation codes of the rank's rows differ from the witness's
+            (row sums of the forward's codes) or bf16 is split over
+            ``"model"`` (e; ``TOL_TW_BF16_SPLIT`` says why); a seeded
+            sample of every leaf's first moment (the clipped gradient)
+            after step 1 within 0.1 of the witness's AdamW first step, and
+            of its update too but on e, where it is printed; launches
+            reckoned from the config (twice under remat) and the launched
+            shapes, each held to the plain version and ``torch._int_mm``;
+            no nvcc.  Printed: the reckoning of a rank's memory here and
+            under the whole-step gather, each rank's peak, ms/step (mean
+            and range), tokens/s, the NCCL kernels' share of the profiled
+            step, and the bf16 witness against the f32 one;
 5. serve  — qwen2-72b at its published widths, depth cut to 2 layers,
             random weights from a seed: the per-forward weight work that
             the weight cache removes, timed against its bytes; B=4 prompts
@@ -4697,6 +4732,550 @@ def train_nccl_phase(dev, card: str, clock: float, held=(), held_grid=()):
                             held=held, held_grid=held_grid)
 
 
+# ---------------------------------------------------------------------------
+# phase 4j: a model too wide for one card trains over four
+# ---------------------------------------------------------------------------
+
+# qwen2-72b's depth here: its f32 state, 93.1 GB whole, fits no card, and a
+# rank's reckoned peak (_tw_reckon) is 62.1 GB, under the 72 GB that would
+# call for 5 layers (70.5 GB measured on four H100 80GB HBM3 at 700 W)
+TW_LAYERS = 6
+TW_STEPS = 3                             # steps a layout, then one more under the profiler
+TW_B, TW_S = 4, 256
+TW_SAMPLE = 1 << 16                      # seeded elements of each leaf's step-1 update
+TW_TIMEOUT = 900                         # seconds for the four ranks
+TW_METRICS = ("loss", "ce", "grad_norm")
+# bf16 compute split over "model" (layout e): each model rank rounds its
+# partial sums to bf16 before they add, and so does JAX's GSPMD step.  On the
+# CPU (tests/test_torch_train_bf16.py, the reduced qwen2 on (2, 2)) the
+# port's step reads grad norm 5.1e-4 and first moment 0.0245 from its one-
+# device step, JAX's GSPMD step 6.4e-5 and 0.0296 from JAX's; on four H100
+# 80GB HBM3 at 700 W layout e read 2.5e-4 and 0.015 from the witness.  So
+# step 1 is held within TOL_TRAIN_STEP_FLIP and the first moment within
+# TOL_TRAIN_UPDATE; the parameters' update is printed, not held: AdamW's
+# first step is lr times the gradient's sign, and where a gradient is
+# rounding (k's bias, whose exact gradient is zero) any two bf16 steps toss
+# it (JAX's GSPMD and one-device steps read 1.0 apart there on the CPU).
+# Layout e f32 holds the same split to the bounds of the other layouts.
+TOL_TW_BF16_SPLIT = TOL_TRAIN_STEP_FLIP
+
+
+def _tw_config(dtype: str = "bfloat16"):
+    """qwen2-72b at its published widths, ``TW_LAYERS`` deep, SWAPPER
+    ``mxu`` (``mul8s_trunc0_4``), f32 weights, ``dtype`` compute."""
+    from repro_torch.configs import qwen2_72b
+    from repro_torch.configs.base import AxPolicy
+
+    return dataclasses.replace(qwen2_72b, n_layers=TW_LAYERS, compute_dtype=dtype,
+                               ax=AxPolicy(backend="mxu"))
+
+
+def _tw_opt():
+    from repro_torch.train import AdamWConfig
+
+    return AdamWConfig(lr=1e-4, warmup=2)
+
+
+def _tw_layouts():
+    """(label, mesh shape, axes, ParallelConfig, compute dtype): JAX's
+    default ``ParallelConfig()`` on (2, 2) in bf16 (e) and in f32 (e f32),
+    and FSDP over ``("data",)`` = 4 with ``dp_only`` and ``remat="layer"``
+    in bf16 (a4 remat)."""
+    from repro_torch.configs import ParallelConfig
+
+    default = ParallelConfig(fsdp=True, seq_shard=True, ep=True, remat="layer")
+    return [("e", (2, 2), ("data", "model"), default, "bfloat16"),
+            ("a4 remat", (4,), ("data",), ParallelConfig(dp_only=True, fsdp=True, remat="layer"),
+             "bfloat16"),
+            ("e f32", (2, 2), ("data", "model"), default, "float32")]
+
+
+def _tw_split(shape, par) -> int:
+    """The ranks a layout splits a layer's work over (``"model"``)."""
+    return shape[1] if len(shape) > 1 and not par.dp_only else 1
+
+
+def _tw_reckon(cfg) -> dict:
+    """GB a rank holds under the per-layer gathers and under the whole-step
+    gather, from the f32 parameters' count P (4 bytes each): state 3 P /
+    4 a rank; the update holds the state, the gradient blocks, their
+    clipped copy and the new state (2 P); the whole-step gather adds the
+    parameters whole over ``"data"`` and their whole gradients (2 P on
+    ``("data",)`` = 4); the whole state is 3 P."""
+    from repro_torch.launch.mesh import tree_paths
+    from repro_torch.models import init_params
+
+    p = sum(t.numel() for t in tree_paths(init_params(cfg, device="meta"))[1]) * 4 / 1e9
+    return dict(params_g=p / 4, whole_state=3 * p, state=3 * p / 4, peak=2 * p,
+                old_a4=3 * p / 4 + 2 * p)
+
+
+def _tw_sample(path: str, shape):
+    """The seeded global flat indices of leaf ``path``'s sampled update
+    elements (all of a leaf of at most ``TW_SAMPLE``)."""
+    import zlib
+
+    import numpy as np
+
+    n = math.prod(shape)
+    if n <= TW_SAMPLE:
+        return np.arange(n)
+    return np.random.default_rng(zlib.crc32(path.encode())).choice(n, TW_SAMPLE, replace=False)
+
+
+def _tw_local_sample(path: str, block, spec, mesh, shape):
+    """(global flat indices, local flat indices) of ``_tw_sample``'s
+    elements of leaf ``path`` that fall in this rank's ``block``."""
+    import numpy as np
+
+    from repro_torch.launch.mesh import block_index
+
+    idx = np.stack(np.unravel_index(_tw_sample(path, shape), shape), 1)
+    sl = block_index(mesh, spec, shape)
+    lo = np.array([s.start for s in sl])
+    hi = np.array([s.stop for s in sl])
+    keep = np.all((idx >= lo) & (idx < hi), axis=1)
+    g = np.ravel_multi_index(idx[keep].T, shape)
+    loc = np.ravel_multi_index((idx[keep] - lo).T, tuple(block.shape))
+    return g, loc
+
+
+def _tw_code_rows():
+    """Wrap ``quant.ax.quantize_rows`` so that each activation quantization
+    keeps the int64 sum of each row's int8 codes where its rows are whole,
+    else None (a block of K over the model ranks, whose absolute maxima
+    come all-reduced): the step's code flips against the witness, row by
+    row."""
+    import torch
+
+    from repro_torch.quant import ax as QA
+
+    real, seen = QA.quantize_rows, []
+
+    def rec(x, axis=-1, amax=None):
+        q, s = real(x, axis, amax)
+        if axis in (-1, x.dim() - 1):
+            seen.append(None if amax is not None else
+                        q.reshape(-1, q.shape[-1]).sum(-1, dtype=torch.int64).cpu().numpy())
+        return q, s
+
+    return QA, real, rec, seen
+
+
+def train_wide_rank(rank, _fleet, backend):
+    """One of the four ranks of the train wide phase, one card each: per
+    layout (:func:`_tw_layouts`) the rank's blocks of the train state made
+    alone (``train.init_train_blocks``), each parameter block held to its
+    leaf made whole one at a time (:func:`_hold_blocks`), ``TW_STEPS``
+    steps with every replicated leaf checked across the ranks after each,
+    step 1's metrics, its sampled update and its activation codes' row
+    sums, the executed launches and launched shapes, then one more step
+    under ``torch.profiler``.  Results as numpy and plain values."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ax_matmul import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_mesh, tree_paths
+    from repro_torch.models import init_params
+    from repro_torch.train import init_train_blocks, make_train_step
+    from repro_torch.train import distributed as D
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = (torch.device("cuda", torch.cuda.current_device()) if _fleet.device_type == "cuda"
+           else torch.device("cpu"))
+    nvcc0 = _build.NVCC_RUNS["count"]
+    opt = _tw_opt()
+    out = {"device": str(dev), "layouts": {}}
+    for label, shape, axes, par, dtype in _tw_layouts():
+        cfg = _tw_config(dtype)
+        batches = _tm_batches(cfg, TW_STEPS + 1, TW_B, TW_S, 3)
+        whole = {p: tuple(t.shape) for p, t in zip(*tree_paths(init_params(cfg, device="meta")))}
+        mesh = make_mesh(shape, axes, device=dev.type, backend=backend)
+        specs = D.state_specs(cfg, opt, mesh, par)
+        spec_of = dict(zip(*tree_paths(specs)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        state = init_train_blocks(cfg, opt, mesh, par, seed=0, device=dev)
+        torch.cuda.synchronize()
+        row = dict(init_s=time.perf_counter() - t0,
+                   init_peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                   state_gb=sum(t.numel() * t.element_size() for t in _leaves(state)) / 1e9)
+        t0 = time.perf_counter()
+        row["leaves"], row["bad_blocks"], row["largest_leaf_gb"] = _hold_blocks(
+            state["params"], cfg, {p[len("params/"):]: s for p, s in spec_of.items()
+                                   if p.startswith("params/")}, mesh, dev)
+        row["hold_s"] = time.perf_counter() - t0
+        row["zero_moments"] = all(not bool(t.any()) for k in ("m", "v", "step")
+                                  for t in _leaves(state["opt"][k]))
+        paths, leaves = tree_paths(state["params"])
+        picks = {p: _tw_local_sample(p, x, spec_of[f"params/{p}"], mesh, whole[p])
+                 for p, x in zip(paths, leaves)}
+        start = {p: x.detach().reshape(-1)[torch.as_tensor(picks[p][1], device=dev)].cpu()
+                 for p, x in zip(paths, leaves)}
+        step = make_train_step(cfg, par, opt, mesh=mesh)
+        replicas, losses, walls = [], [], []
+        QA, real, rec, codes = _tw_code_rows()
+        with kernel_shapes() as seen:
+            reset_launches()
+            for i in range(TW_STEPS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                if i == 0:
+                    QA.quantize_rows = rec
+                try:
+                    state, m = step(state, batches[i])
+                    losses.append(float(m["loss"]))
+                finally:
+                    QA.quantize_rows = real
+                walls.append(time.perf_counter() - t)
+                if i == 0:
+                    row["step1"] = {k: float(m[k]) for k in TW_METRICS}
+                    new = dict(zip(*tree_paths(state["params"])))
+                    mom = dict(zip(*tree_paths(state["opt"]["m"])))
+
+                    def at(t, p):
+                        return t.detach().reshape(-1)[torch.as_tensor(picks[p][1],
+                                                                      device=dev)].cpu()
+
+                    # the parameters' step and the first moment, (1 - b1) times
+                    # the clipped gradient after one step from zero
+                    row["update"] = {p: (picks[p][0], (at(new[p], p) - start[p]).numpy(),
+                                         at(mom[p], p).numpy()) for p in paths}
+                    del new, mom
+                replicas.append(D.replicas_apart(state, specs, mesh))
+            row["launches"] = dict(LAUNCHES)
+        row["codes"] = codes
+        row["batch_shard"] = D.train_mesh(mesh, par).batch[1:]
+        row["shapes"] = {k: sorted(v) for k, v in seen.items()}
+        acts = [torch.profiler.ProfilerActivity.CUDA if dev.type == "cuda"
+                else torch.profiler.ProfilerActivity.CPU]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            dist.barrier()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, batches[TW_STEPS])
+            torch.cuda.synchronize()
+            row["profiled_ms"] = 1e3 * (time.perf_counter() - t)
+        losses.append(float(m["loss"]))
+        replicas.append(D.replicas_apart(state, specs, mesh))
+        row.update(losses=losses, walls_ms=[1e3 * w for w in walls], replicas=replicas,
+                   nccl=_nccl_share(prof, 1, graph=False) if dev.type == "cuda" else None,
+                   peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+        del prof, state, m, step, start
+        torch.cuda.empty_cache()
+        out["layouts"][label] = row
+        if rank == 0:
+            print(f"[train wide] rank 0 ({label}): blocks in {row['init_s']:.1f} s, "
+                  f"{row['state_gb']:.2f} GB, held to their whole leaves in "
+                  f"{row['hold_s']:.1f} s; steps "
+                  f"{', '.join(f'{w:.0f}' for w in row['walls_ms'])}"
+                  f" ms; peak {row['peak_gb']:.2f} GB", flush=True)
+    out["nvcc"] = _build.NVCC_RUNS["count"] - nvcc0
+    return out
+
+
+def _tw_witness(cfg, opt, dev, batch, ranks: int):
+    """One card (card 0, after the ranks): the whole parameters of the
+    counter-addressed init (``models.init_blocks(cfg)``), then
+    ``train_loss`` and its backward under ``remat="layer"`` over the global
+    batch in ``ranks`` row blocks in order, each weighted by its share of
+    the labels, the gradients adding up in the parameters' ``.grad`` (rank
+    order: a rank's rows are one block, or, with fewer batch shards, the
+    blocks it spans; a block's GEMMs batch what the ranks' batch), with
+    its activation codes' row sums (:func:`_tw_code_rows`): step 1's loss,
+    ``ce`` and grad norm, and AdamW's first step from zero moments at each
+    leaf's sampled elements (:func:`_tw_sample`), leaf by leaf.  The
+    parameters and their gradients only: no moments."""
+    import torch
+
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.launch.mesh import tree_paths
+    from repro_torch.models import init_blocks, train_loss
+    from repro_torch.train.optimizer import global_norm
+
+    t0 = time.perf_counter()
+    params = init_blocks(cfg, seed=0, device=dev)
+    paths, leaves = tree_paths(params)
+    torch.cuda.synchronize()
+    made_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    for x in leaves:
+        x.requires_grad_(True)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    B_ = batch["labels"].shape[0]
+    total = (batch["labels"] >= 0).sum().float()
+    QA, real, rec, codes = _tw_code_rows()
+    QA.quantize_rows = rec
+    sums, block_codes = None, []
+    try:
+        for j in range(ranks):
+            blk = {k: v[j * B_ // ranks:(j + 1) * B_ // ranks] for k, v in batch.items()}
+            done = len(codes)
+            with torch.enable_grad():
+                term, m = train_loss(params, blk, cfg, ParallelConfig(remat="layer"))
+                share = (blk["labels"] >= 0).sum().float() / total
+                (term * share).backward()
+            got = torch.stack([term.detach(), m["ce"].detach()]) * share
+            sums = got if sums is None else sums + got
+            block_codes.append(codes[done:])
+    finally:
+        QA.quantize_rows = real
+    grads = [x.grad for x in leaves]
+    with torch.no_grad():
+        gnorm = global_norm(grads)
+        scale = torch.clamp(opt.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+        lr = opt.lr * min(1.0, 1.0 / max(opt.warmup, 1))
+        update = {}
+        for p, x, g in zip(paths, leaves, grads):
+            pick = _tw_sample(p, tuple(x.shape))
+            idx = torch.as_tensor(pick, device=dev)
+            gs = g.reshape(-1)[idx].float() * scale
+            m1, v1 = (1 - opt.b1) * gs, (1 - opt.b2) * gs * gs
+            delta = (m1 / (1 - opt.b1)) / (torch.sqrt(v1 / (1 - opt.b2)) + opt.eps) \
+                + opt.weight_decay * x.detach().reshape(-1)[idx].float()
+            update[p] = (pick, (-lr * delta).cpu().numpy(), m1.cpu().numpy())
+    torch.cuda.synchronize()
+    out = dict(step1={"loss": float(sums[0]), "ce": float(sums[1]), "grad_norm": float(gnorm)},
+               update=update, codes=block_codes, made_s=made_s,
+               step_s=time.perf_counter() - t0, peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    del params, leaves, grads, batch, term, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tw_gaps(got: dict, ref: dict):
+    """Per leaf, the relative gaps (update, first moment) of ``got``'s
+    sampled step-1 elements (global index -> (update, first moment))
+    against the witness's ``ref`` (``_tw_witness``'s ``update``), or the
+    leaves whose sampled elements differ."""
+    import numpy as np
+
+    upd, mom, missing = {}, {}, []
+    for p, (g, ref_u, ref_m) in ref.items():
+        mine = got.get(p, {})
+        if set(mine) != set(g.tolist()):
+            missing.append(f"{p} ({len(mine)} vs {len(g)})")
+            continue
+        vals = np.array([mine[i] for i in g.tolist()])
+        upd[p], mom[p] = (float(np.linalg.norm(vals[:, j] - r) / max(np.linalg.norm(r), 1e-30))
+                          for j, r in enumerate((ref_u, ref_m)))
+    return upd, mom, missing
+
+
+def _tw_worst(gaps: dict, n: int = 3) -> str:
+    return ", ".join(f"{p} {v:.3g}" for v, p in sorted(
+        ((v, p) for p, v in gaps.items()), reverse=True)[:n])
+
+
+def train_wide_phase(dev, card: str, clock: float, held=()):
+    """Phase 4j (module note): with four cards or more, qwen2-72b at its
+    published widths, ``TW_LAYERS`` deep (its f32 state does not fit one
+    card), trained over ``nccl`` on four ranks, one card each, each rank
+    making only its blocks of the state and gathering one layer at a time;
+    then the one-card witness on card 0, once for each compute dtype.
+    ``held``: the (M, K, N) of ``ax_matmul`` held to the plain version in
+    this run already.  Returns (row, ``ax_matmul`` shape rows, launches by
+    path), or None with fewer cards."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import default_backend, spawn
+    from repro_torch.models import transformer
+
+    if not _four_cards("train wide"):
+        return None
+    cards = smi_all("name,power.limit")
+    opt, layouts = _tw_opt(), _tw_layouts()
+    cfg = _tw_config()
+    n_layers, reck = cfg.n_layers, _tw_reckon(cfg)
+    print(f"[train wide] {cfg.name} x{n_layers} at its published widths: {reck['params_g']:.2f} "
+          f"G parameters, whole f32 state (parameters and two moments) {reck['whole_state']:.1f} "
+          f"GB, more than one card's {torch.cuda.get_device_properties(dev).total_memory / 1e9:.1f}"
+          f" GB; {reck['state']:.1f} GB a rank over four.  Reckoned a rank: the per-layer "
+          f"gathers' peak (state, gradient blocks, their clipped copy, the new state) "
+          f"{reck['peak']:.1f} GB; the whole-step gather on a4 would hold {reck['state']:.1f} GB "
+          f"of state + {reck['params_g'] * 4:.1f} GB of gathered parameters + "
+          f"{reck['params_g'] * 4:.1f} GB of whole gradients = {reck['old_a4']:.1f} GB, and its "
+          f"init (fresh_train_state, then local_state) {reck['whole_state']:.1f} GB on each rank",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if dev.type == "cuda":
+        free, total = torch.cuda.mem_get_info(dev)
+        print(f"[train wide] card 0 before the ranks: this process "
+              f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated; {free / 1e9:.2f} of "
+              f"{total / 1e9:.2f} GB free", flush=True)
+    t0 = time.perf_counter()
+    backend = default_backend(dev)
+    res = spawn(train_wide_rank, FOUR_CARDS, args=(backend,), device=dev.type,
+                backend=backend, timeout_s=TW_TIMEOUT)
+    ranks_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    wit, witness_s = {}, {}
+    for dtype in dict.fromkeys(d for *_, d in layouts):
+        t0 = time.perf_counter()
+        c = _tw_config(dtype)
+        wit[dtype] = _tw_witness(c, opt, dev, _tm_batches(c, 1, TW_B, TW_S, 3)[0], FOUR_CARDS)
+        witness_s[dtype] = time.perf_counter() - t0
+
+    problems = []
+    n_d = len(transformer.ax_projections(cfg))
+    want = {"ax_matmul": n_d * TW_STEPS * 2, "ax_matmul_grid": 0}
+    reck_of = {}
+    for label, shape, axes, par, _ in layouts:
+        M = TW_B * TW_S // (math.prod(shape) if par.dp_only else shape[0])
+        reck_of[label] = _tm_tp_shapes(cfg, M, _tw_split(shape, par),
+                                       f"{cfg.name} train wide ({label})")
+    rows = {}
+    for label, shape, axes, par, dtype in layouts:
+        w = wit[dtype]
+        split_bf16 = dtype == "bfloat16" and _tw_split(shape, par) > 1
+        per = [r["layouts"][label] for r in res]
+        flips = 0
+        upd_got = {}
+        for rank, (r, row) in enumerate(zip(res, per)):
+            if r["nvcc"]:
+                problems.append(f"rank {rank}: {r['nvcc']} nvcc runs")
+            if dev.type == "cuda" and r["device"] != f"cuda:{rank}":
+                problems.append(f"rank {rank} ran on {r['device']}")
+            if row["bad_blocks"] or not row["zero_moments"]:
+                problems.append(f"rank {rank} ({label}): blocks apart from their whole leaves "
+                                f"{row['bad_blocks'][:6]}, moments zero {row['zero_moments']}")
+            if not all(math.isfinite(x) for x in row["losses"]) or \
+                    row["losses"] != per[0]["losses"]:
+                problems.append(f"rank {rank} ({label}): losses {row['losses']} (rank 0 "
+                                f"{per[0]['losses']})")
+            if any(apart for apart, _ in row["replicas"]) or \
+                    not all(checked for _, checked in row["replicas"]):
+                problems.append(f"rank {rank} ({label}): replicated leaves apart "
+                                f"{[a for a, _ in row['replicas'] if a][:2]}")
+            if row["launches"] != want:
+                problems.append(f"rank {rank} ({label}): launches {row['launches']} (want "
+                                f"{want})")
+            seen = {k: set(map(tuple, v)) for k, v in row["shapes"].items()}
+            if seen["ax_matmul"] != set(reck_of[label]) or seen["ax_matmul_grid"]:
+                problems.append(f"rank {rank} ({label}): kernel shapes {seen}, reckoned "
+                                f"{sorted(reck_of[label])}")
+            # the forward's quantizations (a recompute repeats them), against the
+            # witness's row blocks that make up the rank's rows, row by row
+            index, n = row["batch_shard"]
+            per_block = FOUR_CARDS // n
+            blocks = w["codes"][index * per_block:(index + 1) * per_block]
+            if min([len(row["codes"])] + [len(b) for b in blocks]) < n_d:
+                problems.append(f"rank {rank} ({label}): {len(row['codes'])} activation "
+                                f"quantizations, the witness {[len(b) for b in blocks]}, a "
+                                f"forward {n_d}")
+            for i, got in enumerate(row["codes"][:n_d]):
+                if got is not None:
+                    ref = np.concatenate([b[i] for b in blocks])
+                    flips += int(np.sum(got != ref))
+            for p, (g, u, mo) in row["update"].items():
+                upd_got.setdefault(p, {}).update(zip(g.tolist(), zip(u.tolist(), mo.tolist())))
+        gaps = {k: abs(per[0]["step1"][k] / w["step1"][k] - 1) for k in TW_METRICS}
+        tol = TOL_TW_BF16_SPLIT if split_bf16 else \
+            TOL_TRAIN_STEP if not flips else TOL_TRAIN_STEP_FLIP
+        if max(gaps.values()) > tol:
+            problems.append(f"({label}) step 1 vs the one-card witness {gaps} (tol {tol}; "
+                            f"{flips} rows of int8 codes apart)")
+        upd_gaps, m_gaps, missing = _tw_gaps(upd_got, w["update"])
+        if missing:
+            problems.append(f"({label}) the ranks' sampled update elements are not the "
+                            f"witness's: {missing[:4]}")
+        worst_m = max(m_gaps, key=m_gaps.get) if m_gaps else None
+        worst = max(upd_gaps, key=upd_gaps.get) if upd_gaps else None
+        if worst is None or m_gaps[worst_m] > TOL_TRAIN_UPDATE or \
+                (not split_bf16 and upd_gaps[worst] > TOL_TRAIN_UPDATE):
+            problems.append(f"({label}) sampled step-1 update vs the witness: worst {worst} "
+                            f"{upd_gaps.get(worst)}{' (not held)' if split_bf16 else ''}; first "
+                            f"moment: worst {worst_m} {m_gaps.get(worst_m)} (tol "
+                            f"{TOL_TRAIN_UPDATE})")
+        middle = [x for row in per for x in row["walls_ms"][1:]]
+        rows[label] = dict(
+            mesh=f"{dict(zip(axes, shape))}", dtype=dtype, step1=per[0]["step1"], gaps=gaps,
+            tol=tol, flips=flips, update_held=not split_bf16, update_gap=upd_gaps.get(worst),
+            update_worst=_tw_worst(upd_gaps), m_gap=m_gaps.get(worst_m),
+            m_worst=_tw_worst(m_gaps),
+            ms_per_step=sum(middle) / len(middle), ms_range=[min(middle), max(middle)],
+            first_ms=[row["walls_ms"][0] for row in per], losses=per[0]["losses"],
+            peak_gb=[row["peak_gb"] for row in per], state_gb=[row["state_gb"] for row in per],
+            init_s=[row["init_s"] for row in per],
+            init_peak_gb=[row["init_peak_gb"] for row in per],
+            leaves=per[0]["leaves"], largest_leaf_gb=per[0]["largest_leaf_gb"],
+            hold_s=[row["hold_s"] for row in per],
+            nccl=[row["nccl"] for row in per], profiled_ms=[row["profiled_ms"] for row in per],
+            replica_checks=len(per[0]["replicas"]), replicas_checked=per[0]["replicas"][0][1],
+            tokens_per_s=TW_B * TW_S / (sum(middle) / len(middle)) * 1e3)
+    f2 = (lambda xs: ", ".join(f"{x:.2f}" for x in xs))  # noqa: E731
+    for label, shape, axes, par, dtype in layouts:
+        row = rows[label]
+        flags = "+".join(f for f in ("dp_only", "fsdp", "seq_shard", "ep") if getattr(par, f))
+        nccl = ", ".join("not measured" if x is None else
+                         f"{x[0]:.1f} ms ({100 * x[1]:.1f}% of {x[2]:.1f} ms of kernels in a "
+                         f"{t:.1f} ms step)" for x, t in zip(row["nccl"], row["profiled_ms"]))
+        held_upd = f"tol {TOL_TRAIN_UPDATE}" if row["update_held"] else \
+            "not held (bf16 split over \"model\": TOL_TW_BF16_SPLIT's note)"
+        print(f"train wide ({label}) {row['mesh']} {flags} remat={par.remat}: {cfg.name} "
+              f"x{n_layers} (--ax {cfg.ax.backend}, {cfg.param_dtype} weights, "
+              f"{dtype} compute, B={TW_B} x {TW_S}), "
+              f"{TW_STEPS} steps + 1 profiled: losses "
+              f"{', '.join(f'{x:.5f}' for x in row['losses'])}; step 1 vs the one-card witness "
+              f"{ {k: float(f'{v:.3g}') for k, v in row['gaps'].items()} } ({row['flips']} rows "
+              f"of int8 codes apart; tol {row['tol']}); sampled step-1 first moment (the "
+              f"clipped gradient) worst {row['m_worst']}, tol {TOL_TRAIN_UPDATE}; parameter "
+              f"update worst {row['update_worst']}, {held_upd}; every rank's "
+              f"{row['leaves']} parameter blocks == their leaves made whole one at a time "
+              f"(largest {row['largest_leaf_gb']:.2f} GB; {f2(row['hold_s'])} s), moments zero; "
+              f"after each of {row['replica_checks']} steps the "
+              f"{row['replicas_checked']} replicated leaves a rank bit-equal across the ranks; "
+              f"ax_matmul {want['ax_matmul']} a rank; {row['ms_per_step']:.1f} ms/step over steps "
+              f"2-{TW_STEPS} (each {row['ms_range'][0]:.1f}-{row['ms_range'][1]:.1f} ms on ranks "
+              f"0-3; first {f2(row['first_ms'])} ms), {row['tokens_per_s']:.0f} tokens/s; blocks "
+              f"made in {f2(row['init_s'])} s ({f2(row['state_gb'])} GB, init peak "
+              f"{f2(row['init_peak_gb'])} GB); peak allocated {f2(row['peak_gb'])} GB a rank; NCCL "
+              f"kernels of the profiled step: {nccl} [{'; '.join(cards)}]", flush=True)
+    for dtype, w in wit.items():
+        print(f"train wide: the one-card witness on card 0 ({cfg.name} x{n_layers}, {dtype} "
+              f"compute; whole f32 parameters made by the counter-addressed init in "
+              f"{w['made_s']:.1f} s, train_loss and its backward under remat='layer' in "
+              f"{FOUR_CARDS} row blocks in {w['step_s']:.1f} s, peak {w['peak_gb']:.2f} GB): "
+              f"step 1 loss {w['step1']['loss']:.6f}, ce {w['step1']['ce']:.6f}, grad norm "
+              f"{w['step1']['grad_norm']:.6f}; {witness_s[dtype]:.1f} s [{card}]", flush=True)
+    own = None
+    if {"bfloat16", "float32"} <= set(wit):
+        # bf16's own rounding: the one-card bf16 step against the one-card f32 step
+        b16, f32 = wit["bfloat16"], wit["float32"]
+        upd, mom, _ = _tw_gaps({p: dict(zip(g.tolist(), zip(u.tolist(), mo.tolist())))
+                                for p, (g, u, mo) in b16["update"].items()}, f32["update"])
+        own = dict(step1={k: abs(b16["step1"][k] / f32["step1"][k] - 1) for k in TW_METRICS},
+                   m_worst=_tw_worst(mom), update_worst=_tw_worst(upd))
+        print(f"train wide: bf16's own rounding, the one-card bf16 witness against the f32 "
+              f"one (not held): step 1 { {k: float(f'{v:.3g}') for k, v in own['step1'].items()} }"
+              f"; first moment worst {own['m_worst']}; update worst {own['update_worst']}",
+              flush=True)
+    print(f"train wide: the ranks {ranks_s:.1f} s with the spawn [{card}]", flush=True)
+    if problems:
+        fail("train wide: " + "; ".join(problems))
+    held = set(held)
+    reck_all = {k: v for label in reck_of for k, v in reck_of[label].items()}
+    shapes = [(lb,) + k for k, lb in sorted(reck_all.items()) if k not in held]
+    print(f"train wide: {len(reck_all) - len(shapes)} of {len(reck_all)} ax_matmul shapes held "
+          f"to the plain version earlier in this run", flush=True)
+    shape_rows = main_shape_checks(dev, card, clock, grid_kernel=False, shapes=shapes) \
+        if shapes else []
+    row = dict(layers=n_layers, reckoned=reck, witness={d: {k: w[k] for k in (
+        "step1", "made_s", "step_s", "peak_gb")} for d, w in wit.items()}, bf16_own=own,
+        ranks_s=ranks_s, witness_s=witness_s, cards=cards, **rows)
+    paths = {f"train wide {cfg.name} x{n_layers} ({label}, rank 0)":
+             res[0]["layouts"][label]["launches"]["ax_matmul"] for label, *_ in layouts}
+    return row, shape_rows, paths
+
+
 TPS_RANKS = 2
 TPS_LEN = 42                             # S + T + 1 = 41 rows, even for the 2-row split
 TOL_TPS_F32 = TOL_CONSIST_F32            # of the largest one-card value, f32 exact
@@ -5981,31 +6560,40 @@ def _tpf_serves(params, cfg, prompts, dev, par, n: int, log, keep: bool):
     return out
 
 
-def _tpf_hold_blocks(params, cfg, mesh, par, dev):
-    """Every leaf of the rank's ``params`` against that leaf made whole by
-    the same init on the same card, one leaf at a time: (leaves, the paths
-    whose block or noted offsets differ, the largest whole leaf's GB)."""
+def _hold_blocks(params, cfg, specs, mesh, dev, starts=None):
+    """Every leaf of the rank's ``params`` (its blocks under ``specs``, a
+    spec by path) against that leaf made whole by the same init on the same
+    card, one leaf at a time: (leaves, the paths whose block, or with
+    ``starts`` its noted offsets, differ, the largest whole leaf's GB)."""
     import torch
 
     from repro_torch.launch.mesh import block_index, tree_paths
-    from repro_torch.launch.parallel import mesh_groups, serve_param_specs
     from repro_torch.models.layers import counter_tree
-    from repro_torch.models.registry import deferred_params, init_params
+    from repro_torch.models.registry import deferred_params
 
-    specs = dict(zip(*tree_paths(serve_param_specs(mesh, par, init_params(cfg, device="meta")))))
     local = dict(zip(*tree_paths(params)))
-    groups = mesh_groups(mesh, par)
     bad, largest = [], 0
     paths, leaves = tree_paths(deferred_params(cfg, device=dev))
     for path, leaf in zip(paths, leaves):
         whole = counter_tree(leaf, 0, dev, prefix=path)
         idx = block_index(mesh, specs[path], tuple(whole.shape))
-        if not torch.equal(whole[idx], local[path]) or \
-                groups.block_starts(local[path]) != tuple(s.start for s in idx):
+        if not torch.equal(whole[idx], local[path]) or (
+                starts is not None and starts(local[path]) != tuple(s.start for s in idx)):
             bad.append(path)
         largest = max(largest, whole.numel() * whole.element_size() / 1e9)
         del whole
     return len(paths), bad, largest
+
+
+def _tpf_hold_blocks(params, cfg, mesh, par, dev):
+    """:func:`_hold_blocks` of the serve's blocks, their noted offsets
+    included."""
+    from repro_torch.launch.mesh import tree_paths
+    from repro_torch.launch.parallel import mesh_groups, serve_param_specs
+    from repro_torch.models.registry import init_params
+
+    specs = dict(zip(*tree_paths(serve_param_specs(mesh, par, init_params(cfg, device="meta")))))
+    return _hold_blocks(params, cfg, specs, mesh, dev, mesh_groups(mesh, par).block_starts)
 
 
 def tp_full_rank(rank, _fleet, prompts_path, backend):
@@ -6420,14 +7008,16 @@ def main(argv):
 
     nvcc_runs = _build.NVCC_RUNS["count"]
     alone = {"--tp-graph": ("tp graph", tp_graph_phase), "--tp-full": ("tp full", tp_full_phase),
-             "--train-nccl": ("train nccl", train_nccl_phase)}
-    for flag, (name, phase) in alone.items():
-        if flag not in argv:
-            continue
-        t0 = time.perf_counter()
-        if phase(dev, card, clock) is None:
-            fail(f"{flag} needs four cards")
-        print(f"[phase {name}: {time.perf_counter() - t0:.1f} s]", flush=True)
+             "--train-nccl": ("train nccl", train_nccl_phase),
+             "--train-wide": ("train wide", train_wide_phase)}
+    flags = [f for f in argv if f in alone]
+    if flags:
+        for flag in flags:
+            name, phase = alone[flag]
+            t0 = time.perf_counter()
+            if phase(dev, card, clock) is None:
+                fail(f"{flag} needs four cards")
+            print(f"[phase {name}: {time.perf_counter() - t0:.1f} s]", flush=True)
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}),
@@ -6497,6 +7087,11 @@ def main(argv):
     tpn_rows, tpn_shape_rows, tpn_grid_rows, tpn_tp_rows, tpn_tp_grid_rows, tpn_paths, \
         tpn_grid_paths = tpn if tpn is not None else (None, [], [], [], [], {}, {})
     phase_done("train nccl")
+    tw = train_wide_phase(dev, card, clock,
+                          held=[(r["M"], r["K"], r["N"]) for r in
+                                tm_shape_rows + tp_shape_rows + tpn_shape_rows + tpn_tp_rows])
+    tw_row, tw_shape_rows, tw_paths = tw if tw is not None else (None, [], {})
+    phase_done("train wide")
     profile = "--profile" in argv
     cfg, params, prompts, tokens, paths, stats = serve(dev, card, profile)
     paths.update(w_paths)
@@ -6508,6 +7103,7 @@ def main(argv):
     paths.update(tpg_paths)
     paths.update(tpf_paths)
     paths.update(tpn_paths)
+    paths.update(tw_paths)
     phase_done("serve")
     autotune_rows = autotune_phase(dev, card, cfg, params, prompts, tokens)
     phase_done("autotune")
@@ -6618,6 +7214,11 @@ def main(argv):
     ax_entry["tp_graph"] = tpg_rows
     ax_entry["tp_full"] = tpf_row
     ax_entry["train_nccl"] = tpn_rows
+    ax_entry["train_wide_shapes"] = tw_shape_rows
+    grid_entry["train_wide_shapes"] = []
+    ax_entry["max_abs_err"] = max([ax_entry["max_abs_err"]]
+                                  + [r["max_abs_err"] for r in tw_shape_rows])
+    ax_entry["train_wide"] = tw_row
     ax_entry["families"] = [{k: r[k] for k in ("name", "layers", "params_g", "ax_per_forward",
                                                "launches")} for r in family_rows]
     ax_entry["reduced_card_vs_cpu"] = {

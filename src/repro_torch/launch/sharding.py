@@ -29,10 +29,12 @@ with it, and the loss and the MoE block read them through
 take their ``TensorParallel`` through :func:`current_tp`: the model group,
 this rank's index and offsets into
 ``heads``, ``ff``, ``vocab`` and ``seq`` (``TensorParallel.block``), and
-the collectives of a block's entry and exit.  All of it travels in one
-installed state, which :func:`recompute_context` re-installs for a layer
-recomputed in the backward, so the recomputation repeats its collectives
-in order.
+the collectives of a block's entry and exit.  The sharded train step adds its per-layer gathers (:func:`gathering`):
+each layer takes its parameter blocks whole through :func:`gathered` where
+it runs.  All of it travels in one installed state, which
+:func:`recompute_context` re-installs for a layer recomputed in the
+backward, so the recomputation repeats its collectives, its gathers
+included, in order.
 
 **The model-sharded prefill and decode step.**  Outside the train step,
 :func:`set_mesh_ctx` of a ``DeviceMesh`` whose ``"model"`` axis has several
@@ -56,8 +58,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 __all__ = ["PartitionSpec", "MeshShape", "mesh_shape", "axis_rules", "set_mesh_ctx",
            "current_mesh", "current_rules", "current_groups", "current_tp", "current_kv",
-           "current_rows", "serving", "recompute_context", "shard", "spec_for", "param_spec",
-           "axis_size"]
+           "current_rows", "serving", "gathering", "gathered", "recompute_context", "shard",
+           "spec_for", "param_spec", "axis_size"]
 
 _ctx = threading.local()
 
@@ -163,6 +165,7 @@ class _State(NamedTuple):
     tp: object               # the models' TensorParallel, or None
     kv: object               # (group, index, n) of a K/V cache's sequence, or None
     rows: object = None      # (lo, hi, B, group) of a global batch split over the batch axes
+    gather: object = None    # the sharded train step's per-layer gathers, or None
 
 
 def _model_sharded(mesh, par) -> bool:
@@ -202,6 +205,28 @@ def serving(tp, kv, rows=None):
         raise ValueError("serving() needs an installed mesh context (set_mesh_ctx)")
     with _installed(st._replace(tp=tp, kv=kv, rows=rows)):
         yield
+
+
+@contextlib.contextmanager
+def gathering(gather):
+    """The installed state with ``gather`` for the code inside: the sharded
+    train step's ``train.distributed.LayerGathers``, through which each
+    layer takes its parameters whole over the axes that FSDP shards
+    (:func:`gathered`)."""
+    st = getattr(_ctx, "state", None)
+    if st is None:
+        raise ValueError("gathering() needs an installed mesh context (set_mesh_ctx)")
+    with _installed(st._replace(gather=gather)):
+        yield
+
+
+def gathered(tree):
+    """``tree`` (a parameter subtree or leaf) with each block that the
+    installed gathers (:func:`gathering`) gather made whole; ``tree``
+    itself outside the sharded train step (serving, one device, a step
+    given whole parameters)."""
+    st = getattr(_ctx, "state", None)
+    return tree if st is None or st.gather is None else st.gather(tree)
 
 
 @contextlib.contextmanager

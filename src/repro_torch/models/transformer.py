@@ -50,6 +50,13 @@ decode step (``models.registry``) run the same layers, with each layer's
 cache the rank's block (``models/layers.py``, ``models/blocks.py``), and
 return the logits whole over the vocabulary (the rank's columns
 all-gathered), so sampling is unchanged.
+
+In the sharded train step the parameters are the rank's blocks: each
+layer takes its own whole through ``launch.sharding.gathered`` at the top
+of ``_layer_apply`` (the function ``torch.utils.checkpoint`` recomputes
+under ``remat``), the embedding where it is looked up and the head where
+it projects (``train/distributed.py``).  Elsewhere ``gathered`` returns
+what it is given.
 """
 from __future__ import annotations
 
@@ -57,7 +64,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.sharding import current_tp, recompute_context
+from repro_torch.launch.sharding import current_tp, gathered, recompute_context
 from repro_torch.quant.ax import weight_cast
 
 from . import blocks
@@ -119,6 +126,7 @@ def _layer_apply(p, x, cfg: ModelConfig, kind: str, *, pos, inv_freq, mode, cach
     """Returns (x, new_cache, aux): ``aux`` is a MoE layer's load-balancing
     term, else None.  Under tensor parallelism each block's input is
     entered and its output comes in the residual's layout (module note)."""
+    p = gathered(p)              # the sharded train step's blocks made whole, here
     tp = current_tp()
     enter = tp.enter if tp is not None else _identity
     h = enter(rmsnorm(x, p["ln1"], cfg.norm_eps))
@@ -262,7 +270,7 @@ def _embed_in(params, batch, cfg: ModelConfig, dtype, tp=None):
     else:
         tok = batch["tokens"]
         B, S = tok.shape
-        x = embed_lookup(params["embed"]["w"], tok, dtype, cfg.padded_vocab, tp)
+        x = embed_lookup(gathered(params["embed"]["w"]), tok, dtype, cfg.padded_vocab, tp)
         if cfg.family != "ssm" and cfg.tie_embeddings:
             x = x * torch.tensor(cfg.d_model, dtype=dtype) ** 0.5
     if "pos" in batch:
@@ -331,10 +339,10 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
             aux = aux + a
         new_cache.append(nc)
 
-    x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    x = rmsnorm(x, gathered(params["ln_f"]), cfg.norm_eps)
     if tp is not None:
         x = tp.enter(x)
-    head_w = params["embed"]["w"] if cfg.tie_embeddings else params["lm_head"]["w"]
+    head_w = gathered(params["embed"]["w"] if cfg.tie_embeddings else params["lm_head"]["w"])
     logits = torch.einsum("bsd,vd->bsv", x, weight_cast(head_w, x.dtype))
     if tp is not None and mode != "train":
         logits = _whole_vocab(logits, tp, cfg)

@@ -37,13 +37,18 @@ cache's group (or over ``"model"``), else whole, as
 attention combines its partials across the group either way
 (``layers.decode_attention_split``).  The logits come whole over the
 vocabulary.
+
+In the sharded train step each encoder and decoder layer gathers its own
+blocks where it runs, the cross K/V weights where they project the
+encoder states, the embedding at its lookup and again as the tied head
+(``launch.sharding.gathered``, ``train/distributed.py``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.sharding import current_kv, current_tp
+from repro_torch.launch.sharding import current_kv, current_tp, gathered
 from repro_torch.quant.ax import weight_cast
 
 from .layers import DEFER, _col, _seq_block, _whole, attn_apply, attn_init, dense, layernorm, \
@@ -121,13 +126,14 @@ def _encode(params, frames, cfg: ModelConfig, tp=None):
         x, enter = tp.exit(x, partial=False), tp.enter
     pos = torch.arange(S, device=frames.device)[None].expand(B, S)
     for p in params["layers_enc"]:
+        p = gathered(p)
         h = enter(layernorm(x, p["ln1"], cfg.norm_eps))
         a, _ = attn_apply(p["attn"], h, cfg, pos=pos, inv_freq=None, causal=False,
                           mode="train")
         x = x + a
         h = enter(layernorm(x, p["ln2"], cfg.norm_eps))
         x = x + mlp_apply(p["mlp"], h, "gelu", cfg.ax, d_ff=cfg.d_ff)
-    return enter(layernorm(x, params["ln_enc"], cfg.norm_eps))
+    return enter(layernorm(x, gathered(params["ln_enc"]), cfg.norm_eps))
 
 
 def _cross_kv(p, enc_out, cfg: ModelConfig, tp=None):
@@ -137,6 +143,7 @@ def _cross_kv(p, enc_out, cfg: ModelConfig, tp=None):
     ``attn_apply`` takes to its heads."""
     B, S, _ = enc_out.shape
     hd = cfg.head_dim_
+    p = {"xattn": {n: gathered(p["xattn"][n]) for n in ("k", "v")}}
     if tp is not None:
         role = _col(tp, p["xattn"]["k"]["w"], cfg.n_kv_heads * hd)
         return tuple(dense(enc_out, p["xattn"][n], cfg.ax, "attn_qkv", tp, role)
@@ -159,6 +166,9 @@ def _cross_block(t, cfg: ModelConfig, tp):
 
 def _dec_layer(p, x, cfg: ModelConfig, *, pos, enc_kv, mode, cache, cache_index,
                max_cache_len, enter=_identity):
+    # all but the cross K/V weights, gathered where they project (``_cross_kv``)
+    p = dict(gathered({k: v for k, v in p.items() if k != "xattn"}),
+             xattn=gathered({n: w for n, w in p["xattn"].items() if n not in ("k", "v")}))
     h = enter(layernorm(x, p["ln1"], cfg.norm_eps))
     a, new_self = attn_apply(p["attn"], h, cfg, pos=pos, inv_freq=None, causal=True,
                              mode=mode, cache=cache, cache_index=cache_index,
@@ -223,8 +233,8 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train", cache=None,
         enc_kv = [_cross_kv(p, enc_out, cfg, tp) for p in params["layers_dec"]]
         ci = None
         pos = torch.arange(S, device=tok.device)[None].expand(B, S)
-    x = embed_lookup(params["embed"]["w"], tok, dtype, cfg.padded_vocab, tp)
-    pe = params["pos_embed"]["w"][pos].to(dtype)
+    x = embed_lookup(gathered(params["embed"]["w"]), tok, dtype, cfg.padded_vocab, tp)
+    pe = gathered(params["pos_embed"]["w"])[pos].to(dtype)
     x = x + (tp.exit(pe, partial=False) if tp is not None else pe)
     enter = tp.enter if tp is not None else _identity
 
@@ -241,8 +251,9 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train", cache=None,
                 xk, xv = (_cross_block(t, cfg, tp) for t in (xk, xv))
             new_cache.append(dict(new_self, xk=xk, xv=xv))
 
-    x = enter(layernorm(x, params["ln_f"], cfg.norm_eps))
-    logits = torch.einsum("bsd,vd->bsv", x, weight_cast(params["embed"]["w"], x.dtype))
+    x = enter(layernorm(x, gathered(params["ln_f"]), cfg.norm_eps))
+    logits = torch.einsum("bsd,vd->bsv", x,
+                          weight_cast(gathered(params["embed"]["w"]), x.dtype))
     if tp is not None and mode != "train":
         logits = _whole_vocab(logits, tp, cfg)
     out = (logits, new_cache if mode != "train" else None)

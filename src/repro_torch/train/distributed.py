@@ -10,10 +10,24 @@ A rank's train state holds its blocks under ``launch.mesh.state_shardings``
   its sharded dims that the rank does not compute with (FSDP's ``"embed"``
   over ``"data"``; the router's experts dim and the SSD's ``conv/w``, whose
   concatenated channels do not line up with ``din``'s split, over
-  ``"model"``), once per step before the first microbatch.  Its backward
-  is a reduce-scatter SUM, run once after the last microbatch.  The routed
-  experts' weights keep their experts dim sharded: with ``ep`` a rank
-  holds ``E / model`` experts; so do the tensor-parallel leaves.
+  ``"model"``).  The step hands the models the rank's **blocks**, and each
+  layer gathers its own leaves where it runs (:class:`LayerGathers`,
+  installed by ``launch.sharding.gathering``; the models call
+  ``launch.sharding.gathered`` at the top of a layer, at the embedding
+  lookup and at the head; whisper's cross-attention K/V weights where
+  they project the encoder states).  So a rank never holds more than the
+  layers in flight whole.  Under ``remat="layer"`` the gather sits inside
+  the recomputed function: the whole copy dies with the layer's forward
+  and the recompute gathers it again in the backward.  Under
+  ``remat="none"`` what a layer saves for its backward (its weights' casts
+  or int8 codes) lives until the backward leaves it, as in JAX without
+  remat.  The gather's backward is a reduce-scatter SUM of the whole
+  gradient to the block as the backward leaves that use (the embedding
+  tied to the head is gathered at each use and reduce-scattered at each);
+  the step differentiates with respect to the blocks, and with
+  ``grad_accum > 1`` the blocks' gradients add up across microbatches.
+  The routed experts' weights keep their experts dim sharded: with ``ep``
+  a rank holds ``E / model`` experts; so do the tensor-parallel leaves.
 * The MoE block carries each expert's capacity slots to the rank that
   holds it and back (``launch.parallel.expert_all_to_all``).
 * :meth:`TrainMesh.reduce_grads` all-reduces (SUM) each gradient over the
@@ -33,8 +47,8 @@ A rank's train state holds its blocks under ``launch.mesh.state_shardings``
 
 Every collective runs in the same order on every rank: the leaves in tree
 order, the layers in order, and a recomputed layer (``remat="layer"``)
-repeats its forward's collectives in the backward, where autograd runs the
-same graph on every rank.  The recomputation runs under its forward's
+repeats its forward's collectives, its gathers included, in the backward,
+where autograd runs the same graph on every rank.  The recomputation runs under its forward's
 mesh context (``launch.sharding.recompute_context``): on the card
 autograd runs the backward on a device thread of its own, where the
 step's thread-local context is not installed.
@@ -68,17 +82,39 @@ from repro_torch.launch.parallel import (GATHERED_ON_MODEL, MeshGroups, TensorPa
                                          _group_of, all_reduce_sum)
 from repro_torch.launch.sharding import _names, axis_size, mesh_shape
 
-__all__ = ["TrainMesh", "LeafPlan", "TensorParallel", "train_mesh", "gather_leaf",
+__all__ = ["TrainMesh", "LeafPlan", "LayerGathers", "TensorParallel", "train_mesh", "gather_leaf",
            "all_reduce_sum", "state_specs", "local_state", "replicas_apart"]
 
 
 def gather_leaf(x: torch.Tensor, dims) -> torch.Tensor:
     """The whole of ``x`` along ``dims`` (``[(dim, (group, index, n)),
     ...]``): blocks all-gathered in rank order; the backward reduce-scatters
-    (SUM) the gradient back to the block."""
+    (SUM) the gradient of this gathered copy back to the block when the
+    backward has left the copy's last use (module note)."""
     for d, (group, _, n) in dims:
         x = _Gather.apply(x, d, group, n)
     return x
+
+
+class LayerGathers:
+    """The per-layer gathers of one sharded step (module note): called on
+    a parameter subtree (``launch.sharding.gathered``), it returns it with
+    each of the step's blocks whose :class:`LeafPlan` gathers dims made
+    whole by :func:`gather_leaf`, found by identity; other tensors as they
+    are."""
+
+    def __init__(self, blocks, plans):
+        self._of = {id(x): (x, plan.gather) for x, plan in zip(blocks, plans) if plan.gather}
+
+    def __call__(self, tree):
+        if isinstance(tree, dict):
+            return {k: self(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [self(v) for v in tree]
+        entry = self._of.get(id(tree))
+        if entry is None or entry[0] is not tree:
+            return tree
+        return gather_leaf(tree, entry[1])
 
 
 class LeafPlan(NamedTuple):

@@ -36,9 +36,13 @@ state holds the rank's blocks under ``launch.mesh.state_shardings``
 batch and takes its rows over the rules' batch axes.  With ``grad_accum
 = k`` microbatch j is rows ``[j B/k, (j+1) B/k)`` of the global batch (JAX's
 reshape) and the rank takes its block of that; ``B/k`` must divide over
-the batch shards (``ValueError``; JAX would reshard).  The parameters are
-gathered once before the first microbatch and the gradients reduced once
-after the last.  The loss is a sum over ranks of per-rank terms
+the batch shards (``ValueError``; JAX would reshard).  The step hands the
+models the rank's parameter blocks, and each layer gathers its own leaves
+where it runs (``train/distributed.py``): under ``remat="layer"`` one
+layer's weights are whole at a time, and each gathered gradient is
+reduce-scattered to its block as the backward leaves the layer, so the
+blocks' gradients, never whole ones, add up across microbatches.  The
+loss is a sum over ranks of per-rank terms
 (``models/registry.py``), so each rank backpropagates its own and
 gradients sum; ``loss``, ``ce`` and ``aux`` are reported all-reduced, the
 grad norm counts every element once and AdamW updates each rank's block.
@@ -54,9 +58,14 @@ blocks, and each backpropagates its share of the loss, so ``loss``,
 of those ranks are the same, the one-rank records of their rows.  JAX's
 default ``ParallelConfig()`` (``fsdp``, ``seq_shard``, ``remat="layer"``,
 ``ep``) trains on a ``("data", "model")`` mesh.
+
+:func:`init_train_blocks` makes a rank's blocks of the train state of the
+counter-addressed init (``models.registry.init_blocks``) without the whole
+state, so a model whose state fits no card whole trains over several.
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Optional
 
 import numpy as np
@@ -65,14 +74,15 @@ import torch
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.fleet.collect import aggregate_records
 from repro_torch.launch.mesh import tree_paths, tree_unflatten
-from repro_torch.launch.sharding import current_mesh, mesh_shape, set_mesh_ctx
-from repro_torch.models import init_params, train_loss
+from repro_torch.launch.sharding import current_mesh, gathering, mesh_shape, set_mesh_ctx
+from repro_torch.models import init_blocks, init_params, train_loss
 from repro_torch.runtime.scope import ax_scope
 
 from . import distributed as D
 from .optimizer import AdamWConfig, adamw_init, adamw_update
 
-__all__ = ["make_train_step", "init_train_state", "fresh_train_state", "check_parallel"]
+__all__ = ["make_train_step", "init_train_state", "fresh_train_state", "init_train_blocks",
+           "check_parallel"]
 
 
 def init_train_state(params, opt_cfg: AdamWConfig):
@@ -83,6 +93,19 @@ def fresh_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig, *, seed: int = 0,
                       device="cuda"):
     """``init_train_state`` of ``models.init_params(cfg, seed=, device=)``."""
     return init_train_state(init_params(cfg, seed=seed, device=device), opt_cfg)
+
+
+def init_train_blocks(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh, par: ParallelConfig, *,
+                      seed: int = 0, device="cuda"):
+    """This rank's blocks of the train state of the counter-addressed init
+    under ``distributed.state_specs``, made without the whole state: each
+    parameter's block alone (``models.registry.init_blocks``, in chunks),
+    the moments zeros of the blocks' shapes.  Bit for bit
+    ``local_state(init_train_state(init_blocks(cfg, seed=seed)), specs,
+    mesh)``."""
+    specs = D.state_specs(cfg, opt_cfg, mesh, par)
+    return init_train_state(init_blocks(cfg, specs["params"], mesh=mesh, seed=seed,
+                                        device=device), opt_cfg)
 
 
 def check_parallel(par: ParallelConfig, adaptive: bool = False, mesh=None) -> None:
@@ -183,43 +206,36 @@ def make_train_step(cfg: ModelConfig, par: Optional[ParallelConfig], opt_cfg: Ad
         if tm is not None and tm.tp is not None:
             _check_tp(cfg, batch, tm.tp)
         live = [x.detach().requires_grad_(True) for x in blocks]
-        with torch.enable_grad():
-            gathered = ([D.gather_leaf(x, plan.gather) for x, plan in zip(live, plans)]
-                        if tm is not None else live)
-        full = [g.detach().requires_grad_(True) for g in gathered]
-        full_tree = tree_unflatten(params, full)
+        tree = tree_unflatten(params, live)
+        # each layer gathers its leaves where it runs, and autograd
+        # reduce-scatters their gradients to the blocks (module note)
+        ctx = gathering(D.LayerGathers(live, plans)) if tm is not None else nullcontext()
         acc, term_sum, metrics = None, None, {}
-        for j in range(k):
-            lo = j * (B // k) + index * m
-            mb = {name: v[lo:lo + m] for name, v in batch.items()}
-            with torch.enable_grad():
-                if dyn is None:
-                    term, metrics = train_loss(full_tree, mb, cfg, par)
+        with ctx:
+            for j in range(k):
+                lo = j * (B // k) + index * m
+                mb = {name: v[lo:lo + m] for name, v in batch.items()}
+                with torch.enable_grad():
+                    if dyn is None:
+                        term, metrics = train_loss(tree, mb, cfg, par)
+                    else:
+                        # the records are made inside the differentiated
+                        # forward: they leave it through the metrics, detached
+                        with ax_scope(dyn, collect=True, tile_rows=tile_rows) as sc:
+                            term, metrics = train_loss(tree, mb, cfg, par)
+                        metrics = dict(metrics, ax_telemetry=sc.collected())
+                    g = torch.autograd.grad(term, live, allow_unused=True)
+                # a parameter the loss does not reach gets a zero gradient
+                g = [torch.zeros_like(p) if gi is None else gi for p, gi in zip(live, g)]
+                if k > 1:
+                    # microbatch gradients summed in f32, then divided by k
+                    g = [gi.to(torch.float32) for gi in g]
+                    acc = g if acc is None else [a + b for a, b in zip(acc, g)]
                 else:
-                    # the records are made inside the differentiated forward:
-                    # they leave it through the metrics, detached
-                    with ax_scope(dyn, collect=True, tile_rows=tile_rows) as sc:
-                        term, metrics = train_loss(full_tree, mb, cfg, par)
-                    metrics = dict(metrics, ax_telemetry=sc.collected())
-                g = torch.autograd.grad(term, full, allow_unused=True)
-            # a parameter the loss does not reach gets a zero gradient
-            g = [torch.zeros_like(p) if gi is None else gi for p, gi in zip(full, g)]
-            if k > 1:
-                # microbatch gradients summed in f32, then divided by k
-                g = [gi.to(torch.float32) for gi in g]
-                acc = g if acc is None else [a + b for a, b in zip(acc, g)]
-            else:
-                acc = g
-            term_sum = term.detach() if term_sum is None else term_sum + term.detach()
-        # the gathers' backward: reduce-scatter each gathered gradient to the block
-        idx = [i for i, plan in enumerate(plans or ()) if plan.gather]
-        if idx:
-            back = torch.autograd.grad([gathered[i] for i in idx], [live[i] for i in idx],
-                                       grad_outputs=[acc[i] for i in idx])
-            for i, b in zip(idx, back):
-                acc[i] = b
+                    acc = g
+                term_sum = term.detach() if term_sum is None else term_sum + term.detach()
         # the update needs the room: nothing of the forward or backward outlives it
-        del live, gathered, full, full_tree, g
+        del live, tree, g, ctx
         with torch.no_grad():
             grads = tm.reduce_grads(acc, plans) if tm is not None else acc
             del acc

@@ -51,9 +51,9 @@ B, S, FRAMES = 8, 16, 24
 
 
 def config(arch, cfg_kw):
-    kw = dict(cfg_kw)
+    kw = dict(dict(compute_dtype="float32"), **cfg_kw)
     ax = kw.pop("ax", None)
-    return dataclasses.replace(JC.reduced(JC.ARCHS[arch]), n_layers=2, compute_dtype="float32",
+    return dataclasses.replace(JC.reduced(JC.ARCHS[arch]), n_layers=2,
                                ax=AxPolicy(backend=ax) if ax else None, **kw)
 
 

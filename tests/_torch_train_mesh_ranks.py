@@ -35,10 +35,11 @@ TOL_REL, TOL_UPDATE = 1e-4, 0.1
 
 
 def config(arch, cfg_kw, n_layers=2):
-    kw = dict(cfg_kw)
+    """The reduced ``arch`` at ``n_layers``, f32 compute unless ``cfg_kw``
+    names a ``compute_dtype``."""
+    kw = dict(dict(compute_dtype="float32"), **cfg_kw)
     ax = kw.pop("ax", None)
     return dataclasses.replace(TC.reduced(TC.ARCHS[arch]), n_layers=n_layers,
-                               compute_dtype="float32",
                                ax=AxPolicy(backend=ax) if ax else None, **kw)
 
 
@@ -741,3 +742,172 @@ def card_default_rank(rank, _mesh):
                 replicas=replicas,
                 params=(host(back["params"]), host(one["params"]), host(whole["params"]))
                 if rank == 0 else None)
+
+
+# ---------------------------------------------------------------------------
+# the per-layer gathers against the whole-step gather
+# (tests/test_torch_train_gather.py, tests/test_torch_train_init.py)
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's train layouts (a)-(e) on four ranks: label -> (mesh shape,
+# axes, ParallelConfig fields)
+GATHER_LAYOUTS = {
+    "a": ((4,), ("data",), dict(dp_only=True, fsdp=True)),
+    "b": ((1, 4), ("data", "model"), dict(dp_only=True, ep=True)),
+    "c": ((1, 4), ("data", "model"), dict(ep=True)),
+    "d": ((1, 4), ("data", "model"), dict(seq_shard=True, ep=True)),
+    "e": ((2, 2), ("data", "model"), dict(fsdp=True, seq_shard=True, ep=True)),
+}
+
+
+def whole_gather_step(cfg, par, opt, mesh):
+    """The sharded step with the whole-step gather (non-adaptive): every
+    parameter block gathered whole over its plan's axes once before the
+    first microbatch, the models given the whole tree, the whole gradients
+    accumulated over the microbatches and reduce-scattered to the blocks
+    once after the last.  The oracle of the per-layer gathers."""
+    from repro_torch.launch.mesh import tree_unflatten
+    from repro_torch.launch.sharding import set_mesh_ctx
+    from repro_torch.models import train_loss
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.train.train_step import _check_tp, _detach, _to_device
+
+    tm = D.train_mesh(mesh, par)
+    tm.plans(cfg, opt)
+
+    def step(state, batch):
+        with set_mesh_ctx(mesh, par, groups=tm):
+            params = state["params"]
+            paths, blocks_ = tree_paths(params)
+            plans = [tm.plans(cfg, opt)[p] for p in paths]
+            batch = _to_device(batch, blocks_[0].device)
+            k = par.grad_accum
+            B_ = next(iter(batch.values())).shape[0]
+            _, index, n = tm.batch
+            m = B_ // k // n
+            if tm.tp is not None:
+                _check_tp(cfg, batch, tm.tp)
+            live = [x.detach().requires_grad_(True) for x in blocks_]
+            with torch.enable_grad():
+                gathered = [D.gather_leaf(x, plan.gather) for x, plan in zip(live, plans)]
+            full = [g.detach().requires_grad_(True) for g in gathered]
+            full_tree = tree_unflatten(params, full)
+            acc, term_sum, metrics = None, None, {}
+            for j in range(k):
+                lo = j * (B_ // k) + index * m
+                mb = {name: v[lo:lo + m] for name, v in batch.items()}
+                with torch.enable_grad():
+                    term, metrics = train_loss(full_tree, mb, cfg, par)
+                    g = torch.autograd.grad(term, full, allow_unused=True)
+                g = [torch.zeros_like(p) if gi is None else gi for p, gi in zip(full, g)]
+                if k > 1:
+                    g = [gi.to(torch.float32) for gi in g]
+                    acc = g if acc is None else [a + b for a, b in zip(acc, g)]
+                else:
+                    acc = g
+                term_sum = term.detach() if term_sum is None else term_sum + term.detach()
+            idx = [i for i, plan in enumerate(plans) if plan.gather]
+            if idx:
+                back = torch.autograd.grad([gathered[i] for i in idx], [live[i] for i in idx],
+                                           grad_outputs=[acc[i] for i in idx])
+                for i, b in zip(idx, back):
+                    acc[i] = b
+            del live, gathered, full, full_tree, g
+            with torch.no_grad():
+                grads = tm.reduce_grads(acc, plans)
+                del acc
+                if k > 1:
+                    grads = [g / k for g in grads]
+                group = tm.world_group
+                if k > 1:
+                    vals = D.all_reduce_sum(term_sum.reshape(1), group)
+                    loss = vals[0] / k
+                    out = {"ce": loss, "aux": torch.zeros_like(loss)}
+                else:
+                    vals = D.all_reduce_sum(torch.stack([term_sum, metrics["ce"].detach(),
+                                                         metrics["aux"].detach()]), group)
+                    loss = vals[0]
+                    out = dict(metrics, ce=vals[1], aux=vals[2])
+            new_params, new_opt, opt_metrics = adamw_update(
+                tree_unflatten(params, grads), state["opt"], params, opt,
+                replicas=[p.replicas for p in plans], group=tm.world_group)
+            return ({"params": new_params, "opt": new_opt},
+                    dict(_detach(out), loss=loss, **opt_metrics))
+
+    return step
+
+
+def gather_rank(rank, _mesh, jobs):
+    """Per job ``(name, arch, cfg fields, layout, ParallelConfig fields)``
+    on this world of four: one step of the per-layer gathers
+    (``make_train_step(mesh=)``) and one of :func:`whole_gather_step` from
+    the same ``init_train_blocks`` state on the same global batch, each
+    backward on a thread of its own (:func:`backward_on_a_thread`).  Per
+    job: whether every leaf of the new blocks (moments and step included)
+    and every metric are bit-equal, the metrics of both, and rank 0's new
+    blocks of both and the start as numpy; and ``D.replicas_apart`` of the
+    new blocks."""
+    from repro_torch.train import init_train_blocks
+
+    out = {}
+    for name, arch, cfg_kw, layout, par_kw in jobs:
+        shape, axes, kw = GATHER_LAYOUTS[layout]
+        cfg = config(arch, cfg_kw)
+        par = ParallelConfig(**dict(kw, **par_kw))
+        mesh = make_mesh(shape, axes, device="cpu")
+        opt = opt_cfg()
+        specs = D.state_specs(cfg, opt, mesh, par)
+        start = init_train_blocks(cfg, opt, mesh, par, seed=2, device="cpu")
+        bt = batches(cfg, 1)[0]
+        with backward_on_a_thread():
+            new, m = train.make_train_step(cfg, par, opt, mesh=mesh)(start, bt)
+            old, m_old = whole_gather_step(cfg, par, opt, mesh)(start, bt)
+        pa, la = tree_paths(new)
+        pb, lb = tree_paths(old)
+        same = pa == pb and all(torch.equal(a, b) for a, b in zip(la, lb))
+        out[name] = dict(
+            bits=same and all(torch.equal(m[k], m_old[k]) for k in m_old),
+            metrics=metrics_of(m), old_metrics=metrics_of(m_old),
+            params=(flat(new["params"]), flat(old["params"]), flat(start["params"]))
+            if rank == 0 else None,
+            replicas=D.replicas_apart(new, specs, mesh))
+    return out
+
+
+def train_init_rank(rank, _mesh, archs, chunk):
+    """Per config of ``archs`` and layout of :data:`GATHER_LAYOUTS` (JAX's
+    layout on (e)): ``init_train_blocks`` against ``local_state(
+    init_train_state(init_blocks(cfg)))`` (the paths whose leaves differ in
+    shape, dtype or bits), the largest tensor (elements) any op of
+    ``init_train_blocks`` made off ``meta`` with ``layers.CHUNK`` at
+    ``chunk``, the rank's largest block and the largest whole leaf."""
+    from repro_torch.models import init_blocks, layers
+    from repro_torch.train import init_train_blocks, init_train_state
+
+    from _torch_serve_tp_ranks import _Made
+
+    opt = opt_cfg()
+    out = {}
+    for arch in archs:
+        cfg = TC.reduced(TC.ARCHS[arch])
+        whole = init_train_state(init_blocks(cfg, seed=4, device="cpu"), opt)
+        for layout, (shape, axes, kw) in GATHER_LAYOUTS.items():
+            par = ParallelConfig(**kw)
+            mesh = make_mesh(shape, axes, device="cpu")
+            want = D.local_state(whole, D.state_specs(cfg, opt, mesh, par), mesh)
+            made, saved = _Made(), layers.CHUNK
+            layers.CHUNK = chunk
+            try:
+                with made:
+                    got = init_train_blocks(cfg, opt, mesh, par, seed=4, device="cpu")
+            finally:
+                layers.CHUNK = saved
+            pa, la = tree_paths(got)
+            pb, lb = tree_paths(want)
+            bad = [p for p, a, b in zip(pa, la, lb)
+                   if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b)]
+            out[(arch, layout)] = dict(
+                bad=bad if pa == pb else ["<paths differ>"], made=made.largest,
+                largest_block=max(t.numel() for t in la),
+                largest_leaf=max(t.numel() for t in tree_paths(whole)[1]))
+    return out
