@@ -281,18 +281,26 @@ def _build(node, it):
     return next(it)
 
 
-def block_index(mesh, spec, shape):
+def block_index(mesh, spec, shape, rank: Optional[int] = None):
     """The index of this rank's block of a leaf of ``shape`` under ``spec``
-    on ``mesh`` (a tuple of slices): along each sharded dim the rank's
-    coordinate over the dim's mesh axes, in row-major order."""
+    on ``mesh`` (a tuple of slices), or of global ``rank``'s: along each
+    sharded dim the rank's coordinate over the dim's mesh axes, in
+    row-major order."""
     names = list(mesh.mesh_dim_names)
+    if rank is None:
+        at = {a: mesh.get_local_rank(a) for a in names}
+    else:
+        where = np.argwhere(np.asarray(mesh.mesh.tolist()) == rank)
+        if not len(where):
+            raise ValueError(f"rank {rank} is not on the mesh {mesh.mesh.tolist()}")
+        at = dict(zip(names, (int(c) for c in where[0])))
     index = []
     for d, ax in enumerate(tuple(spec) + (None,) * (len(shape) - len(spec))):
         axes = ax if isinstance(ax, tuple) else ((ax,) if ax else ())
         coord, size = 0, 1
         for a in axes:
             n = mesh.size(names.index(a))
-            coord, size = coord * n + mesh.get_local_rank(a), size * n
+            coord, size = coord * n + at[a], size * n
         if shape[d] % size:
             raise ValueError(f"dim {d} of {tuple(shape)} does not divide over {size} ranks "
                              f"({spec})")

@@ -248,8 +248,38 @@ class TensorParallel:
 
     def enter(self, x):
         """A block's input from the residual: all-gathered over ``seq``
-        (dim 1) under ``seq_shard``, else the residual itself."""
-        return self.gather(x, 1) if self.seq else x
+        (dim 1) under ``seq_shard``, else the residual itself.  Below f32
+        with gradients, a new tensor that keeps ``x`` (``_repro_entered``):
+        an approximate column-parallel projection of it sums its input
+        gradient into ``x``'s in f32 (:meth:`input_grad`)."""
+        if x.dtype == torch.float32 or not torch.is_grad_enabled():
+            return self.gather(x, 1) if self.seq else x
+        y = self.gather(x, 1) if self.seq else x.view_as(x)
+        y._repro_entered = x
+        return y
+
+    def input_grad(self, g):
+        """The f32 input gradient ``g`` (B, S, ...) of a column-parallel
+        projection of an entered tensor, this rank's part, as the gradient
+        of the residual-layout tensor it entered: summed over the model
+        ranks in f32, where JAX's GSPMD step sums it (its compiled step
+        all-reduces the straight-through ``gx`` in f32 before the cast to
+        the compute dtype).  Under ``seq_shard`` reduce-scattered over
+        ``seq``; else the sum, held by model rank 0 alone, since the
+        residual's gradient there is each rank's part (:meth:`exit`)."""
+        if self.seq:
+            return _reduce_scatter(g, 1, self.group, self.n)
+        total = _all_reduce(g, self.group)
+        return total if self.index == 0 else torch.zeros_like(total)
+
+    def col_matmul(self, x, w):
+        """``x @ w`` of a plain column-parallel projection (``w`` holds this
+        rank's output columns); of a tensor :meth:`enter` made, its input
+        gradient summed over the model ranks in f32 (:meth:`input_grad`)."""
+        src = getattr(x, "_repro_entered", None)
+        if src is None:
+            return x @ w
+        return _ColMatmul.apply(x.detach(), w, self, src)
 
     def exit(self, y, partial: bool):
         """A block's output (B, S, ...) to the residual's layout: partial
@@ -270,6 +300,24 @@ class TensorParallel:
 
     def reduce_scatter_(self, t, dim: int):
         return _reduce_scatter(t.detach(), dim % t.dim(), self.group, self.n)
+
+
+class _ColMatmul(torch.autograd.Function):
+    """``x @ w`` whose input gradient goes, summed over the model ranks in
+    f32, to the tensor ``x`` was entered from (:meth:`TensorParallel.col_matmul`)."""
+
+    @staticmethod
+    def forward(ctx, x, w, tp, src):
+        ctx.save_for_backward(x, w)
+        ctx.tp = tp
+        return x @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = ctx.tp.input_grad(g.to(torch.float32) @ w.to(torch.float32).T).to(x.dtype)
+        gw = x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+        return None, gw, None, gx
 
 
 class _AllToAll(torch.autograd.Function):

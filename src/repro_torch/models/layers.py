@@ -317,9 +317,12 @@ def dense(x, p, ax: Optional[AxPolicy] = None, target: str = "", tp=None,
                 kw["rows"] = rows
             y = ax_dense_dyn(x, w, ax, dyn, scope=scope, target=target, wcodes=codes, **kw)
         else:
+            if role == "col":
+                tp_kw = {"col": tp}
             y = ax_dense(x, w, ax, wcodes=codes, **tp_kw)
     else:
-        y = x @ weight_cast(p["w"], x.dtype)
+        w = weight_cast(p["w"], x.dtype)
+        y = tp.col_matmul(x, w) if role == "col" else x @ w
         if row is not None:
             y = row.exit(y, partial=True)
     if "b" in p:

@@ -669,16 +669,36 @@ def _ax_dense_fwd_impl(x, w, policy: AxPolicy, wcodes=None, tp=None):
 def _ste_grads(ctx, gy):
     """The exact matmul's gradients of ``x @ w`` (straight-through); over a
     K split (``ctx.tp``) the output gradient is first the adjoint of the
-    forward's reduction: all-reduced, or all-gathered over ``seq``."""
+    forward's reduction: all-reduced, or all-gathered over ``seq``.  A
+    column-parallel projection of an entered tensor (``ctx.col``, the
+    ``TensorParallel``) sums its f32 input gradient over the model ranks
+    before the cast (``TensorParallel.input_grad``): the gradient of the
+    tensor ``x`` entered from."""
     x, w = ctx.saved_tensors
     tp = ctx.tp
     if tp is not None:
         gy = tp.all_gather_(gy, 1) if tp.seq else tp.all_reduce_(gy)
     gy32 = gy.to(torch.float32)
-    gx = (gy32 @ w.to(torch.float32).T).to(x.dtype)
+    gx = gy32 @ w.to(torch.float32).T
+    if ctx.col is not None:
+        gx = ctx.col.input_grad(gx)
     xf = x.to(torch.float32).reshape(-1, x.shape[-1])
     gw = (xf.T @ gy32.reshape(-1, gy.shape[-1])).to(w.dtype)
-    return gx, gw
+    return gx.to(x.dtype), gw
+
+
+def _entered(x, col):
+    """(x, col, src): where ``x`` is a tensor that ``col.enter`` made for
+    gradients below f32, ``x`` detached, ``col`` and the tensor ``src`` it
+    entered from, which takes the input gradient (:func:`_ste_grads`); else
+    (x, None, None)."""
+    src = getattr(x, "_repro_entered", None) if col is not None else None
+    return (x, None, None) if src is None else (x.detach(), col, src)
+
+
+def _input_grads(ctx, gx):
+    """(x's gradient, the entered source's) of the straight-through ``gx``."""
+    return (None, gx) if ctx.col is not None else (gx, None)
 
 
 class _AxDense(torch.autograd.Function):
@@ -686,24 +706,30 @@ class _AxDense(torch.autograd.Function):
     matmul gradients (straight-through estimator)."""
 
     @staticmethod
-    def forward(ctx, x, w, policy, wcodes, tp):
+    def forward(ctx, x, w, policy, wcodes, tp, col, src):
         ctx.save_for_backward(x, w)
-        ctx.tp = tp
+        ctx.tp, ctx.col = tp, col
         return _ax_dense_fwd_impl(x, w, policy, wcodes, tp)
 
     @staticmethod
     def backward(ctx, gy):
-        return (*_ste_grads(ctx, gy), None, None, None)
+        gx, gw = _ste_grads(ctx, gy)
+        gx, gsrc = _input_grads(ctx, gx)
+        return gx, gw, None, None, None, None, gsrc
 
 
-def ax_dense(x, w, policy: AxPolicy, wcodes=None, tp=None):
+def ax_dense(x, w, policy: AxPolicy, wcodes=None, tp=None, col=None):
     """y = x @ w through the SWAPPER approximate path (quantize -> ax matmul
     -> dequantize); straight-through exact gradients.  ``wcodes`` — the
     weight's ``quantize_rows(w.float(), axis=0)`` when the caller has it
     (:func:`weight_codes`).  ``tp``: K is split over its model ranks (the
     ``launch.parallel.TensorParallel``), ``x`` and ``w`` hold this rank's
-    block, and the result is the whole sum, or its seq shard (module note)."""
-    return _AxDense.apply(x, w, policy, wcodes, tp)
+    block, and the result is the whole sum, or its seq shard (module note).
+    ``col``: the output columns are split over its model ranks; where ``x``
+    is a tensor ``col`` entered, the input gradient sums in f32
+    (:func:`_ste_grads`)."""
+    x, col, src = _entered(x, col)
+    return _AxDense.apply(x, w, policy, wcodes, tp, col, src)
 
 
 class _DynCore(torch.autograd.Function):
@@ -712,15 +738,17 @@ class _DynCore(torch.autograd.Function):
     straight-through gradient, the other inputs get none."""
 
     @staticmethod
-    def forward(ctx, x, w, policy, dyn, xq, sx, wq, sw, tp, row_span):
+    def forward(ctx, x, w, policy, dyn, xq, sx, wq, sw, tp, row_span, col, src):
         ctx.save_for_backward(x, w)
-        ctx.tp = tp
+        ctx.tp, ctx.col = tp, col
         acc = ax_matmul_int_dyn(xq, wq, policy, dyn, row_span=row_span)
         return _dequant(acc, sx, sw, x.dtype, tp)
 
     @staticmethod
     def backward(ctx, gy):
-        return (*_ste_grads(ctx, gy),) + (None,) * 8
+        gx, gw = _ste_grads(ctx, gy)
+        gx, gsrc = _input_grads(ctx, gx)
+        return (gx, gw) + (None,) * 9 + (gsrc,)
 
 
 class _DynHistCore(torch.autograd.Function):
@@ -730,9 +758,9 @@ class _DynHistCore(torch.autograd.Function):
     batch split's tuple, whose ranks' counts add up to each tile's."""
 
     @staticmethod
-    def forward(ctx, x, w, policy, dyn, xq, sx, wq, sw, tp, row_span, rows):
+    def forward(ctx, x, w, policy, dyn, xq, sx, wq, sw, tp, row_span, rows, col, src):
         ctx.save_for_backward(x, w)
-        ctx.tp = tp
+        ctx.tp, ctx.col = tp, col
         acc, hist = ax_matmul_int_dyn_hist(xq, wq, policy, dyn, row_span=row_span)
         if tp is not None:
             # the counts of each K block add up to the whole K's
@@ -748,7 +776,9 @@ class _DynHistCore(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, *_):
-        return (*_ste_grads(ctx, gy),) + (None,) * 9
+        gx, gw = _ste_grads(ctx, gy)
+        gx, gsrc = _input_grads(ctx, gx)
+        return (gx, gw) + (None,) * 10 + (gsrc,)
 
 
 def _row_span(x: torch.Tensor, rows):
@@ -789,6 +819,7 @@ def ax_dense_dyn(x, w, policy: AxPolicy, dyn, scope=None, target: str = "",
     records are the whole batch's, their sampled rows gathered from the
     ranks that hold them (``runtime.telemetry.tp_operands``)."""
     row = tp if tp_role == "row" else None
+    x, col, src = _entered(x, tp if tp_role == "col" else None)
     xq, sx, wq, sw = _operands(x, w, wcodes, row)
     dyn = _as_dyn(dyn, x.device)
     span = _row_span(x, rows)
@@ -805,11 +836,11 @@ def ax_dense_dyn(x, w, policy: AxPolicy, dyn, scope=None, target: str = "",
         if scope.tile_rows > 0:
             if scope.kernel_hist and policy.backend == "kernel" and dyn.dim() == 3:
                 y, *hist = _DynHistCore.apply(x, w, policy, dyn, xq, sx, wq, sw, row, span,
-                                              rows)
+                                              rows, col, src)
                 scope.record(tile_key(target),
                              tile_summary(xs, ws, mult, scope.tile_rows, dyn=dyn,
                                           bits_from=tuple(hist)))
                 return y
             scope.record(tile_key(target),
                          tile_summary(xs, ws, mult, scope.tile_rows, dyn=dyn))
-    return _DynCore.apply(x, w, policy, dyn, xq, sx, wq, sw, row, span)
+    return _DynCore.apply(x, w, policy, dyn, xq, sx, wq, sw, row, span, col, src)

@@ -4,7 +4,8 @@ the port's multi-process SPMD.
 
 A rank's train state holds its blocks under ``launch.mesh.state_shardings``
 (:func:`local_state` takes them from a whole state,
-``checkpoint.gather_state`` puts them back).  In a step:
+``checkpoint.gather_state`` puts them back on every rank, and a sharded
+``checkpoint.save`` onto rank 0 a leaf at a time).  In a step:
 
 * :func:`gather_leaf` all-gathers a parameter block over the mesh axes of
   its sharded dims that the rank does not compute with (FSDP's ``"embed"``

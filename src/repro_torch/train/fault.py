@@ -7,10 +7,12 @@ worker failure (a :class:`SimulatedFailure` from a chaos hook), restores the
 newest checkpoint (onto the state's device) and the data stream's state,
 and resumes, so the data pipeline continues bit-identically.  With
 ``sharding_tree`` and ``mesh`` the restore lands on the current mesh (the
-JAX package's elastic resume): each rank takes its block of each sharded
+JAX package's elastic resume): each rank reads its block of each sharded
 leaf of the newest checkpoint, whatever mesh wrote it, and its checkpoints
-gather the blocks back (``checkpoint.gather_state``) for rank 0 to write;
-every rank waits for the write before a restart reads it.
+gather the blocks onto rank 0 a leaf at a time for rank 0 to write
+(``checkpoint.AsyncCheckpointer.save_async(sharding_tree=)``), so no card
+and no host holds the whole state; every rank waits for the write before a
+restart reads it.
 The watchdog flags a step that takes longer than ``factor`` times the
 trailing median of the last ``history`` steps, once at least 5 steps were
 seen; the continuous batcher (``fleet/scheduler.py``) watches its decode
@@ -77,7 +79,6 @@ def run_supervised(make_state: Callable[[], dict], step_fn: Callable, stream, n_
     sharded = sharding_tree is not None
     if sharded and mesh is None:
         raise ValueError("run_supervised(sharding_tree=) needs the mesh")
-    writer = not sharded or dist.get_rank() == 0
 
     def settle():
         saver.wait()
@@ -114,11 +115,9 @@ def run_supervised(make_state: Callable[[], dict], step_fn: Callable, stream, n_
                 if on_step is not None:
                     on_step(i, metrics)
                 if (i + 1) % fcfg.ckpt_every == 0:
-                    whole = (ckpt_lib.gather_state(state, sharding_tree, mesh) if sharded
-                             else state)
-                    if writer:
-                        saver.save_async(fcfg.ckpt_dir, i + 1, whole,
-                                         extra={"train_step": i + 1, "data": stream.state()})
+                    saver.save_async(fcfg.ckpt_dir, i + 1, state,
+                                     extra={"train_step": i + 1, "data": stream.state()},
+                                     sharding_tree=sharding_tree, mesh=mesh)
             settle()
             return state, log
         except SimulatedFailure:

@@ -14,7 +14,7 @@ by ``state_shardings`` and the batch by ``batch_shardings`` and jits the
 step under ``set_mesh_ctx``.
 
 Each job (a dict: ``label``, ``arch``, ``shape``, ``axes``, ``par``,
-``cfg``, ``steps``) writes to ``OUT_DIR/<label>/``: the train state before
+``cfg``, ``steps``; ``hlo`` optional) writes to ``OUT_DIR/<label>/``: the train state before
 each step and after the last as the package's checkpoints
 (``step_{i}.npz``/``.json``), ``metrics.json`` (loss, ce, aux, grad_norm
 per step) and ``shards.json`` (per state leaf, each device's index of the
@@ -23,7 +23,9 @@ returned.  With ``one`` set, beside it the same step on one device
 (``jax.jit`` of the unsharded step) from the same state:
 ``one/step_{i+1}`` and ``one_metrics.json``, so a test can tell a
 difference that JAX's own sharding makes (an int8 code that the sharded
-reductions round across) from one of the port.
+reductions round across) from one of the port.  With ``hlo`` set,
+``collectives.json``: every all-reduce and reduce-scatter of the compiled
+sharded step (:func:`collectives`).
 """
 import os
 import sys
@@ -33,6 +35,7 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 
 import dataclasses  # noqa: E402
 import json  # noqa: E402
+import re  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -81,6 +84,23 @@ def batches(cfg, steps):
     return out
 
 
+def collectives(hlo: str) -> list:
+    """Each all-reduce and reduce-scatter of the compiled HLO text ``hlo``:
+    its op, its operands as (dtype, shape), and whether XLA's CPU backend
+    promoted it (a reduction in bf16 that the backend sums in f32, its
+    reducer named ``*_promoted``)."""
+    out = []
+    for line in hlo.splitlines():
+        m = re.search(r"= (.+?) (all-reduce|reduce-scatter)(?:-start)?\(", line)
+        if m:
+            out.append({"op": m.group(2),
+                        "operands": [[dt, [int(n) for n in dims.split(",") if n]]
+                                     for dt, dims in re.findall(r"(\w+)\[([\d,]*)\]",
+                                                                m.group(1))],
+                        "promoted": re.search(r"to_apply=%[\w.]*_promoted", line) is not None})
+    return out
+
+
 def _index(idx):
     return [[s.start or 0, s.stop] if isinstance(s, slice) else s for s in idx]
 
@@ -106,6 +126,10 @@ def run(job, out_dir):
     jfn = jax.jit(fn, in_shardings=(s_sh, b_sh))
     one = jax.jit(JT.make_train_step(cfg, par, opt)) if job.get("one") else None
     state = jax.device_put(state, s_sh)
+    if job.get("hlo"):
+        b0 = jax.device_put({k: jnp.asarray(v) for k, v in bs[0].items()}, b_sh)
+        with open(os.path.join(out_dir, "collectives.json"), "w") as f:
+            json.dump(collectives(jfn.lower(state, b0).compile().as_text()), f)
     paths, leaves, _ = tree_paths(state)
     shards = {}
     for p, leaf in zip(paths, leaves):

@@ -256,6 +256,45 @@ def jax_rank(rank, mesh, jax_root, jobs):
     return gspmd_rank(rank, mesh, jax_root, jobs)
 
 
+@contextlib.contextmanager
+def recording_sums():
+    """While open, on this rank: each float SUM over ranks the port runs
+    (``launch.parallel``: a reduce-scatter, an all-to-all of the parts; an
+    all-reduce, ``rank_order_sum``'s all-gather of the parts) as (dtype
+    name, the shape a rank contributes, whether
+    ``TensorParallel.input_grad`` made it, whether a backward did)."""
+    import traceback
+
+    import torch.distributed as dist
+
+    seen = []
+    saved = dist.all_to_all_single, dist.all_gather_into_tensor
+
+    def wrap(f, kind):
+        def call(out, inp, *a, **kw):
+            names = [fr.name for fr in traceback.extract_stack()]
+            if inp.is_floating_point() and names[-2] == kind:
+                seen.append((str(inp.dtype).replace("torch.", ""), tuple(inp.shape),
+                             "input_grad" in names, "backward" in names))
+            return f(out, inp, *a, **kw)
+        return call
+
+    dist.all_to_all_single = wrap(saved[0], "_reduce_scatter")
+    dist.all_gather_into_tensor = wrap(saved[1], "rank_order_sum")
+    try:
+        yield seen
+    finally:
+        dist.all_to_all_single, dist.all_gather_into_tensor = saved
+
+
+def sums_rank(rank, mesh, jax_root, jobs):
+    """``jax_rank``, and the float sums over ranks of its steps
+    (:func:`recording_sums`)."""
+    with recording_sums() as seen:
+        out = jax_rank(rank, mesh, jax_root, jobs)
+    return out, seen
+
+
 # the other seven families on two ranks: (mesh shape, axes, ParallelConfig)
 FAMILY_MESHES = {
     "gemma3-27b": ((2,), ("data",), dict(dp_only=True, fsdp=True)),
@@ -911,3 +950,246 @@ def train_init_rank(rank, _mesh, archs, chunk):
                 largest_block=max(t.numel() for t in la),
                 largest_leaf=max(t.numel() for t in tree_paths(whole)[1]))
     return out
+
+
+# ---------------------------------------------------------------------------
+# checkpoints of a sharded state (tests/test_torch_ckpt_blocks.py)
+# ---------------------------------------------------------------------------
+
+# a4, c4 and JAX's default layout on (2, 2) of GATHER_LAYOUTS; qwen2's AdamW
+# keeps bf16 moments (with an f32 error feedback), so its files hold bf16 leaves
+CKPT_LAYOUTS = ("a", "c", "e")
+CKPT_OPT = {"qwen2-72b": dict(compress="bf16"), "deepseek-moe-16b": {}}
+CKPT_EXTRA = {"train_step": 1, "data": {"step": 1}}
+
+
+@contextlib.contextmanager
+def watching_saves(slow_s=0.0):
+    """While open, on this rank: the elements each ``dist.gather`` gathers
+    (the root's list, else the tensor), the count of all-gathers (the
+    whole-state gather's collective) and of ``checkpoint.gather_state``
+    calls, and the most leaves the checkpoint's writer queue held; each
+    leaf's write slowed by ``slow_s`` so that the gathers run ahead of the
+    writer."""
+    import queue as queue_lib
+    import time
+
+    import torch.distributed as dist
+
+    from repro_torch.train import checkpoint as C
+
+    seen = {"gathers": [], "all_gathers": 0, "gather_state": 0, "queue_most": 0,
+            "queue_bound": []}
+    saved = (dist.gather, dist.all_gather, dist.all_gather_into_tensor, C.gather_state,
+             C.queue.Queue, C._NpzWriter.add)
+
+    def gather(tensor, gather_list=None, *a, **kw):
+        seen["gathers"].append(sum(t.numel() for t in gather_list) if gather_list
+                               else tensor.numel())
+        return saved[0](tensor, gather_list, *a, **kw)
+
+    def counted(i, key):
+        def call(*a, **kw):
+            seen[key] += 1
+            return saved[i](*a, **kw)
+        return call
+
+    class Queue(queue_lib.Queue):
+        def __init__(self, maxsize=0):
+            seen["queue_bound"].append(maxsize)
+            super().__init__(maxsize)
+
+        def _put(self, item):
+            super()._put(item)
+            seen["queue_most"] = max(seen["queue_most"], self._qsize())
+
+    def add(self, *a):
+        time.sleep(slow_s)
+        return saved[5](self, *a)
+
+    dist.gather, dist.all_gather = gather, counted(1, "all_gathers")
+    dist.all_gather_into_tensor = counted(2, "all_gathers")
+    C.gather_state, C.queue.Queue, C._NpzWriter.add = counted(3, "gather_state"), Queue, add
+    try:
+        yield seen
+    finally:
+        (dist.gather, dist.all_gather, dist.all_gather_into_tensor, C.gather_state,
+         C.queue.Queue, C._NpzWriter.add) = saved
+
+
+def _bits_np(t):
+    """A leaf's bits as numpy (bf16 as its 16-bit pattern)."""
+    t = t.detach()
+    return (t.view(torch.int16).numpy().view(np.uint16) if t.dtype == torch.bfloat16
+            else t.numpy())
+
+
+def _same_bits(got, want, rank) -> bool:
+    """Whether ``_whole_on_rank0``'s (array, dtype name) is ``want``'s bits
+    on rank 0 (None on the other ranks)."""
+    if rank:
+        return got is None
+    return got[0].dtype == _bits_np(want).dtype and np.array_equal(got[0], _bits_np(want))
+
+
+def _apart(got, want):
+    """The paths of the tree ``got`` whose leaves differ from ``want``'s in
+    shape, dtype or bits."""
+    pa, la = tree_paths(got)
+    pb, lb = tree_paths(want)
+    if pa != pb:
+        return ["<paths differ>"]
+    return [p for p, a, b in zip(pa, la, lb)
+            if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b)]
+
+
+def ckpt_rank(rank, _mesh, root, archs, layouts=CKPT_LAYOUTS):
+    """Per config of ``archs`` and layout of ``layouts`` (``GATHER_LAYOUTS``):
+    one sharded step from the counter-addressed init, then the state saved
+    by rank 0 whole (``root/<arch>/<layout>/whole``) and by ``np.savez``
+    of its arrays (``.../savez.npz``), by the sharded ``save``
+    (``.../blocks``) and by ``AsyncCheckpointer.save_async``
+    (``.../async``), the sharded saves watched (:func:`watching_saves`,
+    each leaf's write slowed by 10 ms).  Then each layout's blocks file
+    restored onto every layout, and by rank 0 whole in this process: the
+    paths whose leaves differ from the whole state's blocks (bound 0).
+    Returns per (arch, layout) the watch, the whole leaves' element counts
+    in file order and the restores' differing paths."""
+    import torch.distributed as dist
+
+    from repro_torch.train import checkpoint as C
+    from repro_torch.train import init_train_blocks
+
+    out = {}
+    for arch in archs:
+        opt = train.AdamWConfig(lr=LR, warmup=WARMUP, **CKPT_OPT[arch])
+        cfg = config(arch, {})
+        bt = batches(cfg, 1)[0]
+        runs = {}
+        for layout in layouts:
+            shape, axes, kw = GATHER_LAYOUTS[layout]
+            par = ParallelConfig(**kw)
+            mesh = make_mesh(shape, axes, device="cpu")
+            specs = D.state_specs(cfg, opt, mesh, par)
+            state, _ = train.make_train_step(cfg, par, opt, mesh=mesh)(
+                init_train_blocks(cfg, opt, mesh, par, seed=2, device="cpu"), bt)
+            whole = train.gather_state(state, specs, mesh)
+            d = os.path.join(root, arch, layout)
+            if rank == 0:
+                train.save(os.path.join(d, "whole"), 1, whole, extra=CKPT_EXTRA)
+                arrays = dict(zip(tree_paths(whole)[0], map(_bits_np, tree_paths(whole)[1])))
+                np.savez(os.path.join(d, "savez.npz"),
+                         **{f"a{i}": arrays[p] for i, p in enumerate(sorted(arrays))})
+            with watching_saves(slow_s=0.01) as seen:
+                train.save(os.path.join(d, "blocks"), 1, state, extra=CKPT_EXTRA,
+                           sharding_tree=specs, mesh=mesh)
+                saver = train.AsyncCheckpointer()
+                saver.save_async(os.path.join(d, "async"), 1, state, extra=CKPT_EXTRA,
+                                 sharding_tree=specs, mesh=mesh)
+                saver.wait()
+            dist.barrier()
+            flat_specs = dict(zip(*tree_paths(specs)))
+            # the gathers through a staging buffer, as rank 0 copies blocks off a card
+            stage = torch.empty(max(x.numel() * x.element_size() for x in tree_paths(state)[1]),
+                                dtype=torch.uint8)
+            staged = [p for p, x, w in zip(*tree_paths(state), tree_paths(whole)[1])
+                      if flat_specs[p] is not None and any(flat_specs[p]) and
+                      not _same_bits(C._whole_on_rank0(x, flat_specs[p], mesh, stage), w, rank)]
+            paths, leaves = tree_paths(whole)
+            order = sorted(range(len(paths)), key=paths.__getitem__)
+            runs[layout] = (mesh, specs, state, whole)
+            out[(arch, layout)] = dict(
+                seen=seen, staged_apart=staged, sizes=[leaves[i].numel() for i in order],
+                sharded_sizes=[leaves[i].numel() for i in order
+                               if flat_specs[paths[i]] is not None
+                               and any(flat_specs[paths[i]])],
+                restores={})
+        for src in layouts:
+            f = os.path.join(root, arch, src, "blocks")
+            whole = runs[src][3]
+            for dst in layouts:
+                mesh, specs, like, _ = runs[dst]
+                got, extra = train.restore(f, 1, like, device="cpu", sharding_tree=specs,
+                                           mesh=mesh)
+                out[(arch, src)]["restores"][dst] = (
+                    _apart(got, D.local_state(whole, specs, mesh)), extra == CKPT_EXTRA)
+            if rank == 0:
+                got, extra = train.restore(f, 1, whole, device="cpu")
+                out[(arch, src)]["restores"]["one"] = (_apart(got, whole),
+                                                       extra == CKPT_EXTRA)
+    return out
+
+
+def ckpt_supervised_rank(rank, _mesh, ckpt_root, n_steps=6, crash_at=3):
+    """``run_supervised`` of the sharded step on four ranks (the reduced
+    qwen2, one layer, JAX's default layout on (2, 2)): uninterrupted, and
+    with a crash at step ``crash_at`` after the step-2 checkpoint, each
+    watched (:func:`watching_saves`); each run's final parameters gathered,
+    its log and its watch."""
+    from repro_torch.train import FaultConfig, SimulatedFailure, init_train_blocks, \
+        run_supervised
+
+    cfg = config("qwen2-72b", {}, n_layers=1)
+    shape, axes, kw = GATHER_LAYOUTS["e"]
+    par = ParallelConfig(**kw)
+    mesh = make_mesh(shape, axes, device="cpu")
+    opt = train.AdamWConfig(lr=1e-3, warmup=2)
+    specs = D.state_specs(cfg, opt, mesh, par)
+    step = train.make_train_step(cfg, par, opt, mesh=mesh)
+    fired = []
+
+    def chaos(i):
+        if i == crash_at and not fired:
+            fired.append(i)
+            raise SimulatedFailure("rank lost")
+
+    out = {}
+    for label, hook in (("ref", None), ("chaos", chaos)):
+        stream = train.SyntheticStream(train.DataConfig(cfg.vocab, S, 4, seed=1, mode="arith"))
+        with watching_saves() as seen:
+            state, log = run_supervised(
+                lambda: init_train_blocks(cfg, opt, mesh, par, seed=0, device="cpu"), step,
+                stream, n_steps, FaultConfig(ckpt_dir=os.path.join(ckpt_root, label),
+                                             ckpt_every=2),
+                chaos=hook, sharding_tree=specs, mesh=mesh)
+        out[label] = (flat(train.gather_state(state, specs, mesh)["params"]), log,
+                      int(state["opt"]["step"]), dict(seen))
+    return out
+
+
+def ckpt_failure_rank(rank, _mesh, root):
+    """A sharded ``save_async`` whose third leaf's write raises ``OSError``
+    (the reduced qwen2, one layer, layout e): what ``wait`` raises on this
+    rank (None where nothing), and the files left in the directory."""
+    import torch.distributed as dist
+
+    from repro_torch.train import checkpoint as C
+    from repro_torch.train import init_train_blocks
+
+    cfg = config("qwen2-72b", {}, n_layers=1)
+    shape, axes, kw = GATHER_LAYOUTS["e"]
+    par = ParallelConfig(**kw)
+    mesh = make_mesh(shape, axes, device="cpu")
+    opt = opt_cfg()
+    state = init_train_blocks(cfg, opt, mesh, par, seed=0, device="cpu")
+    real, calls = C._NpzWriter.add, []
+
+    def add(self, *a):
+        calls.append(a[0])
+        if len(calls) == 3:
+            raise OSError("disk full")
+        return real(self, *a)
+
+    C._NpzWriter.add = add
+    saver, raised = train.AsyncCheckpointer(), None
+    try:
+        saver.save_async(root, 1, state, extra=CKPT_EXTRA,
+                         sharding_tree=D.state_specs(cfg, opt, mesh, par), mesh=mesh)
+        try:
+            saver.wait()
+        except OSError as e:
+            raised = str(e)
+    finally:
+        C._NpzWriter.add = real
+    dist.barrier()
+    return raised, sorted(os.listdir(root)) if os.path.isdir(root) else []

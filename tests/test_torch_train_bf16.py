@@ -12,15 +12,29 @@ system's step by the same order.  These readings set the bounds that
 The reduced qwen2 (2 layers, ``mxu``) on (2, 2) at JAX's default layout
 (``fsdp``, ``seq_shard``, ``ep``, ``remat="layer"``), one step from JAX's
 initial state on ``_torch_train_mesh_ranks``' global batch of 8 x 16:
-JAX's sharded step (``tests/_torch_jax_gspmd.py``, a subprocess) and
-JAX's one-device step, the port's step in a spawned ``gloo`` world of 4
-ranks and the port's one-device step.  Bounds: loss and ``ce`` within
-``RK.TOL_REL``, grad norm within ``TOL_SPLIT`` (``chip_smoke.py``'s
-``TOL_TRAIN_STEP_FLIP``), every leaf's first moment (the clipped
-gradient) within ``RK.TOL_UPDATE``.  Measured: the port's split step
-1.5e-7 (loss), 5.1e-4 (grad norm) and 0.0245 (first moment) from its
-one-device step, JAX's 6.1e-5, 6.4e-5 and 0.0296 from JAX's; the port's
-split step's loss and grad norm 4.1e-4 and 5.1e-4 from JAX's GSPMD step.
+JAX's sharded step (``tests/_torch_jax_gspmd.py``, a subprocess, with the
+all-reduces of its compiled HLO) and JAX's one-device step, the port's
+step in a spawned ``gloo`` world of 4 ranks (with its float sums over
+ranks, ``RK.recording_sums``) and the port's one-device step.  Bounds: loss
+and ``ce`` within ``RK.TOL_REL``, grad norm within ``TOL_SPLIT``
+(``chip_smoke.py``'s ``TOL_TRAIN_STEP_FLIP``), every leaf's first moment
+(the clipped gradient) within ``RK.TOL_UPDATE``.  Measured: the port's
+split step 1.5e-7 (loss), 1.37e-4 (grad norm) and 0.0238 (first moment)
+from its one-device step, JAX's 6.1e-5, 6.4e-5 and 0.0296 from JAX's; the
+port's split step's loss and grad norm 4.1e-4 and 1.16e-3 from JAX's GSPMD
+step (the two one-device steps are 3.4e-4 and 9.6e-4 apart).
+
+Where the sums over ``"model"`` round.  JAX's compiled step all-reduces
+the straight-through input gradient of each column-parallel approximate
+projection (the FFN's in and gate) in f32, (B/2, S, D) elements, and
+casts the sum to bf16; its only bf16 sum of that size is the head's (bf16
+in the partitioned HLO, which XLA's CPU backend promotes to an f32 sum).
+The port once cast each rank's part to bf16 and reduce-scattered the
+bf16 parts, and read 5.1e-4 in grad norm, eight times JAX's: it now sums
+every column-parallel projection's input gradient in f32
+(``TensorParallel.input_grad``) and keeps bf16 only for the head's, and
+its split moves the grad norm at most ``SPLIT_VS_JAX`` times as far as
+JAX's split moves JAX's.
 
 The parameters' update is not held: AdamW's first step is lr times the
 gradient's sign, and k's bias, whose exact gradient is zero (a constant
@@ -42,10 +56,12 @@ from repro_torch.convert import train_state_from_jax
 from repro_torch.launch.mesh import spawn
 
 TOL_SPLIT = 1e-2
+SPLIT_VS_JAX = 3
 JOB = {"label": "qwen2_default_22_bf16", "arch": "qwen2-72b", "shape": [2, 2],
        "axes": ["data", "model"],
        "par": dict(fsdp=True, seq_shard=True, ep=True, remat="layer"),
-       "cfg": {"ax": "mxu", "compute_dtype": "bfloat16"}, "steps": 1, "one": True}
+       "cfg": {"ax": "mxu", "compute_dtype": "bfloat16"}, "steps": 1, "one": True,
+       "hlo": True}
 
 
 def _state(d, step, cfg):
@@ -62,13 +78,15 @@ def _under(flat, prefix):
 @pytest.fixture(scope="module")
 def steps():
     """{"port", "port_one", "jax", "jax_one"}: (metrics, parameters, first
-    moments) after the step, with "start" (the parameters before it) and
-    "replicas" (each rank's ``D.replicas_apart`` after the port's step)."""
+    moments) after the step, with "start" (the parameters before it),
+    "replicas" (each rank's ``D.replicas_apart`` after the port's step),
+    "sums" (rank 0's float sums over ranks) and "hlo" (JAX's compiled
+    all-reduces)."""
     tmp = tempfile.mkdtemp(prefix="train_bf16_")
     root = os.path.join(tmp, "jax")
     proc, log = RK.start_jax(root, [JOB], tmp)
     try:
-        four = spawn(RK.jobs_rank, 4, args=([("jax_rank", (root, [JOB]))],), device="cpu",
+        four = spawn(RK.jobs_rank, 4, args=([("sums_rank", (root, [JOB]))],), device="cpu",
                      timeout_s=RK.TIMEOUT, threads=1)
         assert proc.wait(timeout=RK.TIMEOUT) == 0, open(log).read()[-3000:]
     finally:
@@ -76,7 +94,7 @@ def steps():
             proc.kill()
     d = os.path.join(root, JOB["label"])
     cfg = RK.config(JOB["arch"], JOB["cfg"])
-    m, state, start = four[0][0][JOB["label"]]["steps"][0]
+    m, state, start = four[0][0][0][JOB["label"]]["steps"][0]
     tree, _ = train.load_tree(d, 0)
     one, m1 = train.make_train_step(cfg, ParallelConfig(remat="none"), RK.opt_cfg())(
         train_state_from_jax(tree, cfg, device="cpu"), RK.batches(cfg, 1)[0])
@@ -87,7 +105,8 @@ def steps():
                           RK.flat(one["opt"]["m"])),
                 jax=(jm,) + _state(d, 1, cfg), jax_one=(j1,) + _state(os.path.join(d, "one"), 1,
                                                                      cfg),
-                start=start, replicas=[r[0][JOB["label"]]["replicas"] for r in four])
+                start=start, replicas=[r[0][0][JOB["label"]]["replicas"] for r in four],
+                sums=four[0][0][1], hlo=json.load(open(os.path.join(d, "collectives.json"))))
 
 
 def _moment_gaps(a, b):
@@ -123,3 +142,25 @@ def test_bf16_split_replicated_leaves_stay_bit_equal_across_ranks(steps):
     for rank, reps in enumerate(steps["replicas"]):
         for apart, checked in reps:
             assert checked > 0 and apart == [], (rank, apart)
+
+
+def test_bf16_split_sums_input_gradients_in_f32_where_jax_does(steps):
+    B, D = 8, 128                                     # the global batch, the reduced width
+    resid = (16, B // 2, D)       # a (B/2, S, D) gradient reduce-scattered over seq (dim 0)
+    jax_resid = [(o["operands"], o["promoted"]) for o in steps["hlo"]
+                 if any(n == [B // 2, 16, D] for _, n in o["operands"])]
+    jax_f32 = sum(dt == "f32" and n == [B // 2, 16, D] for ops, promoted in jax_resid
+                  if not promoted for dt, n in ops)
+    jax_bf16 = sum(n == [B // 2, 16, D] for ops, promoted in jax_resid if promoted
+                   for _, n in ops)
+    assert jax_f32 >= 2 and jax_bf16 == 1, jax_resid
+    back = [(dt, via) for dt, n, via, bwd in steps["sums"] if bwd and n == resid]
+    assert all(dt == "float32" for dt, via in back if via), back
+    assert sum(via for _, via in back) >= jax_f32, back
+    assert [dt for dt, via in back if not via] == ["bfloat16"] * jax_bf16, back
+
+
+def test_bf16_split_grad_norm_moves_no_further_than_jax_gspmd(steps):
+    port = RK.rel(steps["port"][0]["grad_norm"], steps["port_one"][0]["grad_norm"])
+    jax_ = RK.rel(steps["jax"][0]["grad_norm"], steps["jax_one"][0]["grad_norm"])
+    assert port <= SPLIT_VS_JAX * jax_, (port, jax_)
