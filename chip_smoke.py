@@ -7,6 +7,7 @@
     python3 chip_smoke.py --train-nccl    # the build and the train nccl phase alone
     python3 chip_smoke.py --train-wide    # the build and the train wide phase alone
     python3 chip_smoke.py --train-ckpt    # the build and the train ckpt phase alone
+    python3 chip_smoke.py --fleet-nccl    # the build and the fleet nccl phase alone
     python3 chip_smoke.py --train-nccl --train-wide   # the build and both, in that order
 
 Phases, each of which fails the run (non-zero exit, no result line):
@@ -240,6 +241,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
             prefill and decode ms/step graph and eager, the NCCL kernels'
             share of a graph decode step, the peak a rank, the witness's
             wall and peak, each card's name and power limit;
+   fleet nccl — with four cards or more (else one line says it did not
+            run): the mesh phase's (b) on four ``nccl`` ranks, one card
+            each, over ``("data",)`` = 4, each rank a whole starcoder2-15b
+            replica at its published 40 layers (``FN_*``; 15.96 G
+            parameters, bf16, ``mxu``) made on its card from the
+            counter-addressed init (``models.registry.init_blocks``); B =
+            16 x 32 (4 rows a rank), 8 tokens, the fused adaptive serve as
+            CUDA graphs; a token drain of 32 requests over 16 slots.  Hard:
+            rank r on card r; a sample of 65536 elements of every leaf
+            bit-equal on the four ranks; the gates of (b): each rank's block
+            of the mesh tokens == its solo serve (twice) and the unrolled
+            loop over its rows, rank 0's one-process loop over all 16 rows
+            equal or diverging below ``TOL_BATCH``, every fleet record ==
+            ``combine_records`` of the four solo records, the telemetry
+            sums and max, executed launches a rank 120 + 120 x 7 (reckoned
+            from the config) for the mesh and the solo serve, a policy
+            update: 0 captures, 0 nvcc, the drain == rank 0's one-card
+            drain over 16 slots or below ``TOL_BATCH``, no retrace; the
+            launched shapes == reckoned, the new ones held to the plain
+            version; no nvcc.  Then the serve CLI's ``--fleet 4 --backend
+            nccl --token-granular`` (its own four ranks, reduced qwen2): 16
+            completions, no retrace, every replica at staleness 0 on the
+            store's version after its poll, the exports written; ``--fleet
+            1 --slots 16`` on card 0 beside it (requests with the same
+            tokens printed, not gated).  Printed: init seconds, weight and
+            code bytes and the peak a rank against the reckoning, prefill
+            and decode ms/step, ``aggregate_records`` a step (a synchronise
+            around each call; each call of the first mesh serve, then a
+            warm serve) and its share of the decode wall, the drains' walls
+            and tokens/s;
    train nccl — with four cards or more (else one line says it did not
             run): the train mesh phase's ranks (``train_mesh_rank``) over
             ``nccl`` on four ranks, one card each: layouts (a)-(d) at four
@@ -308,8 +339,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
             and range), tokens/s, the NCCL kernels' share of the profiled
             step, and the bf16 witness against the f32 one;
    train ckpt — with four cards or more (else one line says it did not
-            run): the train wide phase's qwen2-72b x6 (93.1 GB of f32
-            state whole) on JAX's default layout on (2, 2) in bf16, four
+            run): the train wide phase's qwen2-72b cut to 4 layers
+            (``TC_LAYERS``: 72.0 GB of f32 state whole, more than one card
+            holds) on JAX's default layout on (2, 2) in bf16, four
             ``nccl`` ranks, one card each, B = 4 x 256, each rank's blocks
             from ``init_train_blocks``: ``run_supervised`` of 3 steps
             uninterrupted (no checkpoint) and with a checkpoint after step
@@ -3525,17 +3557,17 @@ def _mesh_model(dev):
     return cfg, init_params(cfg, seed=0, device=dev)
 
 
-def _mesh_inputs(cfg):
-    """B = 8 seeded prompts of S tokens; 12 seeded requests (prompts of 5-32
-    tokens, budgets 1-T) for the drains."""
+def _mesh_inputs(cfg, b: int = MESH_B, n: int = MESH_N):
+    """``b`` seeded prompts of S tokens; ``n`` seeded requests (prompts of
+    5-32 tokens, budgets 1-T) for the drains."""
     import numpy as np
     import torch
 
-    prompts = torch.randint(0, cfg.vocab, (MESH_B, S),
+    prompts = torch.randint(0, cfg.vocab, (b, S),
                             generator=torch.Generator().manual_seed(1))
     rng = np.random.default_rng(19)
     trace = [(rng.integers(0, cfg.vocab, int(rng.integers(5, 33))).astype(np.int32),
-              int(rng.integers(1, T + 1))) for _ in range(MESH_N)]
+              int(rng.integers(1, T + 1))) for _ in range(n)]
     return prompts, trace
 
 
@@ -3572,15 +3604,15 @@ def _mesh_serve(params, cfg, prompts, ctrl, mesh=None, fused=True):
     return out.cpu(), stats, executed, caps
 
 
-def _mesh_drain(params, cfg, trace, ctrl, mesh=None):
-    """A token-mode drain of the requests over MESH_SLOTS slots: ({rid:
+def _mesh_drain(params, cfg, trace, ctrl, mesh=None, slots: int = MESH_SLOTS):
+    """A token-mode drain of the requests over ``slots`` slots: ({rid:
     tokens}, wall)."""
     import torch
 
     from repro_torch.fleet import BatcherConfig, ContinuousBatcher, Request
 
     bat = ContinuousBatcher(params, cfg, BatcherConfig(
-        n_slots=MESH_SLOTS, prompt_buckets=(16, 32), new_token_bucket=T, token_granular=True),
+        n_slots=slots, prompt_buckets=(16, 32), new_token_bucket=T, token_granular=True),
         adaptive=ctrl, mesh=mesh)
     for rid, (p, n) in enumerate(trace):
         bat.submit(Request(rid, p.copy(), n))
@@ -3589,7 +3621,7 @@ def _mesh_drain(params, cfg, trace, ctrl, mesh=None):
     t0 = time.perf_counter()
     done = bat.run()
     sync()
-    if sorted(c.rid for c in done) != list(range(MESH_N)) or \
+    if sorted(c.rid for c in done) != list(range(len(trace))) or \
             bat.stats["decode_retraces_post_warmup"] != 0:
         fail(f"mesh drain: completions {sorted(c.rid for c in done)}, retraces "
              f"{bat.stats['decode_retraces_post_warmup']}")
@@ -3638,18 +3670,133 @@ def _gloo_card_probe(group, dev) -> dict:
     return out
 
 
-def mesh_rank(rank, mesh, ref_drain):
-    """One of the two ``gloo`` ranks sharing the card (phase 4c): this
-    rank's solo serve of its half of the batch, the mesh serve of all of
-    it, a policy update, the 2-rank drain; rank 0 also the single-process
-    unrolled loop over the whole batch and the top-2 margins where tokens
-    differ.  Everything numpy or plain Python."""
+@contextlib.contextmanager
+def _timed_aggregate(dev):
+    """``fleet.collect.aggregate_records`` timed on the host clock, a
+    synchronise before and after each call on the card (an ``nccl``
+    collective returns before it has run): yields the list of each call's
+    seconds."""
+    import torch
+
+    from repro_torch.fleet import collect
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    each = []
+    aggregate = collect.aggregate_records
+
+    def timed(records, group=None):
+        sync()
+        t = time.perf_counter()
+        out = aggregate(records, group)
+        sync()
+        each.append(time.perf_counter() - t)
+        return out
+
+    collect.aggregate_records = timed
+    try:
+        yield each
+    finally:
+        collect.aggregate_records = aggregate
+
+
+def _fleet_telemetry(ctrl):
+    """Per target (n, sum_abs, count_neq, max_abs) of a controller's
+    telemetry."""
+    return {t: (int(x.stats.n), int(x.stats.sum_abs), int(x.stats.count_neq),
+                int(x.stats.max_abs)) for t, x in ctrl.telemetry.targets.items()}
+
+
+def _mesh_program(rank, mesh, cfg, params, prompts, trace, ref_drain=None,
+                  slots: int = MESH_SLOTS):
+    """A fleet-mesh rank's serves and drains (phases 4c (b) and 4l): this
+    rank's solo serve of its block of the batch (twice), the mesh serve of
+    all of it with ``aggregate_records`` timed (:func:`_timed_aggregate`),
+    a policy update and the mesh serve again, once more with the
+    aggregation timed (its collectives warm), the mesh drain over ``slots``
+    slots, the single-process unrolled adaptive loop over the rank's rows;
+    rank 0 also the same loop over all rows in one process, the drain of
+    the same requests over ``slots`` slots on its one card where
+    ``ref_drain`` is None, and the top-2 margins where tokens differ.  The
+    kernel shapes of the serves, the drain and rank 0's one-process runs
+    are recorded apart.  Everything numpy or plain Python."""
     import torch
 
     from repro_torch.core import SwapConfig
-    from repro_torch.fleet import collect
     from repro_torch.kernels import _build
     from repro_torch.serve import graph as G
+
+    dev = params["embed"]["w"].device
+    n_rows = prompts.shape[0] // mesh.size()
+    rows = slice(rank * n_rows, (rank + 1) * n_rows)
+    with kernel_shapes() as serve_shapes:
+        solo_c = _mesh_ctrl(cfg, dev)
+        solo = _mesh_serve(params, cfg, prompts[rows], solo_c)
+        solo_again = _mesh_serve(params, cfg, prompts[rows], _mesh_ctrl(cfg, dev))
+        mesh_c = _mesh_ctrl(cfg, dev)
+        with _timed_aggregate(dev) as agg:
+            meshed = _mesh_serve(params, cfg, prompts, mesh_c, mesh=mesh)
+        caps0, nvcc1 = sum(G.CAPTURES.values()), _build.NVCC_RUNS["count"]
+        mesh_c.policy.set_config("mlp", SwapConfig("B", 5, 1))
+        updated = _mesh_serve(params, cfg, prompts, mesh_c, mesh=mesh)
+        update = dict(captures=sum(G.CAPTURES.values()) - caps0,
+                      nvcc=_build.NVCC_RUNS["count"] - nvcc1, path=updated[1]["path"],
+                      changed=not torch.equal(updated[0], meshed[0]), stats=updated[1])
+        with _timed_aggregate(dev) as agg_warm:
+            warm = _mesh_serve(params, cfg, prompts, mesh_c, mesh=mesh)
+        # the single-process unrolled adaptive loop (stepwise, eager) over this
+        # rank's rows: the computation the rank's block of the mesh serve makes
+        unrolled = _mesh_serve(params, cfg, prompts[rows], _mesh_ctrl(cfg, dev), fused=False)
+    with kernel_shapes() as drain_shapes:
+        drain, drain_wall = _mesh_drain(params, cfg, trace, _mesh_ctrl(cfg, dev), mesh=mesh,
+                                        slots=slots)
+    res = dict(unrolled_equal=bool(torch.equal(unrolled[0], meshed[0][rows])),
+               unrolled_path=unrolled[1]["path"],
+               solo=solo[0].numpy(), solo_records=solo_c.seen, solo_exec=solo[2],
+               solo_stats=solo_again[1], solo_again=torch.equal(solo[0], solo_again[0]),
+               tokens=meshed[0].numpy(), records=mesh_c.seen[:T - 1], exec=meshed[2],
+               caps=meshed[3], stats=meshed[1], agg=agg, update=update, drain=drain,
+               agg_warm=agg_warm, warm_stats=warm[1],
+               drain_wall=drain_wall, telemetry=_fleet_telemetry(solo_c),
+               shapes={"serve": serve_shapes, "drain": drain_shapes})
+    # the fleet telemetry of the first mesh serve alone (before the update)
+    fleet = _mesh_ctrl(cfg, dev)
+    for rec in mesh_c.seen[:T - 1]:
+        fleet.observe(rec)
+    res["mesh_telemetry"] = _fleet_telemetry(fleet)
+    if rank == 0:
+        with kernel_shapes() as one_shapes:
+            # the same loop over all rows in one process: its prefill runs
+            # over every row where each rank's runs over its own
+            full = _mesh_serve(params, cfg, prompts, _mesh_ctrl(cfg, dev), fused=False)[0]
+            if ref_drain is None:
+                ref_drain, res["one_card_drain_wall"] = _mesh_drain(
+                    params, cfg, trace, _mesh_ctrl(cfg, dev), slots=slots)
+                res["one_card_drain"] = ref_drain
+        res["shapes"]["one"] = one_shapes
+        res["unrolled"] = full.numpy()
+        res["margins"] = {}
+        for b in range(prompts.shape[0]):
+            j = _first_gap(meshed[0][b].tolist(), full[b].tolist())
+            if j is not None:
+                seq = torch.cat([prompts[b], full[b, :j]]).to(dev)
+                res["margins"][f"serve {b}"] = (j, _margin(params, cfg, seq))
+        for rid, want in ref_drain.items():
+            j = _first_gap(drain[rid], want)
+            if j is not None:
+                seq = torch.tensor(list(trace[rid][0]) + want[:j], device=dev)
+                res["margins"][f"drain {rid}"] = (j, _margin(params, cfg, seq))
+    G.clear_programs()
+    return res
+
+
+def mesh_rank(rank, mesh, ref_drain):
+    """One of the two ``gloo`` ranks sharing the card (phase 4c): the
+    card probe, then :func:`_mesh_program` over the serve's model with the
+    parent's one-rank drain as the reference.  Everything numpy or plain
+    Python."""
+    import torch
+
+    from repro_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3663,74 +3810,76 @@ def mesh_rank(rank, mesh, ref_drain):
     init_s = time.perf_counter() - t0
     probe = _gloo_card_probe(mesh.get_group("data"), dev)
     prompts, trace = _mesh_inputs(cfg)
-    half = MESH_B // MESH_RANKS
-    rows = slice(rank * half, (rank + 1) * half)
-    solo_c = _mesh_ctrl(cfg, dev)
-    solo = _mesh_serve(params, cfg, prompts[rows], solo_c)
-    solo_again = _mesh_serve(params, cfg, prompts[rows], _mesh_ctrl(cfg, dev))
-    # the collectives' share of the observed steps: host wall of aggregate_records
-    agg = {"s": 0.0, "calls": 0}
-    aggregate = collect.aggregate_records
-
-    def timed(records, group=None):
-        t = time.perf_counter()
-        out = aggregate(records, group)
-        agg["s"] += time.perf_counter() - t
-        agg["calls"] += 1
-        return out
-
-    collect.aggregate_records = timed
-    mesh_c = _mesh_ctrl(cfg, dev)
-    meshed = _mesh_serve(params, cfg, prompts, mesh_c, mesh=mesh)
-    collect.aggregate_records = aggregate
-    caps0, nvcc1 = sum(G.CAPTURES.values()), _build.NVCC_RUNS["count"]
-    mesh_c.policy.set_config("mlp", SwapConfig("B", 5, 1))
-    updated = _mesh_serve(params, cfg, prompts, mesh_c, mesh=mesh)
-    update = dict(captures=sum(G.CAPTURES.values()) - caps0,
-                  nvcc=_build.NVCC_RUNS["count"] - nvcc1, path=updated[1]["path"],
-                  changed=not torch.equal(updated[0], meshed[0]))
-    drain, drain_wall = _mesh_drain(params, cfg, trace, _mesh_ctrl(cfg, dev), mesh=mesh)
-    # the single-process unrolled adaptive loop (stepwise, eager) over this
-    # rank's rows: the computation the rank's block of the mesh serve makes
-    unrolled = _mesh_serve(params, cfg, prompts[rows], _mesh_ctrl(cfg, dev), fused=False)
-    res = dict(probe=probe, unrolled_equal=bool(torch.equal(unrolled[0], meshed[0][rows])),
-               unrolled_path=unrolled[1]["path"], init_s=init_s, nvcc=_build.NVCC_RUNS["count"] - nvcc0,
-               solo=solo[0].numpy(), solo_records=solo_c.seen, solo_exec=solo[2],
-               solo_stats=solo_again[1], solo_again=torch.equal(solo[0], solo_again[0]),
-               tokens=meshed[0].numpy(), records=mesh_c.seen[:T - 1], exec=meshed[2],
-               caps=meshed[3], stats=meshed[1], agg=agg, update=update, drain=drain,
-               drain_wall=drain_wall,
-               telemetry={t: (int(x.stats.n), int(x.stats.sum_abs), int(x.stats.count_neq),
-                              int(x.stats.max_abs))
-                          for t, x in solo_c.telemetry.targets.items()},
-               mesh_telemetry=None)
-    # the fleet telemetry of the first mesh serve alone (before the update)
-    fleet = _mesh_ctrl(cfg, dev)
-    for rec in mesh_c.seen[:T - 1]:
-        fleet.observe(rec)
-    res["mesh_telemetry"] = {t: (int(x.stats.n), int(x.stats.sum_abs), int(x.stats.count_neq),
-                                 int(x.stats.max_abs))
-                             for t, x in fleet.telemetry.targets.items()}
-    if rank == 0:
-        # the same loop over all 8 rows in one process: its prefill runs over
-        # 8 rows where each rank's runs over 4
-        full = _mesh_serve(params, cfg, prompts, _mesh_ctrl(cfg, dev), fused=False)[0]
-        res["unrolled"] = full.numpy()
-        res["margins"] = {}
-        for b in range(MESH_B):
-            j = _first_gap(meshed[0][b].tolist(), full[b].tolist())
-            if j is not None:
-                seq = torch.cat([prompts[b], full[b, :j]]).to(dev)
-                res["margins"][f"serve {b}"] = (j, _margin(params, cfg, seq))
-        for rid, want in ref_drain.items():
-            j = _first_gap(drain[rid], want)
-            if j is not None:
-                seq = torch.tensor(list(trace[rid][0]) + want[:j], device=dev)
-                res["margins"][f"drain {rid}"] = (j, _margin(params, cfg, seq))
-    from repro_torch.serve import graph as G2
-
-    G2.clear_programs()
+    res = _mesh_program(rank, mesh, cfg, params, prompts, trace, ref_drain)
+    res.update(probe=probe, init_s=init_s, nvcc=_build.NVCC_RUNS["count"] - nvcc0)
     return res
+
+
+def _agg_walls(r) -> tuple:
+    """A rank's ``aggregate_records`` walls (:func:`_mesh_program`): (ms a
+    call, share of the decode wall, first call's ms) of its first mesh
+    serve, and (ms a call, share) of its timed later serve."""
+    out = []
+    for each, stats in ((r["agg"], r["stats"]), (r["agg_warm"], r["warm_stats"])):
+        out.append((1e3 * sum(each) / max(len(each), 1),
+                    sum(each) / stats["decode_s"] if stats["decode_s"] else float("nan"),
+                    1e3 * each[0] if each else float("nan")))
+    return out[0], out[1][:2]
+
+
+def _mesh_problems(res, want_exec, ref_drain):
+    """The gates that hold a fleet mesh's ranks (the results of
+    :func:`_mesh_program`) to their solo serves, the unrolled loop,
+    ``combine_records`` and the one-card drain: (problems, the solo
+    telemetry's sums and max per target, requests equal to the one-card
+    drain, rows equal to rank 0's one-process loop)."""
+    import numpy as np
+
+    from repro_torch.runtime.telemetry import combine_records
+
+    problems = []
+    r0 = res[0]
+    for rank, r in enumerate(res):
+        if r["nvcc"] != 0:
+            problems.append(f"rank {rank}: {r['nvcc']} nvcc runs")
+        if not r["solo_again"]:
+            problems.append(f"rank {rank}: two solo serves differ")
+        if not r["unrolled_equal"] or r["unrolled_path"] != "eager":
+            problems.append(f"rank {rank}: its rows differ from the unrolled loop over them "
+                            f"(path {r['unrolled_path']})")
+        if r["stats"]["path"] != "graph" or r["solo_stats"]["path"] != "graph":
+            problems.append(f"rank {rank}: paths {r['stats']['path']}/{r['solo_stats']['path']}")
+        if r["exec"] != r["solo_exec"] or r["exec"] != want_exec:
+            problems.append(f"rank {rank}: executed {r['exec']}, solo {r['solo_exec']}, "
+                            f"want {want_exec}")
+        if not np.array_equal(r["tokens"], r0["tokens"]):
+            problems.append(f"rank {rank}: tokens differ from rank 0's")
+        u = r["update"]
+        if u["captures"] or u["nvcc"] or u["path"] != "graph":
+            problems.append(f"rank {rank}: policy update {u}")
+    if not np.array_equal(r0["tokens"], np.concatenate([r["solo"] for r in res])):
+        problems.append("mesh tokens differ from the ranks' solo serves")
+    for i in range(T - 1):
+        want = combine_records([r["solo_records"][i] for r in res])
+        if not all(_records_equal(r["records"][i], want) for r in res):
+            problems.append(f"step {i}: fleet records differ from combine_records")
+    sums = {}
+    for t in r0["telemetry"]:
+        solo_t = [r["telemetry"][t] for r in res]
+        sums[t] = (sum(s[0] for s in solo_t), sum(s[1] for s in solo_t),
+                   sum(s[2] for s in solo_t), max(s[3] for s in solo_t))
+        if any(r["mesh_telemetry"][t] != sums[t] for r in res):
+            problems.append(f"{t}: fleet telemetry {r0['mesh_telemetry'][t]} != solo "
+                            f"sums {sums[t]}")
+    drain_eq = sum(r0["drain"][rid] == ref_drain[rid] for rid in ref_drain)
+    if any(r["drain"] != r0["drain"] for r in res):
+        problems.append("the ranks' drains differ")
+    serve_eq = int(sum(np.array_equal(r0["tokens"][b], r0["unrolled"][b])
+                       for b in range(len(r0["tokens"]))))
+    bad_margins = {k: v for k, v in r0["margins"].items() if v[1] >= TOL_BATCH}
+    if bad_margins:
+        problems.append(f"divergences at top-2 margins >= {TOL_BATCH}: {bad_margins}")
+    return problems, sums, drain_eq, serve_eq
 
 
 def mesh_phase(dev, card: str):
@@ -3738,12 +3887,10 @@ def mesh_phase(dev, card: str):
     process, (b) two ``gloo`` ranks spawned on the card while this process
     holds no model.  Returns the executed launches of its paths and the
     phase's walls."""
-    import numpy as np
     import torch
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_fleet_mesh, spawn
-    from repro_torch.runtime.telemetry import combine_records
     from repro_torch.serve import graph as G
 
     # (a) one nccl rank: the mesh path against the same serve without one
@@ -3795,59 +3942,17 @@ def mesh_phase(dev, card: str):
     phase_b = time.perf_counter() - t_b
     r0 = res[0]
     print(f"mesh (b) gloo with card tensors: {r0['probe']}", flush=True)
-    problems = []
-    for rank, r in enumerate(res):
-        if r["nvcc"] != 0:
-            problems.append(f"rank {rank}: {r['nvcc']} nvcc runs")
-        if not r["solo_again"]:
-            problems.append(f"rank {rank}: two solo serves differ")
-        if not r["unrolled_equal"] or r["unrolled_path"] != "eager":
-            problems.append(f"rank {rank}: its rows differ from the unrolled loop over them "
-                            f"(path {r['unrolled_path']})")
-        if r["stats"]["path"] != "graph" or r["solo_stats"]["path"] != "graph":
-            problems.append(f"rank {rank}: paths {r['stats']['path']}/{r['solo_stats']['path']}")
-        if r["exec"] != r["solo_exec"] or r["exec"] != want_exec:
-            problems.append(f"rank {rank}: executed {r['exec']}, solo {r['solo_exec']}, "
-                            f"want {want_exec}")
-        if not np.array_equal(r["tokens"], res[0]["tokens"]):
-            problems.append(f"rank {rank}: tokens differ from rank 0's")
-        u = r["update"]
-        if u["captures"] or u["nvcc"] or u["path"] != "graph":
-            problems.append(f"rank {rank}: policy update {u}")
-    tokens = r0["tokens"]
+    problems, sums, drain_eq, serve_eq = _mesh_problems(res, want_exec, ref_drain)
     half = MESH_B // MESH_RANKS
-    solo_tok = np.concatenate([r["solo"] for r in res])
-    if not np.array_equal(tokens, solo_tok):
-        problems.append("mesh tokens differ from the ranks' solo serves")
-    for i in range(T - 1):
-        want = combine_records([r["solo_records"][i] for r in res])
-        if not all(_records_equal(r["records"][i], want) for r in res):
-            problems.append(f"step {i}: fleet records differ from combine_records")
-    sums = {}
-    for t in r0["telemetry"]:
-        solo_t = [r["telemetry"][t] for r in res]
-        sums[t] = (sum(s[0] for s in solo_t), sum(s[1] for s in solo_t),
-                   sum(s[2] for s in solo_t), max(s[3] for s in solo_t))
-        if any(r["mesh_telemetry"][t] != sums[t] for r in res):
-            problems.append(f"{t}: fleet telemetry {r0['mesh_telemetry'][t]} != solo "
-                            f"sums {sums[t]}")
-    drain_eq = sum(r0["drain"][rid] == ref_drain[rid] for rid in ref_drain)
-    if any(r["drain"] != r0["drain"] for r in res):
-        problems.append("the ranks' drains differ")
-    serve_eq = int(sum(np.array_equal(tokens[b], r0["unrolled"][b]) for b in range(MESH_B)))
-    bad_margins = {k: v for k, v in r0["margins"].items() if v[1] >= TOL_BATCH}
-    if bad_margins:
-        problems.append(f"divergences at top-2 margins >= {TOL_BATCH}: {bad_margins}")
     if problems:
         fail("mesh (b) two gloo ranks: " + "; ".join(problems))
     stats = r0["stats"]
-    agg = r0["agg"]
-    share = agg["s"] / stats["decode_s"] if stats["decode_s"] else float("nan")
+    agg, warm = _agg_walls(r0)
     two = dict(serve_ms=(stats["prefill_s"] + stats["decode_s"]) * 1e3,
                solo_ms=(r0["solo_stats"]["prefill_s"] + r0["solo_stats"]["decode_s"]) * 1e3,
                decode_ms_step=stats["decode_s"] * 1e3 / (T - 1),
-               agg_ms=agg["s"] * 1e3 / max(agg["calls"], 1), agg_share=share,
-               drain_s=r0["drain_wall"], init_s=r0["init_s"])
+               agg_ms=agg[0], agg_share=agg[1], agg_first_ms=agg[2], agg_warm_ms=warm[0],
+               agg_warm_share=warm[1], drain_s=r0["drain_wall"], init_s=r0["init_s"])
     print(f"mesh (b) two gloo ranks on one card, B={MESH_B} ({half} per rank): mesh tokens "
           f"== the ranks' solo serves and == the single-process unrolled adaptive loop over "
           f"each rank's rows (bit for bit); the same loop over all {MESH_B} rows in one "
@@ -3863,7 +3968,9 @@ def mesh_phase(dev, card: str):
           f"(b) per rank: model init {two['init_s']:.1f} s, mesh serve {two['serve_ms']:.1f} ms "
           f"(solo half batch {two['solo_ms']:.1f} ms), decode {two['decode_ms_step']:.2f} "
           f"ms/step, aggregate_records {two['agg_ms']:.2f} ms per observed step = "
-          f"{100 * share:.1f}% of the decode wall, drain {two['drain_s']:.3f} s (a capture "
+          f"{100 * two['agg_share']:.1f}% of the decode wall (its first call "
+          f"{two['agg_first_ms']:.2f} ms; in a later serve {two['agg_warm_ms']:.2f} ms = "
+          f"{100 * two['agg_warm_share']:.1f}%), drain {two['drain_s']:.3f} s (a capture "
           f"included); phase (a) "
           f"{phase_a:.1f} s, (b) {phase_b:.1f} s incl. spawn [{card}]", flush=True)
     paths = {"mesh 1-rank nccl": want_exec["ax_matmul"],
@@ -4795,13 +4902,13 @@ TW_METRICS = ("loss", "ce", "grad_norm")
 TOL_TW_BF16_SPLIT = 1e-3
 
 
-def _tw_config(dtype: str = "bfloat16"):
-    """qwen2-72b at its published widths, ``TW_LAYERS`` deep, SWAPPER
-    ``mxu`` (``mul8s_trunc0_4``), f32 weights, ``dtype`` compute."""
+def _tw_config(dtype: str = "bfloat16", layers: int = TW_LAYERS):
+    """qwen2-72b at its published widths, ``layers`` deep, SWAPPER ``mxu``
+    (``mul8s_trunc0_4``), f32 weights, ``dtype`` compute."""
     from repro_torch.configs import qwen2_72b
     from repro_torch.configs.base import AxPolicy
 
-    return dataclasses.replace(qwen2_72b, n_layers=TW_LAYERS, compute_dtype=dtype,
+    return dataclasses.replace(qwen2_72b, n_layers=layers, compute_dtype=dtype,
                                ax=AxPolicy(backend="mxu"))
 
 
@@ -5317,6 +5424,10 @@ def train_wide_phase(dev, card: str, clock: float, held=()):
 
 # run_supervised: 3 steps, a checkpoint after step 2, a crash before step 3
 TC_STEPS, TC_EVERY, TC_CRASH = 3, 2, 2
+# the train wide model's depth here: its f32 state, 72.0 GB whole at 4 layers,
+# still fits no card beside a rank's blocks, and the save and the restores
+# scale with its bytes (the four-card script's time limit)
+TC_LAYERS = 4
 TC_TIMEOUT = 900                         # seconds for the four ranks
 TC_RSS_S = 0.05                          # each rank's VmRSS read every 50 ms
 TC_DISK = 1.1                            # the free disk a save needs: the reckoned file + 10%
@@ -5393,8 +5504,8 @@ def _tc_samples(state, spec_of, mesh, whole):
 
 def train_ckpt_rank(rank, _fleet, backend, ckpt_dir):
     """One of the four ranks of the train ckpt phase, one card each:
-    qwen2-72b x6 on JAX's default layout on (2, 2) in bf16 (the train wide
-    phase's e), each rank's blocks from ``init_train_blocks``:
+    qwen2-72b x``TC_LAYERS`` on JAX's default layout on (2, 2) in bf16 (the
+    train wide phase's e), each rank's blocks from ``init_train_blocks``:
     ``run_supervised`` of ``TC_STEPS`` steps uninterrupted (no checkpoint;
     its final blocks kept on the host), then with a checkpoint after step
     ``TC_EVERY`` (the sharded save) and a crash before step ``TC_CRASH +
@@ -5426,7 +5537,7 @@ def train_ckpt_rank(rank, _fleet, backend, ckpt_dir):
     nvcc0 = _build.NVCC_RUNS["count"]
     opt = _tw_opt()
     (_, shape, axes, par, dtype), (_, shape4, axes4, par4, dtype4) = _tw_layouts()[:2]
-    cfg, cfg4 = _tw_config(dtype), _tw_config(dtype4)
+    cfg, cfg4 = _tw_config(dtype, TC_LAYERS), _tw_config(dtype4, TC_LAYERS)
     whole = _tc_state_shapes(cfg, opt)
     mesh = make_mesh(shape, axes, device=dev.type, backend=backend)
     specs = D.state_specs(cfg, opt, mesh, par)
@@ -5573,7 +5684,8 @@ def _tc_disk():
 
 def train_ckpt_phase(dev, card: str, clock: float, held=()):
     """Phase 4k (module note): with four cards or more, the train wide
-    phase's qwen2-72b x6 on JAX's default layout over four ``nccl`` ranks
+    phase's qwen2-72b at ``TC_LAYERS`` layers on JAX's default layout over
+    four ``nccl`` ranks
     (:func:`train_ckpt_rank`): a supervised run with a sharded checkpoint,
     a crash and a resume against the uninterrupted run, and the elastic
     restore onto a4.  The checkpoint lives in a fresh temporary directory
@@ -5595,7 +5707,7 @@ def train_ckpt_phase(dev, card: str, clock: float, held=()):
         return None
     cards = smi_all("name,power.limit")
     opt, layouts = _tw_opt(), _tw_layouts()[:2]
-    cfg = _tw_config()
+    cfg = _tw_config(layers=TC_LAYERS)
     whole = _tc_state_shapes(cfg, opt)
     state_bytes = sum(b for *_, b in whole.values())
     largest = max(b for *_, b in whole.values())
@@ -7394,6 +7506,275 @@ def tp_full_phase(dev, card: str, clock: float, held=(), held_grid=()):
             {label: g0["launches"]["ax_matmul_grid"]})
 
 
+# ---------------------------------------------------------------------------
+# phase 4l: the fleet mesh over nccl, one whole replica a card
+# ---------------------------------------------------------------------------
+
+FN_B, FN_SLOTS, FN_N = 16, 16, 32        # serve rows, drain slots (4 a rank each), requests
+FN_TIMEOUT = 900                         # seconds for the four ranks
+FN_CLI_REQUESTS = 16
+
+
+def _fn_config():
+    """starcoder2-15b at its published 40 layers and widths, ``mxu`` (route
+    T of ``mul8s_trunc0_4`` on ``mlp`` and ``attn_out``), bf16 weights and
+    compute (the config's f32 weights alone would take 63.8 GB a card)."""
+    from repro_torch.configs import starcoder2_15b
+    from repro_torch.configs.base import AxPolicy
+
+    return dataclasses.replace(starcoder2_15b, param_dtype="bfloat16",
+                               ax=AxPolicy(backend="mxu"))
+
+
+def _fn_reckon(cfg) -> dict:
+    """A replica's parameters (G) and the GB a rank holds, reckoned from
+    the config: its bf16 weights and the int8 codes of its approximate
+    projections (one byte a weight, ``quant.ax.weight_codes``)."""
+    from repro_torch.launch.mesh import tree_paths
+    from repro_torch.models import init_params, transformer
+
+    p = sum(t.numel() for t in tree_paths(init_params(cfg, device="meta"))[1])
+    codes = sum(K * N for _, _, K, N in transformer.ax_projections(cfg))
+    return dict(params_g=p / 1e9, weights_gb=2 * p / 1e9, codes_gb=codes / 1e9,
+                peak_gb=(2 * p + codes) / 1e9)
+
+
+def _fn_shapes(cfg, Ms, grid_Ms) -> tuple:
+    """({(M, K, N): label} of ``ax_matmul`` at the row counts ``Ms``, of
+    ``ax_matmul_grid`` at ``grid_Ms``), reckoned from the config."""
+    return (family_kernel_shapes(cfg, f"{cfg.name} fleet nccl", Ms),
+            family_kernel_shapes(cfg, f"{cfg.name} fleet nccl decode", grid_Ms))
+
+
+def fleet_nccl_rank(rank, mesh):
+    """One of the four ranks of the fleet nccl phase, one card each, on the
+    spawned world's fleet mesh: the whole starcoder2-15b replica made on
+    the rank's card from the counter-addressed init
+    (``models.registry.init_blocks``), a seeded sample of every leaf's
+    bits, then :func:`_mesh_program` over ``FN_B`` rows and ``FN_N``
+    requests on ``FN_SLOTS`` slots.  Everything numpy or plain Python."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import tree_paths
+    from repro_torch.models.registry import init_blocks
+    from repro_torch.quant.ax import weight_cache_payloads
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = (torch.device("cuda", torch.cuda.current_device()) if mesh.device_type == "cuda"
+           else torch.device("cpu"))
+    nvcc0 = _build.NVCC_RUNS["count"]
+    cfg = _fn_config()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_blocks(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    paths, leaves = tree_paths(params)
+    samples = {p: _digest(w.reshape(-1)[torch.as_tensor(_tw_sample(p, tuple(w.shape)),
+                                                          device=dev)])
+               for p, w in zip(paths, leaves)}
+    prompts, trace = _mesh_inputs(cfg, FN_B, FN_N)
+    res = _mesh_program(rank, mesh, cfg, params, prompts, trace, slots=FN_SLOTS)
+    res.update(device=str(dev), init_s=init_s, samples=samples,
+               weight_gb=sum(w.numel() * w.element_size() for w in leaves) / 1e9,
+               codes_gb=sum(t.numel() * t.element_size()
+                            for t in weight_cache_payloads(leaves)) / 1e9,
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               nvcc=_build.NVCC_RUNS["count"] - nvcc0)
+    return res
+
+
+def _fn_cli(dev, tmp: str):
+    """The serve CLI's ``--fleet 4`` over the card's backend (its own four
+    spawned ranks, one card each, reduced qwen2), then ``--fleet 1
+    --slots 16`` over the same requests in this process: (problems, the
+    summary of rank 0, its completions, the one-rank completions, the
+    walls)."""
+    from repro_torch.launch.mesh import default_backend
+    from repro_torch.launch.serve import main as serve_main
+
+    common = ["--smoke", "--ax", "--token-granular", "--requests", str(FN_CLI_REQUESTS)] + (
+        ["--device", "cpu"] if dev.type == "cpu" else [])
+    obs_dir = os.path.join(tmp, "obs")
+    t0 = time.perf_counter()
+    summary, done4 = serve_main(common + [
+        "--fleet", str(FOUR_CARDS), "--backend", default_backend(dev), "--obs-dir", obs_dir,
+        "--policy-store", os.path.join(tmp, "store4"), "--world-timeout", str(FN_TIMEOUT)])
+    t1 = time.perf_counter()
+    bat1, done1 = serve_main(common + ["--fleet", "1", "--slots", str(FN_CLI_REQUESTS),
+                                       "--policy-store", os.path.join(tmp, "store1")])
+    t2 = time.perf_counter()
+    problems = []
+    rids = sorted(c.rid for c in done4)
+    if rids != list(range(FN_CLI_REQUESTS)) or summary["stats"]["decode_retraces_post_warmup"]:
+        problems.append(f"CLI --fleet {FOUR_CARDS}: completions {rids}, retraces "
+                        f"{summary['stats']['decode_retraces_post_warmup']}")
+    rep = summary["replicas"]
+    if len(rep["after"]) != FOUR_CARDS or any(s != 0 or v != rep["version"]
+                                               for v, s in rep["after"]):
+        problems.append(f"CLI --fleet {FOUR_CARDS}: replicas after their poll {rep['after']}, "
+                        f"the store at v{rep['version']}")
+    missing = [f for f in ("trace.json", "metrics.prom", "metrics.jsonl")
+               if not os.path.isfile(os.path.join(obs_dir, f))]
+    if missing:
+        problems.append(f"CLI --fleet {FOUR_CARDS}: exports missing {missing}")
+    if sorted(c.rid for c in done1) != list(range(FN_CLI_REQUESTS)):
+        problems.append(f"CLI --fleet 1: completions {sorted(c.rid for c in done1)}")
+    return problems, summary, done4, done1, (t1 - t0, t2 - t1)
+
+
+def fleet_nccl_phase(dev, card: str, clock: float, held=(), held_grid=()):
+    """Phase 4l (module note): with four cards or more, the fleet mesh of
+    phase 4c (b) over ``nccl`` on four ranks, one card each, each rank a
+    whole starcoder2-15b replica at its published 40 layers
+    (:func:`fleet_nccl_rank`), held to the gates of phase 4c (b) and to
+    the shapes reckoned from the config; then the serve CLI's ``--fleet
+    4`` over ``nccl`` (:func:`_fn_cli`).  ``held``, ``held_grid``: the (M,
+    K, N) of ``ax_matmul`` and ``ax_matmul_grid`` held to the plain version
+    in this run already.  Returns (row, ``ax_matmul`` shape rows,
+    ``ax_matmul_grid`` shape rows, launches by path, grid launches by
+    path), or None with fewer cards."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.mesh import default_backend, spawn
+    from repro_torch.models import transformer
+
+    if not _four_cards("fleet nccl"):
+        return None
+    t_phase = time.perf_counter()
+    cards = smi_all("name,power.limit")
+    cfg = _fn_config()
+    reckon = _fn_reckon(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    backend = default_backend(dev)
+    res = spawn(fleet_nccl_rank, FOUR_CARDS, device=dev.type, backend=backend,
+                timeout_s=FN_TIMEOUT)
+    ranks_s = time.perf_counter() - t0
+    r0 = res[0]
+    n_ax = len(transformer.ax_projections(cfg))
+    want_exec = {"ax_matmul": n_ax, "ax_matmul_grid": n_ax * (T - 1)}
+    ref_drain = r0["one_card_drain"]
+    problems, sums, drain_eq, serve_eq = _mesh_problems(res, want_exec, ref_drain)
+    rows = FN_B // FOUR_CARDS
+    buckets = [FN_SLOTS * b for b in (16, 32)]          # admissions prefill over the slots
+    reck = {"serve": _fn_shapes(cfg, (rows * S,), (rows,)),
+            "drain": _fn_shapes(cfg, buckets, (rows,)),
+            "one": _fn_shapes(cfg, [FN_B * S] + buckets, (FN_B, FN_SLOTS))}
+    for rank, r in enumerate(res):
+        if dev.type == "cuda" and r["device"] != f"cuda:{rank}":
+            problems.append(f"rank {rank} ran on {r['device']}")
+        apart = [p for p in r0["samples"] if r["samples"].get(p) != r0["samples"][p]]
+        if apart or len(r["samples"]) != len(r0["samples"]):
+            problems.append(f"rank {rank}: sampled leaves apart from rank 0's: {apart[:6]}")
+        if r["shapes"]["serve"] != dict(zip(("ax_matmul", "ax_matmul_grid"),
+                                            map(set, reck["serve"]))):
+            problems.append(f"rank {rank}: serve kernel shapes {r['shapes']['serve']}, "
+                            f"reckoned {reck['serve']}")
+    drained = {k: set().union(*(r["shapes"]["drain"][k] for r in res))
+               for k in ("ax_matmul", "ax_matmul_grid")}
+    for part, got in (("drain", drained), ("one", r0["shapes"]["one"])):
+        if got != dict(zip(("ax_matmul", "ax_matmul_grid"), map(set, reck[part]))):
+            problems.append(f"{part} kernel shapes {got}, reckoned {reck[part]}")
+    n_leaves = len(r0["samples"])
+    upd = r0["update"]["stats"]
+    walls = [_agg_walls(r) for r in res]
+    f2 = (lambda xs: ", ".join(f"{x:.2f}" for x in xs))  # noqa: E731
+    pct = (lambda xs: ", ".join(f"{100 * x:.1f}%" for x in xs))  # noqa: E731
+    drain_tok = sum(len(v) for v in r0["drain"].values())
+    row = dict(
+        layers=cfg.n_layers, reckoned=reckon, init_s=[r["init_s"] for r in res],
+        weight_gb=[r["weight_gb"] for r in res], codes_gb=[r["codes_gb"] for r in res],
+        peak_gb=[r["peak_gb"] for r in res], leaves=n_leaves,
+        launches=want_exec, prefill_ms=1e3 * upd["prefill_s"],
+        decode_ms=[1e3 * r["update"]["stats"]["decode_s"] / (T - 1) for r in res],
+        solo_decode_ms=[1e3 * r["solo_stats"]["decode_s"] / (T - 1) for r in res],
+        timed_decode_ms=[1e3 * r["stats"]["decode_s"] / (T - 1) for r in res],
+        warm_decode_ms=[1e3 * r["warm_stats"]["decode_s"] / (T - 1) for r in res],
+        agg_ms=[w[0][0] for w in walls], agg_share=[w[0][1] for w in walls],
+        agg_first_ms=[w[0][2] for w in walls],
+        agg_calls_ms=[[1e3 * x for x in r["agg"]] for r in res],
+        agg_warm_ms=[w[1][0] for w in walls], agg_warm_share=[w[1][1] for w in walls],
+        drain_s=[r["drain_wall"] for r in res], one_card_drain_s=r0["one_card_drain_wall"],
+        drain_tokens=drain_tok, serve_equal=serve_eq, drain_equal=drain_eq,
+        margins=dict(r0["margins"]), ranks_s=ranks_s, cards=cards)
+    print(f"fleet nccl {cfg.name} x{cfg.n_layers} ({reckon['params_g']:.2f} G parameters, bf16, "
+          f"mxu route T) on {FOUR_CARDS} nccl ranks, one whole replica a card, ('data',) = "
+          f"{FOUR_CARDS}: each rank made its replica (models.registry.init_blocks) in "
+          f"{f2(row['init_s'])} s, {f2(row['weight_gb'])} GB of weights and {f2(row['codes_gb'])} "
+          f"GB of int8 codes a rank (reckoned {reckon['weights_gb']:.2f} + "
+          f"{reckon['codes_gb']:.2f}), peak allocated {f2(row['peak_gb'])} GB (reckoned "
+          f"{reckon['peak_gb']:.2f}); a sample of {TW_SAMPLE} elements of each of the {n_leaves} "
+          f"leaves bit-equal on the four ranks [{'; '.join(cards)}]", flush=True)
+    print(f"fleet nccl: B={FN_B} x {S} ({rows} rows a rank), {T} tokens, fused adaptive serve "
+          f"as CUDA graphs: mesh tokens == each rank's solo serve of its rows (twice) and == "
+          f"the single-process unrolled adaptive loop over them (bit for bit); the same loop "
+          f"over all {FN_B} rows in one process gives {serve_eq} of {FN_B} rows (the rest "
+          f"diverge at top-2 margins "
+          f"{ {k: round(v[1], 4) for k, v in r0['margins'].items() if k.startswith('serve')} } "
+          f"< {TOL_BATCH}); {T - 1} fleet records == combine_records of the four solo records "
+          f"on every rank; telemetry (n, sum_abs, count_neq, max_abs) == the solo sums/max "
+          f"{sums}; executed launches a rank {r0['exec']} == the solo serve's; a policy update: "
+          f"captures 0, nvcc 0; {FOUR_CARDS}-rank drain of {FN_N} requests over {FN_SLOTS} "
+          f"slots == rank 0's one-card drain on {drain_eq} of {FN_N} requests (the rest below "
+          f"the margin bound) [{card}]", flush=True)
+    print(f"fleet nccl walls: prefill {row['prefill_ms']:.1f} ms; decode ms/step as graph "
+          f"replays {f2(row['decode_ms'])} (ranks 0-3; solo serves of 4 rows "
+          f"{f2(row['solo_decode_ms'])}); aggregate_records (a synchronise before and after "
+          f"each call): the first mesh serve {f2(row['agg_ms'])} ms per observed step = "
+          f"{pct(row['agg_share'])} of its decode wall ({f2(row['timed_decode_ms'])} ms/step; "
+          f"rank 0's calls {f2(row['agg_calls_ms'][0])} ms), a later mesh serve "
+          f"{f2(row['agg_warm_ms'])} ms = {pct(row['agg_warm_share'])} of its decode wall "
+          f"({f2(row['warm_decode_ms'])} ms/step; phase 4c (b) prints the same for two gloo "
+          f"ranks sharing one card); drain {f2(row['drain_s'])} s, {drain_tok} tokens, "
+          f"{drain_tok / max(row['drain_s']):.1f} tokens/s, against rank 0's one-card drain "
+          f"{row['one_card_drain_s']:.3f} s, {drain_tok / row['one_card_drain_s']:.1f} tokens/s "
+          f"(a capture in each); the ranks {ranks_s:.1f} s with the spawn [{card}]", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_nccl_") as tmp:
+        cli_problems, summary, done4, done1, cli_s = _fn_cli(dev, tmp)
+    problems += cli_problems
+    one = {c.rid: c.tokens.tolist() for c in done1}
+    same = sum(one.get(c.rid) == c.tokens.tolist() for c in done4)
+    row.update(cli_s=cli_s, cli_replicas=summary["replicas"], cli_same=same)
+    print(f"fleet nccl: the serve CLI --smoke --ax --fleet {FOUR_CARDS} --backend {backend} "
+          f"--token-granular ({FOUR_CARDS} spawned ranks, one card each): "
+          f"{len(done4)} requests, decode_retraces_post_warmup "
+          f"{summary['stats']['decode_retraces_post_warmup']}, replicas (version, staleness) "
+          f"after their poll {summary['replicas']['after']} on store v"
+          f"{summary['replicas']['version']}, exports written; {cli_s[0]:.1f} s; --fleet 1 "
+          f"--slots {FN_CLI_REQUESTS} on card 0 ({cli_s[1]:.1f} s) gives the same tokens on "
+          f"{same} of {FN_CLI_REQUESTS} requests (not gated: the fleet's re-tunes read four "
+          f"ranks' samples) [{card}]", flush=True)
+    if problems:
+        fail("fleet nccl: " + "; ".join(problems))
+    held, held_grid = set(held), set(held_grid)
+    every = {k: {} for k in ("ax_matmul", "ax_matmul_grid")}
+    for ax, grid in reck.values():
+        every["ax_matmul"].update(ax)
+        every["ax_matmul_grid"].update(grid)
+    shapes = [(lb,) + k for k, lb in sorted(every["ax_matmul"].items()) if k not in held]
+    grid = [(lb,) + k for k, lb in sorted(every["ax_matmul_grid"].items()) if k not in held_grid]
+    print(f"fleet nccl: {len(every['ax_matmul']) - len(shapes)} of {len(every['ax_matmul'])} "
+          f"ax_matmul and {len(every['ax_matmul_grid']) - len(grid)} of "
+          f"{len(every['ax_matmul_grid'])} ax_matmul_grid shapes held to the plain version "
+          f"earlier in this run", flush=True)
+    shape_rows = main_shape_checks(dev, card, clock, grid_kernel=False, shapes=shapes) \
+        if shapes else []
+    grid_rows = main_shape_checks(dev, card, clock, grid_kernel=True, shapes=grid) \
+        if grid else []
+    row["phase_s"] = time.perf_counter() - t_phase
+    print(f"fleet nccl: the phase {row['phase_s']:.1f} s [{card}]", flush=True)
+    label = f"fleet nccl {cfg.name} x{cfg.n_layers} (rank 0)"
+    return (row, shape_rows, grid_rows, {label: r0["exec"]["ax_matmul"]},
+            {label: r0["exec"]["ax_matmul_grid"]})
+
+
 def _update_gap_np(new, ref, start) -> float:
     """``_update_gap`` over numpy parameter dicts keyed alike."""
     import numpy as np
@@ -7487,7 +7868,8 @@ def main(argv):
     alone = {"--tp-graph": ("tp graph", tp_graph_phase), "--tp-full": ("tp full", tp_full_phase),
              "--train-nccl": ("train nccl", train_nccl_phase),
              "--train-wide": ("train wide", train_wide_phase),
-             "--train-ckpt": ("train ckpt", train_ckpt_phase)}
+             "--train-ckpt": ("train ckpt", train_ckpt_phase),
+             "--fleet-nccl": ("fleet nccl", fleet_nccl_phase)}
     flags = [f for f in argv if f in alone]
     if flags:
         for flag in flags:
@@ -7558,6 +7940,12 @@ def main(argv):
     tpf_row, tpf_shape_rows, tpf_grid_rows, tpf_paths, tpf_grid_paths = \
         tpf if tpf is not None else (None, [], [], {}, {})
     phase_done("tp full")
+    fn = fleet_nccl_phase(dev, card, clock,
+                          held=[(r["M"], r["K"], r["N"]) for r in tpf_shape_rows],
+                          held_grid=[(r["M"], r["K"], r["N"]) for r in tpf_grid_rows])
+    fn_row, fn_shape_rows, fn_grid_rows, fn_paths, fn_grid_paths = \
+        fn if fn is not None else (None, [], [], {}, {})
+    phase_done("fleet nccl")
     tpn = train_nccl_phase(dev, card, clock,
                            held=[(r["M"], r["K"], r["N"]) for r in tm_shape_rows + tp_shape_rows],
                            held_grid=[(r["M"], r["K"], r["N"])
@@ -7586,6 +7974,7 @@ def main(argv):
     paths.update(tpa_paths)
     paths.update(tpg_paths)
     paths.update(tpf_paths)
+    paths.update(fn_paths)
     paths.update(tpn_paths)
     paths.update(tw_paths)
     paths.update(tc_paths)
@@ -7599,6 +7988,7 @@ def main(argv):
     grid_paths.update(tpa_grid_paths)
     grid_paths.update(tpg_grid_paths)
     grid_paths.update(tpf_grid_paths)
+    grid_paths.update(fn_grid_paths)
     grid_paths.update(tpn_grid_paths)
     phase_done("adapt")
     paths["per-slot graph"] = slot_serve(cfg, params, card)
@@ -7667,12 +8057,12 @@ def main(argv):
     grid_entry = entry("ax_matmul_grid", "src/repro/kernels/ax_matmul.py:253", grid_launches,
                        grid_paths, grid_rows, c_grid_rows)
     for e, fam_rows, w_rows, t_rows, tm_rows_, tp_rows_, tps_rows_, tpa_rows_, tpg_rows_, \
-            tpf_rows_, tpn_rows_ in (
+            tpf_rows_, fn_rows_, tpn_rows_ in (
             (ax_entry, family_shape_rows, whisper_shape_rows, train_shape_rows, tm_shape_rows,
              tp_shape_rows, tps_shape_rows, tpa_shape_rows, tpg_shape_rows, tpf_shape_rows,
-             tpn_shape_rows + tpn_tp_rows),
+             fn_shape_rows, tpn_shape_rows + tpn_tp_rows),
             (grid_entry, family_grid_rows, [], train_grid_rows, tm_grid_rows, tp_grid_rows,
-             [], tpa_grid_rows, tpg_grid_rows, tpf_grid_rows,
+             [], tpa_grid_rows, tpg_grid_rows, tpf_grid_rows, fn_grid_rows,
              tpn_grid_rows + tpn_tp_grid_rows)):
         e["family_shapes"] = fam_rows
         e["whisper_shapes"] = w_rows
@@ -7683,10 +8073,11 @@ def main(argv):
         e["tp_adapt_shapes"] = tpa_rows_
         e["tp_graph_shapes"] = tpg_rows_
         e["tp_full_shapes"] = tpf_rows_
+        e["fleet_nccl_shapes"] = fn_rows_
         e["train_nccl_shapes"] = tpn_rows_
         e["max_abs_err"] = max([e["max_abs_err"]] + [
             r["max_abs_err"] for r in fam_rows + w_rows + t_rows + tm_rows_ + tp_rows_
-            + tps_rows_ + tpa_rows_ + tpg_rows_ + tpf_rows_ + tpn_rows_])
+            + tps_rows_ + tpa_rows_ + tpg_rows_ + tpf_rows_ + fn_rows_ + tpn_rows_])
     ax_entry["whisper"] = {k: whisper_row[k] for k in (
         "name", "layers", "enc_layers", "params_g", "ax_per_forward", "ax_per_decode",
         "launches", "decode_vs_full_rel", "graph_decode_ms_per_step")}
@@ -7698,6 +8089,7 @@ def main(argv):
     ax_entry["tp_adapt"] = tpa_rows
     ax_entry["tp_graph"] = tpg_rows
     ax_entry["tp_full"] = tpf_row
+    ax_entry["fleet_nccl"] = fn_row
     ax_entry["train_nccl"] = tpn_rows
     ax_entry["train_wide_shapes"] = tw_shape_rows
     ax_entry["train_ckpt_shapes"] = tc_shape_rows

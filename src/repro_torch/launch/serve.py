@@ -225,7 +225,9 @@ def _run_autotune(args, cfg, device):
 
 def _run_fleet(args, cfg, device, mesh=None):
     """The continuous batcher over a policy store (module note); ``mesh``
-    shards it over the ranks of a fleet mesh, every rank running this."""
+    shards it over the ranks of a fleet mesh, every rank running this.
+    Returns (batcher, completions, {"after": every replica's (version,
+    staleness) after its poll, "version": the store's current version})."""
     from repro_torch.fleet import (BatcherConfig, ContinuousBatcher, PolicyReader,
                                    PolicyStore, Request, chaos, poisson_arrivals)
     from repro_torch.runtime import AdaptiveConfig, AdaptiveController, SwapPolicy
@@ -338,7 +340,7 @@ def _run_fleet(args, cfg, device, mesh=None):
         if controller.rollbacks:
             say(f"[chaos] rollbacks: {controller.rollbacks}")
         chaos.uninstall()
-    return bat, done
+    return bat, done, dict(after=after, version=store.current_version())
 
 
 def _fleet_views(local: list, mesh) -> list:
@@ -353,8 +355,8 @@ def _fleet_views(local: list, mesh) -> list:
 
 def _fleet_rank(rank, mesh, args, cfg):
     """One rank of ``--fleet N`` (module note): rank 0 runs the
-    observability exports and returns the batcher's stats, describe line
-    and completions."""
+    observability exports; returns the batcher's stats, describe line and
+    the replicas' views after their poll, and the completions."""
     device = torch.device("cuda", torch.cuda.current_device()) if args.device != "cpu" \
         else torch.device("cpu")
     if args.autotune:          # each rank tunes its own card; rank 0 reports
@@ -364,8 +366,8 @@ def _fleet_rank(rank, mesh, args, cfg):
             _run_autotune(args, cfg, device)
     obs_ctx = _observability(args) if rank == 0 else contextlib.nullcontext()
     with obs_ctx:
-        bat, done = _run_fleet(args, cfg, device, mesh=mesh)
-    return dict(stats=dict(bat.stats), describe=bat.describe()), done
+        bat, done, replicas = _run_fleet(args, cfg, device, mesh=mesh)
+    return dict(stats=dict(bat.stats), describe=bat.describe(), replicas=replicas), done
 
 
 def _serve_fleet_mesh(args, cfg, device):
@@ -518,8 +520,10 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None):
     """Parse ``argv`` (``sys.argv[1:]`` when None) and serve; returns the
     fleet's ``(batcher, completions)`` (for N > 1, rank 0's ``(summary,
-    completions)``, the summary holding the batcher's ``stats`` and
-    ``describe`` line) or the single serve's ``(tokens, controller)``."""
+    completions)``, the summary holding the batcher's ``stats``, its
+    ``describe`` line and ``replicas``: every replica's (version, staleness)
+    after its poll and the store's version) or the single serve's
+    ``(tokens, controller)``."""
     args = _parser().parse_args(argv)
     if args.arch not in ARCHS:
         raise SystemExit(f"--arch {args.arch}: not an architecture of the port; it has "
@@ -542,7 +546,7 @@ def main(argv=None):
         return _serve_fleet_mesh(args, cfg, device)
     with _observability(args):
         if args.fleet:
-            return _run_fleet(args, cfg, device)
+            return _run_fleet(args, cfg, device)[:2]
         return _run_single(args, cfg, device)
 
 

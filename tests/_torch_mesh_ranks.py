@@ -33,6 +33,28 @@ def qwen_cfg():
                                ax=AxPolicy(backend="mxu"))
 
 
+def starcoder_cfg():
+    """Reduced starcoder2 (the gelu MLP with biases, GQA), 2 layers,
+    ``mxu``, f32 compute: the configuration held to JAX's serve."""
+    return dataclasses.replace(TC.reduced(TC.ARCHS["starcoder2-15b"]), n_layers=2,
+                               compute_dtype="float32", ax=AxPolicy(backend="mxu"))
+
+
+CONFIGS = {"qwen2-72b": qwen_cfg, "starcoder2-15b": starcoder_cfg}
+
+
+def model(arch="qwen2-72b", np_params=None):
+    """(cfg, params) of a reduced config on the CPU: the port's seeded
+    init, or ``np_params``, the JAX package's numpy tree of the same config
+    (``convert.params_from_jax``)."""
+    from repro_torch.convert import params_from_jax
+
+    cfg = CONFIGS[arch]()
+    if np_params is None:
+        return cfg, init_params(cfg, seed=0, device="cpu")
+    return cfg, params_from_jax(np_params, cfg, device="cpu")
+
+
 def prompts(cfg, b=B, s=S):
     return torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (b, s)))
 
@@ -67,13 +89,13 @@ def block(rank, n, b=B):
     return slice(rank * k, (rank + 1) * k)
 
 
-def serve_rank(rank, mesh, token_loop=True, modes=(0, 2)):
+def serve_rank(rank, mesh, token_loop=True, modes=(0, 2), arch="qwen2-72b", np_params=None):
     """generate(mesh=) in scalar and tile mode (``modes``: tile rows)
     beside this rank's solo run of its block; a policy update;
-    token_step(mesh=) over the same decode."""
+    token_step(mesh=) over the same decode.  ``arch``, ``np_params``: the
+    model (:func:`model`)."""
     n = mesh.size()
-    cfg = qwen_cfg()
-    params = init_params(cfg, seed=0, device="cpu")
+    cfg, params = model(arch, np_params)
     toks = prompts(cfg)
     out = {}
     for tile_rows in modes:
@@ -125,11 +147,10 @@ def token_loop_rank(rank, mesh, cfg, params, toks, first):
     return dict(tokens=np.stack(rows, 1), records=recs)
 
 
-def batcher_rank(rank, mesh, reqs, configs):
+def batcher_rank(rank, mesh, reqs, configs, arch="qwen2-72b", np_params=None):
     """A mesh batcher per BatcherConfig keyword set over the same requests:
     {label: ({rid: tokens}, {rid: finish}, stats)}."""
-    cfg = qwen_cfg()
-    params = init_params(cfg, seed=0, device="cpu")
+    cfg, params = model(arch, np_params)
     return {label: drain(params, cfg, reqs, kw, mesh) for label, kw in configs.items()}
 
 
@@ -308,7 +329,7 @@ def card_serve_rank(rank, mesh):
     solo = generate(params, {"tokens": toks[block(rank, n)]}, cfg,
                     ServeConfig(max_new_tokens=T), adaptive=c1)
     return dict(tokens=got.cpu().numpy(), records=list(recs), solo_tokens=solo.cpu().numpy(),
-                solo_records=list(recs1), path=stats_["path"])
+                solo_records=list(recs1), path=stats_["path"], device=str(dev))
 
 
 def jobs_rank(rank, mesh, jobs):

@@ -1124,6 +1124,27 @@ def test_cards4_tp_graph_serve_on_four_nccl_ranks_equals_eager(cards4):
     assert res[0]["graph"]["scalar"]["records"], "the adaptive serve observed nothing"
 
 
+def test_cards4_fleet_mesh_on_four_nccl_ranks(cards4):
+    """``chip_smoke.py``'s fleet nccl phase at its smallest: the reduced
+    qwen2 (``mxu``) on the fleet mesh over four ``nccl`` ranks, one card
+    each, B = 8 (2 rows a rank), the fused adaptive serve as CUDA graphs:
+    every rank on its own card, its block of the mesh tokens equal to its
+    solo serve, the ranks agreeing, and every fleet record equal to
+    ``combine_records`` of the four solo records, field by field."""
+    from repro_torch.runtime.telemetry import combine_records
+
+    RK, res = _card_world(4, "nccl")
+    assert [r["device"] for r in res] == [f"cuda:{i}" for i in range(4)]
+    for r in res:
+        assert r["path"] == "graph"
+        assert (r["tokens"] == res[0]["tokens"]).all()
+        for rank, q in enumerate(res):
+            assert (r["tokens"][RK.block(rank, 4)] == q["solo_tokens"]).all()
+        assert len(r["records"]) == RK.T - 1
+        for i, got in enumerate(r["records"]):
+            _same_records(got, combine_records([q["solo_records"][i] for q in res]))
+
+
 def test_cards4_train_step_on_four_nccl_ranks(cards4):
     """``chip_smoke.py``'s train nccl phase at its smallest: on four
     ``nccl`` ranks, one card each, the collective probe (all-reduce MAX f32
